@@ -9,12 +9,15 @@ flags, so an edited kernel is rebuilt.  Nothing here runs when a module
 is imported: the CPU tests import every module and have no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one only
-where it launches its kernel.
+where it launches its kernel.  ``page_partials`` checks and launches the
+multi-query page kernels (paged prefix, speculative verify), which share
+one C signature.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -36,12 +39,15 @@ KERNELS = {
                      [_P] * 9 + [_I] * 6 + [_F, _I, _F, _I, _P]),
     "paged_prefix": ("paged_prefix_partials",
                      [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _P]),
+    "paged_verify": ("paged_verify_partials",
+                     [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _P]),
     "flash_prefill": ("flash_prefill",
                       [_P] * 6 + [_I] * 7 + [_F, _I, _F, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {"paged_decode_partials": 0, "flash_prefill": 0,
-                            "paged_prefix_partials": 0}
+                            "paged_prefix_partials": 0,
+                            "paged_verify_partials": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -169,6 +175,45 @@ def check_int32(name: str, *tensors: torch.Tensor) -> None:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def page_partials(lib_name: str, counter: str, q: torch.Tensor,
+                  k_pages: torch.Tensor, v_pages: torch.Tensor,
+                  pos_pages: torch.Tensor, block_tables: torch.Tensor,
+                  pos_q: torch.Tensor, window: Optional[int],
+                  scale: Optional[float], soft_cap: Optional[float]):
+    """Check and launch one of the multi-query page kernels (paged prefix,
+    speculative verify) that share the body of ``paged_partials.cuh`` and
+    one C signature.  q: (B, S, H, D); k/v_pages: (P, bs, KV, D);
+    pos_pages: (P, bs) int32; block_tables: (B, nb) int32; pos_q: (B, S)
+    int32.  Returns o (B, nb, S, H, D), l/m (B, nb, S, H), f32."""
+    q, block_tables, pos_q = (q.contiguous(), block_tables.contiguous(),
+                              pos_q.contiguous())
+    dev = check_cuda(counter, q, k_pages, v_pages, pos_pages, block_tables,
+                     pos_q)
+    code = dtype_code(counter, q, k_pages, v_pages)
+    check_int32(counter, pos_pages, block_tables, pos_q)
+    b, s, h, d = q.shape
+    _, bs, kv, dk = k_pages.shape
+    nb = block_tables.shape[1]
+    if (dk != d or h % kv or v_pages.shape != k_pages.shape
+            or pos_pages.shape != k_pages.shape[:2]
+            or block_tables.shape[0] != b or pos_q.shape != (b, s)):
+        raise ValueError(f"{counter}: inconsistent shapes q "
+                         f"{tuple(q.shape)}, pages {tuple(k_pages.shape)}, "
+                         f"tables {tuple(block_tables.shape)}, positions "
+                         f"{tuple(pos_q.shape)}")
+    win, cap = mask_args(window, soft_cap)
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    o = torch.empty((b, nb, s, h, d), dtype=torch.float32, device=dev)
+    l = torch.empty((b, nb, s, h), dtype=torch.float32, device=dev)
+    m = torch.empty((b, nb, s, h), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        launch(lib_name, counter,
+               *map(ptr, (q, k_pages, v_pages, pos_pages, block_tables,
+                          pos_q, o, l, m)),
+               b, s, h, kv, d, bs, nb, scale, win, cap, code)
+    return o, l, m
 
 
 def mask_args(window: Optional[int],

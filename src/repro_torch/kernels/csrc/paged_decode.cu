@@ -15,6 +15,10 @@
 // without touching the pool.
 #include "paged_partials.cuh"
 
+namespace repro {
+struct PagedDecode {};   // names this entry's kernel symbol
+}  // namespace repro
+
 // q: (B, H, D); pools (P, bs, KV, D); pos_pages (P, bs); tables (B, nb);
 // pos_q (B,).  o: (B, nb, H, D) f32; l, m: (B, nb, H) f32.
 // Returns the cudaError_t of the launch (0 = success).
@@ -26,7 +30,7 @@ extern "C" int paged_decode_partials(const void* q, const void* k_pages,
                                      int KV, int D, int bs, int nb,
                                      float scale, int window, float soft_cap,
                                      int dtype, void* stream) {
-  return repro::page_partials_entry(q, k_pages, v_pages, pos_pages, tables,
-                                    pos_q, o, l, m, B, 1, H, KV, D, bs, nb,
-                                    scale, window, soft_cap, dtype, stream);
+  return repro::page_partials_entry<repro::PagedDecode>(
+      q, k_pages, v_pages, pos_pages, tables, pos_q, o, l, m, B, 1, H, KV, D,
+      bs, nb, scale, window, soft_cap, dtype, stream);
 }

@@ -1,6 +1,7 @@
 // Per-page attention partials read straight out of a paged KV pool: the
-// shared body of the page-fused decode kernel (paged_decode.cu, S = 1) and
-// the paged-prefix kernel of chunked prefill (paged_prefix.cu).
+// shared body of the page-fused decode kernel (paged_decode.cu, S = 1),
+// the paged-prefix kernel of chunked prefill (paged_prefix.cu) and the
+// speculative-verify kernel (paged_verify.cu, S = 2 .. spec_len + 1).
 //
 // One block per (row b, page slot j, kv head).  The block resolves its
 // physical page through the block table itself (the TPU kernels did that
@@ -36,7 +37,10 @@ inline size_t page_partials_smem(int bs, int D) {
 // q: (B, S, H, D); k/v_pages: (P, bs, KV, D); pos_pages: (P, bs);
 // tables: (B, nb) (-1 = dead); pos_q: (B, S) absolute query positions.
 // o: (B, nb, S, H, D) f32; l, m: (B, nb, S, H) f32.
-template <typename T>
+// Tag is an empty type named after the entry point that launches the
+// kernel (PagedDecode, PagedPrefix, PagedVerify), so each entry has its
+// own kernel symbol and a trace tells their device times apart.
+template <typename T, typename Tag>
 __global__ void __launch_bounds__(kPageThreads)
 page_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                      const T* __restrict__ v_pages,
@@ -134,7 +138,7 @@ page_partials_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T>
+template <typename T, typename Tag>
 cudaError_t launch_page_partials(const void* q, const void* k_pages,
                                  const void* v_pages, const void* pos_pages,
                                  const void* tables, const void* pos_q,
@@ -147,10 +151,10 @@ cudaError_t launch_page_partials(const void* q, const void* k_pages,
       bs > kPageMaxBs || nb > 65535 || KV > 65535)
     return cudaErrorInvalidValue;
   const size_t smem = page_partials_smem(bs, D);
-  cudaError_t err = allow_smem(page_partials_kernel<T>, smem);
+  cudaError_t err = allow_smem(page_partials_kernel<T, Tag>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B, nb, KV);
-  page_partials_kernel<T><<<grid, kPageThreads, smem, stream>>>(
+  page_partials_kernel<T, Tag><<<grid, kPageThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<const int*>(pos_pages),
       static_cast<const int*>(tables), static_cast<const int*>(pos_q),
@@ -159,20 +163,20 @@ cudaError_t launch_page_partials(const void* q, const void* k_pages,
   return cudaGetLastError();
 }
 
-inline int page_partials_entry(const void* q, const void* k_pages,
-                               const void* v_pages, const void* pos_pages,
-                               const void* tables, const void* pos_q,
-                               void* o, void* l, void* m, int B, int S, int H,
-                               int KV, int D, int bs, int nb, float scale,
-                               int window, float soft_cap, int dtype,
-                               void* stream) {
+template <typename Tag>
+int page_partials_entry(const void* q, const void* k_pages,
+                        const void* v_pages, const void* pos_pages,
+                        const void* tables, const void* pos_q, void* o,
+                        void* l, void* m, int B, int S, int H, int KV, int D,
+                        int bs, int nb, float scale, int window,
+                        float soft_cap, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32)
-    return launch_page_partials<float>(q, k_pages, v_pages, pos_pages,
-                                       tables, pos_q, o, l, m, B, S, H, KV, D,
-                                       bs, nb, scale, window, soft_cap, st);
+    return launch_page_partials<float, Tag>(
+        q, k_pages, v_pages, pos_pages, tables, pos_q, o, l, m, B, S, H, KV,
+        D, bs, nb, scale, window, soft_cap, st);
   if (dtype == DTYPE_BF16)
-    return launch_page_partials<__nv_bfloat16>(
+    return launch_page_partials<__nv_bfloat16, Tag>(
         q, k_pages, v_pages, pos_pages, tables, pos_q, o, l, m, B, S, H, KV,
         D, bs, nb, scale, window, soft_cap, st);
   return cudaErrorInvalidValue;

@@ -16,6 +16,10 @@
 // page read.
 #include "paged_partials.cuh"
 
+namespace repro {
+struct PagedPrefix {};   // names this entry's kernel symbol
+}  // namespace repro
+
 // q: (B, S, H, D); pools (P, bs, KV, D); pos_pages (P, bs); tables
 // (B, nb); positions (B, S).  o: (B, nb, S, H, D) f32; l, m: (B, nb, S, H).
 // Returns the cudaError_t of the launch (0 = success).
@@ -28,8 +32,7 @@ extern "C" int paged_prefix_partials(const void* q, const void* k_pages,
                                      int D, int bs, int nb, float scale,
                                      int window, float soft_cap, int dtype,
                                      void* stream) {
-  return repro::page_partials_entry(q, k_pages, v_pages, pos_pages, tables,
-                                    positions, o, l, m, B, S, H, KV, D, bs,
-                                    nb, scale, window, soft_cap, dtype,
-                                    stream);
+  return repro::page_partials_entry<repro::PagedPrefix>(
+      q, k_pages, v_pages, pos_pages, tables, positions, o, l, m, B, S, H, KV,
+      D, bs, nb, scale, window, soft_cap, dtype, stream);
 }

@@ -81,29 +81,6 @@ def paged_prefix_partials(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_prefix_partials_plain(
             q, k_pages, v_pages, pos_pages, block_tables, positions,
             window=window, scale=scale, soft_cap=soft_cap)
-    q, block_tables, positions = (q.contiguous(), block_tables.contiguous(),
-                                  positions.contiguous())
-    dev = _lib.check_cuda(PREFIX, q, k_pages, v_pages, pos_pages,
-                          block_tables, positions)
-    code = _lib.dtype_code(PREFIX, q, k_pages, v_pages)
-    _lib.check_int32(PREFIX, pos_pages, block_tables, positions)
-    b, s, h, d = q.shape
-    _, bs, kv, dk = k_pages.shape
-    nb = block_tables.shape[1]
-    if (dk != d or h % kv or v_pages.shape != k_pages.shape
-            or pos_pages.shape != k_pages.shape[:2]
-            or block_tables.shape[0] != b or positions.shape != (b, s)):
-        raise ValueError(f"{PREFIX}: inconsistent shapes q "
-                         f"{tuple(q.shape)}, pages {tuple(k_pages.shape)}, "
-                         f"tables {tuple(block_tables.shape)}")
-    win, cap = _lib.mask_args(window, soft_cap)
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    o = torch.empty((b, nb, s, h, d), dtype=torch.float32, device=dev)
-    l = torch.empty((b, nb, s, h), dtype=torch.float32, device=dev)
-    m = torch.empty((b, nb, s, h), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _lib.launch("paged_prefix", PREFIX,
-                    *map(_lib.ptr, (q, k_pages, v_pages, pos_pages,
-                                    block_tables, positions, o, l, m)),
-                    b, s, h, kv, d, bs, nb, scale, win, cap, code)
-    return o, l, m
+    return _lib.page_partials("paged_prefix", PREFIX, q, k_pages, v_pages,
+                              pos_pages, block_tables, positions, window,
+                              scale, soft_cap)

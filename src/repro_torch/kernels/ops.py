@@ -16,10 +16,11 @@ import torch.nn.functional as F
 from ..core.attention_offload import combine_stacked
 from ._lib import LAUNCHES, reset_launches
 from .flash_prefill import flash_prefill, paged_prefix_partials
-from .split_kv_decode import paged_decode_partials
+from .split_kv_decode import paged_decode_partials, paged_verify_partials
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention",
-           "paged_decode_attention", "paged_prefill_attention"]
+           "paged_decode_attention", "paged_verify_attention",
+           "paged_prefill_attention"]
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
@@ -71,6 +72,26 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     q: (B, H, D); k/v_pages: (P, bs, KV, D); pos_pages: (P, bs);
     block_tables: (B, nb); pos_q: (B,).  Returns (B, H, D) in q's dtype."""
     o, l, m = paged_decode_partials(q, k_pages, v_pages, pos_pages,
+                                    block_tables, pos_q, window=window,
+                                    scale=scale, soft_cap=soft_cap)
+    out = combine_stacked((o.movedim(1, 0), l.movedim(1, 0),
+                           m.movedim(1, 0)))
+    return out.to(q.dtype)
+
+
+def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, pos_pages: torch.Tensor,
+                           block_tables: torch.Tensor, pos_q: torch.Tensor, *,
+                           window: Optional[int] = None,
+                           scale: Optional[float] = None,
+                           soft_cap: Optional[float] = None) -> torch.Tensor:
+    """Speculative verification straight out of the block pool: S queries
+    per row (each at its own position, so the causal order among the
+    in-flight tokens is the position test) from ``paged_verify_partials``,
+    combined exactly over the page axis.  q: (B, S, H, D);
+    k/v_pages: (P, bs, KV, D); pos_pages: (P, bs); block_tables: (B, nb);
+    pos_q: (B, S).  Returns (B, S, H, D) in q's dtype."""
+    o, l, m = paged_verify_partials(q, k_pages, v_pages, pos_pages,
                                     block_tables, pos_q, window=window,
                                     scale=scale, soft_cap=soft_cap)
     out = combine_stacked((o.movedim(1, 0), l.movedim(1, 0),

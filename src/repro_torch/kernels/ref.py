@@ -5,6 +5,7 @@ Two kinds of function live here:
 * **Oracles** — gather-then-attend, one monolithic softmax per query, the
   plainest formulation (``flash_prefill_reference``,
   ``paged_decode_attention_reference``,
+  ``paged_verify_attention_reference``,
   ``paged_prefill_attention_reference``).  Tests hold the kernels' combined
   outputs against them.
 * **Plain forms of the kernel functions** — the same inputs and the same
@@ -93,6 +94,27 @@ def paged_decode_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
         q[:, None], k_pages, v_pages, pos_pages, block_tables,
         pos_q[:, None], window=window, scale=scale, soft_cap=soft_cap)
     return o[:, :, 0], l[:, :, 0], m[:, :, 0]
+
+
+def paged_verify_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                pos_pages: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                pos_q: torch.Tensor, *,
+                                window: Optional[int] = None,
+                                scale: Optional[float] = None,
+                                soft_cap: Optional[float] = None
+                                ) -> Partials:
+    """Speculative-verify form: S queries per row (the pending token and
+    its proposals, already written into their pages), each with its own
+    position pos_q[:, s].  The per-query mask ``table >= 0 & pos >= 0 &
+    pos <= pos_q[s] (& window)`` also hides the in-flight tokens at
+    positions past pos_q[s].  q (B, S, H, D), pos_q (B, S).  Returns o
+    (B, nb, S, H, D), l/m (B, nb, S, H), f32 — the prefix form's
+    arithmetic."""
+    return paged_prefix_partials_plain(
+        q, k_pages, v_pages, pos_pages, block_tables, pos_q, window=window,
+        scale=scale, soft_cap=soft_cap)
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -204,6 +226,24 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
     p = _softmax_attend(sc, valid[:, None, None, :])
     o = torch.einsum("bkgl,blkd->bkgd", p, v_lin)
     return o.reshape(b, h, d).to(q.dtype)
+
+
+def paged_verify_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
+                                     v_pages: torch.Tensor,
+                                     pos_pages: torch.Tensor,
+                                     block_tables: torch.Tensor,
+                                     pos_q: torch.Tensor, *,
+                                     window: Optional[int] = None,
+                                     scale: Optional[float] = None,
+                                     soft_cap: Optional[float] = None
+                                     ) -> torch.Tensor:
+    """Ground truth for speculative verification: each of the S queries
+    is one independent single-token decode at its own position.
+    q (B, S, H, D), pos_q (B, S) → (B, S, H, D) in q's dtype."""
+    return torch.stack([paged_decode_attention_reference(
+        q[:, s], k_pages, v_pages, pos_pages, block_tables, pos_q[:, s],
+        window=window, scale=scale, soft_cap=soft_cap)
+        for s in range(q.shape[1])], dim=1)
 
 
 def paged_prefill_attention_reference(q: torch.Tensor, k: torch.Tensor,

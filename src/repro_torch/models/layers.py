@@ -160,10 +160,16 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
       hit): ``ops.paged_prefill_attention`` reads the prefix pages (kernel
       B3) and the suffix (kernel B2) BEFORE the suffix is written into its
       pages, as in JAX (writing first would count the suffix twice);
-    * paged decode, S == 1: the new token's K/V are written into their
-      pages FIRST, then ``ops.paged_decode_attention`` (kernel B1) reads
-      the pages in place — or, with ``paged_kernel=False``, the pages are
-      gathered and attended with plain ``attend`` (the A/B reference).
+    * paged decode: the new tokens' K/V are written into their pages
+      FIRST, then read in place — S == 1 by ``ops.paged_decode_attention``
+      (kernel B1), S > 1 (the speculative verify step: the pending token
+      plus its proposals) by ``ops.paged_verify_attention`` (kernel B4),
+      where each query's position hides the in-flight tokens after it; or,
+      with ``paged_kernel=False``, the pages are gathered and attended
+      with plain ``attend`` (the A/B reference);
+    * dense decode (the draft model's per-row cache): ring write at
+      ``positions % cache_len``, then plain ``attend``, as the JAX package
+      computes it outside any kernel.
 
     Dead table entries (-1) write into the reserved scratch page 0, which
     every reader masks out.
@@ -216,25 +222,26 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             cache_v[rows, write_pos] = v
             slot_pos[rows, write_pos] = positions.to(slot_pos.dtype)
         elif paged:
-            if s != 1:
-                raise NotImplementedError(
-                    "multi-token paged decode (speculative verify) comes "
-                    "with the speculation slice")
             bs_pg = cache_k.shape[1]
             nb = block_tables.shape[1]
             plen = nb * bs_pg
-            slot_off = positions % plen
+            slot_off = positions % plen                      # (B, S)
             rows = torch.arange(b, device=x.device)[:, None]
             wblk = block_tables[rows, slot_off // bs_pg].clamp_min(0).long()
             off = (slot_off % bs_pg).long()
             cache_k[wblk, off] = k
             cache_v[wblk, off] = v
             slot_pos[wblk, off] = positions.to(slot_pos.dtype)
-            if paged_kernel:
+            if paged_kernel and s == 1:
                 o = ops.paged_decode_attention(
                     q[:, 0].contiguous(), cache_k, cache_v, slot_pos,
                     block_tables, positions[:, 0].to(torch.int32),
                     window=window, scale=scale, soft_cap=cap)[:, None]
+            elif paged_kernel:
+                o = ops.paged_verify_attention(
+                    q.contiguous(), cache_k, cache_v, slot_pos, block_tables,
+                    positions.to(torch.int32), window=window, scale=scale,
+                    soft_cap=cap)
             else:
                 safe = block_tables.clamp_min(0).long()
                 kvh, hd = cache_k.shape[-2], cache_k.shape[-1]
@@ -245,9 +252,16 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                 o = attend(q, k_lin, v_lin, positions, pos_lin,
                            window=window, scale=scale, soft_cap=cap)
         else:
-            raise NotImplementedError(
-                "dense-cache decode is not ported: the port decodes over "
-                "paged pools")
+            # dense per-row cache (the draft model's): ring write at
+            # positions % cache_len, then plain attention over the row
+            cache_len = cache_k.shape[1]
+            rows = torch.arange(b, device=x.device)[:, None]
+            write_pos = (positions % cache_len).long()
+            cache_k[rows, write_pos] = k
+            cache_v[rows, write_pos] = v
+            slot_pos[rows, write_pos] = positions.to(slot_pos.dtype)
+            o = attend(q, cache_k, cache_v, positions, slot_pos,
+                       window=window, scale=scale, soft_cap=cap)
         new_state = {"k": cache_k, "v": cache_v, "pos": slot_pos}
 
     wo = p["wo"]

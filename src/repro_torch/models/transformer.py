@@ -240,12 +240,15 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     tokens: (B, S) int.  mode: train | prefill | decode.
     logits_slice: "all" -> (B, S, V); "last" -> (B, V), read at each row's
     ``logits_at`` (B,) index when given.  A cache carrying "block_tables"
-    is a paged block-pool cache: decode writes the new token into its page
-    and attends over the pages (``paged_kernel=True``: kernel B1; False:
+    is a paged block-pool cache: decode writes the S new tokens into their
+    pages and attends over the pages (``paged_kernel=True``: kernel B1 for
+    S == 1, kernel B4 for the S > 1 speculative verify step; False:
     gather-then-attend, the A/B reference); prefill on it is the
     incremental resume (``prefix_aware=True``; kernels B3 + B2).  Fresh
-    prefill over a dense cache runs kernel B2.  ``mode="train"`` without a
-    cache is the plain stateless forward.
+    prefill over a dense cache runs kernel B2; decode over a dense cache
+    (the draft model's) is plain attention.  Decode positions are
+    ``lengths + arange(S)`` and the returned lengths advance by S.
+    ``mode="train"`` without a cache is the plain stateless forward.
     """
     check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):

@@ -13,12 +13,18 @@ wire format (``models.kvcache``).
 ``DecodeEngine`` — slot-based continuous batching over a refcounted paged
 block pool: per-slot block tables, page-fused decode (kernel B1),
 hand-off by page copies (``insert``/``adopt``), copy-on-write forks of
-shared pages, and zero-copy binds of store-resident prefix pages.
+shared pages, and zero-copy binds of store-resident prefix pages.  With
+``speculation`` set, a step proposes up to ``spec_len`` tokens per slot
+(``ngram_propose``, or a draft model with a dense per-slot cache,
+``_Draft``), verifies the pending token and its proposals in one
+multi-query pass over the pages (kernel B4), commits the longest prefix
+equal to greedy plus the verifier's bonus token, and rolls rejected
+tokens' fresh pages back through the pool.
 
-Both mirror the JAX package's ``serving/engine.py`` (full-stack engines,
-``speculation="off"``) and report ``core.scheduling.LoadReport``s for the
-routers.  This slice serves pageable, prefix-cacheable attention stacks
-only; other stacks raise ``NotImplementedError``.
+Both mirror the JAX package's ``serving/engine.py`` (full-stack engines)
+and report ``core.scheduling.LoadReport``s for the routers.  This slice
+serves pageable, prefix-cacheable attention stacks only; other stacks
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,6 +45,9 @@ from ..models.config import ModelConfig
 from .request import Phase, Request
 
 
+SPECULATION_MODES = ("off", "ngram", "draft")
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     max_len: int = 512
@@ -51,8 +60,20 @@ class EngineConfig:
     # transmission against this hardware's per-layer prefill compute
     hw: Optional[A.HardwareProfile] = None
     efficiency: float = 0.5       # prefill MFU for the analytical billings
-    # speculative decoding comes with a later slice; only "off" runs here
+    # speculative decoding on the decode step: "off" = one token per
+    # iteration; "ngram" = draft-free lookahead (suffix match over the
+    # slot's prompt + output); "draft" = a second model proposes
+    # (DecodeEngine's ``draft`` argument).  Proposals are verified exactly
+    # in one multi-query pass, so streams equal plain greedy decode.
     speculation: str = "off"
+    spec_len: int = 4             # max proposed tokens per iteration
+    spec_adaptive: bool = True    # adapt per-slot depth to acceptance
+
+    def __post_init__(self):
+        if self.speculation not in SPECULATION_MODES:
+            raise ValueError(f"speculation must be one of "
+                             f"{SPECULATION_MODES}, got "
+                             f"{self.speculation!r}")
 
 
 def _pow2_ceil(n: int) -> int:
@@ -69,9 +90,6 @@ def check_servable(cfg: ModelConfig, ecfg: EngineConfig) -> int:
     """The page length of a stack this slice serves; raises
     ``NotImplementedError`` otherwise (no dense fallback)."""
     T.check_supported(cfg)
-    if ecfg.speculation != "off":
-        raise NotImplementedError("speculative decoding is not ported yet "
-                                  "(ROADMAP A7)")
     plen = serving_page_len(cfg, ecfg.max_len)
     if not KC.prefix_cacheable(cfg) or plen is None \
             or plen % ecfg.block_size:
@@ -92,6 +110,102 @@ def engine_device(params, device: D.DeviceLike) -> torch.device:
         raise ValueError(f"parameters live on {have}, engine device is "
                          f"{dev}")
     return have
+
+
+def ngram_propose(ctx: List[int], k: int, max_n: int = 3) -> List[int]:
+    """Draft-free lookahead proposal: suffix-match the last ``n``-gram of
+    ``ctx`` (prompt + generated, pending token last) against its own
+    earlier occurrences, longest ``n`` first, most recent match wins, and
+    propose the up-to-``k`` tokens that followed it.  Host-side and
+    rebuilt from the Request every call, so it needs no wire state."""
+    L = len(ctx)
+    for n in range(min(max_n, L - 1), 0, -1):
+        pat = ctx[L - n:]
+        for s in range(L - n - 1, -1, -1):
+            if ctx[s:s + n] == pat:
+                return ctx[s + n:s + n + k]
+    return []
+
+
+class _Draft:
+    """The draft side of two-model speculation: a model with its own dense
+    per-slot KV cache, advanced one token at a time to propose the
+    continuations the target verifies.  Rollback is free: entries past a
+    slot's valid length sit at positions beyond every later query (masked)
+    and are overwritten in place, so a rejection only truncates the host
+    length mirror."""
+
+    def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
+                 device: torch.device):
+        if (not cfg.uses_kv_cache or cfg.uses_recurrent_state
+                or cfg.sliding_window is not None):
+            raise ValueError(f"{cfg.name}: the draft model needs "
+                             "rollback-safe (full-attention) KV")
+        self.device = engine_device(params, device)
+        self.cfg = cfg
+        self.params = params
+        self.ecfg = ecfg
+        self.cache = T.init_cache(cfg, ecfg.max_batch, ecfg.max_len,
+                                  dtype=params["embed"].dtype,
+                                  device=self.device)
+        # valid resident tokens per slot (a prefix of the committed stream)
+        self.len = np.zeros((ecfg.max_batch,), np.int64)
+
+    def reset_slot(self, slot: int) -> None:
+        self.len[slot] = 0
+
+    def prefill_slot(self, slot: int, resident: List[int]) -> None:
+        """(Re)build one slot's draft KV from the committed stream through
+        the fresh-prefill path (kernel B2 on the card)."""
+        n = len(resident)
+        if n == 0:
+            self.len[slot] = 0
+            return
+        padded = min(_pow2_ceil(n), self.ecfg.max_len)
+        buf = np.zeros((1, padded), np.int64)
+        buf[0, :n] = np.asarray(resident, np.int64)
+        cache = T.init_cache(self.cfg, 1, self.ecfg.max_len,
+                             dtype=self.params["embed"].dtype,
+                             device=self.device)
+        _, cache, _ = T.apply(
+            self.cfg, self.params, torch.as_tensor(buf, device=self.device),
+            cache=cache, mode="prefill", logits_slice="last",
+            logits_at=torch.as_tensor([n - 1], device=self.device))
+        st = KC.extract_request_state(cache, 0)
+        st["length"] = n
+        KC.insert_request_state(self.cache, slot, st)
+        self.len[slot] = n
+
+    def run(self, schedules: Dict[int, List[int]], n_out: int,
+            greedy_from: Dict[int, int]
+            ) -> Tuple[Dict[int, List[int]], int]:
+        """Batched draft micro-steps.  ``schedules[i]`` is slot i's forced
+        input (catch-up tokens, then the pending token); once exhausted,
+        the slot's own greedy output feeds back in.  Returns (per-slot
+        proposals: the first ``n_out`` greedy outputs from step
+        ``greedy_from[i]`` on, micro-steps run)."""
+        if not schedules:
+            return {}, 0
+        bsz = self.ecfg.max_batch
+        n_steps = max(greedy_from[i] + n_out for i in schedules)
+        self.cache["lengths"] = torch.as_tensor(self.len.astype(np.int32),
+                                                device=self.device)
+        col = np.zeros((bsz,), np.int64)
+        prev = np.zeros((bsz,), np.int64)
+        outs: Dict[int, List[int]] = {i: [] for i in schedules}
+        for t in range(n_steps):
+            for i, sched in schedules.items():
+                col[i] = sched[t] if t < len(sched) else prev[i]
+            logits, self.cache, _ = T.apply(
+                self.cfg, self.params,
+                torch.as_tensor(col[:, None], device=self.device),
+                cache=self.cache, mode="decode", logits_slice="last")
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            for i in schedules:
+                prev[i] = nxt[i]
+                if t >= greedy_from[i] and len(outs[i]) < n_out:
+                    outs[i].append(int(nxt[i]))
+        return outs, n_steps
 
 
 class PrefillEngine:
@@ -356,10 +470,12 @@ class PrefillEngine:
 
 class DecodeEngine:
     """One decode instance: slot-based continuous batching over a
-    refcounted paged block pool (full stack)."""
+    refcounted paged block pool (full stack).  ``draft=(cfg, params)``
+    is the draft model of ``speculation="draft"``."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
-                 name: str = "decode0", device: D.DeviceLike = None):
+                 name: str = "decode0", device: D.DeviceLike = None,
+                 draft: Optional[Tuple[ModelConfig, Any]] = None):
         self.page_len = check_servable(cfg, ecfg)
         self.device = engine_device(params, device)
         self.cfg = cfg
@@ -372,7 +488,9 @@ class DecodeEngine:
         # the control paths)
         self._slot_len = np.zeros((ecfg.max_batch,), np.int64)
         self.tokens_decoded = 0
-        self.decode_iters = 0
+        self.decode_iters = 0     # decode/verify forwards run
+        self.spec_proposed = 0    # speculative tokens scored for acceptance
+        self.spec_accepted = 0    # of those, committed (bonus not counted)
         self._store: Optional[GlobalKVStore] = None
         self.cow_forks = 0        # shared pages forked copy-on-write
         self.pages_shared = 0     # pages bound by reference (no copy)
@@ -390,6 +508,22 @@ class DecodeEngine:
         self._slot_blocks: List[List[int]] = \
             [[] for _ in range(ecfg.max_batch)]
         self.use_kernel = ecfg.decode_kernel is not False
+        # speculation: the mode from the config, a runtime switch the
+        # orchestrator flips per iteration, and per-slot adaptive depth
+        # from the measured acceptance.  It needs rollback-safe KV (full
+        # attention, no window, no recurrent or cross state), which every
+        # stack check_servable admits, so the gate is the mode alone.
+        self.spec_on = ecfg.speculation != "off"
+        self._spec_ok = ecfg.speculation != "off"
+        self._spec_k = np.full((ecfg.max_batch,), max(ecfg.spec_len, 1),
+                               np.int64)
+        self._spec_ema = np.ones((ecfg.max_batch,), np.float64)
+        self._draft: Optional[_Draft] = None
+        if ecfg.speculation == "draft":
+            if draft is None:
+                raise ValueError("speculation='draft' needs "
+                                 "draft=(draft_cfg, draft_params)")
+            self._draft = _Draft(draft[0], draft[1], ecfg, self.device)
 
     # -- zero-copy prefix sharing (store-held pages) ---------------------
     @property
@@ -495,6 +629,12 @@ class DecodeEngine:
         self.slots[slot] = req
         self.next_token[slot] = int(next_token)
         self._slot_len[slot] = int(state["length"])
+        # speculation starts optimistic; the draft cache rebuilds lazily
+        # from the committed stream on the first verify iteration
+        self._spec_ema[slot] = 1.0
+        self._spec_k[slot] = max(self.ecfg.spec_len, 1)
+        if self._draft is not None:
+            self._draft.reset_slot(slot)
         req.decode_instance = self.name
         return slot
 
@@ -519,6 +659,8 @@ class DecodeEngine:
         tok = int(self.next_token[slot])
         self.slots[slot] = None
         self._slot_len[slot] = 0
+        if self._draft is not None:
+            self._draft.reset_slot(slot)
         return req, state, tok
 
     def drain(self) -> List[Tuple[Request, Dict[str, Any], int]]:
@@ -534,38 +676,47 @@ class DecodeEngine:
         self.slots[slot] = None
         self._slot_len[slot] = 0
         self.next_token[slot] = 0
+        if self._draft is not None:
+            self._draft.reset_slot(slot)
         return req
 
     # -- decode ----------------------------------------------------------
-    def _prepare_pages(self) -> None:
-        """Make every active slot exclusively own the page its next token
-        lands in, and the device table fresh: allocate unassigned blocks,
-        fork shared ones (refcount > 1) copy-on-write BEFORE the step
-        writes into them, write through exclusive ones."""
+    def _prepare_pages(self, n_tokens: int = 1
+                       ) -> Dict[int, List[Tuple[int, int]]]:
+        """Make every active slot exclusively own the pages its next
+        ``n_tokens`` tokens land in, and the device table fresh: allocate
+        unassigned blocks, fork shared ones (refcount > 1) copy-on-write
+        BEFORE the step writes into them, write through exclusive ones.
+        Returns the freshly allocated blocks per slot,
+        ``{slot: [(table index, block)]}``: the speculative step rolls back
+        those no committed token reached."""
         fresh: List[int] = []
+        fresh_by: Dict[int, List[Tuple[int, int]]] = {}
         cow_src: List[int] = []
         cow_dst: List[int] = []
         for i, s in enumerate(self.slots):
             if s is None:
                 continue
-            j = (int(self._slot_len[i]) % self.page_len) \
-                // self.ecfg.block_size
-            pb = int(self._bt[i, j])
-            if pb < 0:
-                self._ensure_free(1)
-                nb = self.pool.alloc(1)[0]
-                self._bt[i, j] = nb
-                self._slot_blocks[i].append(nb)
-                fresh.append(nb)
-            elif self.pool.refcount[pb] > 1:
-                self._ensure_free(1)
-                nb = self.pool.alloc(1)[0]
-                self._bt[i, j] = nb
-                self._slot_blocks[i][self._slot_blocks[i].index(pb)] = nb
-                self.pool.unref([pb])
-                cow_src.append(pb)
-                cow_dst.append(nb)
-                self.cow_forks += 1
+            for t in range(n_tokens):
+                j = ((int(self._slot_len[i]) + t) % self.page_len) \
+                    // self.ecfg.block_size
+                pb = int(self._bt[i, j])
+                if pb < 0:
+                    self._ensure_free(1)
+                    nb = self.pool.alloc(1)[0]
+                    self._bt[i, j] = nb
+                    self._slot_blocks[i].append(nb)
+                    fresh.append(nb)
+                    fresh_by.setdefault(i, []).append((j, nb))
+                elif self.pool.refcount[pb] > 1:
+                    self._ensure_free(1)
+                    nb = self.pool.alloc(1)[0]
+                    self._bt[i, j] = nb
+                    self._slot_blocks[i][self._slot_blocks[i].index(pb)] = nb
+                    self.pool.unref([pb])
+                    cow_src.append(pb)
+                    cow_dst.append(nb)
+                    self.cow_forks += 1
         if cow_src:
             KC.copy_pages(self.cache, cow_src, cow_dst,
                           block_size=self.ecfg.block_size)
@@ -576,6 +727,7 @@ class DecodeEngine:
             self.cache["block_tables"] = torch.as_tensor(self._bt,
                                                          device=self.device)
             self._bt_dirty = False
+        return fresh_by
 
     def commit(self, nxt: np.ndarray) -> List[Tuple[Request, int]]:
         """Append sampled tokens, retire finished requests, free their
@@ -607,9 +759,17 @@ class DecodeEngine:
         return finished
 
     def step(self) -> List[Tuple[Request, int]]:
-        """One greedy decode iteration for all active slots."""
+        """One greedy decode iteration for all active slots.  With
+        speculation on (and the stack rollback-safe) it verifies up to
+        ``spec_len`` proposals per slot in one multi-query pass and commits
+        between 1 and spec_len + 1 tokens per slot, the same stream plain
+        greedy decode gives."""
         if self.active == 0:
             return []
+        if self.spec_on and self._spec_ok:
+            out = self._spec_step()
+            if out is not None:
+                return out
         self.decode_iters += 1
         self._prepare_pages()
         tokens = torch.as_tensor(self.next_token[:, None], device=self.device)
@@ -618,3 +778,155 @@ class DecodeEngine:
             logits_slice="last", paged_kernel=self.use_kernel)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         return self.commit(nxt)
+
+    # -- speculative decoding -------------------------------------------
+    def _commit_slot(self, i: int, toks: List[int]) -> bool:
+        """Append committed tokens under the plain step's finish rules, one
+        at a time, stopping at the budget or capacity boundary (surplus
+        speculation is dropped, never emitted).  True when finished."""
+        req = self.slots[i]
+        for tok in toks:
+            req.generated.append(int(tok))
+            self.next_token[i] = int(tok)
+            self._slot_len[i] += 1
+            self.tokens_decoded += 1
+            if (len(req.generated) >= req.max_new_tokens
+                    or int(self._slot_len[i]) >= self.ecfg.max_len - 1):
+                return True
+        return False
+
+    def _rollback_pages(self, slot: int,
+                        fresh_blocks: List[Tuple[int, int]]) -> None:
+        """Return this step's fresh blocks that no committed token reached
+        to the pool.  They are exclusively owned (refcount 1), so shared
+        and forked prefix pages are never touched; with speculation gated
+        to full-attention stacks the page space never wraps, so a block's
+        table index times block_size is its first position.  Rejected
+        tokens left in kept blocks sit past every later query's position
+        (masked) until overwritten."""
+        bs = self.ecfg.block_size
+        new_len = int(self._slot_len[slot])
+        for j, blk in fresh_blocks:
+            if j * bs >= new_len:
+                self._bt[slot, j] = -1
+                self._slot_blocks[slot].remove(blk)
+                self.pool.unref([blk])
+                self._bt_dirty = True
+
+    def _retire_slot(self, i: int) -> None:
+        self.slots[i] = None
+        self._slot_len[i] = 0
+        self._release_blocks(i)
+        if self._draft is not None:
+            self._draft.reset_slot(i)
+
+    def _pin_lengths(self) -> None:
+        """Device lengths from the committed host mirror (a verify pass
+        advances them by its full width, committed or not)."""
+        self.cache["lengths"] = torch.as_tensor(
+            self._slot_len.astype(np.int32), device=self.device)
+
+    def _spec_step(self) -> Optional[List[Tuple[Request, int]]]:
+        """One speculative iteration: propose per slot, score the pending
+        token plus all proposals in one verify pass, commit the longest
+        prefix equal to greedy plus the bonus token, roll rejected tokens'
+        pages back.  Returns None when no slot can usefully speculate (the
+        caller takes a plain step; the stream is the same either way)."""
+        ecfg = self.ecfg
+        bsz = ecfg.max_batch
+        # every row is written s_len tokens deep, so the width is capped
+        # by the tightest slot's remaining capacity (no wrap)
+        room = min(ecfg.max_len - int(self._slot_len[i])
+                   for i, r in enumerate(self.slots) if r is not None)
+        s_len = min(ecfg.spec_len + 1, room)
+        if s_len < 2:
+            return None
+        kis: Dict[int, int] = {}
+        streams: Dict[int, List[int]] = {}
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            ki = min(s_len - 1, req.max_new_tokens - len(req.generated) - 1)
+            if ecfg.spec_adaptive:
+                ki = min(ki, int(self._spec_k[i]))
+            if ki <= 0:
+                continue
+            kis[i] = ki
+            streams[i] = [int(t) for t in req.prompt] \
+                + [int(t) for t in req.generated]
+        props: Dict[int, List[int]] = {}
+        g_from: Dict[int, int] = {}
+        n_steps = 0
+        if self._draft is not None:
+            scheds: Dict[int, List[int]] = {}
+            for i, stream in streams.items():
+                need = len(stream) - 1
+                deficit = need - int(self._draft.len[i])
+                if (deficit < 0 or deficit > 2 * ecfg.spec_len
+                        or self._draft.len[i] == 0):
+                    # too far behind (plain interludes, adopt): rebuild
+                    # from the committed stream
+                    self._draft.prefill_slot(i, stream[:-1])
+                    deficit = 0
+                scheds[i] = stream[need - deficit:]   # catch-up + pending
+                g_from[i] = deficit
+            outs, n_steps = self._draft.run(scheds, s_len - 1, g_from)
+            props = {i: p[:kis[i]] for i, p in outs.items() if p[:kis[i]]}
+        else:
+            for i, stream in streams.items():
+                p = ngram_propose(stream, kis[i])
+                if p:
+                    props[i] = p
+        if not props:
+            return None
+        toks = np.zeros((bsz, s_len), np.int64)
+        toks[:, 0] = self.next_token
+        for i, p in props.items():
+            toks[i, 1:1 + len(p)] = p
+        fresh_by = self._prepare_pages(s_len)
+        self._pin_lengths()
+        self.decode_iters += 1
+        logits, self.cache, _ = T.apply(
+            self.cfg, self.params, torch.as_tensor(toks, device=self.device),
+            cache=self.cache, mode="decode", logits_slice="all",
+            paged_kernel=self.use_kernel)
+        g = torch.argmax(logits, dim=-1).cpu().numpy()      # (B, s_len)
+        finished = []
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            if len(req.generated) >= req.max_new_tokens:
+                # budget met at insert time: finish without emitting
+                req.advance(Phase.DONE)
+                finished.append((req, i))
+                self._retire_slot(i)
+                continue
+            p = props.get(i, [])
+            ki = len(p)
+            # the longest proposal prefix equal to greedy; g[i, a] is the
+            # verifier's own next token after it (the bonus)
+            a = 0
+            while a < ki and int(toks[i, 1 + a]) == int(g[i, a]):
+                a += 1
+            self.spec_proposed += ki
+            self.spec_accepted += a
+            req.spec_proposed += ki
+            req.spec_accepted += a
+            if ki and ecfg.spec_adaptive:
+                self._spec_ema[i] = 0.5 * self._spec_ema[i] + 0.5 * (a / ki)
+                self._spec_k[i] = 1 + int(round(
+                    self._spec_ema[i] * (ecfg.spec_len - 1)))
+            if self._commit_slot(i, [int(t) for t in g[i, :a + 1]]):
+                req.advance(Phase.DONE)
+                finished.append((req, i))
+                self._retire_slot(i)
+                continue
+            self._rollback_pages(i, fresh_by.get(i, []))
+            if self._draft is not None and i in streams:
+                # the draft's resident prefix that matches the committed
+                # stream: what it was fed plus the accepted proposals it
+                # consumed while drafting
+                fed = n_steps - g_from[i] - 1
+                self._draft.len[i] = len(streams[i]) + min(a, max(fed, 0))
+        self._pin_lengths()
+        return finished

@@ -20,11 +20,14 @@ Events:
   §4.2 layer-wise overlapped transfer; prefix pages already resident in
   the target's pool are bound by reference instead of copied.
 * ``decode_kick`` / ``decode_done`` — a decode engine runs one
-  continuous-batching iteration per event.
+  continuous-batching iteration per event.  With speculation configured,
+  each kick decides speculate-or-plain from the analytical cost per
+  committed token at the unit's live batch and the measured acceptance,
+  and bills the chosen cost.
 
-Not in this slice (ROADMAP A6, A7, A11): the Algorithm 1
-migration controller and role re-rolls, layer-span pipelines,
-speculation, preemption and fair-share scheduling, autoscaling.
+Not in this slice (ROADMAP A6, A11): the Algorithm 1 migration controller
+and role re-rolls, layer-span pipelines, preemption and fair-share
+scheduling, autoscaling.
 """
 from __future__ import annotations
 
@@ -104,11 +107,13 @@ class Orchestrator(BackendBase):
     submit/step/abort/drain front door comes from ``api.BackendBase``.
 
     ``device`` (default the CUDA card) is where every engine runs; the
-    parameters must already live there."""
+    parameters must already live there.  ``draft=(cfg, params)`` is the
+    draft model handed to every decode engine when
+    ``engine.speculation == "draft"``."""
 
     def __init__(self, cfg: ModelConfig, params,
                  ocfg: OrchestratorConfig = OrchestratorConfig(),
-                 device: D.DeviceLike = None):
+                 device: D.DeviceLike = None, draft=None):
         if ocfg.n_prefill < 1 or ocfg.n_decode < 1:
             raise ValueError("fleet needs >=1 prefill and >=1 decode "
                              f"instance, got {ocfg.n_prefill}p/"
@@ -117,6 +122,7 @@ class Orchestrator(BackendBase):
         self.cfg = cfg
         self.params = params
         self.ocfg = ocfg
+        self.draft = draft
         self.ecfg = (dataclasses.replace(ocfg.engine, hw=ocfg.hw,
                                          efficiency=ocfg.efficiency)
                      if ocfg.engine.hw is None else ocfg.engine)
@@ -134,7 +140,7 @@ class Orchestrator(BackendBase):
         for i in range(ocfg.n_decode):
             m = _Member(f"decode{i}", ROLE_DECODE)
             m.decode = DecodeEngine(cfg, params, self.ecfg, name=m.name,
-                                    device=self.device)
+                                    device=self.device, draft=draft)
             self.members.append(m)
         self._by_name = {m.name: m for m in self.members}
         self.prefix_sharing = (ocfg.prefix_sharing
@@ -155,6 +161,10 @@ class Orchestrator(BackendBase):
         # produces KV that has nowhere to land
         self._reserved = 0
         self._unit_busy: Set[str] = set()   # decode iteration in flight
+        # speculation routing: iterations billed at the speculative cost vs
+        # sent back to plain decode
+        self.spec_iters = 0
+        self.plain_iters = 0
         self._init_backend()
 
     # -- fleet views -----------------------------------------------------
@@ -302,15 +312,47 @@ class Orchestrator(BackendBase):
             if not m.busy and (m._wavegen is not None or m.prefill.queue):
                 self.clock.push(self.clock.now, "prefill", m.name)
 
+    def _spec_capable(self, unit: DecodeEngine) -> bool:
+        """Can this unit run the speculative verify step at all?"""
+        return unit._spec_ok
+
+    def _accept_estimate(self, unit: DecodeEngine) -> float:
+        """The unit's measured acceptance rate, optimistic (0.8) until it
+        has evidence."""
+        if unit.spec_proposed > 0:
+            return unit.spec_accepted / unit.spec_proposed
+        return 0.8
+
     def _kick_decode(self, unit: Optional[DecodeEngine]) -> None:
         """Schedule one continuous-batching iteration for ``unit`` if it
         has work and none is in flight; cost = the analytical iteration
-        time for the real batch shape (Eq. 22)."""
+        time for the real batch shape (Eq. 22).
+
+        When the unit can speculate, the cost per committed token of a
+        speculative iteration (verification compute ~(k+1)x, bytes barely
+        move, plus the draft's steps) is compared with a plain step at the
+        unit's live batch and context; the unit's ``spec_on`` switch makes
+        the next ``step()`` obey, and the chosen cost is billed."""
         if unit is None or unit.name in self._unit_busy or unit.active == 0:
             return
+        hw = self.ocfg.hw
         ctx = unit.kv_tokens // max(unit.active, 1)
-        cost = A.decode_iter_time(self.cfg, max(ctx, 1), self.ocfg.hw,
+        cost = A.decode_iter_time(self.cfg, max(ctx, 1), hw,
                                   batch=unit.active)
+        if self._spec_capable(unit):
+            k = max(self.ecfg.spec_len, 1)
+            spec_cost = A.speculative_decode_iter_time(
+                self.cfg, max(ctx, 1), hw, batch=unit.active, k=k,
+                draft_cfg=self.draft[0] if self.draft else None)
+            e_tok = A.speculative_tokens_per_iter(
+                k, self._accept_estimate(unit))
+            speculate = spec_cost / e_tok < cost
+            unit.spec_on = speculate
+            if speculate:
+                cost = spec_cost
+                self.spec_iters += 1
+            else:
+                self.plain_iters += 1
         self._unit_busy.add(unit.name)
         self.clock.push_in(cost, "decode_done", unit.name)
 
@@ -429,6 +471,10 @@ class Orchestrator(BackendBase):
         s["virtual_time_s"] = self.clock.now
         s["events"] = self.clock.n_processed
         s["chunk_tokens"] = self.ocfg.chunk_tokens
+        s["speculation"] = self.ecfg.speculation
+        if self.ecfg.speculation != "off":
+            s["spec_iters"] = self.spec_iters
+            s["spec_plain_iters"] = self.plain_iters
         s["handoffs"] = self.n_handoffs
         s["handoff_serial_s"] = self.handoff_serial_s
         s["handoff_overlap_s"] = self.handoff_overlap_s

@@ -15,7 +15,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                paged_prefix_partials)
-from repro_torch.kernels.split_kv_decode import paged_decode_partials
+from repro_torch.kernels.split_kv_decode import (paged_decode_partials,
+                                                 paged_verify_partials)
 
 
 def paged_case(seed, b, h, kv, d, bs, nb, s=None, hole=True):
@@ -51,6 +52,41 @@ def paged_case(seed, b, h, kv, d, bs, nb, s=None, hole=True):
     else:
         q = rng.normal(size=(b, s, h, d)).astype(np.float32)
         pos_q = (live[:, None] + np.arange(s)[None]).astype(np.int32)
+    return dict(q=q, k_pages=k_pages, v_pages=v_pages, pos_pages=pos_pages,
+                block_tables=tables, pos_q=pos_q)
+
+
+def verify_case(seed, b, s, h, kv, d, bs, nb, stale=2):
+    """A speculative verify step over a pool: each row holds ``live``
+    committed tokens plus the S in-flight tokens (the pending one and its
+    proposals) already written at positions live..live+S-1; ``stale``
+    tokens rejected by an earlier verify sit just past them in the last
+    page (later positions, still written) and must stay masked.  The last
+    row (when b > 2) is an empty slot: an all-dead table and positions
+    0..S-1, as the engine gives it.  Unassigned pages and the scratch
+    page hold poison positions; each row's first page gets a hole."""
+    rng = np.random.default_rng(seed)
+    n_phys = 1 + b * nb
+    k_pages = rng.normal(size=(n_phys, bs, kv, d)).astype(np.float32)
+    v_pages = rng.normal(size=(n_phys, bs, kv, d)).astype(np.float32)
+    pos_pages = rng.integers(0, bs * nb, (n_phys, bs)).astype(np.int32)
+    tables = np.full((b, nb), -1, np.int32)
+    live = rng.integers(1, bs * nb - s - stale + 1, b)
+    if b > 2:
+        live[-1] = 0
+    nxt = 1
+    for row in range(b if b <= 2 else b - 1):
+        total = int(live[row]) + s
+        for j in range(-(-total // bs)):
+            tables[row, j] = nxt
+            p = np.arange(j * bs, (j + 1) * bs)
+            p[p >= total + stale] = -1
+            pos_pages[nxt] = p
+            nxt += 1
+        if live[row] > 1:
+            pos_pages[tables[row, 0], 0] = -1
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    pos_q = (live[:, None] + np.arange(s)[None]).astype(np.int32)
     return dict(q=q, k_pages=k_pages, v_pages=v_pages, pos_pages=pos_pages,
                 block_tables=tables, pos_q=pos_q)
 
@@ -106,4 +142,29 @@ def test_cuda_kernel_vs_plain(dtype, d):
                                                 seq_offset=32, window=win,
                                                 soft_cap=cap,
                                                 return_partials=True)):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [2, 5])
+def test_cuda_verify_kernel_vs_plain(s, dtype, d):
+    """The speculative-verify kernel (B4) against its plain version: S
+    queries per row, GQA, window and soft cap, an empty slot's all-dead
+    row, holes, and stale rolled-back tokens past the in-flight ones.
+    Both sides compute in f32 from the same inputs: 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    c = verify_case(15, 4, s, 8, 2, d, 16, 16)
+    a = tuple(torch.as_tensor(c[k]).cuda().to(dt) if c[k].dtype ==
+              np.float32 else torch.as_tensor(c[k]).cuda()
+              for k in ("q", "k_pages", "v_pages", "pos_pages",
+                        "block_tables", "pos_q"))
+    for win, cap in ((None, None), (40, 20.0)):
+        got = paged_verify_partials(*a, window=win, soft_cap=cap)
+        torch.cuda.synchronize()
+        want = ref.paged_verify_partials_plain(*a, window=win, soft_cap=cap)
+        for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)

@@ -11,6 +11,10 @@ Tolerances (float32 on both sides, same inputs): the per-page and per-row
 (o, l, m) partials differ only in summation order over D and a page's keys,
 so ``atol = rtol = 1e-5``; the combined outputs likewise.
 
+The verify cases (B4) also write the in-flight tokens and stale
+rolled-back ones into their pages, as the serving path does before the
+read.
+
 The CUDA kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).
 """
@@ -27,13 +31,17 @@ from repro.kernels.flash_prefill import \
     paged_prefix_partials as j_paged_prefix_partials
 from repro.kernels.split_kv_decode import \
     paged_decode_partials as j_paged_decode_partials
+from repro.kernels.split_kv_decode import \
+    paged_verify_partials as j_paged_verify_partials
 from repro_torch.core import attention_offload as PAO
 from repro_torch.kernels import _lib, ops, ref
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                paged_prefix_partials)
-from repro_torch.kernels.split_kv_decode import paged_decode_partials
+from repro_torch.kernels.split_kv_decode import (paged_decode_partials,
+                                                 paged_verify_partials)
 from test_torch_cuda import dense_case as _dense_case
 from test_torch_cuda import paged_case as _paged_case
+from test_torch_cuda import verify_case as _verify_case
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 NEG_INF = -1e30
@@ -136,6 +144,66 @@ def test_fully_masked_live_page_has_zero_l():
                 *_args(c, jnp.asarray), interpret=True))
         assert np.all(l[0, :2] == 0) and np.all(o[0, :2] == 0), side
         assert np.all(m[0, :2] == NEG_INF), side
+
+
+# ---------------------------------------------------------------------------
+# B4: speculative-verify partials
+# ---------------------------------------------------------------------------
+
+# (b, s, h, kv, d, bs, nb, window, soft_cap): S = 2 and 5, MHA, GQA, an
+# empty slot (b > 2), window, soft cap
+VERIFY = [(3, 2, 4, 4, 16, 8, 4, None, None),
+          (2, 5, 8, 2, 32, 4, 6, None, None),
+          (3, 5, 4, 2, 16, 8, 4, 11, None),
+          (2, 2, 4, 1, 16, 8, 3, None, 5.0),
+          (3, 5, 6, 2, 8, 4, 5, 7, 3.0)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,bs,nb,win,cap", VERIFY)
+def test_paged_verify_partials_vs_jax(b, s, h, kv, d, bs, nb, win, cap):
+    c = _verify_case(12, b, s, h, kv, d, bs, nb)
+    got = paged_verify_partials(*_args(c, _t), window=win, soft_cap=cap)
+    want = j_paged_verify_partials(*_args(c, jnp.asarray), window=win,
+                                   soft_cap=cap, interpret=True)
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    _close(tuple(g.numpy() for g in got), want)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,bs,nb,win,cap", VERIFY)
+def test_paged_verify_attention_vs_jax_and_oracles(b, s, h, kv, d, bs, nb,
+                                                   win, cap):
+    c = _verify_case(13, b, s, h, kv, d, bs, nb)
+    out = ops.paged_verify_attention(*_args(c, _t), window=win, soft_cap=cap)
+    j_out = JOPS.paged_verify_attention(*_args(c, jnp.asarray), window=win,
+                                        soft_cap=cap, interpret=True)
+    assert tuple(out.shape) == (b, s, h, d)
+    _close(out.numpy(), j_out)
+    _close(out.numpy(), ref.paged_verify_attention_reference(
+        *_args(c, _t), window=win, soft_cap=cap).numpy())
+    _close(out.numpy(), JREF.paged_verify_attention_reference(
+        *_args(c, jnp.asarray), window=win, soft_cap=cap))
+
+
+def test_verify_hides_later_in_flight_tokens_by_position():
+    """All S in-flight tokens are written before the read: query s must not
+    see the tokens at positions past pos_q[s] (nor stale rolled-back
+    ones), so changing their keys and values leaves query 0 unchanged,
+    and each query equals a one-query decode at its own position."""
+    c = _verify_case(14, 2, 5, 4, 2, 16, 8, 4)
+    base = ops.paged_verify_attention(*_args(c, _t))
+    for row in range(2):
+        for t in range(int(c["pos_q"][row, 0]) + 1,
+                       int(c["pos_q"][row, -1]) + 3):
+            page = c["block_tables"][row, t // 8]
+            c["k_pages"][page, t % 8] = 50.0
+            c["v_pages"][page, t % 8] = -50.0
+    moved = ops.paged_verify_attention(*_args(c, _t))
+    _close(moved[:, 0].numpy(), base[:, 0].numpy())
+    assert not np.allclose(moved[:, 1].numpy(), base[:, 1].numpy())
+    for s in range(5):
+        one = ops.paged_decode_attention(
+            _t(c["q"][:, s]), *_args(c, _t)[1:5], _t(c["pos_q"][:, s]))
+        _close(moved[:, s].numpy(), one.numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +354,14 @@ def test_cpu_tensors_run_the_plain_version_without_counting():
         assert torch.equal(g, w)
     assert all(n == 0 for n in _lib.LAUNCHES.values())
     assert set(_lib.LAUNCHES) == {"paged_decode_partials", "flash_prefill",
-                                  "paged_prefix_partials"}
+                                  "paged_prefix_partials",
+                                  "paged_verify_partials"}
+    c = _verify_case(11, 2, 3, 4, 2, 16, 8, 3)
+    got = paged_verify_partials(*_args(c, _t))
+    want = ref.paged_verify_partials_plain(*_args(c, _t))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert all(n == 0 for n in _lib.LAUNCHES.values())
 
 
 def test_mask_args_reject_bad_window_and_cap():

@@ -252,6 +252,62 @@ def test_apply_paged_decode_vs_jax(weights, paged_kernel):
     _assert_tree_close(pc, jc, **LOGIT_TOL)
 
 
+@pytest.mark.parametrize("paged_kernel", [True, False])
+def test_apply_paged_verify_vs_jax(weights, paged_kernel):
+    """Multi-token paged decode, the speculative verify forward (kernel B4
+    or the gather-then-attend reference): S = 5 tokens written into their
+    pages, then read with per-query horizons.  Logits for every position
+    and every pool leaf against JAX on identical pools; the logits also
+    equal the stateless forward over the whole context; and ``lengths``
+    advances by S."""
+    jp, tp = weights
+    toks = _tokens(10, 2, 13)
+    lengths = np.asarray([13, 11], np.int32)
+    pc = _paged_after_prefill(tp, toks, lengths, 48, 8)
+    jc = _to_jax(pc)
+    spec = _tokens(11, 2, 5)
+    got, pc, _ = T.apply(PTINY, tp, torch.as_tensor(spec), cache=pc,
+                         mode="decode", logits_slice="all",
+                         paged_kernel=paged_kernel)
+    want, jc, _ = JT.apply(TINY, jp, jnp.asarray(spec), cache=jc,
+                           mode="decode", logits_slice="all",
+                           paged_kernel=paged_kernel)
+    assert tuple(got.shape) == (2, 5, PTINY.vocab_size)
+    np.testing.assert_allclose(got.numpy(), want, **LOGIT_TOL)
+    _assert_tree_close(pc, jc, **LOGIT_TOL)
+    assert pc["lengths"].tolist() == (lengths + 5).tolist()
+    for row, n in enumerate(lengths):
+        ctx = np.concatenate([toks[row, :n], spec[row]])[None]
+        full, _, _ = JT.apply(TINY, jp, jnp.asarray(ctx), mode="train")
+        np.testing.assert_allclose(got[row].numpy(), full[0, n:],
+                                   **LOGIT_TOL)
+
+
+def test_apply_dense_decode_vs_jax(weights):
+    """Decode over a dense per-row cache (the draft model's): ring write at
+    positions % cache_len, then plain attention; logits and caches against
+    JAX over steps that cross rows of different lengths."""
+    jp, tp = weights
+    toks = _tokens(12, 2, 10)
+    at = np.asarray([9, 6], np.int32)
+    dense = T.init_cache(PTINY, 2, 32, device="cpu")
+    _, dense, _ = T.apply(PTINY, tp, torch.as_tensor(toks), cache=dense,
+                          mode="prefill", logits_slice="last",
+                          logits_at=torch.as_tensor(at))
+    dense["lengths"] = torch.as_tensor(at + 1)
+    jc = _to_jax(dense)
+    step = _tokens(13, 2, 1)
+    for _ in range(3):
+        got, dense, _ = T.apply(PTINY, tp, torch.as_tensor(step),
+                                cache=dense, mode="decode",
+                                logits_slice="last")
+        want, jc, _ = JT.apply(TINY, jp, jnp.asarray(step), cache=jc,
+                               mode="decode", logits_slice="last")
+        np.testing.assert_allclose(got.numpy(), want, **LOGIT_TOL)
+        step = np.asarray(want).argmax(-1).astype(np.int32)[:, None]
+    _assert_tree_close(dense, jc, **LOGIT_TOL)
+
+
 def test_apply_paged_resume_prefill_vs_jax(weights):
     """Paged incremental prefill (kernels B3 + B2 on the card): a chunk
     attends over its prefix pages plus itself, then lands in its pages."""

@@ -179,8 +179,8 @@ def test_unservable_stacks_raise_not_implemented(port_params):
     swa = dataclasses.replace(PTINY, sliding_window=16)
     with pytest.raises(NotImplementedError, match="later slice"):
         DecodeEngine(swa, port_params, ECFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        PrefillEngine(PTINY, port_params,
+    with pytest.raises(NotImplementedError, match="int8 KV"):
+        PrefillEngine(dataclasses.replace(PTINY, kv_quant=True), port_params,
                       dataclasses.replace(ECFG, speculation="ngram"),
                       device="cpu")
 
