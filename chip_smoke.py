@@ -7,31 +7,41 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. Build the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   nvcc per source, in parallel) and print the card's name and power
-   limit.
+1. Build the five CUDA kernel sources from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, in parallel; seven kernels: B1, B1-int8, B2, B3,
+   B4, B4-int8, B5) and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card: at the
    serving path's llama-13b shapes, at a GQA shape (granite-8b heads) and
-   on a windowed, soft-capped case with dead table entries and holes, in
-   float32 and bfloat16.  Time each kernel (CUDA events, warmed, many
-   launches) beside its plain version, a library yardstick and the bound
-   the card's data-sheet rates put on the same work.
+   on a windowed, soft-capped head_dim-256 case with dead table entries
+   and holes, in float32 and bfloat16; the int8 variants of B1/B4 on the
+   same pools quantized to int8 with per-entry scales; B5 over a dense
+   llama-13b decode cache (1024 keys, random valid lengths, block_k 512).
+   Time each kernel (its device time per call from torch.profiler, warmed,
+   many launches) with its plain version and a library yardstick timed the
+   same way, and the bound the card's data-sheet rates put on the same
+   work.
 3. Serve llama-13b at full width and depth in bf16 (random weights from a
-   seed), 8 requests of a shared-prefix workload, three times: through
+   seed), 8 requests of a shared-prefix workload, five times: through
    ``Server`` over the port's ``Orchestrator`` (chunked prefill) plain,
    then with n-gram speculative decoding (``spec_len`` 4) under the
    orchestrator's load-aware speculate-or-plain choice; then a self-draft
    (the target drafts for itself, ``spec_len`` 4) at the engine level,
    ``PrefillEngine`` plus ``DecodeEngine(draft=...)`` stepped to
    completion, because the load-aware rule rightly never pays for a draft
-   as large as the target.  Each run checks that every request completes,
-   that the kernels of its path ran (the launch counts are zeroed just
-   before the run and read just after), that the paged pools are
-   restored, and — teacher-forced through the plain monolithic forward —
-   that every served token is within a stated gap of its step's best
-   logit; the self-draft run must accept proposals.  Prints prefill and
-   decode throughput, peak memory, the speculation counters, and the
-   device-busy share of one profiled decode iteration of the plain run.
+   as large as the target; then the int8-KV stack (``with_kv_quant()``, the
+   same weights and requests, no chunking: int8 KV cannot resume a prompt)
+   through ``Server`` plain and with n-gram speculation.  Each run checks
+   that every request completes, that the kernels of its path ran and, for
+   the int8 runs, that the bf16 page kernels and B3 did not (the launch
+   counts are zeroed just before the run and read just after), that the
+   paged pools are restored, and — teacher-forced through the port's own
+   forward (the plain monolithic one; for int8 a prefill then a multi-token
+   decode over a dense int8 cache) — that every served token is within a
+   stated gap of its step's best logit; the self-draft run must accept
+   proposals.  Prints prefill and decode throughput, peak memory, the
+   speculation counters, the int8 runs' argmax agreement with the bf16
+   forward, and the device-busy share of one profiled decode iteration of
+   the bf16 and the int8 plain runs.
 4. Print the ``kernels`` JSON line, then the result line.
 
 The script imports nothing of the JAX package and needs no network.
@@ -188,17 +198,24 @@ def nbytes(*ts) -> int:
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Device time of one call: the device time of every kernel (and copy)
+    the call runs, summed by torch.profiler over ``iters`` back-to-back
+    calls after a warm-up, per call.  Host dispatch is left out, so a
+    kernel and its yardsticks compare on the card's time alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(device_us(e) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA"))
+    if busy <= 0:
+        fail("the profiler recorded no device time for a timed call")
+    return busy / 1e3 / iters
 
 
 def max_err(torch, got, want) -> float:
@@ -228,14 +245,19 @@ def check_close(torch, what, got, want, tol) -> float:
 
 def kernel_phase(torch):
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    paged_prefix_partials)
-    from repro_torch.kernels.split_kv_decode import (paged_decode_partials,
-                                                     paged_verify_partials)
+    from repro_torch.kernels.split_kv_decode import (
+        paged_decode_partials, paged_verify_partials,
+        split_kv_decode_partials)
+    from repro_torch.models.layers import quantize_kv
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    # B5 draws from a generator of its own, so the B1-B4 inputs are the
+    # same as before B5 was added
+    gen5 = torch.Generator(device=dev).manual_seed(5)
     # (label, heads, kv heads, head_dim, window, soft cap); the last case
     # also takes the kernels' widest head_dim
     cases = [("llama-13b", 40, 40, 128, None, None),
@@ -265,6 +287,18 @@ def kernel_phase(torch):
                               TOL_F32)
             results[("B1", label, tname)] = dict(
                 err=err, args=(q, kp, vp, pp, tb, pq))
+            # -- B1-int8: the same pools quantized, scales per entry
+            kq, ksc = quantize_kv(kp)
+            vq, vsc = quantize_kv(vp)
+            sc = dict(k_scale_pages=ksc, v_scale_pages=vsc)
+            got = paged_decode_partials(q, kq, vq, pp, tb, pq, **kw, **sc)
+            want = ref.paged_decode_partials_plain(q, kq, vq, pp, tb, pq,
+                                                   **kw, **sc)
+            torch.cuda.synchronize()
+            err = check_close(torch, f"B1-int8 {label} {tname}", got, want,
+                              TOL_F32)
+            results[("B1-int8", label, tname)] = dict(
+                err=err, args=(q, kq, vq, pp, tb, pq), scales=sc)
             # -- B3: paged prefix partials (chunk 256 after a prefix)
             s = 256 if main else 64
             b_pre = 4 if main else 2
@@ -322,11 +356,55 @@ def kernel_phase(torch):
                                TOL_F32)
             results[("B4", label, tname)] = dict(
                 err=err4, args=(q4, kp4, vp4, pp4, tb4, pq4))
+            # -- B4-int8
+            kq4, ksc4 = quantize_kv(kp4)
+            vq4, vsc4 = quantize_kv(vp4)
+            sc4 = dict(k_scale_pages=ksc4, v_scale_pages=vsc4)
+            got = paged_verify_partials(q4, kq4, vq4, pp4, tb4, pq4, **kw,
+                                        **sc4)
+            want = ref.paged_verify_partials_plain(q4, kq4, vq4, pp4, tb4,
+                                                   pq4, **kw, **sc4)
+            torch.cuda.synchronize()
+            err4q = check_close(torch, f"B4-int8 {label} {tname}", got,
+                                want, TOL_F32)
+            results[("B4-int8", label, tname)] = dict(
+                err=err4q, args=(q4, kq4, vq4, pp4, tb4, pq4), scales=sc4)
             del got, want
-            say(f"kernels vs plain [{label}, {tname}]: max |err| "
-                f"B1 {results[('B1', label, tname)]['err']:.2e}  "
-                f"B2 {err:.2e}  B3 {results[('B3', label, tname)]['err']:.2e}"
-                f"  B4 {err4:.2e}")
+            # -- B5: split-KV decode over a dense cache (no window or cap:
+            # the TPU kernel has neither); the main case at llama-13b's
+            # decode shape, the others with L off the block multiple
+            b5, l5 = (8, nb * bs) if main else (3, 600)
+            q5 = torch.randn((b5, h, d), generator=gen5, device=dev).to(dtype)
+            k5 = torch.randn((b5, l5, kv, d), generator=gen5, device=dev
+                             ).to(dtype)
+            v5 = torch.randn((b5, l5, kv, d), generator=gen5, device=dev
+                             ).to(dtype)
+            lens5 = torch.randint(1, l5 + 1, (b5, 1), generator=gen5,
+                                  device=dev)
+            valid5 = torch.arange(l5, device=dev)[None] < lens5
+            got = ops.decode_partials(q5, k5, v5, valid5, block_k=512)
+            pad5 = (-l5) % 512
+            want = ref.split_kv_decode_partials_plain(
+                q5, F.pad(k5, (0, 0, 0, 0, 0, pad5)),
+                F.pad(v5, (0, 0, 0, 0, 0, pad5)), F.pad(valid5, (0, pad5)),
+                block_k=512)
+            torch.cuda.synchronize()
+            err5 = check_close(torch, f"B5 {label} {tname}", got, want,
+                               TOL_F32)
+            # the combined output in q's dtype, against the one-softmax
+            # reference (reported apart from the f32 partials' error)
+            out5 = check_close(
+                torch, f"B5 decode_attention {label} {tname}",
+                ops.decode_attention(q5, k5, v5, valid5, block_k=512),
+                ref.decode_attention_reference(q5, k5, v5, valid5),
+                TOL_F32 if dtype == torch.float32 else TOL_BF16_OUT)
+            results[("B5", label, tname)] = dict(
+                err=err5, out_err=out5, args=(q5, k5, v5, valid5))
+            del got, want
+            say(f"kernels vs plain [{label}, {tname}]: max |err| " + "  ".join(
+                f"{kk} {results[(kk, label, tname)]['err']:.2e}"
+                for kk in ("B1", "B1-int8", "B2", "B3", "B4", "B4-int8",
+                           "B5")) + f"  (B5 combined output {out5:.2e})")
 
     # -- timings at the serving path's shapes (llama-13b, bf16)
     timing = {}
@@ -422,8 +500,69 @@ def kernel_phase(torch):
             q4, kp4, vp4, pp4, tb4, pq4), 20),
         library_ms=time_ms(torch, lib_verify, 50),
         bytes=byt, flops=4 * d * h * pairs, dtype="bfloat16")
+
+    def lib_int8(args, scales, s_axis):
+        """Dequantize-gather the int8 pages to bf16, then masked SDPA."""
+        qq, kq, vq, pp_, tb_, pq_ = args
+        bq = qq.shape[0]
+        safe = tb_.clamp_min(0).long()
+        ks_ = scales["k_scale_pages"][safe][..., None]
+        vs_ = scales["v_scale_pages"][safe][..., None]
+        kl = (kq[safe] * ks_).to(qq.dtype).reshape(bq, nb * bs, kv, d)
+        vl = (vq[safe] * vs_).to(qq.dtype).reshape(bq, nb * bs, kv, d)
+        pk = torch.where((tb_ >= 0)[:, :, None], pp_[safe], -1
+                         ).reshape(bq, 1, 1, -1)
+        if s_axis:                                  # verify: (B, S, H, D)
+            mask = (pk >= 0) & (pk <= pq_[:, None, :, None])
+            qt = qq.transpose(1, 2)
+        else:                                       # decode: (B, H, D)
+            mask = (pk >= 0) & (pk <= pq_[:, None, None, None])
+            qt = qq[:, :, None]
+        return F.scaled_dot_product_attention(
+            qt, kl.transpose(1, 2), vl.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)
+
+    for key, fn, plain, s_axis, n_iter in (
+            ("B1-int8", paged_decode_partials,
+             ref.paged_decode_partials_plain, False, 200),
+            ("B4-int8", paged_verify_partials,
+             ref.paged_verify_partials_plain, True, 200)):
+        r = results[(key, "llama-13b", "bfloat16")]
+        args, scales = r["args"], r["scales"]
+        qq, kq, _, pp_, tb_, pq_ = args
+        bq = qq.shape[0]
+        sq = qq.shape[1] if s_axis else 1
+        pairs = visible_pairs(torch, pp_, tb_, pq_, None)
+        n_live = torch.unique(tb_[tb_ >= 0]).numel()
+        # int8 K + V, their f32 scales and the positions of each live page
+        per_page = 2 * kq[0].numel() + 2 * bs * kv * 4 + bs * 4
+        byt = nbytes(qq, tb_, pq_) + n_live * per_page \
+            + bq * nb * sq * h * (d + 2) * 4
+        timing[key] = dict(
+            ms=time_ms(torch, lambda: fn(*args, **scales), n_iter),
+            plain_ms=time_ms(torch, lambda: plain(*args, **scales), 20),
+            library_ms=time_ms(torch, lambda: lib_int8(args, scales,
+                                                       s_axis), 50),
+            bytes=byt, flops=4 * d * h * pairs, dtype="bfloat16")
+
+    r5 = results[("B5", "llama-13b", "bfloat16")]
+    q5, k5, v5, valid5 = r5["args"]
+    b5, l5 = k5.shape[:2]
+    mask5 = valid5[:, None, None, :]
+    qt5, kt5, vt5 = q5[:, :, None], k5.transpose(1, 2), v5.transpose(1, 2)
+    timing["B5"] = dict(
+        ms=time_ms(torch, lambda: split_kv_decode_partials(
+            q5, k5, v5, valid5, block_k=512), 200),
+        plain_ms=time_ms(torch, lambda: ref.split_kv_decode_partials_plain(
+            q5, k5, v5, valid5, block_k=512), 20),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt5, kt5, vt5, attn_mask=mask5), 50),
+        # dense q, K, V and validity in; per-block partials out
+        bytes=nbytes(q5, k5, v5, valid5) + b5 * (l5 // 512) * h * (d + 2) * 4,
+        flops=4 * d * h * int(valid5.sum()), dtype="bfloat16")
+    names = ("B1", "B1-int8", "B2", "B3", "B4", "B4-int8", "B5")
     errs = {kname: max(v["err"] for (kk, _, _), v in results.items()
-                       if kk == kname) for kname in ("B1", "B2", "B3", "B4")}
+                       if kk == kname) for kname in names}
     return timing, errs
 
 
@@ -438,9 +577,10 @@ def device_us(evt) -> float:
 
 
 def serving_phase(torch, card: str):
-    """The plain and n-gram runs through ``Server``, then the self-draft
-    run at the engine level, on one set of llama-13b weights.  Returns
-    {run label: launches during that run}."""
+    """The plain and n-gram runs through ``Server``, the self-draft run at
+    the engine level, then the int8-KV plain and n-gram runs through
+    ``Server``, on one set of llama-13b weights (``kv_quant`` does not
+    change them).  Returns {run label: launches during that run}."""
     from repro_torch.configs import get
     from repro_torch.models import transformer as T
 
@@ -451,19 +591,46 @@ def serving_phase(torch, card: str):
     say(f"llama-13b init (40 layers, d_model 5120, bf16, seed 0): "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
-    launches = {}
-    # (label, speculation, kernels that must launch during the run)
-    runs = [("plain", "off", ("paged_decode_partials", "flash_prefill",
-                              "paged_prefix_partials")),
-            ("ngram", "ngram", ("flash_prefill", "paged_prefix_partials",
-                                "paged_verify_partials"))]
-    for label, mode, needed in runs:
-        launches[label] = serve_run(torch, card, cfg, params, label=label,
-                                    speculation=mode, needed=needed,
-                                    profile=label == "plain")
-        gc.collect()             # the timing wrappers tie engine cycles
-        torch.cuda.empty_cache()
+    launches, stats = {}, {}
+    qcfg = cfg.with_kv_quant()
+    bf16_pages = ("paged_decode_partials", "paged_verify_partials")
+    # (label, config, speculation, chunk_tokens, kernels that must launch
+    # during the run, kernels that must not)
+    bf16_runs = [("plain", cfg, "off", 256,
+                  ("paged_decode_partials", "flash_prefill",
+                   "paged_prefix_partials"), ()),
+                 ("ngram", cfg, "ngram", 256,
+                  ("flash_prefill", "paged_prefix_partials",
+                   "paged_verify_partials"), ())]
+    int8_runs = [("int8", qcfg, "off", None,
+                  ("paged_decode_partials_int8", "flash_prefill"),
+                  bf16_pages + ("paged_prefix_partials",
+                                "paged_verify_partials_int8")),
+                 ("int8-ngram", qcfg, "ngram", None,
+                  ("paged_verify_partials_int8", "flash_prefill"),
+                  bf16_pages + ("paged_prefix_partials",))]
+
+    def serve_all(runs):
+        for label, rcfg, mode, chunk, needed, forbidden in runs:
+            stats[label] = serve_run(
+                torch, card, rcfg, params, label=label, speculation=mode,
+                chunk_tokens=chunk, needed=needed, forbidden=forbidden,
+                profile=label in ("plain", "int8"),
+                bf16_streams=stats.get("plain", {}).get("streams"))
+            launches[label] = stats[label]["launches"]
+            gc.collect()         # the timing wrappers tie engine cycles
+            torch.cuda.empty_cache()
+
+    serve_all(bf16_runs)
     launches["self-draft"] = self_draft_run(torch, card, cfg, params)
+    serve_all(int8_runs)
+    for q8, base in (("int8", "plain"), ("int8-ngram", "ngram")):
+        a, b = stats[q8], stats[base]
+        say(f"[{q8} vs {base}] decode {a['iter_ms']:.1f} vs "
+            f"{b['iter_ms']:.1f} ms per iteration, {a['decode_tps']:.1f} vs "
+            f"{b['decode_tps']:.1f} tok/s, peak memory {a['peak_gib']:.2f} "
+            f"vs {b['peak_gib']:.2f} GiB (the bf16 run prefills in 256-token "
+            f"chunks, the int8 run unchunked) [{card}]")
     return launches
 
 
@@ -481,10 +648,36 @@ def served_requests(cfg):
     return reqs
 
 
-def check_streams(torch, cfg, params, label, reqs, launches, needed):
-    """Every request got its full budget, the kernels in ``needed`` ran,
-    and — teacher-forced through the plain monolithic forward — every
-    served token is within TOKEN_GAP_TOL of its step's best logit."""
+def int8_forward_logits(torch, cfg, params, prompt, generated):
+    """The port's own int8-KV forward over a served stream, teacher-forced:
+    the prompt prefilled into a dense int8 cache (attending over the
+    unquantized K/V, as serving does), then every served token but the
+    last decoded in one multi-token step over the quantized cache.  Row i
+    scores the choice of generated[i]."""
+    from repro_torch.models import transformer as T
+
+    n_p, n_g = len(prompt), len(generated)
+    cache = T.init_cache(cfg, 1, n_p + n_g, dtype=params["embed"].dtype)
+    toks = torch.as_tensor([int(t) for t in prompt], device="cuda")[None]
+    lg0, cache, _ = T.apply(cfg, params, toks, cache=cache, mode="prefill",
+                            logits_slice="last")
+    if n_g == 1:
+        return lg0
+    rest = torch.as_tensor(generated[:-1], device="cuda")[None]
+    lgs, _, _ = T.apply(cfg, params, rest, cache=cache, mode="decode",
+                        logits_slice="all")
+    return torch.cat([lg0, lgs[0]], dim=0)
+
+
+def check_streams(torch, cfg, params, label, reqs, launches, needed,
+                  forbidden=(), bf16_streams=None):
+    """Every request got its full budget, the kernels in ``needed`` ran and
+    those in ``forbidden`` did not, and — teacher-forced through the port's
+    own forward (the plain monolithic one; for an int8-KV stack
+    ``int8_forward_logits``) — every served token is within TOKEN_GAP_TOL
+    of its step's best logit.  For int8 also reports, as information, the
+    teacher-forced argmax agreement with the bf16 forward (JAX's policy
+    asks >= 90 %) and the served tokens equal to the bf16 run's."""
     from repro_torch.models import transformer as T
 
     for r in reqs:
@@ -495,13 +688,27 @@ def check_streams(torch, cfg, params, label, reqs, launches, needed):
         if launches[name] <= 0:
             fail(f"[{label}] kernel {name} was not launched on the "
                  f"serving path")
+    for name in forbidden:
+        if launches[name] != 0:
+            fail(f"[{label}] kernel {name} was launched {launches[name]} "
+                 f"times; this path must not run it")
     worst = 0.0
     spread = []
+    agree = total = same = 0
     for r in reqs:
         stream = list(map(int, r.prompt)) + r.generated
         toks = torch.as_tensor(stream[:-1], device="cuda")[None]
         logits, _, _ = T.apply(cfg, params, toks, mode="train")
         lg = logits[0, r.prompt_len - 1:].float()
+        if cfg.kv_quant:
+            bf16_top = lg.argmax(dim=1)
+            lg = int8_forward_logits(torch, cfg, params, r.prompt,
+                                     r.generated).float()
+            agree += int((lg.argmax(dim=1) == bf16_top).sum())
+            total += len(r.generated)
+            if bf16_streams is not None:
+                same += sum(a == b for a, b in zip(r.generated,
+                                                   bf16_streams[r.rid]))
         if not torch.isfinite(lg).all():
             fail(f"[{label}] request {r.rid}: non-finite logits")
         got = lg.gather(1, torch.as_tensor(r.generated, device="cuda")[:, None])
@@ -514,6 +721,11 @@ def check_streams(torch, cfg, params, label, reqs, launches, needed):
     say(f"[{label}] teacher-forced: worst served-token gap {worst:.4f} "
         f"(tolerance {TOKEN_GAP_TOL}; logit std "
         f"{sum(spread) / len(spread):.3f})")
+    if cfg.kv_quant:
+        say(f"[{label}] int8 vs bf16 forward, teacher-forced on the served "
+            f"streams: argmax agrees on {agree}/{total} steps "
+            f"({agree / max(total, 1):.1%}); served tokens equal to the "
+            f"bf16 plain run's at the same place: {same}/{total}")
 
 
 def say_speculation(label, card, stats, iter_ms) -> None:
@@ -597,8 +809,10 @@ def self_draft_run(torch, card, cfg, params):
     return launches
 
 
-def serve_run(torch, card, cfg, params, *, label, speculation, needed,
-              profile):
+def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
+              needed, forbidden, profile, bf16_streams=None):
+    """One run through ``Server``; returns its launches, streams and
+    decode figures."""
     from repro_torch.kernels import ops
     from repro_torch.serving.api import Server
     from repro_torch.serving.engine import EngineConfig
@@ -608,7 +822,7 @@ def serve_run(torch, card, cfg, params, *, label, speculation, needed,
     ecfg = EngineConfig(max_len=1024, max_batch=8, block_size=16,
                         speculation=speculation, spec_len=4)
     orch = Orchestrator(cfg, params, OrchestratorConfig(
-        n_prefill=1, n_decode=1, engine=ecfg, chunk_tokens=256))
+        n_prefill=1, n_decode=1, engine=ecfg, chunk_tokens=chunk_tokens))
     reqs = served_requests(cfg)
 
     # wall-clock per phase (synchronized), wrapped around the engines
@@ -675,7 +889,8 @@ def serve_run(torch, card, cfg, params, *, label, speculation, needed,
     if speculation != "off" and (summary["spec_iters"] <= 0
                                  or summary["spec_proposed"] <= 0):
         fail(f"[{label}] no speculative iteration scored a proposal")
-    check_streams(torch, cfg, params, label, reqs, launches, needed)
+    check_streams(torch, cfg, params, label, reqs, launches, needed,
+                  forbidden, bf16_streams)
     prefill_tokens = sum(m.tokens_prefilled for m in orch.prefill_members())
     say(f"[{label}] served {len(reqs)} requests: prompts "
         f"{min(r.prompt_len for r in reqs)}-"
@@ -717,7 +932,12 @@ def serve_run(torch, card, cfg, params, *, label, speculation, needed,
             say(head + "not measured (the profiler recorded no device time)")
     say(f"[{label}] serving-path launches: {json.dumps(launches)}")
     del orch, pe, de
-    return launches
+    return {"launches": launches,
+            "streams": {r.rid: list(r.generated) for r in reqs},
+            "iter_ms": iter_ms,
+            "decode_tps": clocks["decode_tokens"]
+            / max(clocks["decode_s"], 1e-9),
+            "peak_gib": peak / 2**30}
 
 
 def check_pools_restored(orch) -> None:
@@ -747,6 +967,9 @@ KERNELS = [
     ("B1", "paged_decode_partials",
      "src/repro_torch/kernels/csrc/paged_decode.cu",
      "src/repro/kernels/split_kv_decode.py:304"),
+    ("B1-int8", "paged_decode_partials_int8",
+     "src/repro_torch/kernels/csrc/paged_decode.cu",
+     "src/repro/kernels/split_kv_decode.py:304"),
     ("B2", "flash_prefill", "src/repro_torch/kernels/csrc/flash_prefill.cu",
      "src/repro/kernels/flash_prefill.py:91"),
     ("B3", "paged_prefix_partials",
@@ -755,6 +978,12 @@ KERNELS = [
     ("B4", "paged_verify_partials",
      "src/repro_torch/kernels/csrc/paged_verify.cu",
      "src/repro/kernels/split_kv_decode.py:232"),
+    ("B4-int8", "paged_verify_partials_int8",
+     "src/repro_torch/kernels/csrc/paged_verify.cu",
+     "src/repro/kernels/split_kv_decode.py:232"),
+    ("B5", "split_kv_decode_partials",
+     "src/repro_torch/kernels/csrc/split_kv_decode.cu",
+     "src/repro/kernels/split_kv_decode.py:67"),
 ]
 
 
@@ -773,7 +1002,8 @@ def main() -> None:
     # -- phase 1
     t0 = time.perf_counter()
     _lib.build(ptxas_verbose="--ptxas" in sys.argv)
-    say(f"built {len(_lib.KERNELS)} kernels in "
+    say(f"built {len(_lib.KERNELS)} kernel sources "
+        f"({sum(map(len, _lib.KERNELS.values()))} entry points) in "
         f"{time.perf_counter() - t0:.1f} s")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -9,9 +9,11 @@ flags, so an edited kernel is rebuilt.  Nothing here runs when a module
 is imported: the CPU tests import every module and have no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one only
-where it launches its kernel.  ``page_partials`` checks and launches the
-multi-query page kernels (paged prefix, speculative verify), which share
-one C signature.
+where it launches its kernel.  The int8-pool variants of the page kernels
+count apart from the bf16/f32 ones.  ``page_partials`` checks and launches
+the page kernels (paged decode, paged prefix, speculative verify), whose C
+entry points share one argument list, the int8 ones adding the scale
+pools.
 """
 from __future__ import annotations
 
@@ -33,21 +35,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# library -> (C entry point, argtypes)
+# library (source ``csrc/<name>.cu``) -> {C entry point: argtypes}
 KERNELS = {
-    "paged_decode": ("paged_decode_partials",
-                     [_P] * 9 + [_I] * 6 + [_F, _I, _F, _I, _P]),
-    "paged_prefix": ("paged_prefix_partials",
-                     [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _P]),
-    "paged_verify": ("paged_verify_partials",
-                     [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _P]),
-    "flash_prefill": ("flash_prefill",
-                      [_P] * 6 + [_I] * 7 + [_F, _I, _F, _I, _I, _P]),
+    "paged_decode": {
+        "paged_decode_partials": [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _P],
+        "paged_decode_partials_q8":
+            [_P] * 11 + [_I] * 7 + [_F, _I, _F, _I, _P]},
+    "paged_prefix": {
+        "paged_prefix_partials": [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _P]},
+    "paged_verify": {
+        "paged_verify_partials": [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _P],
+        "paged_verify_partials_q8":
+            [_P] * 11 + [_I] * 7 + [_F, _I, _F, _I, _P]},
+    "flash_prefill": {
+        "flash_prefill": [_P] * 6 + [_I] * 7 + [_F, _I, _F, _I, _I, _P]},
+    "split_kv_decode": {
+        "split_kv_decode_partials": [_P] * 7 + [_I] * 6 + [_F, _I, _P]},
 }
 
-LAUNCHES: Dict[str, int] = {"paged_decode_partials": 0, "flash_prefill": 0,
+LAUNCHES: Dict[str, int] = {"paged_decode_partials": 0,
+                            "paged_decode_partials_int8": 0,
+                            "flash_prefill": 0,
                             "paged_prefix_partials": 0,
-                            "paged_verify_partials": 0}
+                            "paged_verify_partials": 0,
+                            "paged_verify_partials_int8": 0,
+                            "split_kv_decode_partials": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -124,19 +136,20 @@ def lib(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         path = build([name])[name]
         cdll = ctypes.CDLL(str(path))
-        fn_name, argtypes = KERNELS[name]
-        fn = getattr(cdll, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in KERNELS[name].items():
+            fn = getattr(cdll, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = cdll
     return _loaded[name]
 
 
-def launch(name: str, counter: str, *args) -> None:
-    """Call a kernel's C entry point on the current stream and count the
-    launch.  Raises when the launch was refused (the entry point returns
+def launch(name: str, fn_name: str, counter: str, *args) -> None:
+    """Call the C entry point ``fn_name`` of library ``name`` on the
+    current stream and count the launch under ``counter``.  Raises when
+    the launch was refused (the entry point returns
     ``cudaGetLastError()``)."""
-    fn = getattr(lib(name), KERNELS[name][0])
+    fn = getattr(lib(name), fn_name)
     err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(f"{counter}: CUDA launch failed with "
@@ -166,6 +179,28 @@ def dtype_code(name: str, *tensors: torch.Tensor) -> int:
     return DTYPE_CODES[dt]
 
 
+def pool_args(name: str, q: torch.Tensor, k_pages: torch.Tensor,
+              v_pages: torch.Tensor, k_scale_pages: Optional[torch.Tensor],
+              v_scale_pages: Optional[torch.Tensor]) -> tuple:
+    """Check a page kernel's pools: K/V of q's dtype, or int8 with f32
+    scale pools (P, bs, KV) on q's device.  Returns (q's dtype code, the
+    scale pools or ())."""
+    if k_scale_pages is None and v_scale_pages is None:
+        return dtype_code(name, q, k_pages, v_pages), ()
+    if k_scale_pages is None or v_scale_pages is None:
+        raise ValueError(f"{name}: give both scale pools or neither")
+    check_cuda(name, q, k_scale_pages, v_scale_pages)
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise ValueError(f"{name}: scale pools go with int8 K/V pools, got "
+                         f"{k_pages.dtype} / {v_pages.dtype}")
+    for t in (k_scale_pages, v_scale_pages):
+        if t.dtype != torch.float32 or t.shape != k_pages.shape[:3]:
+            raise ValueError(f"{name}: scale pools must be float32 of shape "
+                             f"{tuple(k_pages.shape[:3])}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    return dtype_code(name, q), (k_scale_pages, v_scale_pages)
+
+
 def check_int32(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.dtype != torch.int32:
@@ -177,21 +212,27 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def page_partials(lib_name: str, counter: str, q: torch.Tensor,
-                  k_pages: torch.Tensor, v_pages: torch.Tensor,
-                  pos_pages: torch.Tensor, block_tables: torch.Tensor,
-                  pos_q: torch.Tensor, window: Optional[int],
-                  scale: Optional[float], soft_cap: Optional[float]):
-    """Check and launch one of the multi-query page kernels (paged prefix,
-    speculative verify) that share the body of ``paged_partials.cuh`` and
-    one C signature.  q: (B, S, H, D); k/v_pages: (P, bs, KV, D);
-    pos_pages: (P, bs) int32; block_tables: (B, nb) int32; pos_q: (B, S)
-    int32.  Returns o (B, nb, S, H, D), l/m (B, nb, S, H), f32."""
+def page_partials(lib_name: str, fn_name: str, counter: str,
+                  q: torch.Tensor, k_pages: torch.Tensor,
+                  v_pages: torch.Tensor, pos_pages: torch.Tensor,
+                  block_tables: torch.Tensor, pos_q: torch.Tensor,
+                  window: Optional[int], scale: Optional[float],
+                  soft_cap: Optional[float],
+                  k_scale_pages: Optional[torch.Tensor] = None,
+                  v_scale_pages: Optional[torch.Tensor] = None):
+    """Check and launch one of the page kernels that share the body of
+    ``paged_partials.cuh`` (paged decode with S = 1, paged prefix,
+    speculative verify); ``fn_name`` is the C entry point, its ``_q8``
+    variant when scale pools are given.  q: (B, S, H, D); k/v_pages: (P,
+    bs, KV, D); pos_pages: (P, bs) int32; block_tables: (B, nb) int32;
+    pos_q: (B, S) int32; the decode entry takes S = 1.
+    Returns o (B, nb, S, H, D), l/m (B, nb, S, H), f32."""
     q, block_tables, pos_q = (q.contiguous(), block_tables.contiguous(),
                               pos_q.contiguous())
     dev = check_cuda(counter, q, k_pages, v_pages, pos_pages, block_tables,
                      pos_q)
-    code = dtype_code(counter, q, k_pages, v_pages)
+    code, scales = pool_args(counter, q, k_pages, v_pages, k_scale_pages,
+                             v_scale_pages)
     check_int32(counter, pos_pages, block_tables, pos_q)
     b, s, h, d = q.shape
     _, bs, kv, dk = k_pages.shape
@@ -209,9 +250,9 @@ def page_partials(lib_name: str, counter: str, q: torch.Tensor,
     l = torch.empty((b, nb, s, h), dtype=torch.float32, device=dev)
     m = torch.empty((b, nb, s, h), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        launch(lib_name, counter,
-               *map(ptr, (q, k_pages, v_pages, pos_pages, block_tables,
-                          pos_q, o, l, m)),
+        launch(lib_name, fn_name + ("_q8" if scales else ""), counter,
+               *map(ptr, (q, k_pages, v_pages) + scales
+                    + (pos_pages, block_tables, pos_q, o, l, m)),
                b, s, h, kv, d, bs, nb, scale, win, cap, code)
     return o, l, m
 

@@ -4,8 +4,9 @@
 // combines over the page axis.
 //
 // Replaces the TPU kernel src/repro/kernels/split_kv_decode.py
-// (_paged_verify_kernel / paged_verify_partials, bf16 and f32 pools; the
-// int8-page variant is not ported yet).  The arithmetic is the paged-prefix
+// (_paged_verify_kernel / paged_verify_partials): bf16 and f32 pools
+// (paged_verify_partials) and int8 pools with per-entry f32 scales
+// (paged_verify_partials_q8, int8-KV speculation).  The arithmetic is the paged-prefix
 // kernel's, so the body is the shared page kernel of paged_partials.cuh,
 // instantiated under its own tag (own kernel symbol in a trace):
 // one block per (sequence, page slot, kv head), the page's K/V head slice
@@ -42,4 +43,16 @@ extern "C" int paged_verify_partials(const void* q, const void* k_pages,
   return repro::page_partials_entry<repro::PagedVerify>(
       q, k_pages, v_pages, pos_pages, tables, pos_q, o, l, m, B, S, H, KV, D,
       bs, nb, scale, window, soft_cap, dtype, stream);
+}
+
+// int8 pools (P, bs, KV, D) with k/v_scale (P, bs, KV) f32; q of dtype.
+extern "C" int paged_verify_partials_q8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* pos_pages,
+    const void* tables, const void* pos_q, void* o, void* l, void* m, int B,
+    int S, int H, int KV, int D, int bs, int nb, float scale, int window,
+    float soft_cap, int dtype, void* stream) {
+  return repro::page_partials_q8_entry<repro::PagedVerify>(
+      q, k_pages, v_pages, k_scale, v_scale, pos_pages, tables, pos_q, o, l,
+      m, B, S, H, KV, D, bs, nb, scale, window, soft_cap, dtype, stream);
 }

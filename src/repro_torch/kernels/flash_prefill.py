@@ -59,7 +59,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = torch.empty_like(q)
         l = m = o             # not written by the normalized kernel
     with torch.cuda.device(dev):
-        _lib.launch("flash_prefill", FLASH,
+        _lib.launch("flash_prefill", FLASH, FLASH,
                     *map(_lib.ptr, (q, k, v, o, l, m)),
                     b, s, length, h, kv, d, int(seq_offset), scale, win, cap,
                     int(return_partials), code)
@@ -81,6 +81,6 @@ def paged_prefix_partials(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_prefix_partials_plain(
             q, k_pages, v_pages, pos_pages, block_tables, positions,
             window=window, scale=scale, soft_cap=soft_cap)
-    return _lib.page_partials("paged_prefix", PREFIX, q, k_pages, v_pages,
-                              pos_pages, block_tables, positions, window,
-                              scale, soft_cap)
+    return _lib.page_partials("paged_prefix", PREFIX, PREFIX, q, k_pages,
+                              v_pages, pos_pages, block_tables, positions,
+                              window, scale, soft_cap)

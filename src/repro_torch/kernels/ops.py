@@ -16,14 +16,16 @@ import torch.nn.functional as F
 from ..core.attention_offload import combine_stacked
 from ._lib import LAUNCHES, reset_launches
 from .flash_prefill import flash_prefill, paged_prefix_partials
-from .split_kv_decode import paged_decode_partials, paged_verify_partials
+from .split_kv_decode import (paged_decode_partials, paged_verify_partials,
+                              split_kv_decode_partials)
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention",
-           "paged_decode_attention", "paged_verify_attention",
-           "paged_prefill_attention"]
+           "decode_attention", "decode_partials", "paged_decode_attention",
+           "paged_verify_attention", "paged_prefill_attention"]
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    """Zero-pad (False for a bool tensor) ``axis`` to a multiple."""
     pad = (-x.shape[axis]) % mult
     if pad == 0:
         return x
@@ -61,19 +63,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :s]
 
 
+def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    valid: torch.Tensor, *, block_k: int = 512):
+    """Raw per-block partials of single-token decode over a dense cache —
+    what attention-level migration ships across devices.  Pads L to a
+    multiple of bk = min(block_k, L) with invalid keys.  q: (B, H, D);
+    k, v: (B, L, KV, D); valid: (B, L) bool.  Returns o (B, J, H, D),
+    l/m (B, J, H), f32."""
+    bk = min(block_k, k.shape[1])
+    return split_kv_decode_partials(
+        q, _pad_to(k, 1, bk), _pad_to(v, 1, bk),
+        _pad_to(valid.bool(), 1, bk), block_k=bk)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor, *,
+                     block_k: int = 512) -> torch.Tensor:
+    """Single-token decode attention over a (ring or linear) dense cache:
+    per-block partials from ``split_kv_decode_partials``, combined exactly
+    over the block axis (flash decoding).  q: (B, H, D); k, v:
+    (B, L, KV, D); valid: (B, L) bool.  Returns (B, H, D) in q's dtype."""
+    o, l, m = decode_partials(q, k, v, valid, block_k=block_k)
+    out = combine_stacked((o.movedim(1, 0), l.movedim(1, 0),
+                           m.movedim(1, 0)))
+    return out.to(q.dtype)
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, pos_pages: torch.Tensor,
                            block_tables: torch.Tensor, pos_q: torch.Tensor, *,
                            window: Optional[int] = None,
                            scale: Optional[float] = None,
-                           soft_cap: Optional[float] = None) -> torch.Tensor:
+                           soft_cap: Optional[float] = None,
+                           k_scale_pages: Optional[torch.Tensor] = None,
+                           v_scale_pages: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Page-fused decode straight out of the block pool: per-page partials
     from ``paged_decode_partials``, combined exactly over the page axis.
-    q: (B, H, D); k/v_pages: (P, bs, KV, D); pos_pages: (P, bs);
+    q: (B, H, D); k/v_pages: (P, bs, KV, D), or int8 with k/v_scale_pages
+    (P, bs, KV) f32 (dequantized in the kernel); pos_pages: (P, bs);
     block_tables: (B, nb); pos_q: (B,).  Returns (B, H, D) in q's dtype."""
     o, l, m = paged_decode_partials(q, k_pages, v_pages, pos_pages,
                                     block_tables, pos_q, window=window,
-                                    scale=scale, soft_cap=soft_cap)
+                                    scale=scale, soft_cap=soft_cap,
+                                    k_scale_pages=k_scale_pages,
+                                    v_scale_pages=v_scale_pages)
     out = combine_stacked((o.movedim(1, 0), l.movedim(1, 0),
                            m.movedim(1, 0)))
     return out.to(q.dtype)
@@ -84,16 +118,22 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            block_tables: torch.Tensor, pos_q: torch.Tensor, *,
                            window: Optional[int] = None,
                            scale: Optional[float] = None,
-                           soft_cap: Optional[float] = None) -> torch.Tensor:
+                           soft_cap: Optional[float] = None,
+                           k_scale_pages: Optional[torch.Tensor] = None,
+                           v_scale_pages: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Speculative verification straight out of the block pool: S queries
     per row (each at its own position, so the causal order among the
     in-flight tokens is the position test) from ``paged_verify_partials``,
     combined exactly over the page axis.  q: (B, S, H, D);
-    k/v_pages: (P, bs, KV, D); pos_pages: (P, bs); block_tables: (B, nb);
-    pos_q: (B, S).  Returns (B, S, H, D) in q's dtype."""
+    k/v_pages: (P, bs, KV, D), or int8 with k/v_scale_pages (P, bs, KV);
+    pos_pages: (P, bs); block_tables: (B, nb); pos_q: (B, S).  Returns
+    (B, S, H, D) in q's dtype."""
     o, l, m = paged_verify_partials(q, k_pages, v_pages, pos_pages,
                                     block_tables, pos_q, window=window,
-                                    scale=scale, soft_cap=soft_cap)
+                                    scale=scale, soft_cap=soft_cap,
+                                    k_scale_pages=k_scale_pages,
+                                    v_scale_pages=v_scale_pages)
     out = combine_stacked((o.movedim(1, 0), l.movedim(1, 0),
                            m.movedim(1, 0)))
     return out.to(q.dtype)

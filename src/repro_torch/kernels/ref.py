@@ -4,7 +4,7 @@ Two kinds of function live here:
 
 * **Oracles** — gather-then-attend, one monolithic softmax per query, the
   plainest formulation (``flash_prefill_reference``,
-  ``paged_decode_attention_reference``,
+  ``decode_attention_reference``, ``paged_decode_attention_reference``,
   ``paged_verify_attention_reference``,
   ``paged_prefill_attention_reference``).  Tests hold the kernels' combined
   outputs against them.
@@ -17,6 +17,11 @@ Two kinds of function live here:
   ``chip_smoke.py`` compares each kernel with its plain form on the card.
 
 All arithmetic is float32 whatever the input type, as in the kernels.
+int8 pools (``k_scale_pages``/``v_scale_pages`` given, one f32 scale per
+(token entry, kv head)) fold their scales where the JAX kernels do: the K
+scale multiplies the scores after ``* scale`` and before the soft cap; ``l``
+is summed from ``p`` before the V scale multiplies ``p`` ahead of the PV
+product.
 """
 from __future__ import annotations
 
@@ -45,12 +50,15 @@ def paged_prefix_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                 positions: torch.Tensor, *,
                                 window: Optional[int] = None,
                                 scale: Optional[float] = None,
-                                soft_cap: Optional[float] = None
+                                soft_cap: Optional[float] = None,
+                                k_scale_pages: Optional[torch.Tensor] = None,
+                                v_scale_pages: Optional[torch.Tensor] = None
                                 ) -> Partials:
     """Per-page partials of S queries per row against block-table-steered
-    pages.  q: (B, S, H, D); k/v_pages: (P, bs, KV, D); pos_pages: (P, bs);
-    block_tables: (B, nb) (-1 = dead); positions: (B, S) absolute query
-    positions.  Returns o (B, nb, S, H, D), l/m (B, nb, S, H), f32."""
+    pages.  q: (B, S, H, D); k/v_pages: (P, bs, KV, D), or int8 with
+    k/v_scale_pages (P, bs, KV) f32; pos_pages: (P, bs); block_tables:
+    (B, nb) (-1 = dead); positions: (B, S) absolute query positions.
+    Returns o (B, nb, S, H, D), l/m (B, nb, S, H), f32."""
     b, s, h, d = q.shape
     kv = k_pages.shape[2]
     nb = block_tables.shape[1]
@@ -68,14 +76,26 @@ def paged_prefix_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
     mask = mask[:, :, None, None]                    # (B, nb, 1, 1, S, bs)
     qg = q.float().reshape(b, s, kv, g, d)
     sc = torch.einsum("bskgd,bjtkd->bjkgst", qg, k) * scale
+    if k_scale_pages is not None:                    # (B, nb, KV, 1, 1, bs)
+        sc = sc * _page_scales(k_scale_pages, safe)
     sc = torch.where(mask, _soft_cap(sc, soft_cap), NEG_INF)
     m = sc.amax(dim=-1)                              # (B, nb, KV, G, S)
     p = torch.where(mask, torch.exp(sc - m[..., None]), 0.0)
     l = p.sum(dim=-1)
+    if v_scale_pages is not None:
+        p = p * _page_scales(v_scale_pages, safe)
     o = torch.einsum("bjkgst,bjtkd->bjskgd", p, v)   # (B, nb, S, KV, G, D)
     return (o.reshape(b, nb, s, h, d),
             l.permute(0, 1, 4, 2, 3).reshape(b, nb, s, h),
             m.permute(0, 1, 4, 2, 3).reshape(b, nb, s, h))
+
+
+def _page_scales(scale_pages: torch.Tensor,
+                 safe: torch.Tensor) -> torch.Tensor:
+    """(P, bs, KV) scale pools gathered through the table, shaped to
+    broadcast against (B, nb, KV, G, S, bs) scores."""
+    return scale_pages[safe].float().permute(0, 1, 3, 2)[:, :, :, None,
+                                                         None, :]
 
 
 def paged_decode_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -85,14 +105,17 @@ def paged_decode_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                 pos_q: torch.Tensor, *,
                                 window: Optional[int] = None,
                                 scale: Optional[float] = None,
-                                soft_cap: Optional[float] = None
+                                soft_cap: Optional[float] = None,
+                                k_scale_pages: Optional[torch.Tensor] = None,
+                                v_scale_pages: Optional[torch.Tensor] = None
                                 ) -> Partials:
     """Single-query decode form: q (B, H, D), pos_q (B,).  The mask
     ``table >= 0 & pos >= 0 & pos <= pq (& window)`` is the prefix form's
     with S = 1.  Returns o (B, nb, H, D), l/m (B, nb, H), f32."""
     o, l, m = paged_prefix_partials_plain(
         q[:, None], k_pages, v_pages, pos_pages, block_tables,
-        pos_q[:, None], window=window, scale=scale, soft_cap=soft_cap)
+        pos_q[:, None], window=window, scale=scale, soft_cap=soft_cap,
+        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
     return o[:, :, 0], l[:, :, 0], m[:, :, 0]
 
 
@@ -103,7 +126,9 @@ def paged_verify_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                 pos_q: torch.Tensor, *,
                                 window: Optional[int] = None,
                                 scale: Optional[float] = None,
-                                soft_cap: Optional[float] = None
+                                soft_cap: Optional[float] = None,
+                                k_scale_pages: Optional[torch.Tensor] = None,
+                                v_scale_pages: Optional[torch.Tensor] = None
                                 ) -> Partials:
     """Speculative-verify form: S queries per row (the pending token and
     its proposals, already written into their pages), each with its own
@@ -114,7 +139,38 @@ def paged_verify_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
     arithmetic."""
     return paged_prefix_partials_plain(
         q, k_pages, v_pages, pos_pages, block_tables, pos_q, window=window,
-        scale=scale, soft_cap=soft_cap)
+        scale=scale, soft_cap=soft_cap, k_scale_pages=k_scale_pages,
+        v_scale_pages=v_scale_pages)
+
+
+def split_kv_decode_partials_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, valid: torch.Tensor, *,
+                                   block_k: int = 512,
+                                   scale: Optional[float] = None
+                                   ) -> Partials:
+    """Per-key-block partials of one decode query per row over a dense
+    cache.  q: (B, H, D); k, v: (B, L, KV, D); valid: (B, L) bool; L a
+    multiple of bk = min(block_k, L).  No soft cap, no window: the JAX
+    kernel has neither.  Returns o (B, J, H, D), l/m (B, J, H), f32."""
+    b, h, d = q.shape
+    length, kv = k.shape[1], k.shape[2]
+    bk = min(block_k, length)
+    if length % bk:
+        raise ValueError(f"L = {length} is not a multiple of block_k {bk}")
+    nj = length // bk
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, kv, h // kv, d)
+    kb = k.float().reshape(b, nj, bk, kv, d)
+    vb = v.float().reshape(b, nj, bk, kv, d)
+    mask = valid.bool().reshape(b, nj, 1, 1, bk)
+    sc = torch.einsum("bkgd,bjtkd->bjkgt", qg, kb) * scale
+    sc = torch.where(mask, sc, NEG_INF)
+    m = sc.amax(dim=-1)                              # (B, J, KV, G)
+    p = torch.where(mask, torch.exp(sc - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bjkgt,bjtkd->bjkgd", p, vb)
+    return o.reshape(b, nj, h, d), l.reshape(b, nj, h), m.reshape(b, nj, h)
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -185,6 +241,23 @@ def flash_prefill_reference(q: torch.Tensor, k: torch.Tensor,
     return o.reshape(b, s, h, d).to(q.dtype)
 
 
+def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, valid: torch.Tensor, *,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """Exact decode attention over a dense cache, one softmax per row.
+    q: (B, H, D); k, v: (B, L, KV, D); valid: (B, L) bool.  Returns
+    (B, H, D) in q's dtype."""
+    b, h, d = q.shape
+    kv = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, kv, h // kv, d)
+    sc = torch.einsum("bkgd,blkd->bkgl", qg, k.float()) * scale
+    p = _softmax_attend(sc, valid.bool()[:, None, None, :])
+    o = torch.einsum("bkgl,blkd->bkgd", p, v.float())
+    return o.reshape(b, h, d).to(q.dtype)
+
+
 def _gather_lin(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     b, nb = tables.shape
     lin = pages[tables.clamp_min(0).long()]
@@ -205,16 +278,23 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
                                      pos_q: torch.Tensor, *,
                                      window: Optional[int] = None,
                                      scale: Optional[float] = None,
-                                     soft_cap: Optional[float] = None
-                                     ) -> torch.Tensor:
-    """Gather-then-attend ground truth for page-fused decode.  q (B, H, D)
-    → (B, H, D) in q's dtype."""
+                                     soft_cap: Optional[float] = None,
+                                     k_scale_pages: Optional[torch.Tensor]
+                                     = None,
+                                     v_scale_pages: Optional[torch.Tensor]
+                                     = None) -> torch.Tensor:
+    """Gather-then-attend ground truth for page-fused decode: int8 pools
+    are dequantized after the gather.  q (B, H, D) → (B, H, D) in q's
+    dtype."""
     b, h, d = q.shape
     kv = k_pages.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     k_lin = _gather_lin(k_pages, block_tables).float()
     v_lin = _gather_lin(v_pages, block_tables).float()
+    if k_scale_pages is not None:
+        k_lin = k_lin * _gather_lin(k_scale_pages, block_tables)[..., None]
+        v_lin = v_lin * _gather_lin(v_scale_pages, block_tables)[..., None]
     pos_lin = _lin_positions(pos_pages, block_tables)
     pq = pos_q[:, None]
     valid = (pos_lin >= 0) & (pos_lin <= pq)
@@ -235,14 +315,18 @@ def paged_verify_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
                                      pos_q: torch.Tensor, *,
                                      window: Optional[int] = None,
                                      scale: Optional[float] = None,
-                                     soft_cap: Optional[float] = None
-                                     ) -> torch.Tensor:
+                                     soft_cap: Optional[float] = None,
+                                     k_scale_pages: Optional[torch.Tensor]
+                                     = None,
+                                     v_scale_pages: Optional[torch.Tensor]
+                                     = None) -> torch.Tensor:
     """Ground truth for speculative verification: each of the S queries
     is one independent single-token decode at its own position.
     q (B, S, H, D), pos_q (B, S) → (B, S, H, D) in q's dtype."""
     return torch.stack([paged_decode_attention_reference(
         q[:, s], k_pages, v_pages, pos_pages, block_tables, pos_q[:, s],
-        window=window, scale=scale, soft_cap=soft_cap)
+        window=window, scale=scale, soft_cap=soft_cap,
+        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
         for s in range(q.shape[1])], dim=1)
 
 

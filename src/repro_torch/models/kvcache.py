@@ -112,13 +112,18 @@ def insert_request_state(cache: Cache, row: int,
     return cache
 
 
+def global_attention(cfg: ModelConfig) -> bool:
+    """Pure global-attention stacks: every cache is linear over the whole
+    page space (no window, no recurrent state)."""
+    return (cfg.uses_kv_cache
+            and cfg.sliding_window is None
+            and all(b == BlockKind.ATTENTION for b in cfg.blocks()))
+
+
 def prefix_cacheable(cfg: ModelConfig) -> bool:
     """The prefix store applies to stacks whose attention caches are
     linear (pure global attention, no int8 KV)."""
-    return (cfg.uses_kv_cache
-            and cfg.sliding_window is None
-            and not cfg.kv_quant
-            and all(b == BlockKind.ATTENTION for b in cfg.blocks()))
+    return global_attention(cfg) and not cfg.kv_quant
 
 
 def state_num_bytes(st: RequestState) -> int:

@@ -12,8 +12,13 @@ Parameters are plain dicts of tensors with the JAX layouts (``wq``
 load leaf for leaf (``models/weights.py``).  Unlike JAX, cache updates are
 in place: the caller's cache tensors are written.
 
-Not ported yet (later slices): int8 KV, head offload, cross-attention, MoE
-and the recurrent blocks.
+int8 KV caches (a config's ``kv_quant``) store K/V as int8 with one f32
+scale per (token, kv head) in the ``k_scale``/``v_scale`` leaves
+(``quantize_kv``); attention folds the scales in (``masked_attention``,
+or kernels B1/B4's int8 variants on the paged path).
+
+Not ported yet (later slices): head offload, cross-attention, MoE and the
+recurrent blocks.
 """
 from __future__ import annotations
 
@@ -65,6 +70,17 @@ def dense_init(gen: torch.Generator, shape, dtype, device,
     return (w * scale).to(dtype)
 
 
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 quantization of K/V, as JAX's
+    ``layers.quantize_kv``: scale = max(amax over D, 1e-6) / 127, values
+    rounded half to even and clipped to +-127.  x: (B, S, KV, D) -> (int8
+    values, f32 scales (B, S, KV))."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, d) x (d, H, Dh) -> (B, S, H, Dh)."""
     b, s, d = x.shape
@@ -88,19 +104,30 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype,
     }
 
 
-def masked_attention(q, k, v, mask, scale, soft_cap=None) -> torch.Tensor:
+def masked_attention(q, k, v, mask, scale, soft_cap=None, k_scale=None,
+                     v_scale=None) -> torch.Tensor:
     """Plain GQA attention.  q: (B, S, H, D); k, v: (B, L, KV, D); mask
     broadcastable to (B, KV, G, S, L), True = attend.  Scores in q's dtype
-    (as JAX), softmax in f32, probabilities cast back to v's dtype."""
+    (as JAX), softmax in f32, probabilities cast back to v's dtype.
+
+    int8 K/V (with k_scale/v_scale (B, L, KV) f32) are cast to q's dtype;
+    the K scale multiplies the scores after ``* scale`` and before the soft
+    cap, the V scale the probabilities after the softmax — JAX's order."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, s, kvh, h // kvh, d)
-    scores = torch.einsum("bsgqd,blgd->bgqsl", qg, k) * scale
+    kc = k.to(q.dtype) if k.dtype == torch.int8 else k
+    scores = torch.einsum("bsgqd,blgd->bgqsl", qg, kc) * scale
+    if k_scale is not None:
+        scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     if soft_cap is not None:
         scores = torch.tanh(scores / soft_cap) * soft_cap
     scores = torch.where(mask, scores.float(), float("-inf"))
     probs = torch.nan_to_num(torch.softmax(scores, dim=-1), nan=0.0)
-    o = torch.einsum("bgqsl,blgd->bsgqd", probs.to(v.dtype), v)
+    if v_scale is not None:
+        probs = probs * v_scale.permute(0, 2, 1)[:, :, None, None, :]
+    vc = v.to(q.dtype) if v.dtype == torch.int8 else v
+    o = torch.einsum("bgqsl,blgd->bsgqd", probs.to(vc.dtype), vc)
     return o.reshape(b, s, h, d)
 
 
@@ -122,18 +149,21 @@ ATTN_BLOCK_Q = 512
 
 
 def attend(q, k, v, pos_q, pos_k, *, window: Optional[int], scale: float,
-           soft_cap: Optional[float] = None) -> torch.Tensor:
+           soft_cap: Optional[float] = None, k_scale=None,
+           v_scale=None) -> torch.Tensor:
     """Positional-masked GQA attention: attends where 0 <= pos_k <= pos_q
-    (& window).  q: (B, S, H, D); k, v: (B, L, KV, D); pos_q: (B, S);
-    pos_k: (B, L) (-1 = hole).  The plain formulation: the stateless
-    forward and the ``decode_kernel=False`` reference path use it."""
+    (& window).  q: (B, S, H, D); k, v: (B, L, KV, D), or int8 with
+    k_scale/v_scale (B, L, KV); pos_q: (B, S); pos_k: (B, L) (-1 = hole).
+    The plain formulation: the stateless forward and the
+    ``decode_kernel=False`` reference path use it."""
     s = q.shape[1]
+    kw = dict(k_scale=k_scale, v_scale=v_scale)
     if s <= ATTN_BLOCK_THRESHOLD:
         return masked_attention(q, k, v, causal_mask(pos_q, pos_k, window),
-                                scale, soft_cap)
+                                scale, soft_cap, **kw)
     outs = [masked_attention(q[:, i:i + ATTN_BLOCK_Q], k, v,
                              causal_mask(pos_q[:, i:i + ATTN_BLOCK_Q], pos_k,
-                                         window), scale, soft_cap)
+                                         window), scale, soft_cap, **kw)
             for i in range(0, s, ATTN_BLOCK_Q)]
     return torch.cat(outs, dim=1)
 
@@ -171,6 +201,13 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
       ``positions % cache_len``, then plain ``attend``, as the JAX package
       computes it outside any kernel.
 
+    An int8 cache (``k_scale``/``v_scale`` in ``state``) is written with
+    ``quantize_kv``'s values and scales at the same places; prefill still
+    attends over the unquantized K/V, every read after it through the
+    scales (kernels B1/B4's int8 variants, or plain ``attend``).  As in
+    JAX, an int8 cache has no prefix-aware (resume) prefill: it raises
+    ``ValueError``.
+
     Dead table entries (-1) write into the reserved scratch page 0, which
     every reader masks out.
     """
@@ -187,6 +224,18 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                    soft_cap=cap)
     else:
         cache_k, cache_v, slot_pos = state["k"], state["v"], state["pos"]
+        quant = "k_scale" in state
+        k_sc = state.get("k_scale")
+        v_sc = state.get("v_scale")
+        if quant and prefix_aware:
+            raise ValueError("an int8 KV cache has no prefix-aware "
+                             "(resume) prefill, as in the JAX package "
+                             "(int8 cache + prefix store not combined)")
+        # what the cache stores: int8 values and their scales, or K/V
+        k_w, v_w = k, v
+        if quant:
+            # K and V in one call: half the small kernels per layer
+            (k_w, v_w), (ks_w, vs_w) = quantize_kv(torch.stack((k, v)))
         paged = block_tables is not None and cache_k.shape[0] != b
         if mode == "prefill" and paged:
             if not prefix_aware:
@@ -218,9 +267,12 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                                     soft_cap=cap)
             rows = torch.arange(b, device=x.device)[:, None]
             write_pos = (positions % cache_len).long()
-            cache_k[rows, write_pos] = k
-            cache_v[rows, write_pos] = v
+            cache_k[rows, write_pos] = k_w
+            cache_v[rows, write_pos] = v_w
             slot_pos[rows, write_pos] = positions.to(slot_pos.dtype)
+            if quant:
+                k_sc[rows, write_pos] = ks_w
+                v_sc[rows, write_pos] = vs_w
         elif paged:
             bs_pg = cache_k.shape[1]
             nb = block_tables.shape[1]
@@ -229,19 +281,24 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             rows = torch.arange(b, device=x.device)[:, None]
             wblk = block_tables[rows, slot_off // bs_pg].clamp_min(0).long()
             off = (slot_off % bs_pg).long()
-            cache_k[wblk, off] = k
-            cache_v[wblk, off] = v
+            cache_k[wblk, off] = k_w
+            cache_v[wblk, off] = v_w
             slot_pos[wblk, off] = positions.to(slot_pos.dtype)
+            if quant:
+                k_sc[wblk, off] = ks_w
+                v_sc[wblk, off] = vs_w
+            scales = dict(k_scale_pages=k_sc, v_scale_pages=v_sc)
             if paged_kernel and s == 1:
                 o = ops.paged_decode_attention(
                     q[:, 0].contiguous(), cache_k, cache_v, slot_pos,
                     block_tables, positions[:, 0].to(torch.int32),
-                    window=window, scale=scale, soft_cap=cap)[:, None]
+                    window=window, scale=scale, soft_cap=cap,
+                    **scales)[:, None]
             elif paged_kernel:
                 o = ops.paged_verify_attention(
                     q.contiguous(), cache_k, cache_v, slot_pos, block_tables,
                     positions.to(torch.int32), window=window, scale=scale,
-                    soft_cap=cap)
+                    soft_cap=cap, **scales)
             else:
                 safe = block_tables.clamp_min(0).long()
                 kvh, hd = cache_k.shape[-2], cache_k.shape[-1]
@@ -250,19 +307,29 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                 pos_lin = torch.where((block_tables >= 0)[:, :, None],
                                       slot_pos[safe], -1).reshape(b, plen)
                 o = attend(q, k_lin, v_lin, positions, pos_lin,
-                           window=window, scale=scale, soft_cap=cap)
+                           window=window, scale=scale, soft_cap=cap,
+                           k_scale=(k_sc[safe].reshape(b, plen, kvh)
+                                    if quant else None),
+                           v_scale=(v_sc[safe].reshape(b, plen, kvh)
+                                    if quant else None))
         else:
             # dense per-row cache (the draft model's): ring write at
             # positions % cache_len, then plain attention over the row
             cache_len = cache_k.shape[1]
             rows = torch.arange(b, device=x.device)[:, None]
             write_pos = (positions % cache_len).long()
-            cache_k[rows, write_pos] = k
-            cache_v[rows, write_pos] = v
+            cache_k[rows, write_pos] = k_w
+            cache_v[rows, write_pos] = v_w
             slot_pos[rows, write_pos] = positions.to(slot_pos.dtype)
+            if quant:
+                k_sc[rows, write_pos] = ks_w
+                v_sc[rows, write_pos] = vs_w
             o = attend(q, cache_k, cache_v, positions, slot_pos,
-                       window=window, scale=scale, soft_cap=cap)
+                       window=window, scale=scale, soft_cap=cap,
+                       k_scale=k_sc, v_scale=v_sc)
         new_state = {"k": cache_k, "v": cache_v, "pos": slot_pos}
+        if quant:
+            new_state.update(k_scale=k_sc, v_scale=v_sc)
 
     wo = p["wo"]
     y = (o.reshape(b * s, -1) @ wo.reshape(-1, wo.shape[-1])).reshape(b, s, -1)

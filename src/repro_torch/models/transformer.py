@@ -19,8 +19,10 @@ Public API
     logits, cache, aux = apply(cfg, params, tokens, cache=..., mode=...)
 
 This slice runs attention-only stacks (global or sliding-window attention
-with a gated MLP); other block kinds, MoE, cross-attention and int8 KV
-raise ``NotImplementedError`` (ROADMAP A9, A10).
+with a gated MLP), with bf16/f32 or int8 KV caches (``kv_quant``: int8
+``k``/``v`` leaves plus f32 ``k_scale``/``v_scale`` leaves); other block
+kinds, MoE and cross-attention raise ``NotImplementedError`` (ROADMAP
+A10).
 """
 from __future__ import annotations
 
@@ -47,12 +49,10 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("MoE")
     if cfg.cross_attention:
         missing.append("cross-attention")
-    if cfg.kv_quant:
-        missing.append("int8 KV")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet "
-            "(ROADMAP A9, A10: a later slice of the port)")
+            "(ROADMAP A10: a later slice of the port)")
 
 
 def _group_shapes(cfg: ModelConfig):
@@ -142,20 +142,30 @@ def _cache_len(cfg: ModelConfig, kind: BlockKind, max_len: int) -> int:
 
 def _block_state(cfg: ModelConfig, kind: BlockKind, lead: Tuple[int, ...],
                  length: int, dtype, dev) -> Dict[str, torch.Tensor]:
+    """One attention cache: (lead..., length, KV, D) keys/values of
+    ``dtype`` (int8 with ``kv_quant``, plus (lead..., length, KV) f32
+    scales) and (lead..., length) positions, -1 = empty."""
     shape = lead + (length,)
-    return {
-        "k": torch.zeros(shape + (cfg.n_kv_heads, cfg.head_dim), dtype=dtype,
-                         device=dev),
-        "v": torch.zeros(shape + (cfg.n_kv_heads, cfg.head_dim), dtype=dtype,
-                         device=dev),
+    kv_dtype = torch.int8 if cfg.kv_quant else dtype
+    st = {
+        "k": torch.zeros(shape + (cfg.n_kv_heads, cfg.head_dim),
+                         dtype=kv_dtype, device=dev),
+        "v": torch.zeros(shape + (cfg.n_kv_heads, cfg.head_dim),
+                         dtype=kv_dtype, device=dev),
         "pos": torch.full(shape, -1, dtype=torch.int32, device=dev),
     }
+    if cfg.kv_quant:
+        for key in ("k_scale", "v_scale"):
+            st[key] = torch.zeros(shape + (cfg.n_kv_heads,),
+                                  dtype=torch.float32, device=dev)
+    return st
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device: D.DeviceLike = None) -> Cache:
     """Blank dense serving cache: per layer (B, L, KV, D) keys/values and
-    (B, L) positions (-1 = empty), stacked per group."""
+    (B, L) positions (-1 = empty), with ``kv_quant`` int8 keys/values and
+    (B, L, KV) f32 scales, stacked per group."""
     check_supported(cfg)
     dev = D.resolve(device)
     pat, n_rep, rem = _group_shapes(cfg)
@@ -176,7 +186,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Blank serving cache in the paged block-pool layout: attention caches
     as long as the page space become pools (1 + batch * nb pages of
     ``block_size``; page 0 is the reserved scratch page), all block tables
-    empty (-1).  Shorter (windowed) caches stay per-row."""
+    empty (-1).  Shorter (windowed) caches stay per-row.  With
+    ``kv_quant`` the K/V pools are int8 and the scale pools (.., n_pages,
+    block_size, KV) f32, all zero."""
     check_supported(cfg)
     dev = D.resolve(device)
     pat, n_rep, rem = _group_shapes(cfg)
@@ -242,9 +254,10 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     ``logits_at`` (B,) index when given.  A cache carrying "block_tables"
     is a paged block-pool cache: decode writes the S new tokens into their
     pages and attends over the pages (``paged_kernel=True``: kernel B1 for
-    S == 1, kernel B4 for the S > 1 speculative verify step; False:
-    gather-then-attend, the A/B reference); prefill on it is the
-    incremental resume (``prefix_aware=True``; kernels B3 + B2).  Fresh
+    S == 1, kernel B4 for the S > 1 speculative verify step, their int8
+    variants on an int8 cache; False: gather-then-attend, the A/B
+    reference); prefill on it is the incremental resume
+    (``prefix_aware=True``; kernels B3 + B2; not for an int8 cache).  Fresh
     prefill over a dense cache runs kernel B2; decode over a dense cache
     (the draft model's) is plain attention.  Decode positions are
     ``lengths + arange(S)`` and the returned lengths advance by S.

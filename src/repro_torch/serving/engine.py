@@ -23,8 +23,11 @@ tokens' fresh pages back through the pool.
 
 Both mirror the JAX package's ``serving/engine.py`` (full-stack engines)
 and report ``core.scheduling.LoadReport``s for the routers.  This slice
-serves pageable, prefix-cacheable attention stacks only; other stacks
-raise ``NotImplementedError``.
+serves pageable global-attention stacks, with bf16/f32 or int8 KV caches
+(``kv_quant``: int8 pages plus f32 scale pages, read by the int8 variants
+of kernels B1 and B4); other stacks raise ``NotImplementedError``.  As in
+the JAX package, an int8 stack has no prefix store and cannot resume a
+prompt chunk by chunk.
 """
 from __future__ import annotations
 
@@ -87,11 +90,12 @@ def serving_page_len(cfg: ModelConfig, max_len: int) -> Optional[int]:
 
 
 def check_servable(cfg: ModelConfig, ecfg: EngineConfig) -> int:
-    """The page length of a stack this slice serves; raises
-    ``NotImplementedError`` otherwise (no dense fallback)."""
+    """The page length of a stack this slice serves (pageable global
+    attention, bf16/f32 or int8 KV); raises ``NotImplementedError``
+    otherwise (no dense fallback)."""
     T.check_supported(cfg)
     plen = serving_page_len(cfg, ecfg.max_len)
-    if not KC.prefix_cacheable(cfg) or plen is None \
+    if not KC.global_attention(cfg) or plen is None \
             or plen % ecfg.block_size:
         raise NotImplementedError(
             f"{cfg.name}: the port serves pageable global-attention stacks "
@@ -220,7 +224,9 @@ class PrefillEngine:
         self.params = params
         self.ecfg = ecfg
         self.dtype = params["embed"].dtype
-        self.store = store
+        # the store holds pages of linear bf16/f32 caches only (JAX drops
+        # it the same way for int8 KV)
+        self.store = store if KC.prefix_cacheable(cfg) else None
         self.name = name
         self.queue: Deque[Request] = deque()   # routed, not yet prefilled
         self.tokens_prefilled = 0         # suffix tokens actually computed
@@ -308,16 +314,30 @@ class PrefillEngine:
     # -- prefill -----------------------------------------------------------
     def prefill_waves(self, reqs: List[Request],
                       chunk_tokens: Optional[int] = None):
-        """Generator form of the prefill wave loop: one forward per
-        ``next()``.  Same wave semantics as the JAX engine: bucket by
-        (padded suffix length, prefix hit), defer duplicate uncached
-        prefixes, cap at ``max_batch`` rows, pad rows to a power of two;
-        with ``chunk_tokens`` a row computes at most that many prompt
-        tokens per wave and resumes through the paged incremental path.
+        """Generator of the prefill wave loop: one forward per ``next()``.
+        Same wave semantics as the JAX engine: bucket by (padded suffix
+        length, prefix hit), defer duplicate uncached prefixes, cap at
+        ``max_batch`` rows, pad rows to a power of two; with
+        ``chunk_tokens`` a row computes at most that many prompt tokens
+        per wave and resumes through the paged incremental path.
 
         Yields ``{"rows", "padded_len", "tokens", "done": [(index into
-        reqs, paged request state, last-token logits)]}``."""
+        reqs, paged request state, last-token logits)]}``.  An int8-KV
+        stack cannot resume a prompt (the JAX engine fails at its ``int8
+        cache + prefix store not combined`` assert): a prompt longer than
+        ``chunk_tokens`` raises ``ValueError`` here, before any work."""
         chunk = max(int(chunk_tokens), 1) if chunk_tokens else None
+        if self.cfg.kv_quant and chunk is not None:
+            long = [r.rid for r in reqs if r.prompt_len > chunk]
+            if long:
+                raise ValueError(
+                    f"{self.cfg.name}: int8 KV cannot resume prefill chunk "
+                    f"by chunk (JAX asserts 'int8 cache + prefix store not "
+                    f"combined'); requests {long} have prompts longer than "
+                    f"chunk_tokens={chunk}")
+        return self._waves(reqs, chunk)
+
+    def _waves(self, reqs: List[Request], chunk: Optional[int]):
         for req in reqs:
             req.advance(Phase.PREFILL)
         bs = self.ecfg.block_size

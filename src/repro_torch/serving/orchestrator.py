@@ -17,8 +17,10 @@ Events:
   slots) and runs ONE prefill wave per event; with ``chunk_tokens`` long
   prompts split into successive chunk waves.  A finished request's paged
   state is handed off to the least-loaded decode engine, billed as the
-  §4.2 layer-wise overlapped transfer; prefix pages already resident in
-  the target's pool are bound by reference instead of copied.
+  §4.2 layer-wise overlapped transfer of the state's bytes (half of them
+  for int8 KV); prefix pages already resident in the target's pool are
+  bound by reference instead of copied (prefix-cacheable stacks only: an
+  int8-KV stack has no store pages to bind).
 * ``decode_kick`` / ``decode_done`` — a decode engine runs one
   continuous-batching iteration per event.  With speculation configured,
   each kick decides speculate-or-plain from the analytical cost per
@@ -495,7 +497,9 @@ class Orchestrator(BackendBase):
             s["hbm_pages_peak"] = sum(u.pool.peak_used
                                       for u in self.decode_units())
         else:
-            stores = [m.prefill.store for m in self.prefill_members()]
+            # per-instance caches; an int8-KV stack's engines hold none
+            stores = [m.prefill.store for m in self.prefill_members()
+                      if m.prefill.store is not None]
             hits = sum(st.stats.hit_blocks for st in stores)
             tot = hits + sum(st.stats.miss_blocks for st in stores)
             s["store_hit_rate"] = hits / tot if tot else 0.0

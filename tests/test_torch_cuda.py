@@ -12,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                paged_prefix_partials)
 from repro_torch.kernels.split_kv_decode import (paged_decode_partials,
-                                                 paged_verify_partials)
+                                                 paged_verify_partials,
+                                                 split_kv_decode_partials)
+
+KEYS = ("q", "k_pages", "v_pages", "pos_pages", "block_tables", "pos_q")
 
 
 def paged_case(seed, b, h, kv, d, bs, nb, s=None, hole=True):
@@ -89,6 +92,33 @@ def verify_case(seed, b, s, h, kv, d, bs, nb, stale=2):
     pos_q = (live[:, None] + np.arange(s)[None]).astype(np.int32)
     return dict(q=q, k_pages=k_pages, v_pages=v_pages, pos_pages=pos_pages,
                 block_tables=tables, pos_q=pos_q)
+
+
+def quantize_pages(c):
+    """The case with its K/V pools stored as int8 plus one f32 scale per
+    (entry, kv head): the grid ``quantize_kv`` writes (amax over D,
+    max(amax, 1e-6) / 127, round half to even, clip to +-127)."""
+    out = dict(c)
+    for name in ("k", "v"):
+        x = c[f"{name}_pages"].astype(np.float32)
+        sc = (np.maximum(np.abs(x).max(-1), np.float32(1e-6))
+              / np.float32(127.0)).astype(np.float32)
+        out[f"{name}_pages"] = np.clip(np.round(x / sc[..., None]), -127,
+                                       127).astype(np.int8)
+        out[f"{name}_scale_pages"] = sc
+    return out
+
+
+def decode_case(seed, b, h, kv, d, length):
+    """Dense-cache decode: q (B, H, D), k/v (B, L, KV, D) and a ragged
+    validity mask (each row valid up to its own length, plus holes)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, length + 1, b)
+    valid = np.arange(length)[None, :] < lens[:, None]
+    valid &= rng.random((b, length)) > 0.1
+    return (rng.normal(size=(b, h, d)).astype(np.float32),
+            rng.normal(size=(b, length, kv, d)).astype(np.float32),
+            rng.normal(size=(b, length, kv, d)).astype(np.float32), valid)
 
 
 def dense_case(seed, b, s, length, h, kv, d):
@@ -168,3 +198,83 @@ def test_cuda_verify_kernel_vs_plain(s, dtype, d):
         want = ref.paged_verify_partials_plain(*a, window=win, soft_cap=cap)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def _on_card(c, dt):
+    """A case's arrays on the card: q in ``dt``, float pools in ``dt`` (int8
+    pools stay int8, scale pools f32), indices as they are."""
+    out = {k: torch.as_tensor(c[k]).cuda() for k in c}
+    for k in ("q", "k_pages", "v_pages"):
+        if out[k].is_floating_point():
+            out[k] = out[k].to(dt)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_int8_page_kernels_vs_plain(dtype, d):
+    """The int8-pool variants of B1 and B4 against their plain versions:
+    GQA, window and soft cap (the K scale folds in before the cap), scales
+    far from 1, dead entries, holes, an empty slot and stale tokens.  Both
+    sides dequantize into f32 from the same int8 values: 1e-4.  Scale
+    pools that are not float32 are refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    cases = [(paged_decode_partials, ref.paged_decode_partials_plain,
+              paged_case(16, 4, 8, 2, d, 16, 16)),
+             (paged_verify_partials, ref.paged_verify_partials_plain,
+              verify_case(17, 4, 5, 8, 2, d, 16, 16))]
+    for kernel, plain, c in cases:
+        a = _on_card(quantize_pages(c), dt)
+        scales = dict(k_scale_pages=a["k_scale_pages"],
+                      v_scale_pages=a["v_scale_pages"])
+        for win, cap in ((None, None), (40, 30.0)):
+            got = kernel(*(a[k] for k in KEYS), window=win, soft_cap=cap,
+                         **scales)
+            torch.cuda.synchronize()
+            want = plain(*(a[k] for k in KEYS), window=win, soft_cap=cap,
+                         **scales)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        with pytest.raises(ValueError, match="scale pools"):
+            kernel(*(a[k] for k in KEYS), k_scale_pages=scales[
+                "k_scale_pages"].to(dt if dt != torch.float32
+                                    else torch.float64),
+                v_scale_pages=scales["v_scale_pages"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_split_kv_decode_vs_plain(dtype, d):
+    """B5, dense-cache split-KV decode, against its plain version (MHA and
+    GQA, a ragged last block, fully invalid blocks) and through
+    ``ops.decode_attention`` (L padded to the block) against the one-softmax
+    reference.  Partials: both sides in f32 from the same inputs, 1e-4;
+    the combined output in ``dtype``: 1e-4 in f32, one bf16 step (2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    for h, kv, length, bk in ((8, 8, 1024, 512), (8, 2, 600, 128)):
+        q, k, v, valid = decode_case(18, 3, h, kv, d, length)
+        q, k, v = (torch.as_tensor(x).cuda().to(dt) for x in (q, k, v))
+        valid = torch.as_tensor(valid).cuda()
+        valid[0, bk:] = False                   # whole blocks invalid
+        bkp = min(bk, length)
+        pad = (-length) % bkp
+        kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+                  for x in (k, v))
+        validp = torch.nn.functional.pad(valid, (0, pad))
+        got = split_kv_decode_partials(q, kp, vp, validp, block_k=bk)
+        torch.cuda.synchronize()
+        want = ref.split_kv_decode_partials_plain(q, kp, vp, validp,
+                                                  block_k=bk)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(
+            ops.decode_attention(q, k, v, valid, block_k=bk),
+            ref.decode_attention_reference(q, k, v, valid), atol=tol,
+            rtol=tol)

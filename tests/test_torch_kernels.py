@@ -353,9 +353,12 @@ def test_cpu_tensors_run_the_plain_version_without_counting():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert all(n == 0 for n in _lib.LAUNCHES.values())
-    assert set(_lib.LAUNCHES) == {"paged_decode_partials", "flash_prefill",
-                                  "paged_prefix_partials",
-                                  "paged_verify_partials"}
+    assert set(_lib.LAUNCHES) == {"paged_decode_partials",
+                                  "paged_decode_partials_int8",
+                                  "flash_prefill", "paged_prefix_partials",
+                                  "paged_verify_partials",
+                                  "paged_verify_partials_int8",
+                                  "split_kv_decode_partials"}
     c = _verify_case(11, 2, 3, 4, 2, 16, 8, 3)
     got = paged_verify_partials(*_args(c, _t))
     want = ref.paged_verify_partials_plain(*_args(c, _t))

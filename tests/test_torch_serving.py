@@ -176,13 +176,21 @@ def test_cow_fork_before_a_shared_page_is_written(tiny_params, port_params,
 
 
 def test_unservable_stacks_raise_not_implemented(port_params):
+    """Windowed stacks are a later slice.  int8 KV serves, but, as in JAX,
+    cannot resume a prompt: one longer than ``chunk_tokens`` raises
+    ``ValueError`` before any prefill work."""
     swa = dataclasses.replace(PTINY, sliding_window=16)
     with pytest.raises(NotImplementedError, match="later slice"):
         DecodeEngine(swa, port_params, ECFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 KV"):
-        PrefillEngine(dataclasses.replace(PTINY, kv_quant=True), port_params,
-                      dataclasses.replace(ECFG, speculation="ngram"),
-                      device="cpu")
+    pe = PrefillEngine(dataclasses.replace(PTINY, kv_quant=True),
+                       port_params,
+                       dataclasses.replace(ECFG, speculation="ngram"),
+                       device="cpu")
+    req = Request(rid=0, arrival=0.0, prompt=_shared_prefix_prompts(4, 1)[0],
+                  max_new_tokens=2)
+    with pytest.raises(ValueError, match="int8 KV cannot resume"):
+        pe.prefill_waves([req], chunk_tokens=16)
+    assert pe.tokens_prefilled == 0
 
 
 def test_store_fetch_bills_a_layer_schedule(port_params):
