@@ -13,13 +13,16 @@ Phases (any failure exits non-zero and prints no result line):
 2. Hold each kernel against its plain PyTorch version on the card: at the
    serving path's llama-13b shapes, at a GQA shape (granite-8b heads) and
    on a windowed, soft-capped head_dim-256 case with dead table entries
-   and holes, in float32 and bfloat16; the int8 variants of B1/B4 on the
-   same pools quantized to int8 with per-entry scales; B5 over a dense
-   llama-13b decode cache (1024 keys, random valid lengths, block_k 512).
-   Time each kernel (its device time per call from torch.profiler, warmed,
-   many launches) with its plain version and a library yardstick timed the
-   same way, and the bound the card's data-sheet rates put on the same
-   work.
+   and holes, in float32 and bfloat16; B3 at one partial per page (the TPU
+   kernel's contract), per 3 pages and per the split the serving path
+   picks; the int8 variants of B1/B4 on the same pools quantized to int8
+   with per-entry scales; B5 over a dense llama-13b decode cache (1024
+   keys, random valid lengths, block_k 512).  Time each kernel (its device
+   time per call from torch.profiler, warmed, many launches) with its
+   plain version and a library yardstick timed the same way, and the bound
+   the card's data-sheet rates put on the same work; B3 is timed at the
+   serving split (one partial per page on an earlier line), B2 also at
+   one 1024-token sequence (the int8 runs' longest wave).
 3. Serve llama-13b at full width and depth in bf16 (random weights from a
    seed), 8 requests of a shared-prefix workload, five times: through
    ``Server`` over the port's ``Orchestrator`` (chunked prefill) plain,
@@ -40,8 +43,9 @@ Phases (any failure exits non-zero and prints no result line):
    stated gap of its step's best logit; the self-draft run must accept
    proposals.  Prints prefill and decode throughput, peak memory, the
    speculation counters, the int8 runs' argmax agreement with the bf16
-   forward, and the device-busy share of one profiled decode iteration of
-   the bf16 and the int8 plain runs.
+   forward, the device-busy share of one profiled decode iteration of the
+   bf16 and the int8 plain runs, and the device time of B2, B3 and the
+   GEMMs in one profiled chunk-resume prefill wave of the bf16 plain run.
 4. Print the ``kernels`` JSON line, then the result line.
 
 The script imports nothing of the JAX package and needs no network.
@@ -193,6 +197,23 @@ def live_page_bytes(torch, k_pages, pos_pages, tables):
     return pages * per
 
 
+def needed_page_bytes(torch, k_pages, pos_pages, tables, pos_q, window):
+    """What the paged-prefix function needs to read: the positions of every
+    referenced page, and K + V of the distinct pages holding a key some
+    query of its row sees."""
+    safe = tables.clamp_min(0).long()
+    pk = pos_pages[safe]                                 # (B, nb, bs)
+    pq = pos_q.reshape(tables.shape[0], 1, 1, -1)
+    ok = (pk[..., None] >= 0) & (pk[..., None] <= pq)
+    if window is not None:
+        ok &= pk[..., None] > pq - window
+    seen = ok.flatten(2).any(dim=2) & (tables >= 0)
+    n_kv = torch.unique(tables[seen]).numel()
+    n_pos = torch.unique(tables[tables >= 0]).numel()
+    return (n_kv * k_pages[0].numel() * k_pages.element_size() * 2
+            + n_pos * pos_pages[0].numel() * 4)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -247,7 +268,8 @@ def kernel_phase(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_prefill import (flash_prefill,
-                                                   paged_prefix_partials)
+                                                   paged_prefix_partials,
+                                                   prefix_pages_per_split)
     from repro_torch.kernels.split_kv_decode import (
         paged_decode_partials, paged_verify_partials,
         split_kv_decode_partials)
@@ -307,15 +329,22 @@ def kernel_phase(torch):
             q3, kp3, vp3, pp3, tb3, pq3 = paged_case(
                 torch, gen, dev, dtype, b=b_pre, h=h, kv=kv, d=d, bs=bs,
                 nb=nb, lengths=None, s=s, n_prefix=n_prefix)
-            got = paged_prefix_partials(q3, kp3, vp3, pp3, tb3, pq3, **kw)
-            want = ref.paged_prefix_partials_plain(q3, kp3, vp3, pp3, tb3,
-                                                   pq3, **kw)
-            torch.cuda.synchronize()
-            err = check_close(torch, f"B3 {label} {tname}", got, want,
-                              TOL_F32)
+            # one partial per page (the TPU contract), per 3 pages (ragged
+            # last split, dead splits) and per the serving path's split
+            pps_srv = prefix_pages_per_split(q3, kv, nb)
+            err = 0.0
+            for pps in (1, 3, pps_srv):
+                got = paged_prefix_partials(q3, kp3, vp3, pp3, tb3, pq3,
+                                            pages_per_split=pps, **kw)
+                want = ref.paged_prefix_partials_plain(
+                    q3, kp3, vp3, pp3, tb3, pq3, pages_per_split=pps, **kw)
+                torch.cuda.synchronize()
+                err = max(err, check_close(
+                    torch, f"B3 {label} {tname} pages_per_split {pps}", got,
+                    want, TOL_F32))
+                del got, want
             results[("B3", label, tname)] = dict(
-                err=err, args=(q3, kp3, vp3, pp3, tb3, pq3))
-            del got, want
+                err=err, args=(q3, kp3, vp3, pp3, tb3, pq3), pps=pps_srv)
             # -- B2: flash prefill, normalized and partials
             b2, s2 = (4, 256) if main else (2, 192)
             q2 = torch.randn((b2, s2, h, d), generator=gen, device=dev
@@ -438,10 +467,10 @@ def kernel_phase(torch):
     r3 = results[("B3", "llama-13b", "bfloat16")]
     q3, kp3, vp3, pp3, tb3, pq3 = r3["args"]
     b3, s3 = q3.shape[:2]
+    pps3 = r3["pps"]
     pairs = visible_pairs(torch, pp3, tb3, pq3, None)
-    out_b = b3 * nb * s3 * h * (d + 2) * 4
-    byt = nbytes(q3, tb3, pq3) + live_page_bytes(torch, kp3, pp3, tb3) \
-        + out_b
+    in_b = nbytes(q3, tb3, pq3) + needed_page_bytes(torch, kp3, pp3, tb3,
+                                                    pq3, None)
 
     def lib_prefix():
         kl = kp3[tb3.clamp_min(0).long()].reshape(b3, nb * bs, kv, d)
@@ -454,13 +483,21 @@ def kernel_phase(torch):
             q3.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
             attn_mask=mask, enable_gqa=True)
 
+    def b3_timing(pps, iters):
+        n_split = -(-nb // pps)
+        return dict(
+            ms=time_ms(torch, lambda: paged_prefix_partials(
+                q3, kp3, vp3, pp3, tb3, pq3, pages_per_split=pps), iters),
+            bytes=in_b + b3 * n_split * s3 * h * (d + 2) * 4,
+            flops=4 * d * h * pairs, dtype="bfloat16", pages_per_split=pps)
+
+    # JAX's one partial per page, reported on a line of its own
+    timing["B3 per page"] = b3_timing(1, 20)
     timing["B3"] = dict(
-        ms=time_ms(torch, lambda: paged_prefix_partials(
-            q3, kp3, vp3, pp3, tb3, pq3), 20),
+        b3_timing(pps3, 50),
         plain_ms=time_ms(torch, lambda: ref.paged_prefix_partials_plain(
-            q3, kp3, vp3, pp3, tb3, pq3), 5),
-        library_ms=time_ms(torch, lib_prefix, 20),
-        bytes=byt, flops=4 * d * h * pairs, dtype="bfloat16")
+            q3, kp3, vp3, pp3, tb3, pq3, pages_per_split=pps3), 5),
+        library_ms=time_ms(torch, lib_prefix, 20))
 
     r2 = results[("B2", "llama-13b", "bfloat16")]
     q2, k2, v2 = r2["args"]
@@ -474,6 +511,19 @@ def kernel_phase(torch):
             qt, kt, vt, is_causal=True), 50),
         bytes=nbytes(q2, k2, v2) + nbytes(q2),        # q, k, v in; out
         flops=4 * d * h * b2 * s2 * (s2 + 1) // 2, dtype="bfloat16")
+    # one 1024-token sequence: the int8 runs' longest unchunked wave
+    gl = torch.Generator(device=dev).manual_seed(2)
+    ql, kl_, vl_ = (torch.randn((1, 1024, h, d), generator=gl, device=dev
+                                ).to(torch.bfloat16) for _ in range(3))
+    qlt, klt, vlt = (t.transpose(1, 2).contiguous() for t in (ql, kl_, vl_))
+    check_close(torch, "B2 (1, 1024) bfloat16", flash_prefill(ql, kl_, vl_),
+                ref.flash_prefill_plain(ql, kl_, vl_), TOL_BF16_OUT)
+    timing["B2 (1, 1024)"] = dict(
+        ms=time_ms(torch, lambda: flash_prefill(ql, kl_, vl_), 50),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qlt, klt, vlt, is_causal=True), 50),
+        bytes=4 * nbytes(ql), flops=4 * d * h * 1024 * 1025 // 2,
+        dtype="bfloat16")
     r4 = results[("B4", "llama-13b", "bfloat16")]
     q4, kp4, vp4, pp4, tb4, pq4 = r4["args"]
     b4, s4 = q4.shape[:2]
@@ -827,14 +877,41 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
 
     # wall-clock per phase (synchronized), wrapped around the engines
     clocks = {"prefill_s": 0.0, "decode_s": 0.0, "decode_tokens": 0,
-              "decode_iters": 0}
+              "decode_iters": 0, "profiled_waves": 0,
+              "profiled_tokens": 0, "profiled_s": 0.0}
     pe = orch.prefill_members()[0].prefill
     de = orch.decode_units()[0]
     waves = pe.prefill_waves
+    step = de.step
+    prof = {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    # with chunked prefill, waves run under torch.profiler (and are left
+    # out of the prefill clock) until one of them resumes a prompt over
+    # its published pages (B3 launches in it)
+    profile_wave = profile and chunk_tokens is not None
 
     def timed_waves(*a, **kw):
         gen = waves(*a, **kw)
         while True:
+            if profile_wave and "wave" not in prof:
+                before = ops.LAUNCHES["paged_prefix_partials"]
+                t = time.perf_counter()
+                with torch.profiler.profile(activities=acts) as p:
+                    wave = next(gen, None)
+                    torch.cuda.synchronize()
+                if wave is None:
+                    return
+                wave_s = time.perf_counter() - t
+                clocks["profiled_waves"] += 1
+                clocks["profiled_tokens"] += wave["tokens"]
+                clocks["profiled_s"] += wave_s
+                if ops.LAUNCHES["paged_prefix_partials"] > before:
+                    prof["wave"] = p
+                    prof["wave_ms"] = wave_s * 1e3
+                    prof["wave_shape"] = (wave["rows"], wave["padded_len"])
+                yield wave
+                continue
             t = time.perf_counter()
             wave = next(gen, None)
             torch.cuda.synchronize()
@@ -842,11 +919,6 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
             if wave is None:
                 return
             yield wave
-
-    step = de.step
-    prof = {}
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
 
     def timed_step():
         if profile and de.decode_iters == PROFILE_ITER - 1:
@@ -878,7 +950,8 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
     t0 = time.perf_counter()
     summary = Server(orch).run(reqs)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0 - prof.get("wall_ms", 0.0) / 1e3
+    wall = time.perf_counter() - t0 - prof.get("wall_ms", 0.0) / 1e3 \
+        - clocks["profiled_s"]
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
@@ -891,7 +964,8 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
         fail(f"[{label}] no speculative iteration scored a proposal")
     check_streams(torch, cfg, params, label, reqs, launches, needed,
                   forbidden, bf16_streams)
-    prefill_tokens = sum(m.tokens_prefilled for m in orch.prefill_members())
+    prefill_tokens = sum(m.tokens_prefilled for m in orch.prefill_members()) \
+        - clocks["profiled_tokens"]
     say(f"[{label}] served {len(reqs)} requests: prompts "
         f"{min(r.prompt_len for r in reqs)}-"
         f"{max(r.prompt_len for r in reqs)} tokens, "
@@ -899,8 +973,10 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
         f"{summary['pages_bound']} pages bound, {summary['cow_forks']} COW "
         f"forks, {sum(len(r.generated) for r in reqs)} tokens out")
     iter_ms = clocks["decode_s"] / max(clocks["decode_iters"], 1) * 1e3
-    say(f"[{label}] wall clock{' (profiled iteration left out)' if prof else ''}: "
-        f"{wall:.2f} s; prefill {prefill_tokens} tokens in "
+    say(f"[{label}] wall clock"
+        f"{' (profiled iteration and waves left out)' if prof else ''}: "
+        f"{wall:.2f} s; prefill {prefill_tokens} tokens ("
+        f"{clocks['profiled_waves']} profiled waves left out) in "
         f"{clocks['prefill_s']:.3f} s = "
         f"{prefill_tokens / max(clocks['prefill_s'], 1e-9):.1f} tok/s; "
         f"decode {clocks['decode_tokens']} tokens in "
@@ -912,7 +988,7 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
         f"peak memory {peak / 2**30:.2f} GiB [{card}]")
     if speculation != "off":
         say_speculation(label, card, summary, iter_ms)
-    if prof:
+    if "profile" in prof:
         evs = prof["profile"].key_averages()
         # device entries only: an aten op's device time repeats its kernels'
         kern = [e for e in evs if str(e.device_type).endswith("CUDA")]
@@ -930,6 +1006,8 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
                             f"x{e.count}" for e in top))
         else:
             say(head + "not measured (the profiler recorded no device time)")
+    if profile_wave:
+        say_wave_profile(label, card, prof)
     say(f"[{label}] serving-path launches: {json.dumps(launches)}")
     del orch, pe, de
     return {"launches": launches,
@@ -938,6 +1016,38 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
             "decode_tps": clocks["decode_tokens"]
             / max(clocks["decode_s"], 1e-9),
             "peak_gib": peak / 2**30}
+
+
+def say_wave_profile(label, card, prof) -> None:
+    """Device time of one profiled chunk-resume prefill wave by kernel
+    family: B2 (flash_kernel), B3 (prefix_kernel), the GEMMs, the rest;
+    and the card's busy share of the wave's wall time (profiler on)."""
+    if "wave" not in prof:
+        fail(f"[{label}] no profiled prefill wave launched B3")
+    kern = [e for e in prof["wave"].key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    fams = {"B2": 0.0, "B3": 0.0, "GEMM": 0.0, "other": 0.0}
+    counts = dict.fromkeys(fams, 0)
+    for e in kern:
+        name = e.key.lower()
+        fam = ("B2" if "flash_kernel" in name else
+               "B3" if "prefix_kernel" in name else
+               "GEMM" if any(x in name for x in ("nvjet", "gemm", "xmma",
+                                                 "cutlass")) else "other")
+        fams[fam] += device_us(e) / 1e3
+        counts[fam] += e.count
+    busy = sum(fams.values())
+    rows, blen = prof["wave_shape"]
+    head = (f"[{label}] chunk-resume prefill wave under torch.profiler "
+            f"({rows} rows x {blen} tokens; wall {prof['wave_ms']:.1f} ms "
+            f"with the profiler on): ")
+    if busy <= 0:
+        say(head + "not measured (the profiler recorded no device time)")
+        return
+    say(head + f"device busy {busy:.2f} ms = "
+        f"{busy / prof['wave_ms']:.0%} of the wave; " + "; ".join(
+            f"{k} {v:.3f} ms x{counts[k]}" for k, v in fams.items())
+        + f" [{card}]")
 
 
 def check_pools_restored(orch) -> None:
@@ -1022,10 +1132,14 @@ def main() -> None:
         t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
                          >= t["flops"] / PEAK_FLOPS[t["dtype"]]
                          else "operations")
-        say(f"{key}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-            f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}: {t['bytes'] / 1e6:.1f} MB, "
-            f"{t['flops'] / 1e9:.2f} GFLOP) [{card}]")
+        split = (f" (pages_per_split {t['pages_per_split']})"
+                 if "pages_per_split" in t else "")
+        times = ", ".join(f"{name} {t[k]:.4f} ms" for k, name in (
+            ("ms", "kernel"), ("plain_ms", "plain"),
+            ("library_ms", "library"), ("bound_ms", "bound")) if k in t)
+        say(f"{key}{split}: {times} ({t['bound_by']}: "
+            f"{t['bytes'] / 1e6:.1f} MB, {t['flops'] / 1e9:.2f} GFLOP) "
+            f"[{card}]")
 
     # -- phase 3
     per_run = serving_phase(torch, card)

@@ -11,9 +11,8 @@ is imported: the CPU tests import every module and have no ``nvcc``.
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one only
 where it launches its kernel.  The int8-pool variants of the page kernels
 count apart from the bf16/f32 ones.  ``page_partials`` checks and launches
-the page kernels (paged decode, paged prefix, speculative verify), whose C
-entry points share one argument list, the int8 ones adding the scale
-pools.
+the page kernels (paged decode, speculative verify), whose C entry points
+share one argument list, the int8 ones adding the scale pools.
 """
 from __future__ import annotations
 
@@ -30,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-HEADERS = ("common.cuh", "paged_partials.cuh")
+HEADERS = ("common.cuh", "paged_partials.cuh", "attn_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,7 +41,7 @@ KERNELS = {
         "paged_decode_partials_q8":
             [_P] * 11 + [_I] * 7 + [_F, _I, _F, _I, _P]},
     "paged_prefix": {
-        "paged_prefix_partials": [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _P]},
+        "paged_prefix_partials": [_P] * 9 + [_I] * 8 + [_F, _I, _F, _I, _P]},
     "paged_verify": {
         "paged_verify_partials": [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _P],
         "paged_verify_partials_q8":
@@ -221,8 +220,8 @@ def page_partials(lib_name: str, fn_name: str, counter: str,
                   k_scale_pages: Optional[torch.Tensor] = None,
                   v_scale_pages: Optional[torch.Tensor] = None):
     """Check and launch one of the page kernels that share the body of
-    ``paged_partials.cuh`` (paged decode with S = 1, paged prefix,
-    speculative verify); ``fn_name`` is the C entry point, its ``_q8``
+    ``paged_partials.cuh`` (paged decode with S = 1, speculative verify);
+    ``fn_name`` is the C entry point, its ``_q8``
     variant when scale pools are given.  q: (B, S, H, D); k/v_pages: (P,
     bs, KV, D); pos_pages: (P, bs) int32; block_tables: (B, nb) int32;
     pos_q: (B, S) int32; the decode entry takes S = 1.
@@ -234,16 +233,8 @@ def page_partials(lib_name: str, fn_name: str, counter: str,
     code, scales = pool_args(counter, q, k_pages, v_pages, k_scale_pages,
                              v_scale_pages)
     check_int32(counter, pos_pages, block_tables, pos_q)
-    b, s, h, d = q.shape
-    _, bs, kv, dk = k_pages.shape
-    nb = block_tables.shape[1]
-    if (dk != d or h % kv or v_pages.shape != k_pages.shape
-            or pos_pages.shape != k_pages.shape[:2]
-            or block_tables.shape[0] != b or pos_q.shape != (b, s)):
-        raise ValueError(f"{counter}: inconsistent shapes q "
-                         f"{tuple(q.shape)}, pages {tuple(k_pages.shape)}, "
-                         f"tables {tuple(block_tables.shape)}, positions "
-                         f"{tuple(pos_q.shape)}")
+    b, s, h, d, bs, kv, nb = page_shapes(counter, q, k_pages, v_pages,
+                                         pos_pages, block_tables, pos_q)
     win, cap = mask_args(window, soft_cap)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     o = torch.empty((b, nb, s, h, d), dtype=torch.float32, device=dev)
@@ -255,6 +246,36 @@ def page_partials(lib_name: str, fn_name: str, counter: str,
                     + (pos_pages, block_tables, pos_q, o, l, m)),
                b, s, h, kv, d, bs, nb, scale, win, cap, code)
     return o, l, m
+
+
+def page_shapes(name: str, q: torch.Tensor, k_pages: torch.Tensor,
+                v_pages: torch.Tensor, pos_pages: torch.Tensor,
+                block_tables: torch.Tensor, pos_q: torch.Tensor) -> tuple:
+    """(B, S, H, D, bs, KV, nb) of a page kernel's inputs: q (B, S, H, D),
+    pools (P, bs, KV, D), pos_pages (P, bs), block_tables (B, nb), pos_q
+    (B, S).  Raises when they do not fit together."""
+    b, s, h, d = q.shape
+    _, bs, kv, dk = k_pages.shape
+    nb = block_tables.shape[1]
+    if (dk != d or h % kv or v_pages.shape != k_pages.shape
+            or pos_pages.shape != k_pages.shape[:2]
+            or block_tables.shape[0] != b or pos_q.shape != (b, s)):
+        raise ValueError(f"{name}: inconsistent shapes q "
+                         f"{tuple(q.shape)}, pages {tuple(k_pages.shape)}, "
+                         f"tables {tuple(block_tables.shape)}, positions "
+                         f"{tuple(pos_q.shape)}")
+    return b, s, h, d, bs, kv, nb
+
+
+def check_tiles(name: str, d: int, *tensors: torch.Tensor) -> None:
+    """The prefill kernels' input contract beyond ``check_cuda``: a
+    head_dim that is a multiple of 8 up to 256, and data 16-byte aligned
+    (they copy rows in 16-byte chunks)."""
+    if d % 8 or not 0 < d <= 256:
+        raise ValueError(f"{name}: head_dim must be a multiple of 8 in "
+                         f"[8, 256], got {d}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
 
 
 def mask_args(window: Optional[int],

@@ -6,14 +6,20 @@
   cap and query position offset, normalized or as (o, l, m) partials.
   CUDA kernel ``csrc/flash_prefill.cu``.
 * ``paged_prefix_partials`` — resume-chunk queries against the published
-  prefix pages, one partial per page, read in place through the block
-  table.  CUDA kernel ``csrc/paged_prefix.cu``.
+  prefix pages, read in place through the block table, one partial per
+  split of ``pages_per_split`` page slots (1: the TPU kernel's one partial
+  per page).  CUDA kernel ``csrc/paged_prefix.cu``.
+
+Both kernels share the tile walk of ``csrc/attn_tile.cuh``: 4 warps of
+16-row MMA tiles per block, key tiles in a cp.async ring, bf16 products on
+the tensor cores.  They take head_dims that are multiples of 8 up to 256.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
 runs the plain version from ``ref``.  Nothing else falls back.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -24,6 +30,12 @@ from .ref import Partials, flash_prefill_plain, paged_prefix_partials_plain
 
 FLASH = "flash_prefill"
 PREFIX = "paged_prefix_partials"
+
+
+def prefix_rows_per_block(head_dim: int) -> int:
+    """Query rows per block of B3 (``csrc/paged_prefix.cu``
+    ``PrefixTile``): 128 up to head_dim 128, 64 above."""
+    return 128 if head_dim <= 128 else 64
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -49,6 +61,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or v.shape != k.shape):
         raise ValueError(f"{FLASH}: inconsistent shapes q {tuple(q.shape)},"
                          f" k {tuple(k.shape)}, v {tuple(v.shape)}")
+    _lib.check_tiles(FLASH, d, q, k, v)
     win, cap = _lib.mask_args(window, soft_cap)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     if return_partials:
@@ -72,15 +85,77 @@ def paged_prefix_partials(q: torch.Tensor, k_pages: torch.Tensor,
                           positions: torch.Tensor, *,
                           window: Optional[int] = None,
                           scale: Optional[float] = None,
-                          soft_cap: Optional[float] = None) -> Partials:
+                          soft_cap: Optional[float] = None,
+                          pages_per_split: int = 1) -> Partials:
     """q: (B, S, H, D) resume-chunk queries; k/v_pages: (P, bs, KV, D);
     pos_pages: (P, bs) int32; block_tables: (B, nb) int32 (-1 = dead);
-    positions: (B, S) int32 absolute query positions.  Returns o
-    (B, nb, S, H, D), l/m (B, nb, S, H), f32."""
+    positions: (B, S) int32 absolute query positions.  Returns one partial
+    per split of ``pages_per_split`` page slots (the last split ragged):
+    o (B, ceil(nb / pps), S, H, D), l/m (B, ceil(nb / pps), S, H), f32.
+    ``pages_per_split=1`` is the TPU kernel's one partial per page."""
+    pps = int(pages_per_split)
+    if pps < 1:
+        raise ValueError(f"{PREFIX}: pages_per_split must be >= 1, "
+                         f"got {pages_per_split}")
     if q.device.type == "cpu":
         return paged_prefix_partials_plain(
             q, k_pages, v_pages, pos_pages, block_tables, positions,
-            window=window, scale=scale, soft_cap=soft_cap)
-    return _lib.page_partials("paged_prefix", PREFIX, PREFIX, q, k_pages,
-                              v_pages, pos_pages, block_tables, positions,
-                              window, scale, soft_cap)
+            window=window, scale=scale, soft_cap=soft_cap,
+            pages_per_split=pps)
+    q, block_tables, positions = (q.contiguous(), block_tables.contiguous(),
+                                  positions.contiguous())
+    dev = _lib.check_cuda(PREFIX, q, k_pages, v_pages, pos_pages,
+                          block_tables, positions)
+    code = _lib.dtype_code(PREFIX, q, k_pages, v_pages)
+    _lib.check_int32(PREFIX, pos_pages, block_tables, positions)
+    b, s, h, d, bs, kv, nb = _lib.page_shapes(PREFIX, q, k_pages, v_pages,
+                                              pos_pages, block_tables,
+                                              positions)
+    _lib.check_tiles(PREFIX, d, q, k_pages, v_pages)
+    pps = min(pps, max(nb, 1))
+    ns = -(-nb // pps)
+    win, cap = _lib.mask_args(window, soft_cap)
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    o = torch.empty((b, ns, s, h, d), dtype=torch.float32, device=dev)
+    l = torch.empty((b, ns, s, h), dtype=torch.float32, device=dev)
+    m = torch.empty((b, ns, s, h), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _lib.launch("paged_prefix", PREFIX, PREFIX,
+                    *map(_lib.ptr, (q, k_pages, v_pages, pos_pages,
+                                    block_tables, positions, o, l, m)),
+                    b, s, h, kv, d, bs, nb, pps, scale, win, cap, code)
+    return o, l, m
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def prefix_pages_per_split(q: torch.Tensor, kv_heads: int, nb: int) -> int:
+    """The split of the prefix pages that the serving path asks B3 for:
+    ``split_rule`` with the card's SM count.  On the CPU (the plain
+    version) one split per row."""
+    if q.device.type != "cuda":
+        return max(nb, 1)
+    b, s, h, d = q.shape
+    n_sm = _sm_count(q.device.index if q.device.index is not None
+                     else torch.cuda.current_device())
+    return split_rule(b, s, h, kv_heads, d, nb, n_sm)
+
+
+def split_rule(b: int, s: int, h: int, kv_heads: int, head_dim: int,
+               nb: int, n_sm: int) -> int:
+    """Pages per split for B3 on a card of ``n_sm`` SMs.  B3 runs
+    B * KV * ceil(S * G / prefix_rows_per_block(D)) blocks per split.  One
+    split per row (pps = nb) writes the fewest partials; when those blocks
+    would leave some SMs idle, the pages are cut into enough splits for
+    about two blocks per SM (never more splits than pages)."""
+    if nb <= 1:
+        return max(nb, 1)
+    blocks = b * kv_heads * -(-s * (h // kv_heads)
+                              // prefix_rows_per_block(head_dim))
+    if blocks >= n_sm:
+        return nb
+    n_split = min(nb, -(-2 * n_sm // blocks))
+    return -(-nb // n_split)

@@ -15,7 +15,8 @@ import torch.nn.functional as F
 
 from ..core.attention_offload import combine_stacked
 from ._lib import LAUNCHES, reset_launches
-from .flash_prefill import flash_prefill, paged_prefix_partials
+from .flash_prefill import (flash_prefill, paged_prefix_partials,
+                            prefix_pages_per_split)
 from .split_kv_decode import (paged_decode_partials, paged_verify_partials,
                               split_kv_decode_partials)
 
@@ -148,21 +149,29 @@ def paged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
                             scale: Optional[float] = None,
                             soft_cap: Optional[float] = None,
                             block_q: int = 256,
-                            block_k: int = 256) -> torch.Tensor:
+                            block_k: int = 256,
+                            pages_per_split: Optional[int] = None
+                            ) -> torch.Tensor:
     """Paged chunked prefill: resume-chunk queries attend over the
     published prefix pages (``paged_prefix_partials``, one partial per
-    page) plus the in-flight suffix (``flash_prefill`` partials, the chunk
-    against itself) — two partitions of one exact softmax.  The prefix
-    pools are read before the suffix is written into them.
+    split of ``pages_per_split`` page slots; None: the split
+    ``prefix_pages_per_split`` picks for the card) plus the in-flight
+    suffix (``flash_prefill`` partials, the chunk against itself) — two
+    partitions of one exact softmax.  The prefix pools are read before the
+    suffix is written into them.
 
     q: (B, S, H, D); k, v: (B, S, KV, D) suffix keys/values;
     k/v_pages: (P, bs, KV, D); pos_pages: (P, bs); block_tables: (B, nb);
     positions: (B, S) absolute query positions.  Returns (B, S, H, D)."""
     s = q.shape[1]
+    if pages_per_split is None:
+        pages_per_split = prefix_pages_per_split(q, k_pages.shape[2],
+                                                 block_tables.shape[1])
     po, pl, pm = paged_prefix_partials(q, k_pages, v_pages, pos_pages,
                                        block_tables, positions,
                                        window=window, scale=scale,
-                                       soft_cap=soft_cap)
+                                       soft_cap=soft_cap,
+                                       pages_per_split=pages_per_split)
     qp, kp, vp = _pad_suffix(q, k, v, block_q, block_k)
     so, sl, sm = flash_prefill(qp, kp, vp, window=window, scale=scale,
                                soft_cap=soft_cap, return_partials=True)

@@ -52,13 +52,16 @@ def paged_prefix_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                 scale: Optional[float] = None,
                                 soft_cap: Optional[float] = None,
                                 k_scale_pages: Optional[torch.Tensor] = None,
-                                v_scale_pages: Optional[torch.Tensor] = None
-                                ) -> Partials:
+                                v_scale_pages: Optional[torch.Tensor] = None,
+                                pages_per_split: int = 1) -> Partials:
     """Per-page partials of S queries per row against block-table-steered
     pages.  q: (B, S, H, D); k/v_pages: (P, bs, KV, D), or int8 with
     k/v_scale_pages (P, bs, KV) f32; pos_pages: (P, bs); block_tables:
     (B, nb) (-1 = dead); positions: (B, S) absolute query positions.
-    Returns o (B, nb, S, H, D), l/m (B, nb, S, H), f32."""
+    Returns o (B, nb, S, H, D), l/m (B, nb, S, H), f32; with
+    ``pages_per_split`` > 1, each group of that many page slots (the last
+    one ragged) merged into one partial by ``merge_partials_plain``:
+    o (B, ceil(nb / pps), S, H, D), l/m (B, ceil(nb / pps), S, H)."""
     b, s, h, d = q.shape
     kv = k_pages.shape[2]
     nb = block_tables.shape[1]
@@ -85,9 +88,43 @@ def paged_prefix_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
     if v_scale_pages is not None:
         p = p * _page_scales(v_scale_pages, safe)
     o = torch.einsum("bjkgst,bjtkd->bjskgd", p, v)   # (B, nb, S, KV, G, D)
-    return (o.reshape(b, nb, s, h, d),
-            l.permute(0, 1, 4, 2, 3).reshape(b, nb, s, h),
-            m.permute(0, 1, 4, 2, 3).reshape(b, nb, s, h))
+    parts = (o.reshape(b, nb, s, h, d),
+             l.permute(0, 1, 4, 2, 3).reshape(b, nb, s, h),
+             m.permute(0, 1, 4, 2, 3).reshape(b, nb, s, h))
+    if pages_per_split == 1:
+        return parts
+    return merge_partials_plain(parts, pages_per_split)
+
+
+def merge_partials_plain(parts: Partials, group: int) -> Partials:
+    """Merge consecutive groups of ``group`` partials along axis 1 (the last
+    group ragged) into one partial each, with ``combine_stacked``'s
+    arithmetic but without the division: m is the group's max,
+    o and l are the sums of each member's o and l weighted by
+    exp(m_member - m); non-finite maxima weigh 0.  A group of all-masked
+    partials stays all-masked (o = 0, l = 0, m = NEG_INF).  o (B, N, ...,
+    D), l/m (B, N, ...) -> o (B, ceil(N / group), ..., D), l/m
+    (B, ceil(N / group), ...)."""
+    o, l, m = parts
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    n = l.shape[1]
+    pad = -n % group
+    if pad:
+        o = torch.cat([o, o.new_zeros((o.shape[0], pad) + o.shape[2:])], 1)
+        l = torch.cat([l, l.new_zeros((l.shape[0], pad) + l.shape[2:])], 1)
+        m = torch.cat([m, m.new_full((m.shape[0], pad) + m.shape[2:],
+                                     NEG_INF)], 1)
+    ng = (n + pad) // group
+    o = o.reshape((o.shape[0], ng, group) + o.shape[2:])
+    l = l.reshape((l.shape[0], ng, group) + l.shape[2:])
+    m = m.reshape((m.shape[0], ng, group) + m.shape[2:])
+    big_m = m.amax(dim=2)
+    big_m_safe = torch.where(torch.isfinite(big_m), big_m, 0.0)
+    fin = torch.isfinite(m)
+    w = torch.where(fin, torch.exp(torch.where(fin, m, float("-inf"))
+                                   - big_m_safe.unsqueeze(2)), 0.0)
+    return ((o * w[..., None]).sum(dim=2), (l * w).sum(dim=2), big_m)
 
 
 def _page_scales(scale_pages: torch.Tensor,

@@ -278,3 +278,51 @@ def test_cuda_split_kv_decode_vs_plain(dtype, d):
             ops.decode_attention(q, k, v, valid, block_k=bk),
             ref.decode_attention_reference(q, k, v, valid), atol=tol,
             rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [96, 200])
+def test_cuda_prefill_kernels_vs_plain(s, dtype, d):
+    """B2 and B3 against their plain versions at S off the 64-row tile
+    (96, 200), GQA (G = 4), with and without window plus soft cap.  B2:
+    normalized from position 0 and partials at an offset; B3 at
+    pages_per_split 1 (one partial per page), 3 (ragged last split, whole
+    splits dead) and nb, over a table with dead entries, a dead slot
+    inside the prefix and holes.  Partials: both sides in f32 from the same
+    inputs, 1e-4; a normalized bf16 output one bf16 step, 2e-2.  A head_dim
+    off the multiple of 8 the tiles need is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    nb = 24
+    c = paged_case(21, 3, 8, 2, d, 16, nb, s=s)
+    c["block_tables"][0, 1] = -1                # a dead slot mid-prefix
+    a = _on_card(c, dt)
+    pages = tuple(a[k] for k in KEYS)
+    q, k, v = (torch.as_tensor(x).cuda().to(dt)
+               for x in dense_case(22, 2, s, s, 8, 2, d))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    off = 37
+    for win, cap in ((None, None), (40, 20.0)):
+        kw = dict(window=win, soft_cap=cap)
+        torch.testing.assert_close(flash_prefill(q, k, v, **kw),
+                                   ref.flash_prefill_plain(q, k, v, **kw),
+                                   atol=tol, rtol=tol)
+        got = flash_prefill(q[:, off:], k, v, seq_offset=off,
+                            return_partials=True, **kw)
+        want = ref.flash_prefill_plain(q[:, off:], k, v, seq_offset=off,
+                                       return_partials=True, **kw)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        for pps in (1, 3, nb):
+            got = paged_prefix_partials(*pages, pages_per_split=pps, **kw)
+            torch.cuda.synchronize()
+            want = ref.paged_prefix_partials_plain(
+                *pages, pages_per_split=pps, **kw)
+            assert got[0].shape[1] == -(-nb // pps)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill(q[..., :d - 4], k[..., :d - 4], v[..., :d - 4])

@@ -36,7 +36,9 @@ from repro.kernels.split_kv_decode import \
 from repro_torch.core import attention_offload as PAO
 from repro_torch.kernels import _lib, ops, ref
 from repro_torch.kernels.flash_prefill import (flash_prefill,
-                                               paged_prefix_partials)
+                                               paged_prefix_partials,
+                                               prefix_pages_per_split,
+                                               split_rule)
 from repro_torch.kernels.split_kv_decode import (paged_decode_partials,
                                                  paged_verify_partials)
 from test_torch_cuda import dense_case as _dense_case
@@ -310,6 +312,101 @@ def test_paged_prefill_attention_vs_jax_and_oracles(b, s, h, kv, d, bs, nb,
     if cap is None:
         _close(out.numpy(), JREF.paged_prefill_attention_reference(
             jp[0], jnp.asarray(k), jnp.asarray(v), *jp[1:], window=win))
+
+
+def _merge_groups(parts, group):
+    """The exact merge of per-page partials (B, nb, ...) over consecutive
+    groups of ``group`` pages (the last ragged), in float64: m the group's
+    max, o and l weighted by exp(m_page - m)."""
+    o, l, m = (np.asarray(x, np.float64) for x in parts)
+    out = ([], [], [])
+    for lo in range(0, l.shape[1], group):
+        mg = m[:, lo:lo + group].max(axis=1)
+        w = np.exp(m[:, lo:lo + group] - mg[:, None])
+        out[0].append((o[:, lo:lo + group] * w[..., None]).sum(axis=1))
+        out[1].append((l[:, lo:lo + group] * w).sum(axis=1))
+        out[2].append(mg)
+    return tuple(np.stack(x, axis=1) for x in out)
+
+
+@pytest.mark.parametrize("split", [3, "nb"])
+@pytest.mark.parametrize("b,s,h,kv,d,bs,nb,win,cap", PREFIX)
+def test_paged_prefix_split_partials_vs_jax_merge(b, s, h, kv, d, bs, nb, win,
+                                                  cap, split):
+    """B3's plain version with several pages per split (3: a ragged last
+    split, and whole splits of dead entries; nb: one split per row) equals
+    the exact merge of JAX's per-page partials over each group."""
+    pps = nb if split == "nb" else split
+    c = _paged_case(7, b, h, kv, d, bs, nb, s=s)
+    got = paged_prefix_partials(*_args(c, _t), window=win, soft_cap=cap,
+                                pages_per_split=pps)
+    per_page = j_paged_prefix_partials(*_args(c, jnp.asarray), window=win,
+                                       soft_cap=cap, interpret=True)
+    want = _merge_groups(per_page, pps)
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    assert got[0].shape[1] == -(-nb // pps)
+    _close(tuple(g.numpy() for g in got), want)
+
+
+@pytest.mark.parametrize("pps", [1, 3])
+@pytest.mark.parametrize("b,s,h,kv,d,bs,nb,win,cap", PREFIX)
+def test_paged_prefill_attention_split_vs_jax_and_oracles(b, s, h, kv, d, bs,
+                                                          nb, win, cap, pps):
+    """The combined paged prefill at one partial per page and per 3 pages
+    (the CPU default is one split per row) against JAX's and the oracle."""
+    c = _paged_case(8, b, h, kv, d, bs, nb, s=s)
+    rng = np.random.default_rng(9)
+    k = rng.normal(size=(b, s, kv, d)).astype(np.float32)
+    v = rng.normal(size=(b, s, kv, d)).astype(np.float32)
+    pages = _args(c, _t)
+    out = ops.paged_prefill_attention(pages[0], _t(k), _t(v), *pages[1:],
+                                      window=win, soft_cap=cap, block_q=8,
+                                      block_k=8, pages_per_split=pps)
+    jp = _args(c, jnp.asarray)
+    j_out = JOPS.paged_prefill_attention(
+        jp[0], jnp.asarray(k), jnp.asarray(v), *jp[1:], window=win,
+        soft_cap=cap, block_q=8, block_k=8, interpret=True)
+    _close(out.numpy(), j_out)
+    oracle = ref.paged_prefill_attention_reference(
+        pages[0], _t(k), _t(v), *pages[1:], window=win, soft_cap=cap)
+    _close(out.numpy(), oracle.numpy())
+
+
+def test_dead_or_masked_split_is_the_all_masked_partial():
+    """A split whose entries are all dead, and one whose live pages hold no
+    key any query sees (the chunk's own pages before the suffix write),
+    give o = 0, l = 0, m = NEG_INF; the other splits match JAX's merged
+    per-page partials."""
+    b, s, h, kv, d, bs, nb = 2, 8, 4, 2, 16, 8, 9
+    c = _paged_case(12, b, h, kv, d, bs, nb, s=s)
+    tables = c["block_tables"]
+    tables[0, 6:9] = -1                       # split 2 of row 0: dead
+    # row 1: split 2 live, but every key after every query
+    for j in range(6, 9):
+        page = tables[1, j] if tables[1, j] >= 0 else 1 + b * nb - 1 - j
+        tables[1, j] = page
+        c["pos_pages"][page] = 10_000 + np.arange(bs)
+    got = paged_prefix_partials(*_args(c, _t), pages_per_split=3)
+    for row in (0, 1):
+        assert torch.equal(got[0][row, 2], torch.zeros_like(got[0][row, 2]))
+        assert torch.equal(got[1][row, 2], torch.zeros_like(got[1][row, 2]))
+        assert (got[2][row, 2] == NEG_INF).all()
+    want = _merge_groups(j_paged_prefix_partials(*_args(c, jnp.asarray),
+                                                 interpret=True), 3)
+    _close(tuple(g.numpy() for g in got), want)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,nb,n_sm,want", [
+    (4, 256, 40, 40, 128, 64, 132, 64),   # 320 blocks fill the card
+    (1, 128, 40, 40, 128, 64, 132, 10),   # 40 blocks: 7 splits of 10
+    (2, 64, 32, 8, 128, 64, 132, 8),      # GQA: 32 blocks, 8 splits of 8
+    (1, 16, 8, 2, 256, 3, 132, 1),        # never more splits than pages
+    (1, 16, 8, 2, 64, 1, 132, 1)])
+def test_serving_split_rule(b, s, h, kv, d, nb, n_sm, want):
+    """One split per row unless B * KV * ceil(S * G / rows per block)
+    blocks leave SMs idle; then about two blocks per SM."""
+    assert split_rule(b, s, h, kv, d, nb, n_sm) == want
+    assert prefix_pages_per_split(torch.zeros((b, s, h, d)), kv, nb) == nb
 
 
 # ---------------------------------------------------------------------------
