@@ -9,20 +9,24 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Build the five CUDA kernel sources from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel; seven kernels: B1, B1-int8, B2, B3,
-   B4, B4-int8, B5) and print the card's name and power limit.
+   B4, B4-int8, B5) and print the card's name and power limit (with
+   ``--ptxas``, each kernel's registers, shared memory and spills).
 2. Hold each kernel against its plain PyTorch version on the card: at the
    serving path's llama-13b shapes, at a GQA shape (granite-8b heads) and
    on a windowed, soft-capped head_dim-256 case with dead table entries
-   and holes, in float32 and bfloat16; B3 at one partial per page (the TPU
-   kernel's contract), per 3 pages and per the split the serving path
-   picks; the int8 variants of B1/B4 on the same pools quantized to int8
-   with per-entry scales; B5 over a dense llama-13b decode cache (1024
-   keys, random valid lengths, block_k 512).  Time each kernel (its device
-   time per call from torch.profiler, warmed, many launches) with its
-   plain version and a library yardstick timed the same way, and the bound
-   the card's data-sheet rates put on the same work; B3 is timed at the
-   serving split (one partial per page on an earlier line), B2 also at
-   one 1024-token sequence (the int8 runs' longest wave).
+   and holes, in float32 and bfloat16; B1, B1-int8 and B3 at one partial
+   per page (the TPU kernels' contract), per 3 pages and per the split the
+   serving path picks; the int8 variants of B1/B4 on the same pools
+   quantized to int8 with per-entry scales; B5 over a dense llama-13b
+   decode cache (1024 keys, random valid lengths, block_k 512).  Time each
+   kernel (its device time per call from torch.profiler, warmed, many
+   launches) with its plain version and a library yardstick timed the
+   same way, and the bound the card's data-sheet rates put on the same
+   work (counted from the partials each split writes and, for B5, the key
+   tiles it reads); B1, B1-int8 and B3 are timed at the serving split (one
+   partial per page on an earlier line), B2 also at one 1024-token
+   sequence (the int8 runs' longest wave), B5 also with every key valid
+   against unmasked SDPA.
 3. Serve llama-13b at full width and depth in bf16 (random weights from a
    seed), 8 requests of a shared-prefix workload, five times: through
    ``Server`` over the port's ``Orchestrator`` (chunked prefill) plain,
@@ -44,8 +48,9 @@ Phases (any failure exits non-zero and prints no result line):
    proposals.  Prints prefill and decode throughput, peak memory, the
    speculation counters, the int8 runs' argmax agreement with the bf16
    forward, the device-busy share of one profiled decode iteration of the
-   bf16 and the int8 plain runs, and the device time of B2, B3 and the
-   GEMMs in one profiled chunk-resume prefill wave of the bf16 plain run.
+   bf16 and the int8 plain runs (with B1's share of it), and the device
+   time of B2, B3 and the GEMMs in one profiled chunk-resume prefill wave
+   of the bf16 plain run.
 4. Print the ``kernels`` JSON line, then the result line.
 
 The script imports nothing of the JAX package and needs no network.
@@ -271,8 +276,8 @@ def kernel_phase(torch):
                                                    paged_prefix_partials,
                                                    prefix_pages_per_split)
     from repro_torch.kernels.split_kv_decode import (
-        paged_decode_partials, paged_verify_partials,
-        split_kv_decode_partials)
+        decode_pages_per_split, decode_tile_keys, paged_decode_partials,
+        paged_verify_partials, split_kv_decode_partials)
     from repro_torch.models.layers import quantize_kv
 
     dev = torch.device("cuda")
@@ -301,26 +306,33 @@ def kernel_phase(torch):
             if main:
                 tb[-1] = -1                # an empty slot: all-dead row
             kw = dict(window=win, soft_cap=cap)
-            got = paged_decode_partials(q, kp, vp, pp, tb, pq, **kw)
-            want = ref.paged_decode_partials_plain(q, kp, vp, pp, tb, pq,
-                                                   **kw)
-            torch.cuda.synchronize()
-            err = check_close(torch, f"B1 {label} {tname}", got, want,
-                              TOL_F32)
-            results[("B1", label, tname)] = dict(
-                err=err, args=(q, kp, vp, pp, tb, pq))
+            # one partial per page (the TPU contract), per 3 pages (ragged
+            # last split, dead splits) and per the serving path's split
+            pps_dec = decode_pages_per_split(q, kv, nb)
+
+            def b1_check(key, pools, sc):
+                err = 0.0
+                for pps in (1, 3, pps_dec):
+                    got = paged_decode_partials(q, *pools, pp, tb, pq, **kw,
+                                                **sc, pages_per_split=pps)
+                    want = ref.paged_decode_partials_plain(
+                        q, *pools, pp, tb, pq, **kw, **sc,
+                        pages_per_split=pps)
+                    torch.cuda.synchronize()
+                    err = max(err, check_close(
+                        torch, f"{key} {label} {tname} pages_per_split "
+                        f"{pps}", got, want, TOL_F32))
+                    del got, want
+                results[(key, label, tname)] = dict(
+                    err=err, args=(q, *pools, pp, tb, pq), scales=sc,
+                    pps=pps_dec)
+
+            b1_check("B1", (kp, vp), {})
             # -- B1-int8: the same pools quantized, scales per entry
             kq, ksc = quantize_kv(kp)
             vq, vsc = quantize_kv(vp)
-            sc = dict(k_scale_pages=ksc, v_scale_pages=vsc)
-            got = paged_decode_partials(q, kq, vq, pp, tb, pq, **kw, **sc)
-            want = ref.paged_decode_partials_plain(q, kq, vq, pp, tb, pq,
-                                                   **kw, **sc)
-            torch.cuda.synchronize()
-            err = check_close(torch, f"B1-int8 {label} {tname}", got, want,
-                              TOL_F32)
-            results[("B1-int8", label, tname)] = dict(
-                err=err, args=(q, kq, vq, pp, tb, pq), scales=sc)
+            b1_check("B1-int8", (kq, vq),
+                     dict(k_scale_pages=ksc, v_scale_pages=vsc))
             # -- B3: paged prefix partials (chunk 256 after a prefix)
             s = 256 if main else 64
             b_pre = 4 if main else 2
@@ -441,10 +453,6 @@ def kernel_phase(torch):
     q, kp, vp, pp, tb, pq = r1["args"]
     b, h, d = q.shape
     nb, bs, kv = tb.shape[1], kp.shape[1], kp.shape[2]
-    pairs = visible_pairs(torch, pp, tb, pq, None)
-    out_b = b * nb * h * (d + 2) * 4
-    byt = nbytes(q, tb, pq) + live_page_bytes(torch, kp, pp, tb) + out_b
-    flops = 4 * d * h * pairs              # QK and PV, every head
 
     def lib_decode():
         kl = kp[tb.clamp_min(0).long()].reshape(b, nb * bs, kv, d)
@@ -456,13 +464,32 @@ def kernel_phase(torch):
             q[:, :, None], kl.transpose(1, 2), vl.transpose(1, 2),
             attn_mask=mask, enable_gqa=True)
 
+    def b1_timing(key, pps, iters):
+        """B1 (or B1-int8) at ``pps`` pages per split; its bytes: q, the
+        table and positions, each live page's K/V (int8: and their f32
+        scales) and positions, and the partials written."""
+        r = results[(key, "llama-13b", "bfloat16")]
+        args, sc = r["args"], r["scales"]
+        pairs = visible_pairs(torch, pp, tb, pq, None)
+        n_live = torch.unique(tb[tb >= 0]).numel()
+        elem = args[1].element_size()
+        per_page = 2 * bs * kv * d * elem + bs * 4 \
+            + (2 * bs * kv * 4 if sc else 0)
+        out_b = b * -(-nb // pps) * h * (d + 2) * 4
+        return dict(
+            ms=time_ms(torch, lambda: paged_decode_partials(
+                *args, **sc, pages_per_split=pps), iters),
+            bytes=nbytes(q, tb, pq) + n_live * per_page + out_b,
+            flops=4 * d * h * pairs, dtype="bfloat16", pages_per_split=pps)
+
+    pps1 = r1["pps"]
+    # JAX's one partial per page, reported on a line of its own
+    timing["B1 per page"] = b1_timing("B1", 1, 200)
     timing["B1"] = dict(
-        ms=time_ms(torch, lambda: paged_decode_partials(q, kp, vp, pp, tb,
-                                                        pq), 200),
+        b1_timing("B1", pps1, 200),
         plain_ms=time_ms(torch, lambda: ref.paged_decode_partials_plain(
-            q, kp, vp, pp, tb, pq), 20),
-        library_ms=time_ms(torch, lib_decode, 50),
-        bytes=byt, flops=flops, dtype="bfloat16")
+            q, kp, vp, pp, tb, pq, pages_per_split=pps1), 20),
+        library_ms=time_ms(torch, lib_decode, 50))
 
     r3 = results[("B3", "llama-13b", "bfloat16")]
     q3, kp3, vp3, pp3, tb3, pq3 = r3["args"]
@@ -572,44 +599,74 @@ def kernel_phase(torch):
             qt, kl.transpose(1, 2), vl.transpose(1, 2), attn_mask=mask,
             enable_gqa=True)
 
-    for key, fn, plain, s_axis, n_iter in (
-            ("B1-int8", paged_decode_partials,
-             ref.paged_decode_partials_plain, False, 200),
-            ("B4-int8", paged_verify_partials,
-             ref.paged_verify_partials_plain, True, 200)):
-        r = results[(key, "llama-13b", "bfloat16")]
-        args, scales = r["args"], r["scales"]
-        qq, kq, _, pp_, tb_, pq_ = args
-        bq = qq.shape[0]
-        sq = qq.shape[1] if s_axis else 1
-        pairs = visible_pairs(torch, pp_, tb_, pq_, None)
-        n_live = torch.unique(tb_[tb_ >= 0]).numel()
-        # int8 K + V, their f32 scales and the positions of each live page
-        per_page = 2 * kq[0].numel() + 2 * bs * kv * 4 + bs * 4
-        byt = nbytes(qq, tb_, pq_) + n_live * per_page \
-            + bq * nb * sq * h * (d + 2) * 4
-        timing[key] = dict(
-            ms=time_ms(torch, lambda: fn(*args, **scales), n_iter),
-            plain_ms=time_ms(torch, lambda: plain(*args, **scales), 20),
-            library_ms=time_ms(torch, lambda: lib_int8(args, scales,
-                                                       s_axis), 50),
-            bytes=byt, flops=4 * d * h * pairs, dtype="bfloat16")
+    r1q = results[("B1-int8", "llama-13b", "bfloat16")]
+    timing["B1-int8 per page"] = b1_timing("B1-int8", 1, 200)
+    timing["B1-int8"] = dict(
+        b1_timing("B1-int8", pps1, 200),
+        plain_ms=time_ms(torch, lambda: ref.paged_decode_partials_plain(
+            *r1q["args"], **r1q["scales"], pages_per_split=pps1), 20),
+        library_ms=time_ms(torch, lambda: lib_int8(r1q["args"],
+                                                   r1q["scales"], False),
+                           50))
+    r4q = results[("B4-int8", "llama-13b", "bfloat16")]
+    args4q, sc4q = r4q["args"], r4q["scales"]
+    q4q, kq4, _, pp4q, tb4q, pq4q = args4q
+    n_live = torch.unique(tb4q[tb4q >= 0]).numel()
+    # int8 K + V, their f32 scales and the positions of each live page
+    per_page = 2 * kq4[0].numel() + 2 * bs * kv * 4 + bs * 4
+    timing["B4-int8"] = dict(
+        ms=time_ms(torch, lambda: paged_verify_partials(*args4q, **sc4q),
+                   200),
+        plain_ms=time_ms(torch, lambda: ref.paged_verify_partials_plain(
+            *args4q, **sc4q), 20),
+        library_ms=time_ms(torch, lambda: lib_int8(args4q, sc4q, True), 50),
+        bytes=nbytes(q4q, tb4q, pq4q) + n_live * per_page
+        + q4q.shape[0] * nb * q4q.shape[1] * h * (d + 2) * 4,
+        flops=4 * d * h * visible_pairs(torch, pp4q, tb4q, pq4q, None),
+        dtype="bfloat16")
 
     r5 = results[("B5", "llama-13b", "bfloat16")]
     q5, k5, v5, valid5 = r5["args"]
     b5, l5 = k5.shape[:2]
-    mask5 = valid5[:, None, None, :]
     qt5, kt5, vt5 = q5[:, :, None], k5.transpose(1, 2), v5.transpose(1, 2)
+    tile5 = decode_tile_keys(d, k5.element_size())
+
+    def b5_timing(valid, iters):
+        """B5 over ``valid``; its bytes: q, the validity flags, K and V of
+        the key tiles that hold a valid key (the tiles it reads) and the
+        per-block partials."""
+        blocks = valid.reshape(b5, l5 // 512, 512)
+        n_tiles = -(-512 // tile5)
+        pad = n_tiles * tile5 - 512
+        tiles = torch.nn.functional.pad(blocks, (0, pad)).reshape(
+            b5, l5 // 512, n_tiles, tile5)
+        keys = tiles.any(dim=3).float() @ torch.as_tensor(
+            [min(tile5, 512 - t * tile5) for t in range(n_tiles)],
+            dtype=torch.float32, device=valid.device)
+        read = int(keys.sum()) * kv * d * k5.element_size() * 2
+        return dict(
+            ms=time_ms(torch, lambda: split_kv_decode_partials(
+                q5, k5, v5, valid, block_k=512), iters),
+            bytes=nbytes(q5, valid) + read
+            + b5 * (l5 // 512) * h * (d + 2) * 4,
+            flops=4 * d * h * int(valid.sum()), dtype="bfloat16")
+
     timing["B5"] = dict(
-        ms=time_ms(torch, lambda: split_kv_decode_partials(
-            q5, k5, v5, valid5, block_k=512), 200),
+        b5_timing(valid5, 200),
         plain_ms=time_ms(torch, lambda: ref.split_kv_decode_partials_plain(
             q5, k5, v5, valid5, block_k=512), 20),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt5, kt5, vt5, attn_mask=mask5), 50),
-        # dense q, K, V and validity in; per-block partials out
-        bytes=nbytes(q5, k5, v5, valid5) + b5 * (l5 // 512) * h * (d + 2) * 4,
-        flops=4 * d * h * int(valid5.sum()), dtype="bfloat16")
+            qt5, kt5, vt5, attn_mask=valid5[:, None, None, :]), 50))
+    # every key valid: like for like with SDPA, which then needs no mask
+    all5 = torch.ones_like(valid5)
+    check_close(torch, "B5 every key valid",
+                split_kv_decode_partials(q5, k5, v5, all5, block_k=512),
+                ref.split_kv_decode_partials_plain(q5, k5, v5, all5,
+                                                   block_k=512), TOL_F32)
+    timing["B5 every key valid"] = dict(
+        b5_timing(all5, 200),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt5, kt5, vt5), 50))
     names = ("B1", "B1-int8", "B2", "B3", "B4", "B4-int8", "B5")
     errs = {kname: max(v["err"] for (kk, _, _), v in results.items()
                        if kk == kname) for kname in names}
@@ -999,9 +1056,14 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
                 f"torch.profiler ({prof['rows']} rows, {n_aten} aten op "
                 f"calls, nested included; wall {prof['wall_ms']:.1f} ms with "
                 f"the profiler on): device busy ")
+        # B1 (bf16 or int8 pools) by its kernel symbol
+        b1 = [e for e in kern if "paged_decode_kernel" in e.key]
+        b1_ms = sum(device_us(e) for e in b1) / 1e3
         if busy > 0:
             say(head + f"{busy:.2f} ms in {sum(e.count for e in kern)} "
-                f"kernels = {busy / iter_ms:.0%} of a timed iteration; top: "
+                f"kernels = {busy / iter_ms:.0%} of a timed iteration; B1 "
+                f"{b1_ms:.3f} ms x{sum(e.count for e in b1)} = "
+                f"{b1_ms / busy:.1%} of the busy time; top: "
                 + "; ".join(f"{e.key[:72]} {device_us(e) / 1e3:.2f} ms "
                             f"x{e.count}" for e in top))
         else:

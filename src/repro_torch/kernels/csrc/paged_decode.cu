@@ -1,54 +1,219 @@
-// Page-fused split-KV decode: one query row per sequence scored against
-// its KV pages in place, emitting per-page (o, l, m) partials.
+// Page-fused split-KV decode: one query token per sequence scored against
+// its KV pages in place, read through the block table, emitting one
+// (o, l, m) partial per split of `pages_per_split` page slots, which
+// ops.paged_decode_attention combines exactly.
 //
 // Replaces the TPU kernel src/repro/kernels/split_kv_decode.py
 // (_paged_decode_kernel / paged_decode_partials): bf16 and f32 pools
 // (paged_decode_partials) and int8 pools with per-entry f32 scales
-// (paged_decode_partials_q8, the int8-KV serving path).  The body is the
-// shared page kernel of paged_partials.cuh run with S = 1: one block per
-// (sequence, page slot, kv head), the page's K/V staged in shared memory
-// (int8 converted at the load, scales staged beside it), the G query heads
-// of the kv head scored one warp each.
+// (paged_decode_partials_q8, the int8-KV serving path).  pages_per_split
+// = 1 is the TPU kernel's contract (one partial per page); a larger split
+// is the exact online-softmax merge of its pages' partials.
 //
-// Bound on the H100: bytes.  Decode reads every live page once and does
-// 4 * G * D flops per key, about G flops per byte of bf16 KV (2 G of int8
-// KV), so the card's memory rate is the limit; int8 pages halve the page
-// bytes, leaving the f32 partials as the larger share.  The design reads
-// pages in place through the block table (no gathered dense view) and
-// skips dead table entries without touching the pool or its scales.
-#include "paged_partials.cuh"
+// One block of 4 warps owns (row b, kv head, a group of up to 8 of the
+// kv head's G query heads, split j).  It resolves its split's page slots
+// through the block table itself, 128 slots a round, keeps the live ones
+// in table order (a dead entry, -1, is never read: neither its page nor
+// its positions or scales), and walks their keys (key i: row i % bs of
+// kept page i / bs) with the key walk of decode_walk.cuh, which B5 shares:
+// K/V tiles cp.async'd from the pool's strided layout (rows KV * D apart)
+// into a four-stage ring in the pool's type, each key's position (and,
+// for int8, its two scales) copied beside it; the keys spread over the
+// four warps, one warp-wide max per tile and row.  A key is visible when
+// its position is live, not after the query and inside the window.
+//
+// Bound on the H100: bytes.  Decode reads every live page once per kv
+// head and does 4 * G * D flops per key, about G flops per byte of bf16
+// KV (2 G of int8 KV), far below the card's ~295 flop/byte ridge.  The
+// partials are (D + 2) f32 per split and query head; at one partial per
+// page they are an eighth of the bytes (bf16, bs 16), at the serving
+// path's split (kernels/split_kv_decode.py decode_pages_per_split: each
+// row cut into enough splits for about 8 blocks per SM, which evens out
+// rows of different lengths) under 1 % of them.
+#include <climits>
+
+#include "decode_walk.cuh"
 
 namespace repro {
-struct PagedDecode {};   // names this entry's kernel symbol
+
+// q: (B, H, D); k/v_pages: (P, bs, KV, D) of TK (T, or int8 with
+// k/v_scale (P, bs, KV) f32, null otherwise); pos_pages: (P, bs); tables:
+// (B, nb) (-1 = dead); pos_q: (B,).  o: (B, nsplit, H, D) f32; l, m:
+// (B, nsplit, H) f32, nsplit = ceil(nb / pps).  blockIdx.x = split *
+// n_grp + query-head group.
+template <typename T, typename TK, int DP, int RG>
+__global__ void __launch_bounds__(dec::kThreads)
+paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ k_pages,
+                    const TK* __restrict__ v_pages,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ pos_pages,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ pos_q, float* __restrict__ o,
+                    float* __restrict__ l, float* __restrict__ m, int H,
+                    int KV, int D, int bs, int nb, int pps, int n_grp,
+                    int stages, float scale, int window, float soft_cap) {
+  using W = dec::Walk<T, TK, DP, RG>;
+  constexpr int BK = W::kBk;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* pages_s =   // (128,)
+      reinterpret_cast<int*>(smem_raw + W::smem_bytes(stages));
+  __shared__ int warp_count[dec::kWarps];
+
+  const int split = blockIdx.x / n_grp, grp = blockIdx.x % n_grp;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV, g0 = grp * RG, n_rows = min(RG, G - g0);
+  const int nsplit = (nb + pps - 1) / pps;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int pq = pos_q[b];
+  const size_t head0 = static_cast<size_t>(b) * H + kvh * G + g0;
+
+  W walk;
+  walk.init(smem_raw, stages, q + head0 * D, n_rows, D);
+  const TK* kh = k_pages + static_cast<size_t>(kvh) * D;
+  const TK* vh = v_pages + static_cast<size_t>(kvh) * D;
+  const int p_begin = split * pps, p_end = min(nb, p_begin + pps);
+  for (int base = p_begin; base < p_end; base += dec::kThreads) {
+    const int j = base + tid;
+    const int page = j < p_end ? tables[static_cast<size_t>(b) * nb + j] : -1;
+    const bool use = page >= 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, use);
+    if (lane == 0) warp_count[warp] = __popc(ballot);
+    __syncthreads();   // also: the previous round's tiles are consumed
+    int at = 0, n_pages = 0;
+#pragma unroll
+    for (int w = 0; w < dec::kWarps; ++w) {
+      at += w < warp ? warp_count[w] : 0;
+      n_pages += warp_count[w];
+    }
+    if (use) pages_s[at + __popc(ballot & ((1u << lane) - 1u))] = page;
+    __syncthreads();   // pages_s complete; warp_count free again
+
+    const int n_keys = n_pages * bs;
+    auto entry = [&](int key) -> long long {   // pool entry of a kept key
+      return static_cast<long long>(pages_s[key / bs]) * bs + key % bs;
+    };
+    auto issue = [&](int i, int st) {
+      const int key0 = i * BK;
+      walk.issue(st, kh, vh, D, [&](int r) -> long long {
+        const int key = key0 + r;
+        return key < n_keys ? entry(key) * KV * D : -1;
+      });
+      if (tid < BK) {
+        const int key = key0 + tid;
+        int* meta = walk.meta(st);
+        if (key < n_keys) {
+          const long long e = entry(key);
+          tile::cp_async4(meta + tid, pos_pages + e);
+          if constexpr (W::kQuant) {
+            float* sc = walk.scales(st);
+            tile::cp_async4(sc + tid, k_scale + e * KV + kvh);
+            tile::cp_async4(sc + BK + tid, v_scale + e * KV + kvh);
+          }
+        } else {
+          meta[tid] = -1;   // past the kept keys: masked
+        }
+      }
+    };
+    walk.run((n_keys + BK - 1) / BK, issue,
+             [&](int pos) { return key_visible(pos, pq, window); }, scale,
+             soft_cap);
+  }
+  walk.store(n_rows,
+             (static_cast<size_t>(b) * nsplit + split) * H + kvh * G + g0, D,
+             o, l, m);
+}
+
+template <typename T, typename TK>
+cudaError_t launch_paged_decode(const void* q, const void* k_pages,
+                                const void* v_pages, const void* k_scale,
+                                const void* v_scale, const void* pos_pages,
+                                const void* tables, const void* pos_q,
+                                void* o, void* l, void* m, int B, int H,
+                                int KV, int D, int bs, int nb, int pps,
+                                float scale, int window, float soft_cap,
+                                cudaStream_t stream) {
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  if (B <= 0 || nb <= 0) return cudaSuccess;
+  if (KV <= 0 || H % KV != 0 || D <= 0 || D > 256 ||
+      D % (16 / sizeof(TK)) != 0 || D % 8 != 0 || bs <= 0 || pps <= 0 ||
+      pps > nb || KV > 65535 || B > 65535 ||
+      !aligned16(k_pages, v_pages) ||
+      (kQuant && (k_scale == nullptr || v_scale == nullptr)))
+    return cudaErrorInvalidValue;
+  const int G = H / KV, rg = dec::rows_per_block(G);
+  const int n_grp = (G + rg - 1) / rg;
+  const long long nsplit = (nb + pps - 1) / pps;
+  if (nsplit * n_grp > INT_MAX) return cudaErrorInvalidValue;
+  return dec::dispatch_shape(D, G, [&](auto sh) -> cudaError_t {
+    constexpr int DP = decltype(sh)::kDp, RG = decltype(sh)::kRg;
+    using W = dec::Walk<T, TK, DP, RG>;
+    auto kernel = paged_decode_kernel<T, TK, DP, RG>;
+    // a one-stage ring when a split's keys fit one tile
+    const int stages =
+        static_cast<long long>(pps) * bs <= W::kBk ? 1 : W::kStages;
+    const size_t smem = W::smem_bytes(stages) + dec::kThreads * sizeof(int);
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(static_cast<unsigned>(nsplit * n_grp), KV, B);
+    kernel<<<grid, dec::kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const TK*>(k_pages),
+        static_cast<const TK*>(v_pages), static_cast<const float*>(k_scale),
+        static_cast<const float*>(v_scale),
+        static_cast<const int*>(pos_pages), static_cast<const int*>(tables),
+        static_cast<const int*>(pos_q), static_cast<float*>(o),
+        static_cast<float*>(l), static_cast<float*>(m), H, KV, D, bs, nb,
+        pps, n_grp, stages, scale, window, soft_cap);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace repro
 
-// q: (B, H, D); pools (P, bs, KV, D); pos_pages (P, bs); tables (B, nb);
-// pos_q (B,).  o: (B, nb, H, D) f32; l, m: (B, nb, H) f32.  S is 1 (the
-// argument keeps the page entries' signatures alike).
-// Returns the cudaError_t of the launch (0 = success).
+// q: (B, H, D); pools (P, bs, KV, D) of q's dtype; pos_pages (P, bs);
+// tables (B, nb); pos_q (B,).  o: (B, ceil(nb / pps), H, D) f32; l, m:
+// (B, ceil(nb / pps), H) f32.  S is 1 (the argument keeps the page
+// entries' signatures alike).  D a multiple of 8 up to 256, 1 <= pps <= nb,
+// the pools 16-byte aligned.  Returns the cudaError_t of the launch.
 extern "C" int paged_decode_partials(const void* q, const void* k_pages,
                                      const void* v_pages,
                                      const void* pos_pages,
                                      const void* tables, const void* pos_q,
                                      void* o, void* l, void* m, int B, int S,
                                      int H, int KV, int D, int bs, int nb,
-                                     float scale, int window, float soft_cap,
-                                     int dtype, void* stream) {
+                                     int pps, float scale, int window,
+                                     float soft_cap, int dtype,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S != 1) return cudaErrorInvalidValue;
-  return repro::page_partials_entry<repro::PagedDecode>(
-      q, k_pages, v_pages, pos_pages, tables, pos_q, o, l, m, B, 1, H, KV, D,
-      bs, nb, scale, window, soft_cap, dtype, stream);
+  if (dtype == repro::DTYPE_F32)
+    return repro::launch_paged_decode<float, float>(
+        q, k_pages, v_pages, nullptr, nullptr, pos_pages, tables, pos_q, o, l,
+        m, B, H, KV, D, bs, nb, pps, scale, window, soft_cap, st);
+  if (dtype == repro::DTYPE_BF16)
+    return repro::launch_paged_decode<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, pos_pages, tables, pos_q, o, l,
+        m, B, H, KV, D, bs, nb, pps, scale, window, soft_cap, st);
+  return cudaErrorInvalidValue;
 }
 
 // int8 pools (P, bs, KV, D) with k/v_scale (P, bs, KV) f32; q of dtype.
+// D a multiple of 16.
 extern "C" int paged_decode_partials_q8(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* pos_pages,
     const void* tables, const void* pos_q, void* o, void* l, void* m, int B,
-    int S, int H, int KV, int D, int bs, int nb, float scale, int window,
-    float soft_cap, int dtype, void* stream) {
+    int S, int H, int KV, int D, int bs, int nb, int pps, float scale,
+    int window, float soft_cap, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S != 1) return cudaErrorInvalidValue;
-  return repro::page_partials_q8_entry<repro::PagedDecode>(
-      q, k_pages, v_pages, k_scale, v_scale, pos_pages, tables, pos_q, o, l,
-      m, B, 1, H, KV, D, bs, nb, scale, window, soft_cap, dtype, stream);
+  if (dtype == repro::DTYPE_F32)
+    return repro::launch_paged_decode<float, int8_t>(
+        q, k_pages, v_pages, k_scale, v_scale, pos_pages, tables, pos_q, o, l,
+        m, B, H, KV, D, bs, nb, pps, scale, window, soft_cap, st);
+  if (dtype == repro::DTYPE_BF16)
+    return repro::launch_paged_decode<__nv_bfloat16, int8_t>(
+        q, k_pages, v_pages, k_scale, v_scale, pos_pages, tables, pos_q, o, l,
+        m, B, H, KV, D, bs, nb, pps, scale, window, soft_cap, st);
+  return cudaErrorInvalidValue;
 }

@@ -1,7 +1,6 @@
 // Per-page attention partials read straight out of a paged KV pool: the
-// shared body of the page-fused decode kernel (paged_decode.cu, S = 1)
-// and the speculative-verify kernel (paged_verify.cu, S = 2 .. spec_len +
-// 1).
+// body of the speculative-verify kernel (paged_verify.cu, B4, S = 2 ..
+// spec_len + 1).  Paged decode (B1, S = 1) runs on decode_walk.cuh.
 //
 // One block per (row b, page slot j, kv head).  The block resolves its
 // physical page through the block table itself (the TPU kernels did that
@@ -48,8 +47,7 @@ inline size_t page_partials_smem(int bs, int D, bool quant) {
 // tables: (B, nb) (-1 = dead); pos_q: (B, S) absolute query positions.
 // o: (B, nb, S, H, D) f32; l, m: (B, nb, S, H) f32.
 // Tag is an empty type named after the entry point that launches the
-// kernel (PagedDecode, PagedVerify), so each entry has its
-// own kernel symbol and a trace tells their device times apart; the int8
+// kernel (PagedVerify), so the kernel symbol names it in a trace; the int8
 // instantiations differ from the others in TK.
 template <typename T, typename TK, typename Tag>
 __global__ void __launch_bounds__(kPageThreads)

@@ -7,131 +7,102 @@
 // Replaces the TPU kernel src/repro/kernels/split_kv_decode.py
 // (_decode_kernel / split_kv_decode_partials).  On the TPU one grid step
 // holds a whole 512-key block of K and V (all kv heads) in VMEM and scores
-// it in one shot.  512 keys x D 128 of K and V in f32 would take 512 KB of
-// shared memory per kv head, so here one block owns (sequence, key block
-// j, kv head) and walks its keys in 32-key tiles staged in shared memory
-// as f32, keeping a running max, sum and output inside the block (the
-// online softmax) and writing one partial per key block at the end: the
-// same partial as the TPU kernel's, up to float association.  A tile's
-// phases spread over all four warps whatever G is: scores one (query row,
-// key) pair per warp, the softmax update one query row per warp, the PV
-// product one (query row, dimension) per thread.  Masking follows the JAX
+// it in one shot.  Here one block of 4 warps owns (sequence, key block j,
+// kv head, a group of up to 8 of its G query heads) and walks the block's
+// keys with the key walk of decode_walk.cuh, which B1 shares: K/V tiles in
+// a four-stage cp.async ring in their storage type, the keys spread over
+// the warps, one warp-wide max per tile and row, and the warps' running
+// states merged exactly at the end into the same partial as the TPU
+// kernel's, up to float association.  The block first copies its block_k
+// validity flags to shared memory and walks only the tiles that hold a
+// valid key: a tile with none is never read.  Masking follows the JAX
 // kernel: a finite NEG_INF = -1e30, p zeroed where the key is invalid, so
 // a fully invalid block gives l = 0; no soft cap and no window.
 //
 // Bound on the H100: bytes.  Each key's K and V are read once per kv head
 // and do 4 * G * D flops, about G flops per byte of bf16 cache, far below
-// the card's ~295 flop/byte ridge.  Tiles are staged in 16-byte words
-// (common.cuh stage_kv) where the head_dim and alignment allow.  Not yet
-// done: a double-buffered tile ring (cp.async / TMA) so loads overlap the
-// math.
-#include "common.cuh"
+// the card's ~295 flop/byte ridge; the walk keeps three tiles in flight
+// while it scores a fourth.
+#include <climits>
+
+#include "decode_walk.cuh"
 
 namespace repro {
 
-constexpr int kDecWarps = 4;
-constexpr int kDecThreads = 32 * kDecWarps;
-constexpr int kDecTile = 32;     // keys per shared-memory tile (one per lane)
-
-inline size_t split_decode_smem(int G, int D) {
-  return (2 * static_cast<size_t>(kDecTile) * D    // K, V tile
-          + 2 * static_cast<size_t>(G) * D         // q rows, accumulators
-          + static_cast<size_t>(G) * kDecTile      // scores / probabilities
-          + 3 * static_cast<size_t>(G)) * sizeof(float)   // m, l, alpha
-         + kDecTile * sizeof(int);                 // tile validity
-}
-
 // q: (B, H, D); k, v: (B, L, KV, D); valid: (B, L) uint8; L = J * bk.
-// o: (B, J, H, D) f32; l, m: (B, J, H) f32.
-template <typename T>
-__global__ void __launch_bounds__(kDecThreads)
+// o: (B, J, H, D) f32; l, m: (B, J, H) f32.  blockIdx.x = j * n_grp +
+// query-head group.
+template <typename T, int DP, int RG>
+__global__ void __launch_bounds__(dec::kThreads)
 split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v,
                     const unsigned char* __restrict__ valid,
                     float* __restrict__ o, float* __restrict__ l,
                     float* __restrict__ m, int H, int KV, int D, int L,
-                    int bk, int J, float scale, int vec) {
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x, j = blockIdx.y, kvh = blockIdx.z;
-  const int G = H / KV;
-  float* ks = smem;                         // (kDecTile, D)
-  float* vs = ks + kDecTile * D;            // (kDecTile, D)
-  float* qs = vs + kDecTile * D;            // (G, D)
-  float* acc = qs + G * D;                  // (G, D)
-  float* sc = acc + G * D;                  // (G, kDecTile)
-  float* m_run = sc + G * kDecTile;         // (G,)
-  float* l_run = m_run + G;                 // (G,)
-  float* alpha = l_run + G;                 // (G,)
-  int* vm = reinterpret_cast<int*>(alpha + G);   // (kDecTile,)
+                    int bk, int J, int n_grp, int stages, float scale) {
+  using W = dec::Walk<T, T, DP, RG>;
+  constexpr int BK = W::kBk;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_all = (bk + BK - 1) / BK;   // tiles of the key block
+  int* tile_any =   // (n_all,)
+      reinterpret_cast<int*>(smem_raw + W::smem_bytes(stages));
+  int* tiles_s = tile_any + n_all;     // indices of tiles with a valid key
+  unsigned char* valid_s = reinterpret_cast<unsigned char*>(tiles_s + n_all);
+  __shared__ int n_tiles_s;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t q_base = (static_cast<size_t>(b) * H + kvh * G) * D;
-  for (int i = tid; i < G * D; i += kDecThreads) {
-    qs[i] = to_f32(q[q_base + i]);
-    acc[i] = 0.f;
-  }
-  for (int r = tid; r < G; r += kDecThreads) {
-    m_run[r] = NEG_INF;
-    l_run[r] = 0.f;
-  }
+  const int j = blockIdx.x / n_grp, grp = blockIdx.x % n_grp;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV, g0 = grp * RG, n_rows = min(RG, G - g0);
+  const int tid = threadIdx.x, lane = tid % 32;
   const size_t key0 = static_cast<size_t>(b) * L + static_cast<size_t>(j) * bk;
 
-  for (int t0 = 0; t0 < bk; t0 += kDecTile) {
-    const int n = min(kDecTile, bk - t0);
-    // 1. stage the tile (keys past the block's end are invalid zeros)
-    const size_t head0 = ((key0 + t0) * KV + kvh) * D;
-    stage_kv(k + head0, v + head0, static_cast<size_t>(KV) * D, n, D, ks, vs,
-             vec != 0, kDecThreads);
-    for (int i = n * D + tid; i < kDecTile * D; i += kDecThreads) {
-      ks[i] = 0.f;
-      vs[i] = 0.f;
-    }
-    for (int t = tid; t < kDecTile; t += kDecThreads)
-      vm[t] = t < n ? valid[key0 + t0 + t] != 0 : 0;
-    __syncthreads();
-    // 2. masked scores, one (row, key) pair per warp at a time
-    for (int pr = warp; pr < G * kDecTile; pr += kDecWarps) {
-      const int r = pr / kDecTile, t = pr - r * kDecTile;
-      float dot = 0.f;
-      for (int d = lane; d < D; d += 32) dot += qs[r * D + d] * ks[t * D + d];
-      dot = warp_sum(dot) * scale;
-      if (lane == 0) sc[pr] = vm[t] ? dot : NEG_INF;
-    }
-    __syncthreads();
-    // 3. online softmax update, one row per warp, lane = key
-    for (int r = warp; r < G; r += kDecWarps) {
-      const float s = sc[r * kDecTile + lane];
-      const float m_old = m_run[r];
-      const float m_new = fmaxf(m_old, warp_max(s));
-      const float p = vm[lane] ? expf(s - m_new) : 0.f;
-      const float psum = warp_sum(p);
-      sc[r * kDecTile + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        alpha[r] = a;
-        l_run[r] = l_run[r] * a + psum;
-        m_run[r] = m_new;
-      }
-    }
-    __syncthreads();
-    // 4. rescale and accumulate P V, one (row, dimension) per thread
-    for (int i = tid; i < G * D; i += kDecThreads) {
-      const int r = i / D, d = i - r * D;
-      const float* pr = sc + r * kDecTile;
-      float a = acc[i] * alpha[r];
-      for (int t = 0; t < kDecTile; ++t) a += pr[t] * vs[t * D + d];
-      acc[i] = a;
-    }
-    __syncthreads();
+  for (int t = tid; t < n_all; t += dec::kThreads) tile_any[t] = 0;
+  __syncthreads();
+  for (int i = tid; i < bk; i += dec::kThreads) {
+    const unsigned char f = valid[key0 + i];
+    valid_s[i] = f;
+    if (f) tile_any[i / BK] = 1;
   }
+  W walk;
+  walk.init(smem_raw, stages,
+            q + (static_cast<size_t>(b) * H + kvh * G + g0) * D, n_rows, D);
+  __syncthreads();
+  if (tid < 32) {   // compact the tiles with a valid key, in order
+    int n = 0;
+    for (int base = 0; base < n_all; base += 32) {
+      const bool any = base + lane < n_all && tile_any[base + lane];
+      const unsigned ballot = __ballot_sync(0xffffffffu, any);
+      if (any) tiles_s[n + __popc(ballot & ((1u << lane) - 1u))] = base + lane;
+      n += __popc(ballot);
+    }
+    if (lane == 0) n_tiles_s = n;
+  }
+  __syncthreads();
 
-  const size_t out_row = (static_cast<size_t>(b) * J + j) * H + kvh * G;
-  for (int i = tid; i < G * D; i += kDecThreads) o[out_row * D + i] = acc[i];
-  for (int r = tid; r < G; r += kDecThreads) {
-    l[out_row + r] = l_run[r];
-    m[out_row + r] = m_run[r];
-  }
+  const T* kh = k + static_cast<size_t>(kvh) * D;
+  const T* vh = v + static_cast<size_t>(kvh) * D;
+  auto issue = [&](int i, int st) {
+    const int t0 = tiles_s[i] * BK;
+    walk.issue(st, kh, vh, D, [&](int r) -> long long {
+      const int key = t0 + r;
+      return key < bk ? static_cast<long long>(key0 + key) * KV * D : -1;
+    });
+    if (tid < BK) {
+      const int key = t0 + tid;
+      walk.meta(st)[tid] = key < bk ? valid_s[key] : 0;
+    }
+  };
+  walk.run(n_tiles_s, issue, [](int ok) { return ok != 0; }, scale, 0.f);
+  walk.store(n_rows,
+             (static_cast<size_t>(b) * J + j) * H + kvh * G + g0, D, o, l, m);
+}
+
+// Dynamic shared memory of a launch: the walk's, then the tile flags and
+// list (ints) and the block's validity flags.
+template <typename W>
+size_t split_decode_smem(int stages, int bk) {
+  const size_t n_all = (bk + W::kBk - 1) / W::kBk;
+  return W::smem_bytes(stages) + 2 * n_all * sizeof(int) + bk;
 }
 
 template <typename T>
@@ -140,26 +111,39 @@ cudaError_t launch_split_decode(const void* q, const void* k, const void* v,
                                 int B, int H, int KV, int D, int L, int bk,
                                 float scale, cudaStream_t stream) {
   if (B <= 0 || L <= 0) return cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || D <= 0 || bk <= 0 || L % bk != 0 ||
-      L / bk > 65535 || KV > 65535)
+  if (KV <= 0 || H % KV != 0 || D <= 0 || D > 256 || D % 8 != 0 ||
+      bk <= 0 || bk > 16384 || L % bk != 0 || KV > 65535 || B > 65535 ||
+      !aligned16(k, v))
     return cudaErrorInvalidValue;
   const int J = L / bk;
-  const size_t smem = split_decode_smem(H / KV, D);
-  cudaError_t err = allow_smem(split_decode_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B, J, KV);
-  split_decode_kernel<T><<<grid, kDecThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const unsigned char*>(valid),
-      static_cast<float*>(o), static_cast<float*>(l), static_cast<float*>(m),
-      H, KV, D, L, bk, J, scale, vec_ok<T>(D, k, v));
-  return cudaGetLastError();
+  const int G = H / KV, rg = dec::rows_per_block(G);
+  const int n_grp = (G + rg - 1) / rg;
+  if (static_cast<long long>(J) * n_grp > INT_MAX)
+    return cudaErrorInvalidValue;
+  return dec::dispatch_shape(D, G, [&](auto sh) -> cudaError_t {
+    constexpr int DP = decltype(sh)::kDp, RG = decltype(sh)::kRg;
+    using W = dec::Walk<T, T, DP, RG>;
+    auto kernel = split_decode_kernel<T, DP, RG>;
+    // a one-stage ring when a key block fits one tile
+    const int stages = bk <= W::kBk ? 1 : W::kStages;
+    const size_t smem = split_decode_smem<W>(stages, bk);
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(static_cast<unsigned>(J * n_grp), KV, B);
+    kernel<<<grid, dec::kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const unsigned char*>(valid),
+        static_cast<float*>(o), static_cast<float*>(l),
+        static_cast<float*>(m), H, KV, D, L, bk, J, n_grp, stages, scale);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace repro
 
 // q: (B, H, D); k, v: (B, L, KV, D); valid: (B, L) uint8; L a multiple of
-// bk.  o: (B, L / bk, H, D) f32; l, m: (B, L / bk, H) f32.
+// bk <= 16384; D a multiple of 8 up to 256; k and v 16-byte aligned.
+// o: (B, L / bk, H, D) f32; l, m: (B, L / bk, H) f32.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int split_kv_decode_partials(const void* q, const void* k,
                                         const void* v, const void* valid,

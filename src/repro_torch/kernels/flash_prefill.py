@@ -132,6 +132,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
 def prefix_pages_per_split(q: torch.Tensor, kv_heads: int, nb: int) -> int:
     """The split of the prefix pages that the serving path asks B3 for:
     ``split_rule`` with the card's SM count.  On the CPU (the plain
@@ -139,9 +145,7 @@ def prefix_pages_per_split(q: torch.Tensor, kv_heads: int, nb: int) -> int:
     if q.device.type != "cuda":
         return max(nb, 1)
     b, s, h, d = q.shape
-    n_sm = _sm_count(q.device.index if q.device.index is not None
-                     else torch.cuda.current_device())
-    return split_rule(b, s, h, kv_heads, d, nb, n_sm)
+    return split_rule(b, s, h, kv_heads, d, nb, sm_count(q.device))
 
 
 def split_rule(b: int, s: int, h: int, kv_heads: int, head_dim: int,

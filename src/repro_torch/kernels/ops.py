@@ -17,8 +17,8 @@ from ..core.attention_offload import combine_stacked
 from ._lib import LAUNCHES, reset_launches
 from .flash_prefill import (flash_prefill, paged_prefix_partials,
                             prefix_pages_per_split)
-from .split_kv_decode import (paged_decode_partials, paged_verify_partials,
-                              split_kv_decode_partials)
+from .split_kv_decode import (decode_pages_per_split, paged_decode_partials,
+                              paged_verify_partials, split_kv_decode_partials)
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention",
            "decode_attention", "decode_partials", "paged_decode_attention",
@@ -97,18 +97,25 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            scale: Optional[float] = None,
                            soft_cap: Optional[float] = None,
                            k_scale_pages: Optional[torch.Tensor] = None,
-                           v_scale_pages: Optional[torch.Tensor] = None
+                           v_scale_pages: Optional[torch.Tensor] = None,
+                           pages_per_split: Optional[int] = None
                            ) -> torch.Tensor:
-    """Page-fused decode straight out of the block pool: per-page partials
-    from ``paged_decode_partials``, combined exactly over the page axis.
-    q: (B, H, D); k/v_pages: (P, bs, KV, D), or int8 with k/v_scale_pages
-    (P, bs, KV) f32 (dequantized in the kernel); pos_pages: (P, bs);
-    block_tables: (B, nb); pos_q: (B,).  Returns (B, H, D) in q's dtype."""
+    """Page-fused decode straight out of the block pool: partials from
+    ``paged_decode_partials``, one per split of ``pages_per_split`` page
+    slots (None: the split ``decode_pages_per_split`` picks for the card),
+    combined exactly over the split axis.  q: (B, H, D); k/v_pages:
+    (P, bs, KV, D), or int8 with k/v_scale_pages (P, bs, KV) f32
+    (dequantized in the kernel); pos_pages: (P, bs); block_tables: (B, nb);
+    pos_q: (B,).  Returns (B, H, D) in q's dtype."""
+    if pages_per_split is None:
+        pages_per_split = decode_pages_per_split(q, k_pages.shape[2],
+                                                 block_tables.shape[1])
     o, l, m = paged_decode_partials(q, k_pages, v_pages, pos_pages,
                                     block_tables, pos_q, window=window,
                                     scale=scale, soft_cap=soft_cap,
                                     k_scale_pages=k_scale_pages,
-                                    v_scale_pages=v_scale_pages)
+                                    v_scale_pages=v_scale_pages,
+                                    pages_per_split=pages_per_split)
     out = combine_stacked((o.movedim(1, 0), l.movedim(1, 0),
                            m.movedim(1, 0)))
     return out.to(q.dtype)

@@ -144,15 +144,19 @@ def paged_decode_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                 scale: Optional[float] = None,
                                 soft_cap: Optional[float] = None,
                                 k_scale_pages: Optional[torch.Tensor] = None,
-                                v_scale_pages: Optional[torch.Tensor] = None
-                                ) -> Partials:
+                                v_scale_pages: Optional[torch.Tensor] = None,
+                                pages_per_split: int = 1) -> Partials:
     """Single-query decode form: q (B, H, D), pos_q (B,).  The mask
     ``table >= 0 & pos >= 0 & pos <= pq (& window)`` is the prefix form's
-    with S = 1.  Returns o (B, nb, H, D), l/m (B, nb, H), f32."""
+    with S = 1.  Returns o (B, nb, H, D), l/m (B, nb, H), f32; with
+    ``pages_per_split`` > 1 each group of that many page slots merged by
+    ``merge_partials_plain``: o (B, ceil(nb / pps), H, D), l/m
+    (B, ceil(nb / pps), H)."""
     o, l, m = paged_prefix_partials_plain(
         q[:, None], k_pages, v_pages, pos_pages, block_tables,
         pos_q[:, None], window=window, scale=scale, soft_cap=soft_cap,
-        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
+        k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
+        pages_per_split=pages_per_split)
     return o[:, :, 0], l[:, :, 0], m[:, :, 0]
 
 

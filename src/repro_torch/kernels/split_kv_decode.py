@@ -7,11 +7,19 @@ of the TPU kernels ``src/repro/kernels/split_kv_decode.py``:
   a dense KV cache, one partial per block of ``block_k`` keys.  CUDA
   kernel ``csrc/split_kv_decode.cu``.
 * ``paged_decode_partials`` scores one query row per sequence against its
-  KV pages in place — the block table steers which physical page each
-  partial reads.  CUDA kernel ``csrc/paged_decode.cu``.
+  KV pages in place — the block table steers which physical pages each
+  partial reads — one partial per split of ``pages_per_split`` page slots
+  (1: the TPU kernel's one partial per page; the serving path asks for
+  ``decode_pages_per_split``).  CUDA kernel ``csrc/paged_decode.cu``.
 * ``paged_verify_partials`` scores S queries per sequence (the pending
   token and its proposals), each under its own causal horizon, in the
-  same single pass over the pages.  CUDA kernel ``csrc/paged_verify.cu``.
+  same single pass over the pages.  CUDA kernel ``csrc/paged_verify.cu``
+  on ``csrc/paged_partials.cuh``.
+
+The first two share the key walk of ``csrc/decode_walk.cuh``: the keys
+spread over the 4 warps of a block, K/V tiles of ``decode_tile_keys`` keys
+in a four-stage cp.async ring; they take head_dims that are multiples of 8
+(16 for int8 pools) up to 256.
 
 The paged kernels take bf16/f32 pools, or int8 pools with their f32 scale
 pools (``k_scale_pages``/``v_scale_pages``, one scale per (token entry, kv
@@ -32,6 +40,7 @@ from typing import Optional
 import torch
 
 from . import _lib
+from .flash_prefill import sm_count
 from .ref import (Partials, paged_decode_partials_plain,
                   paged_verify_partials_plain,
                   split_kv_decode_partials_plain)
@@ -39,10 +48,54 @@ from .ref import (Partials, paged_decode_partials_plain,
 NAME = "paged_decode_partials"
 VERIFY = "paged_verify_partials"
 SPLIT = "split_kv_decode_partials"
+MAX_BLOCK_K = 16384     # B5 keeps a key block's validity in shared memory
+# B1's target of blocks per SM when it cuts rows into splits
+DECODE_BLOCKS_PER_SM = 8
 
 
 def _counter(name: str, k_scale_pages: Optional[torch.Tensor]) -> str:
     return name if k_scale_pages is None else name + "_int8"
+
+
+def decode_tile_keys(head_dim: int, itemsize: int) -> int:
+    """Keys per K/V tile of the decode walk (``csrc/decode_walk.cuh``
+    ``Walk::kBk``): about 8 KB of K at the head_dim padded to 64, 128 or
+    256, between 32 and 128 keys."""
+    dp = 64 if head_dim <= 64 else (128 if head_dim <= 128 else 256)
+    return max(32, min(128, 8192 // (dp * itemsize)))
+
+
+def decode_rows_per_block(g: int) -> int:
+    """Query heads per block of the decode walk (``dec::rows_per_block``):
+    1, 4 or 8; a kv head of G > 8 query heads takes ceil(G / 8) blocks."""
+    return 1 if g == 1 else (4 if g <= 4 else 8)
+
+
+def decode_pages_per_split(q: torch.Tensor, kv_heads: int, nb: int) -> int:
+    """The split of the pages that the serving path asks B1 for:
+    ``decode_split_rule`` with the card's SM count.  On the CPU (the plain
+    version) one split per row."""
+    if q.device.type != "cuda":
+        return max(nb, 1)
+    return decode_split_rule(q.shape[0], q.shape[1], kv_heads, nb,
+                             sm_count(q.device))
+
+
+def decode_split_rule(b: int, h: int, kv_heads: int, nb: int,
+                      n_sm: int) -> int:
+    """Pages per split for B1 on a card of ``n_sm`` SMs.  B1 runs
+    B * KV * ceil(G / decode_rows_per_block(G)) blocks per split; the pages
+    of each row are cut into enough splits for about
+    ``DECODE_BLOCKS_PER_SM`` blocks per SM (one split per row when the
+    blocks reach that already, never more splits than pages).  Rows of
+    different lengths leave SMs idle at the end of a launch; many short
+    blocks even that out at the cost of more partials."""
+    if nb <= 1:
+        return max(nb, 1)
+    g = h // kv_heads
+    blocks = b * kv_heads * -(-g // decode_rows_per_block(g))
+    n_split = min(nb, -(-DECODE_BLOCKS_PER_SM * n_sm // blocks))
+    return -(-nb // n_split)
 
 
 def paged_decode_partials(q: torch.Tensor, k_pages: torch.Tensor,
@@ -52,25 +105,35 @@ def paged_decode_partials(q: torch.Tensor, k_pages: torch.Tensor,
                           scale: Optional[float] = None,
                           soft_cap: Optional[float] = None,
                           k_scale_pages: Optional[torch.Tensor] = None,
-                          v_scale_pages: Optional[torch.Tensor] = None
-                          ) -> Partials:
+                          v_scale_pages: Optional[torch.Tensor] = None,
+                          pages_per_split: int = 1) -> Partials:
     """q: (B, H, D); k/v_pages: (P, bs, KV, D), or int8 with
     k/v_scale_pages (P, bs, KV) f32; pos_pages: (P, bs) int32 (-1 = hole);
     block_tables: (B, nb) int32 (-1 = dead; page 0 is the scratch page);
-    pos_q: (B,) int32 decode positions.  Returns o (B, nb, H, D), l/m
-    (B, nb, H), f32."""
+    pos_q: (B,) int32 decode positions.  Returns one partial per split of
+    ``pages_per_split`` page slots (the last split ragged): o
+    (B, ceil(nb / pps), H, D), l/m (B, ceil(nb / pps), H), f32.
+    ``pages_per_split=1`` is the TPU kernel's one partial per page."""
+    pps = int(pages_per_split)
+    if pps < 1:
+        raise ValueError(f"{NAME}: pages_per_split must be >= 1, "
+                         f"got {pages_per_split}")
     if q.device.type == "cpu":
         return paged_decode_partials_plain(
             q, k_pages, v_pages, pos_pages, block_tables, pos_q,
             window=window, scale=scale, soft_cap=soft_cap,
-            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
+            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
+            pages_per_split=pps)
     if q.dim() != 3 or pos_q.dim() != 1:
         raise ValueError(f"{NAME}: q must be (B, H, D) and pos_q (B,), got "
                          f"{tuple(q.shape)} and {tuple(pos_q.shape)}")
+    counter = _counter(NAME, k_scale_pages)
+    _lib.check_tiles(counter, q.shape[-1], k_pages, v_pages,
+                     multiple=16 if k_scale_pages is not None else 8)
     o, l, m = _lib.page_partials(
-        "paged_decode", NAME, _counter(NAME, k_scale_pages), q[:, None],
-        k_pages, v_pages, pos_pages, block_tables, pos_q[:, None], window,
-        scale, soft_cap, k_scale_pages, v_scale_pages)
+        "paged_decode", NAME, counter, q[:, None], k_pages, v_pages,
+        pos_pages, block_tables, pos_q[:, None], window, scale, soft_cap,
+        k_scale_pages, v_scale_pages, pages_per_split=pps)
     return o[:, :, 0], l[:, :, 0], m[:, :, 0]
 
 
@@ -120,9 +183,10 @@ def split_kv_decode_partials(q: torch.Tensor, k: torch.Tensor,
     b, h, d = q.shape
     length, kv = k.shape[1], k.shape[2]
     bk = min(int(block_k), length)
+    _lib.check_tiles(SPLIT, d, k, v)
     if (k.shape[0] != b or k.shape[3] != d or h % kv or v.shape != k.shape
             or valid.shape != (b, length) or valid.dtype != torch.uint8
-            or bk < 1 or length % bk):
+            or bk < 1 or bk > MAX_BLOCK_K or length % bk):
         raise ValueError(f"{SPLIT}: inconsistent inputs q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, valid {tuple(valid.shape)} "
                          f"{valid.dtype}, block_k {bk}")

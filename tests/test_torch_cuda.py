@@ -15,7 +15,8 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                paged_prefix_partials)
-from repro_torch.kernels.split_kv_decode import (paged_decode_partials,
+from repro_torch.kernels.split_kv_decode import (decode_pages_per_split,
+                                                 paged_decode_partials,
                                                  paged_verify_partials,
                                                  split_kv_decode_partials)
 
@@ -249,15 +250,18 @@ def test_cuda_int8_page_kernels_vs_plain(dtype, d):
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_split_kv_decode_vs_plain(dtype, d):
-    """B5, dense-cache split-KV decode, against its plain version (MHA and
-    GQA, a ragged last block, fully invalid blocks) and through
+    """B5, dense-cache split-KV decode, against its plain version (MHA,
+    GQA and G = 8, a ragged last block, a block_k that is not a multiple of
+    the walk's key tile, fully invalid blocks) and through
     ``ops.decode_attention`` (L padded to the block) against the one-softmax
     reference.  Partials: both sides in f32 from the same inputs, 1e-4;
     the combined output in ``dtype``: 1e-4 in f32, one bf16 step (2e-2)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dt = getattr(torch, dtype)
-    for h, kv, length, bk in ((8, 8, 1024, 512), (8, 2, 600, 128)):
+    # MHA; GQA; G = 8 with a block_k off every key-tile multiple
+    for h, kv, length, bk in ((8, 8, 1024, 512), (8, 2, 600, 128),
+                              (16, 2, 600, 200)):
         q, k, v, valid = decode_case(18, 3, h, kv, d, length)
         q, k, v = (torch.as_tensor(x).cuda().to(dt) for x in (q, k, v))
         valid = torch.as_tensor(valid).cuda()
@@ -326,3 +330,46 @@ def test_cuda_prefill_kernels_vs_plain(s, dtype, d):
                 torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="head_dim"):
         flash_prefill(q[..., :d - 4], k[..., :d - 4], v[..., :d - 4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_kernel_splits_vs_plain(dtype, d):
+    """B1 and its int8 variant at 1 page per split (the TPU contract), 3
+    (a ragged last split, whole splits of dead entries) and the serving
+    split, MHA and GQA, with and without window plus soft cap, over tables
+    with dead entries (a dead slot inside the live range too) and holes.
+    Both sides compute in f32 from the same inputs: 1e-4.  A head_dim off
+    the 16-element chunk of an int8 pool is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    nb = 24
+    for h, kv in ((8, 8), (8, 2)):
+        c = paged_case(23, 4, h, kv, d, 16, nb)
+        c["block_tables"][0, 1] = -1            # a dead slot mid-table
+        for quant in (False, True):
+            a = _on_card(quantize_pages(c) if quant else c, dt)
+            pages = tuple(a[k] for k in KEYS)
+            sc = (dict(k_scale_pages=a["k_scale_pages"],
+                       v_scale_pages=a["v_scale_pages"]) if quant else {})
+            serving = decode_pages_per_split(pages[0], kv, nb)
+            for win, cap in ((None, None), (40, 30.0)):
+                for pps in (1, 3, serving):
+                    got = paged_decode_partials(*pages, window=win,
+                                                soft_cap=cap,
+                                                pages_per_split=pps, **sc)
+                    torch.cuda.synchronize()
+                    want = ref.paged_decode_partials_plain(
+                        *pages, window=win, soft_cap=cap,
+                        pages_per_split=pps, **sc)
+                    assert got[0].shape[1] == -(-nb // pps)
+                    for g, w in zip(got, want):
+                        torch.testing.assert_close(g, w, atol=1e-4,
+                                                   rtol=1e-4)
+    a = _on_card(quantize_pages(paged_case(24, 2, 4, 2, 24, 16, 4)), dt)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_partials(*(a[k] for k in KEYS),
+                              k_scale_pages=a["k_scale_pages"],
+                              v_scale_pages=a["v_scale_pages"])

@@ -39,7 +39,9 @@ from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                paged_prefix_partials,
                                                prefix_pages_per_split,
                                                split_rule)
-from repro_torch.kernels.split_kv_decode import (paged_decode_partials,
+from repro_torch.kernels.split_kv_decode import (decode_pages_per_split,
+                                                 decode_split_rule,
+                                                 paged_decode_partials,
                                                  paged_verify_partials)
 from test_torch_cuda import dense_case as _dense_case
 from test_torch_cuda import paged_case as _paged_case
@@ -146,6 +148,78 @@ def test_fully_masked_live_page_has_zero_l():
                 *_args(c, jnp.asarray), interpret=True))
         assert np.all(l[0, :2] == 0) and np.all(o[0, :2] == 0), side
         assert np.all(m[0, :2] == NEG_INF), side
+
+
+@pytest.mark.parametrize("split", [3, "nb"])
+@pytest.mark.parametrize("b,h,kv,d,bs,nb,win,cap", PAGED)
+def test_paged_decode_split_partials_vs_jax_merge(b, h, kv, d, bs, nb, win,
+                                                  cap, split):
+    """B1's plain version with several pages per split (3: a ragged last
+    split; nb: one split per row) equals the exact merge of JAX's per-page
+    partials over each group."""
+    pps = nb if split == "nb" else split
+    c = _paged_case(0, b, h, kv, d, bs, nb)
+    got = paged_decode_partials(*_args(c, _t), window=win, soft_cap=cap,
+                                pages_per_split=pps)
+    want = merge_groups(j_paged_decode_partials(
+        *_args(c, jnp.asarray), window=win, soft_cap=cap, interpret=True),
+        pps)
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    assert got[0].shape[1] == -(-nb // pps)
+    _close(tuple(g.numpy() for g in got), want)
+
+
+@pytest.mark.parametrize("pps", [1, 3])
+@pytest.mark.parametrize("b,h,kv,d,bs,nb,win,cap", PAGED)
+def test_paged_decode_attention_split_vs_jax_and_oracles(b, h, kv, d, bs, nb,
+                                                         win, cap, pps):
+    """The combined paged decode at one partial per page and per 3 pages
+    (the CPU default is one split per row) against JAX's and the oracle."""
+    c = _paged_case(1, b, h, kv, d, bs, nb)
+    out = ops.paged_decode_attention(*_args(c, _t), window=win, soft_cap=cap,
+                                     pages_per_split=pps)
+    _close(out.numpy(), JOPS.paged_decode_attention(
+        *_args(c, jnp.asarray), window=win, soft_cap=cap, interpret=True))
+    _close(out.numpy(), ref.paged_decode_attention_reference(
+        *_args(c, _t), window=win, soft_cap=cap).numpy())
+
+
+def test_dead_or_masked_decode_split_is_the_all_masked_partial():
+    """A decode split whose entries are all dead, and one whose live pages
+    hold only holes and keys after the query, give o = 0, l = 0,
+    m = NEG_INF; the other splits match JAX's merged per-page partials."""
+    b, h, kv, d, bs, nb = 2, 4, 2, 16, 8, 9
+    c = _paged_case(13, b, h, kv, d, bs, nb)
+    tables = c["block_tables"]
+    tables[0, 6:9] = -1                       # split 2 of row 0: dead
+    for j in range(6, 9):                     # row 1, split 2: nothing seen
+        page = 1 + b * nb - 1 - j
+        tables[1, j] = page
+        c["pos_pages"][page] = c["pos_q"][1] + 1 + np.arange(bs)
+    c["pos_pages"][tables[1, 6], :3] = -1
+    got = paged_decode_partials(*_args(c, _t), pages_per_split=3)
+    for row in (0, 1):
+        assert torch.equal(got[0][row, 2], torch.zeros_like(got[0][row, 2]))
+        assert torch.equal(got[1][row, 2], torch.zeros_like(got[1][row, 2]))
+        assert (got[2][row, 2] == NEG_INF).all()
+    want = merge_groups(j_paged_decode_partials(*_args(c, jnp.asarray),
+                                                interpret=True), 3)
+    _close(tuple(g.numpy() for g in got), want)
+
+
+@pytest.mark.parametrize("b,h,kv,nb,n_sm,want", [
+    (64, 40, 40, 64, 132, 64),   # 2,560 blocks: one split per row
+    (8, 40, 40, 64, 132, 16),    # 320 blocks: 4 splits of 16
+    (1, 40, 40, 64, 132, 3),     # 40 blocks: 22 splits of 3
+    (2, 32, 8, 64, 132, 1),      # GQA G = 4, one block per kv head: 16
+    (1, 16, 1, 3, 132, 1),       # G = 16: 2 blocks; never more splits
+    (1, 8, 8, 1, 132, 1)])
+def test_decode_split_rule(b, h, kv, nb, n_sm, want):
+    """B * KV * ceil(G / rows per block) blocks per split; each row cut
+    into enough splits for about eight blocks per SM, one split per row
+    when the blocks reach that, never more splits than pages."""
+    assert decode_split_rule(b, h, kv, nb, n_sm) == want
+    assert decode_pages_per_split(torch.zeros((b, h, 8)), kv, nb) == nb
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +388,7 @@ def test_paged_prefill_attention_vs_jax_and_oracles(b, s, h, kv, d, bs, nb,
             jp[0], jnp.asarray(k), jnp.asarray(v), *jp[1:], window=win))
 
 
-def _merge_groups(parts, group):
+def merge_groups(parts, group):
     """The exact merge of per-page partials (B, nb, ...) over consecutive
     groups of ``group`` pages (the last ragged), in float64: m the group's
     max, o and l weighted by exp(m_page - m)."""
@@ -342,7 +416,7 @@ def test_paged_prefix_split_partials_vs_jax_merge(b, s, h, kv, d, bs, nb, win,
                                 pages_per_split=pps)
     per_page = j_paged_prefix_partials(*_args(c, jnp.asarray), window=win,
                                        soft_cap=cap, interpret=True)
-    want = _merge_groups(per_page, pps)
+    want = merge_groups(per_page, pps)
     assert [tuple(g.shape) for g in got] == [w.shape for w in want]
     assert got[0].shape[1] == -(-nb // pps)
     _close(tuple(g.numpy() for g in got), want)
@@ -391,7 +465,7 @@ def test_dead_or_masked_split_is_the_all_masked_partial():
         assert torch.equal(got[0][row, 2], torch.zeros_like(got[0][row, 2]))
         assert torch.equal(got[1][row, 2], torch.zeros_like(got[1][row, 2]))
         assert (got[2][row, 2] == NEG_INF).all()
-    want = _merge_groups(j_paged_prefix_partials(*_args(c, jnp.asarray),
+    want = merge_groups(j_paged_prefix_partials(*_args(c, jnp.asarray),
                                                  interpret=True), 3)
     _close(tuple(g.numpy() for g in got), want)
 

@@ -54,6 +54,7 @@ from repro_torch.serving.orchestrator import Orchestrator, OrchestratorConfig
 from repro_torch.serving.request import Request
 from test_torch_cuda import decode_case, paged_case, quantize_pages, \
     verify_case
+from test_torch_kernels import merge_groups
 
 PTINY = ModelConfig(name="tiny4", family=Family.DENSE, n_layers=4,
                     d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
@@ -189,6 +190,25 @@ def test_int8_page_partials_vs_jax(kind, b, h, kv, d, bs, nb, win, cap):
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("split", [3, "nb"])
+@pytest.mark.parametrize("b,h,kv,d,bs,nb,win,cap", QPAGED)
+def test_int8_decode_split_partials_vs_jax_merge(b, h, kv, d, bs, nb, win,
+                                                 cap, split):
+    """B1-int8's plain version with several pages per split (3: a ragged
+    last split; nb: one split per row), window and soft cap, equals the
+    exact merge of the JAX int8 kernel's per-page partials."""
+    pps = nb if split == "nb" else split
+    c = quantize_pages(paged_case(20, b, h, kv, d, bs, nb))
+    got = paged_decode_partials(*_args(c, _t), window=win, soft_cap=cap,
+                                pages_per_split=pps, **_scales(c, _t))
+    want = merge_groups(j_paged_decode_partials(
+        *_args(c, jnp.asarray), window=win, soft_cap=cap, interpret=True,
+        **_scales(c, jnp.asarray)), pps)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), w, **TOL)
 
 
 @pytest.mark.parametrize("win,cap", [(None, None), (12, None), (None, 30.0)])
