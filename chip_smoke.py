@@ -14,19 +14,23 @@ Phases (any failure exits non-zero and prints no result line):
 2. Hold each kernel against its plain PyTorch version on the card: at the
    serving path's llama-13b shapes, at a GQA shape (granite-8b heads) and
    on a windowed, soft-capped head_dim-256 case with dead table entries
-   and holes, in float32 and bfloat16; B1, B1-int8 and B3 at one partial
-   per page (the TPU kernels' contract), per 3 pages and per the split the
-   serving path picks; the int8 variants of B1/B4 on the same pools
-   quantized to int8 with per-entry scales; B5 over a dense llama-13b
-   decode cache (1024 keys, random valid lengths, block_k 512).  Time each
-   kernel (its device time per call from torch.profiler, warmed, many
-   launches) with its plain version and a library yardstick timed the
+   and holes, in float32 and bfloat16; B1, B1-int8, B3, B4 and B4-int8 at
+   one partial per page (the TPU kernels' contract), per 3 pages and per
+   the split the serving path picks; the int8 variants of B1/B4 on the
+   same pools quantized to int8 with per-entry scales; B5 over a dense
+   llama-13b decode cache (1024 keys, random valid lengths, block_k 512).
+   Time each kernel (its device time per call from torch.profiler, warmed,
+   many launches) with its plain version and a library yardstick timed the
    same way, and the bound the card's data-sheet rates put on the same
    work (counted from the partials each split writes and, for B5, the key
-   tiles it reads); B1, B1-int8 and B3 are timed at the serving split (one
-   partial per page on an earlier line), B2 also at one 1024-token
-   sequence (the int8 runs' longest wave), B5 also with every key valid
-   against unmasked SDPA.
+   tiles it reads); B1, B1-int8, B3, B4 and B4-int8 are timed at the
+   serving split (one partial per page on an earlier line), B2 also at one
+   1024-token sequence (the int8 runs' longest wave), B4 also at the
+   granite-8b case (20 query rows per kv head: B3's tile body), B5 also
+   with every key valid against unmasked SDPA.  B4's two bodies, the key
+   walk (from a copy of B4 built with every row count on it) and B3's
+   tensor-core body, are timed on the same verify inputs at 5, 20 and 80
+   query rows per kv head (llama-13b, granite-8b and llama3-405b heads).
 3. Serve llama-13b at full width and depth in bf16 (random weights from a
    seed), 8 requests of a shared-prefix workload, five times: through
    ``Server`` over the port's ``Orchestrator`` (chunked prefill) plain,
@@ -233,15 +237,17 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(device_us(e) for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA"))
-    if busy <= 0:
-        fail("the profiler recorded no device time for a timed call")
-    return busy / 1e3 / iters
+    for _ in range(3):   # a trace now and then comes back without device time
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(device_us(e) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA"))
+        if busy > 0:
+            return busy / 1e3 / iters
+    fail(f"the profiler recorded no device time in three traces of the "
+         f"call at chip_smoke.py:{fn.__code__.co_firstlineno}")
 
 
 def max_err(torch, got, want) -> float:
@@ -271,13 +277,14 @@ def check_close(torch, what, got, want, tol) -> float:
 
 def kernel_phase(torch):
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _lib, ops, ref
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    paged_prefix_partials,
                                                    prefix_pages_per_split)
     from repro_torch.kernels.split_kv_decode import (
         decode_pages_per_split, decode_tile_keys, paged_decode_partials,
-        paged_verify_partials, split_kv_decode_partials)
+        paged_verify_partials, split_kv_decode_partials,
+        verify_pages_per_split)
     from repro_torch.models.layers import quantize_kv
 
     dev = torch.device("cuda")
@@ -389,28 +396,34 @@ def kernel_phase(torch):
             q4, kp4, vp4, pp4, tb4, pq4 = verify_case(
                 torch, gen, dev, dtype, b=b_dec, s=sv, h=h, kv=kv, d=d,
                 bs=bs, nb=nb, lengths=vlen)
-            got = paged_verify_partials(q4, kp4, vp4, pp4, tb4, pq4, **kw)
-            want = ref.paged_verify_partials_plain(q4, kp4, vp4, pp4, tb4,
-                                                   pq4, **kw)
-            torch.cuda.synchronize()
-            err4 = check_close(torch, f"B4 {label} {tname}", got, want,
-                               TOL_F32)
-            results[("B4", label, tname)] = dict(
-                err=err4, args=(q4, kp4, vp4, pp4, tb4, pq4))
+            # one partial per page (the TPU contract), per 3 pages and per
+            # the serving path's split
+
+            def b4_check(key, pools, sc):
+                err = 0.0
+                pps_ver = verify_pages_per_split(q4, kv, nb, int8=bool(sc))
+                for pps in (1, 3, pps_ver):
+                    got = paged_verify_partials(q4, *pools, pp4, tb4, pq4,
+                                                **kw, **sc,
+                                                pages_per_split=pps)
+                    want = ref.paged_verify_partials_plain(
+                        q4, *pools, pp4, tb4, pq4, **kw, **sc,
+                        pages_per_split=pps)
+                    torch.cuda.synchronize()
+                    err = max(err, check_close(
+                        torch, f"{key} {label} {tname} pages_per_split "
+                        f"{pps}", got, want, TOL_F32))
+                    del got, want
+                results[(key, label, tname)] = dict(
+                    err=err, args=(q4, *pools, pp4, tb4, pq4), scales=sc,
+                    pps=pps_ver)
+
+            b4_check("B4", (kp4, vp4), {})
             # -- B4-int8
             kq4, ksc4 = quantize_kv(kp4)
             vq4, vsc4 = quantize_kv(vp4)
-            sc4 = dict(k_scale_pages=ksc4, v_scale_pages=vsc4)
-            got = paged_verify_partials(q4, kq4, vq4, pp4, tb4, pq4, **kw,
-                                        **sc4)
-            want = ref.paged_verify_partials_plain(q4, kq4, vq4, pp4, tb4,
-                                                   pq4, **kw, **sc4)
-            torch.cuda.synchronize()
-            err4q = check_close(torch, f"B4-int8 {label} {tname}", got,
-                                want, TOL_F32)
-            results[("B4-int8", label, tname)] = dict(
-                err=err4q, args=(q4, kq4, vq4, pp4, tb4, pq4), scales=sc4)
-            del got, want
+            b4_check("B4-int8", (kq4, vq4),
+                     dict(k_scale_pages=ksc4, v_scale_pages=vsc4))
             # -- B5: split-KV decode over a dense cache (no window or cap:
             # the TPU kernel has neither); the main case at llama-13b's
             # decode shape, the others with L off the block multiple
@@ -551,13 +564,29 @@ def kernel_phase(torch):
             qlt, klt, vlt, is_causal=True), 50),
         bytes=4 * nbytes(ql), flops=4 * d * h * 1024 * 1025 // 2,
         dtype="bfloat16")
+
+    def verify_timing(args, sc, pps, iters, fn=paged_verify_partials):
+        """A verify kernel (B4, B4-int8, or ``fn``: B3's body on the same
+        inputs) at ``pps`` pages per split; its bytes: q, the table and
+        positions, each live page's K/V (int8: and their f32 scales) and
+        positions, and the partials its split writes."""
+        qq, kk, _, pp_, tb_, pq_ = args
+        bq, sq, hq, dq = qq.shape
+        nbq, bsq, kvq = tb_.shape[1], kk.shape[1], kk.shape[2]
+        n_live = torch.unique(tb_[tb_ >= 0]).numel()
+        per_page = 2 * kk[0].numel() * kk.element_size() + bsq * 4 \
+            + (2 * bsq * kvq * 4 if sc else 0)
+        out_b = bq * -(-nbq // pps) * sq * hq * (dq + 2) * 4
+        return dict(
+            ms=time_ms(torch, lambda: fn(*args, **sc, pages_per_split=pps),
+                       iters),
+            bytes=nbytes(qq, tb_, pq_) + n_live * per_page + out_b,
+            flops=4 * dq * hq * visible_pairs(torch, pp_, tb_, pq_, None),
+            dtype="bfloat16", pages_per_split=pps)
+
     r4 = results[("B4", "llama-13b", "bfloat16")]
     q4, kp4, vp4, pp4, tb4, pq4 = r4["args"]
-    b4, s4 = q4.shape[:2]
-    pairs = visible_pairs(torch, pp4, tb4, pq4, None)
-    out_b = b4 * nb * s4 * h * (d + 2) * 4
-    byt = nbytes(q4, tb4, pq4) + live_page_bytes(torch, kp4, pp4, tb4) \
-        + out_b
+    b4 = q4.shape[0]
 
     def lib_verify():
         kl = kp4[tb4.clamp_min(0).long()].reshape(b4, nb * bs, kv, d)
@@ -570,13 +599,51 @@ def kernel_phase(torch):
             q4.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
             attn_mask=mask, enable_gqa=True)
 
+    pps4 = r4["pps"]
+    # JAX's one partial per page, reported on a line of its own
+    timing["B4 per page"] = verify_timing(r4["args"], {}, 1, 200)
     timing["B4"] = dict(
-        ms=time_ms(torch, lambda: paged_verify_partials(
-            q4, kp4, vp4, pp4, tb4, pq4), 200),
+        verify_timing(r4["args"], {}, pps4, 200),
         plain_ms=time_ms(torch, lambda: ref.paged_verify_partials_plain(
-            q4, kp4, vp4, pp4, tb4, pq4), 20),
-        library_ms=time_ms(torch, lib_verify, 50),
-        bytes=byt, flops=4 * d * h * pairs, dtype="bfloat16")
+            *r4["args"], pages_per_split=pps4), 20),
+        library_ms=time_ms(torch, lib_verify, 50))
+    # B4's two bodies on the same verify inputs at B4's serving split: the
+    # key walk (from a copy of B4 built with every row count on the walk)
+    # and B3's tensor-core body (prefix_kernel, through B3's own entry), at
+    # llama-13b's 5 query rows per kv head, granite-8b's 20 (GQA 4) and
+    # llama3-405b's 80 (GQA 16); B4 runs the walk up to 8 rows, B3's body
+    # above (csrc/paged_verify.cu)
+    gen_v = torch.Generator(device=dev).manual_seed(4)
+    v405 = verify_case(torch, gen_v, dev, torch.bfloat16, b=4, s=5, h=128,
+                       kv=8, d=128, bs=bs, nb=nb, lengths=[
+                           int(x) for x in torch.randint(
+                               1, nb * bs - 7, (4,), generator=gen_v,
+                               device=dev)])
+    shapes = [(name, results[("B4", name, "bfloat16")]["args"])
+              for name in ("llama-13b", "granite-8b GQA")]
+    shapes.append(("llama3-405b heads", v405))
+    r4g = results[("B4", "granite-8b GQA", "bfloat16")]
+    timing["B4 granite-8b GQA"] = verify_timing(r4g["args"], {}, r4g["pps"],
+                                                100)
+    flags = _lib.NVCC_FLAGS
+    _lib.NVCC_FLAGS = flags + ("-DREPRO_VERIFY_WALK_ROWS=1024",)
+    _lib._loaded.pop("paged_verify", None)
+    try:
+        for label, args in shapes:
+            _, sv, hv, _ = args[0].shape
+            kvv = args[1].shape[2]
+            pps_g = verify_pages_per_split(args[0], kvv, nb)
+            for body, fn in (("walk", paged_verify_partials),
+                             ("B3 body", paged_prefix_partials)):
+                check_close(torch, f"B4 {body} on verify inputs, {label}",
+                            fn(*args, pages_per_split=pps_g),
+                            ref.paged_verify_partials_plain(
+                                *args, pages_per_split=pps_g), TOL_F32)
+                timing[f"B4 {body} {label}, S*G {sv * hv // kvv}"] = \
+                    verify_timing(args, {}, pps_g, 100, fn)
+    finally:
+        _lib.NVCC_FLAGS = flags
+        _lib._loaded.pop("paged_verify", None)
 
     def lib_int8(args, scales, s_axis):
         """Dequantize-gather the int8 pages to bf16, then masked SDPA."""
@@ -609,21 +676,15 @@ def kernel_phase(torch):
                                                    r1q["scales"], False),
                            50))
     r4q = results[("B4-int8", "llama-13b", "bfloat16")]
-    args4q, sc4q = r4q["args"], r4q["scales"]
-    q4q, kq4, _, pp4q, tb4q, pq4q = args4q
-    n_live = torch.unique(tb4q[tb4q >= 0]).numel()
-    # int8 K + V, their f32 scales and the positions of each live page
-    per_page = 2 * kq4[0].numel() + 2 * bs * kv * 4 + bs * 4
+    timing["B4-int8 per page"] = verify_timing(r4q["args"], r4q["scales"],
+                                               1, 200)
+    pps4q = r4q["pps"]
     timing["B4-int8"] = dict(
-        ms=time_ms(torch, lambda: paged_verify_partials(*args4q, **sc4q),
-                   200),
+        verify_timing(r4q["args"], r4q["scales"], pps4q, 200),
         plain_ms=time_ms(torch, lambda: ref.paged_verify_partials_plain(
-            *args4q, **sc4q), 20),
-        library_ms=time_ms(torch, lambda: lib_int8(args4q, sc4q, True), 50),
-        bytes=nbytes(q4q, tb4q, pq4q) + n_live * per_page
-        + q4q.shape[0] * nb * q4q.shape[1] * h * (d + 2) * 4,
-        flops=4 * d * h * visible_pairs(torch, pp4q, tb4q, pq4q, None),
-        dtype="bfloat16")
+            *r4q["args"], **r4q["scales"], pages_per_split=pps4q), 20),
+        library_ms=time_ms(torch, lambda: lib_int8(r4q["args"],
+                                                   r4q["scales"], True), 50))
 
     r5 = results[("B5", "llama-13b", "bfloat16")]
     q5, k5, v5, valid5 = r5["args"]

@@ -12,8 +12,7 @@ is imported: the CPU tests import every module and have no ``nvcc``.
 where it launches its kernel.  The int8-pool variants of the page kernels
 count apart from the bf16/f32 ones.  ``page_partials`` checks and launches
 the page kernels (paged decode, speculative verify), whose C entry points
-share one argument list, the int8 ones adding the scale pools and paged
-decode the pages per split.
+share one argument list, the int8 ones adding the scale pools.
 """
 from __future__ import annotations
 
@@ -30,8 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-HEADERS = ("common.cuh", "paged_partials.cuh", "attn_tile.cuh",
-           "decode_walk.cuh")
+HEADERS = ("common.cuh", "attn_tile.cuh", "decode_walk.cuh",
+           "paged_prefix.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -45,9 +44,9 @@ KERNELS = {
     "paged_prefix": {
         "paged_prefix_partials": [_P] * 9 + [_I] * 8 + [_F, _I, _F, _I, _P]},
     "paged_verify": {
-        "paged_verify_partials": [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _P],
+        "paged_verify_partials": [_P] * 9 + [_I] * 8 + [_F, _I, _F, _I, _P],
         "paged_verify_partials_q8":
-            [_P] * 11 + [_I] * 7 + [_F, _I, _F, _I, _P]},
+            [_P] * 11 + [_I] * 8 + [_F, _I, _F, _I, _P]},
     "flash_prefill": {
         "flash_prefill": [_P] * 6 + [_I] * 7 + [_F, _I, _F, _I, _I, _P]},
     "split_kv_decode": {
@@ -219,16 +218,16 @@ def page_partials(lib_name: str, fn_name: str, counter: str,
                   block_tables: torch.Tensor, pos_q: torch.Tensor,
                   window: Optional[int], scale: Optional[float],
                   soft_cap: Optional[float],
-                  k_scale_pages: Optional[torch.Tensor] = None,
-                  v_scale_pages: Optional[torch.Tensor] = None,
-                  pages_per_split: Optional[int] = None):
-    """Check and launch one of the page kernels (paged decode with S = 1
-    and ``pages_per_split`` given, speculative verify); ``fn_name`` is the
-    C entry point, its ``_q8`` variant when scale pools are given.
-    q: (B, S, H, D); k/v_pages: (P, bs, KV, D); pos_pages: (P, bs) int32;
-    block_tables: (B, nb) int32; pos_q: (B, S) int32.  Returns o
-    (B, N, S, H, D), l/m (B, N, S, H), f32: N = nb, or ceil(nb / pps)
-    with ``pages_per_split``."""
+                  k_scale_pages: Optional[torch.Tensor],
+                  v_scale_pages: Optional[torch.Tensor],
+                  pages_per_split: int):
+    """Check and launch one of the page kernels (paged decode with S = 1,
+    speculative verify); ``fn_name`` is the C entry point, its ``_q8``
+    variant when scale pools are given.  q: (B, S, H, D); k/v_pages:
+    (P, bs, KV, D); pos_pages: (P, bs) int32; block_tables: (B, nb) int32;
+    pos_q: (B, S) int32.  Returns one partial per split of
+    ``pages_per_split`` page slots: o (B, N, S, H, D), l/m (B, N, S, H),
+    f32, N = ceil(nb / pps)."""
     q, block_tables, pos_q = (q.contiguous(), block_tables.contiguous(),
                               pos_q.contiguous())
     dev = check_cuda(counter, q, k_pages, v_pages, pos_pages, block_tables,
@@ -240,11 +239,8 @@ def page_partials(lib_name: str, fn_name: str, counter: str,
                                          pos_pages, block_tables, pos_q)
     win, cap = mask_args(window, soft_cap)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    split = ()
-    n = nb
-    if pages_per_split is not None:
-        pps = min(int(pages_per_split), max(nb, 1))
-        split, n = (pps,), -(-nb // pps)
+    pps = min(int(pages_per_split), max(nb, 1))
+    n = -(-nb // pps)
     o = torch.empty((b, n, s, h, d), dtype=torch.float32, device=dev)
     l = torch.empty((b, n, s, h), dtype=torch.float32, device=dev)
     m = torch.empty((b, n, s, h), dtype=torch.float32, device=dev)
@@ -252,7 +248,7 @@ def page_partials(lib_name: str, fn_name: str, counter: str,
         launch(lib_name, fn_name + ("_q8" if scales else ""), counter,
                *map(ptr, (q, k_pages, v_pages) + scales
                     + (pos_pages, block_tables, pos_q, o, l, m)),
-               b, s, h, kv, d, bs, nb, *split, scale, win, cap, code)
+               b, s, h, kv, d, bs, nb, pps, scale, win, cap, code)
     return o, l, m
 
 
@@ -278,9 +274,9 @@ def page_shapes(name: str, q: torch.Tensor, k_pages: torch.Tensor,
 def check_tiles(name: str, d: int, *tensors: torch.Tensor,
                 multiple: int = 8) -> None:
     """The tile kernels' input contract beyond ``check_cuda`` (prefill,
-    decode): a head_dim that is a multiple of ``multiple`` (8; 16 for int8
-    pools, one 16-byte chunk) up to 256, and data 16-byte aligned (they
-    copy rows in 16-byte chunks)."""
+    decode, verify): a head_dim that is a multiple of ``multiple`` (8; 16
+    for int8 pools, one 16-byte chunk) up to 256, and data 16-byte aligned
+    (they copy rows in 16-byte chunks)."""
     if d % multiple or not 0 < d <= 256:
         raise ValueError(f"{name}: head_dim must be a multiple of "
                          f"{multiple} in [{multiple}, 256], got {d}")

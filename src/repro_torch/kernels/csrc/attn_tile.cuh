@@ -142,10 +142,13 @@ __device__ __forceinline__ void load_rows(T* __restrict__ ks,
 }
 
 // One warp's share of the online softmax over a block's key tiles: MT row
-// tiles of 16 query rows, BK keys per tile, head_dim padded to DP.
-template <typename T, int DP, int BK, int MT>
+// tiles of 16 query rows, BK keys per tile, head_dim padded to DP.  With
+// kSharedRows every warp takes the block's first 16 MT rows (bf16 only:
+// B4's walk gives each warp its own keys of one row tile instead).
+template <typename T, int DP, int BK, int MT, bool kSharedRows = false>
 struct WarpAttn {
   static constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(kMma || !kSharedRows, "shared rows need the MMA path");
   using Elem = T;
   static constexpr int kBk = BK, kMt = MT, kDp = DP;
   static constexpr int kRows = kWarps * 16 * MT;   // query rows per block
@@ -160,7 +163,7 @@ struct WarpAttn {
 
   // The warp's first row in the block.
   __device__ static __forceinline__ int warp_row() {
-    return (threadIdx.x / 32) * 16 * MT;
+    return kSharedRows ? 0 : (threadIdx.x / 32) * 16 * MT;
   }
 
   __device__ __forceinline__ void init() {

@@ -54,89 +54,15 @@ __device__ __forceinline__ bool key_visible(int pos, int pq, int window) {
   return pos >= 0 && pos <= pq && (window <= 0 || pos > pq - window);
 }
 
-// tanh soft cap on pre-softmax scores (soft_cap <= 0 means none); applied
-// before masking, as in the JAX kernels.
-__device__ __forceinline__ float cap_score(float s, float soft_cap) {
-  return soft_cap > 0.f ? tanhf(s / soft_cap) * soft_cap : s;
-}
-
-// Stage `rows` rows of D elements of two arrays (K and V), row t at
-// k_base / v_base + t * stride, into shared memory as f32 (rows x D, row
-// major), spread over `nthreads` threads.  With `vec` (the launcher checked
-// D % (16 / sizeof(T)) == 0 and 16-byte aligned bases) each thread moves
-// 16-byte words, two loads in flight per step, and converts them as it
-// stores; otherwise one element at a time.
-template <typename T>
-__device__ __forceinline__ void cvt_word(const uint4& w, float* out);
-template <>
-__device__ __forceinline__ void cvt_word<float>(const uint4& w, float* out) {
-  reinterpret_cast<float4*>(out)[0] = make_float4(
-      __uint_as_float(w.x), __uint_as_float(w.y), __uint_as_float(w.z),
-      __uint_as_float(w.w));
-}
-template <>
-__device__ __forceinline__ void cvt_word<__nv_bfloat16>(const uint4& w,
-                                                        float* out) {
-  const unsigned int u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&u[2 * i]));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&u[2 * i + 1]));
-    reinterpret_cast<float4*>(out)[i] = make_float4(a.x, a.y, b.x, b.y);
-  }
-}
-template <>
-__device__ __forceinline__ void cvt_word<int8_t>(const uint4& w, float* out) {
-  const unsigned int u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const char4 c = *reinterpret_cast<const char4*>(&u[i]);
-    reinterpret_cast<float4*>(out)[i] = make_float4(c.x, c.y, c.z, c.w);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void stage_kv(const T* __restrict__ k_base,
-                                         const T* __restrict__ v_base,
-                                         size_t stride, int rows, int D,
-                                         float* __restrict__ ks,
-                                         float* __restrict__ vs, bool vec,
-                                         int nthreads) {
-  if (vec) {
-    constexpr int N = 16 / sizeof(T);
-    const int per_row = D / N;
-#pragma unroll 2
-    for (int i = threadIdx.x; i < rows * per_row; i += nthreads) {
-      const int t = i / per_row, c = (i - t * per_row) * N;
-      const uint4 kw = *reinterpret_cast<const uint4*>(k_base + t * stride + c);
-      const uint4 vw = *reinterpret_cast<const uint4*>(v_base + t * stride + c);
-      cvt_word<T>(kw, ks + t * D + c);
-      cvt_word<T>(vw, vs + t * D + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * D; i += nthreads) {
-      const int t = i / D, d = i - t * D;
-      ks[i] = to_f32(k_base[t * stride + d]);
-      vs[i] = to_f32(v_base[t * stride + d]);
-    }
-  }
-}
-
-// Whether stage_kv may move 16-byte words for these arrays.
-template <typename T>
-inline bool vec_ok(int D, const void* k, const void* v) {
-  return D % (16 / sizeof(T)) == 0 &&
-         reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(v) % 16 == 0;
-}
-
 // Raise the dynamic shared memory limit when a launch needs more than the
-// default 48 KB.
+// default 48 KB, static shared memory included (a launch whose dynamic
+// bytes fit 48 KB only without the static ones is refused otherwise).
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (bytes + attr.sharedSizeBytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));

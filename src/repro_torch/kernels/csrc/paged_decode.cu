@@ -14,8 +14,8 @@
 // kv head's G query heads, split j).  It resolves its split's page slots
 // through the block table itself, 128 slots a round, keeps the live ones
 // in table order (a dead entry, -1, is never read: neither its page nor
-// its positions or scales), and walks their keys (key i: row i % bs of
-// kept page i / bs) with the key walk of decode_walk.cuh, which B5 shares:
+// its positions or scales), and walks their keys with the key walk of
+// decode_walk.cuh (walk_pages, which B4 shares; B5 shares the walk):
 // K/V tiles cp.async'd from the pool's strided layout (rows KV * D apart)
 // into a four-stage ring in the pool's type, each key's position (and,
 // for int8, its two scales) copied beside it; the keys spread over the
@@ -54,9 +54,8 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ k_pages,
                     int KV, int D, int bs, int nb, int pps, int n_grp,
                     int stages, float scale, int window, float soft_cap) {
   using W = dec::Walk<T, TK, DP, RG>;
-  constexpr int BK = W::kBk;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* pages_s =   // (128,)
+  int* pages_s =   // (kThreads,)
       reinterpret_cast<int*>(smem_raw + W::smem_bytes(stages));
   __shared__ int warp_count[dec::kWarps];
 
@@ -64,64 +63,22 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ k_pages,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV, g0 = grp * RG, n_rows = min(RG, G - g0);
   const int nsplit = (nb + pps - 1) / pps;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int pq = pos_q[b];
   const size_t head0 = static_cast<size_t>(b) * H + kvh * G + g0;
 
   W walk;
-  walk.init(smem_raw, stages, q + head0 * D, n_rows, D);
-  const TK* kh = k_pages + static_cast<size_t>(kvh) * D;
-  const TK* vh = v_pages + static_cast<size_t>(kvh) * D;
+  walk.init(smem_raw, stages, n_rows, D,
+            [&](int r) { return q + (head0 + r) * D; });
   const int p_begin = split * pps, p_end = min(nb, p_begin + pps);
-  for (int base = p_begin; base < p_end; base += dec::kThreads) {
-    const int j = base + tid;
-    const int page = j < p_end ? tables[static_cast<size_t>(b) * nb + j] : -1;
-    const bool use = page >= 0;
-    const unsigned ballot = __ballot_sync(0xffffffffu, use);
-    if (lane == 0) warp_count[warp] = __popc(ballot);
-    __syncthreads();   // also: the previous round's tiles are consumed
-    int at = 0, n_pages = 0;
-#pragma unroll
-    for (int w = 0; w < dec::kWarps; ++w) {
-      at += w < warp ? warp_count[w] : 0;
-      n_pages += warp_count[w];
-    }
-    if (use) pages_s[at + __popc(ballot & ((1u << lane) - 1u))] = page;
-    __syncthreads();   // pages_s complete; warp_count free again
-
-    const int n_keys = n_pages * bs;
-    auto entry = [&](int key) -> long long {   // pool entry of a kept key
-      return static_cast<long long>(pages_s[key / bs]) * bs + key % bs;
-    };
-    auto issue = [&](int i, int st) {
-      const int key0 = i * BK;
-      walk.issue(st, kh, vh, D, [&](int r) -> long long {
-        const int key = key0 + r;
-        return key < n_keys ? entry(key) * KV * D : -1;
-      });
-      if (tid < BK) {
-        const int key = key0 + tid;
-        int* meta = walk.meta(st);
-        if (key < n_keys) {
-          const long long e = entry(key);
-          tile::cp_async4(meta + tid, pos_pages + e);
-          if constexpr (W::kQuant) {
-            float* sc = walk.scales(st);
-            tile::cp_async4(sc + tid, k_scale + e * KV + kvh);
-            tile::cp_async4(sc + BK + tid, v_scale + e * KV + kvh);
-          }
-        } else {
-          meta[tid] = -1;   // past the kept keys: masked
-        }
-      }
-    };
-    walk.run((n_keys + BK - 1) / BK, issue,
-             [&](int pos) { return key_visible(pos, pq, window); }, scale,
-             soft_cap);
-  }
-  walk.store(n_rows,
-             (static_cast<size_t>(b) * nsplit + split) * H + kvh * G + g0, D,
-             o, l, m);
+  dec::walk_pages(walk, pages_s, warp_count,
+                  tables + static_cast<size_t>(b) * nb, p_begin, p_end,
+                  k_pages, v_pages, k_scale, v_scale, pos_pages, bs, KV, D,
+                  kvh,
+                  [&](int pos, int) { return key_visible(pos, pq, window); },
+                  scale, soft_cap);
+  const size_t row0 =
+      (static_cast<size_t>(b) * nsplit + split) * H + kvh * G + g0;
+  walk.store(n_rows, D, [&](int r) { return row0 + r; }, o, l, m);
 }
 
 template <typename T, typename TK>

@@ -63,9 +63,10 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     valid_s[i] = f;
     if (f) tile_any[i / BK] = 1;
   }
+  const size_t head0 = static_cast<size_t>(b) * H + kvh * G + g0;
   W walk;
-  walk.init(smem_raw, stages,
-            q + (static_cast<size_t>(b) * H + kvh * G + g0) * D, n_rows, D);
+  walk.init(smem_raw, stages, n_rows, D,
+            [&](int r) { return q + (head0 + r) * D; });
   __syncthreads();
   if (tid < 32) {   // compact the tiles with a valid key, in order
     int n = 0;
@@ -92,9 +93,10 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       walk.meta(st)[tid] = key < bk ? valid_s[key] : 0;
     }
   };
-  walk.run(n_tiles_s, issue, [](int ok) { return ok != 0; }, scale, 0.f);
-  walk.store(n_rows,
-             (static_cast<size_t>(b) * J + j) * H + kvh * G + g0, D, o, l, m);
+  walk.run(n_tiles_s, issue, [](int ok, int) { return ok != 0; }, scale,
+           0.f);
+  const size_t row0 = (static_cast<size_t>(b) * J + j) * H + kvh * G + g0;
+  walk.store(n_rows, D, [&](int r) { return row0 + r; }, o, l, m);
 }
 
 // Dynamic shared memory of a launch: the walk's, then the tile flags and

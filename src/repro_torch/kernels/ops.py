@@ -18,7 +18,8 @@ from ._lib import LAUNCHES, reset_launches
 from .flash_prefill import (flash_prefill, paged_prefix_partials,
                             prefix_pages_per_split)
 from .split_kv_decode import (decode_pages_per_split, paged_decode_partials,
-                              paged_verify_partials, split_kv_decode_partials)
+                              paged_verify_partials, split_kv_decode_partials,
+                              verify_pages_per_split)
 
 __all__ = ["LAUNCHES", "reset_launches", "flash_attention",
            "decode_attention", "decode_partials", "paged_decode_attention",
@@ -128,20 +129,28 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            scale: Optional[float] = None,
                            soft_cap: Optional[float] = None,
                            k_scale_pages: Optional[torch.Tensor] = None,
-                           v_scale_pages: Optional[torch.Tensor] = None
+                           v_scale_pages: Optional[torch.Tensor] = None,
+                           pages_per_split: Optional[int] = None
                            ) -> torch.Tensor:
     """Speculative verification straight out of the block pool: S queries
     per row (each at its own position, so the causal order among the
     in-flight tokens is the position test) from ``paged_verify_partials``,
-    combined exactly over the page axis.  q: (B, S, H, D);
-    k/v_pages: (P, bs, KV, D), or int8 with k/v_scale_pages (P, bs, KV);
-    pos_pages: (P, bs); block_tables: (B, nb); pos_q: (B, S).  Returns
-    (B, S, H, D) in q's dtype."""
+    one partial per split of ``pages_per_split`` page slots (None: the
+    split ``verify_pages_per_split`` picks for the card), combined exactly
+    over the split axis.  q: (B, S, H, D); k/v_pages: (P, bs, KV, D), or
+    int8 with k/v_scale_pages (P, bs, KV); pos_pages: (P, bs);
+    block_tables: (B, nb); pos_q: (B, S).  Returns (B, S, H, D) in q's
+    dtype."""
+    if pages_per_split is None:
+        pages_per_split = verify_pages_per_split(
+            q, k_pages.shape[2], block_tables.shape[1],
+            int8=k_scale_pages is not None)
     o, l, m = paged_verify_partials(q, k_pages, v_pages, pos_pages,
                                     block_tables, pos_q, window=window,
                                     scale=scale, soft_cap=soft_cap,
                                     k_scale_pages=k_scale_pages,
-                                    v_scale_pages=v_scale_pages)
+                                    v_scale_pages=v_scale_pages,
+                                    pages_per_split=pages_per_split)
     out = combine_stacked((o.movedim(1, 0), l.movedim(1, 0),
                            m.movedim(1, 0)))
     return out.to(q.dtype)

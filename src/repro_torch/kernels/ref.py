@@ -21,7 +21,8 @@ int8 pools (``k_scale_pages``/``v_scale_pages`` given, one f32 scale per
 (token entry, kv head)) fold their scales where the JAX kernels do: the K
 scale multiplies the scores after ``* scale`` and before the soft cap; ``l``
 is summed from ``p`` before the V scale multiplies ``p`` ahead of the PV
-product.
+product, and only where the key is visible (as in the kernels), so the
+stale or non-finite scale of a masked entry never reaches ``o``.
 """
 from __future__ import annotations
 
@@ -86,7 +87,7 @@ def paged_prefix_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
     p = torch.where(mask, torch.exp(sc - m[..., None]), 0.0)
     l = p.sum(dim=-1)
     if v_scale_pages is not None:
-        p = p * _page_scales(v_scale_pages, safe)
+        p = torch.where(mask, p * _page_scales(v_scale_pages, safe), 0.0)
     o = torch.einsum("bjkgst,bjtkd->bjskgd", p, v)   # (B, nb, S, KV, G, D)
     parts = (o.reshape(b, nb, s, h, d),
              l.permute(0, 1, 4, 2, 3).reshape(b, nb, s, h),
@@ -169,19 +170,21 @@ def paged_verify_partials_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                 scale: Optional[float] = None,
                                 soft_cap: Optional[float] = None,
                                 k_scale_pages: Optional[torch.Tensor] = None,
-                                v_scale_pages: Optional[torch.Tensor] = None
-                                ) -> Partials:
+                                v_scale_pages: Optional[torch.Tensor] = None,
+                                pages_per_split: int = 1) -> Partials:
     """Speculative-verify form: S queries per row (the pending token and
     its proposals, already written into their pages), each with its own
     position pos_q[:, s].  The per-query mask ``table >= 0 & pos >= 0 &
     pos <= pos_q[s] (& window)`` also hides the in-flight tokens at
     positions past pos_q[s].  q (B, S, H, D), pos_q (B, S).  Returns o
     (B, nb, S, H, D), l/m (B, nb, S, H), f32 — the prefix form's
-    arithmetic."""
+    arithmetic; with ``pages_per_split`` > 1 each group of that many page
+    slots merged by ``merge_partials_plain``: o
+    (B, ceil(nb / pps), S, H, D), l/m (B, ceil(nb / pps), S, H)."""
     return paged_prefix_partials_plain(
         q, k_pages, v_pages, pos_pages, block_tables, pos_q, window=window,
         scale=scale, soft_cap=soft_cap, k_scale_pages=k_scale_pages,
-        v_scale_pages=v_scale_pages)
+        v_scale_pages=v_scale_pages, pages_per_split=pages_per_split)
 
 
 def split_kv_decode_partials_plain(q: torch.Tensor, k: torch.Tensor,

@@ -13,13 +13,18 @@ of the TPU kernels ``src/repro/kernels/split_kv_decode.py``:
   ``decode_pages_per_split``).  CUDA kernel ``csrc/paged_decode.cu``.
 * ``paged_verify_partials`` scores S queries per sequence (the pending
   token and its proposals), each under its own causal horizon, in the
-  same single pass over the pages.  CUDA kernel ``csrc/paged_verify.cu``
-  on ``csrc/paged_partials.cuh``.
+  same single pass over the pages, one partial per split of
+  ``pages_per_split`` page slots (1: the TPU kernel's contract; the
+  serving path asks for ``verify_pages_per_split``).  CUDA kernel
+  ``csrc/paged_verify.cu``: up to ``VERIFY_WALK_ROWS`` query rows per kv
+  head, and int8 pools at any count, on the key walk (on the tensor cores
+  for bf16 queries); more rows of bf16/f32 pools on B3's tensor-core body
+  (``csrc/paged_prefix.cuh``).
 
-The first two share the key walk of ``csrc/decode_walk.cuh``: the keys
-spread over the 4 warps of a block, K/V tiles of ``decode_tile_keys`` keys
-in a four-stage cp.async ring; they take head_dims that are multiples of 8
-(16 for int8 pools) up to 256.
+All three run the key walk of ``csrc/decode_walk.cuh`` (the two paged
+ones also its page stream): the keys spread over the 4 warps of a block,
+K/V tiles of ``decode_tile_keys`` keys in a four-stage cp.async ring; they
+take head_dims that are multiples of 8 (16 for int8 pools) up to 256.
 
 The paged kernels take bf16/f32 pools, or int8 pools with their f32 scale
 pools (``k_scale_pages``/``v_scale_pages``, one scale per (token entry, kv
@@ -40,7 +45,7 @@ from typing import Optional
 import torch
 
 from . import _lib
-from .flash_prefill import sm_count
+from .flash_prefill import prefix_rows_per_block, sm_count, split_rule
 from .ref import (Partials, paged_decode_partials_plain,
                   paged_verify_partials_plain,
                   split_kv_decode_partials_plain)
@@ -51,6 +56,9 @@ SPLIT = "split_kv_decode_partials"
 MAX_BLOCK_K = 16384     # B5 keeps a key block's validity in shared memory
 # B1's target of blocks per SM when it cuts rows into splits
 DECODE_BLOCKS_PER_SM = 8
+# B4 scores up to this many query rows per kv head (S * G) of a bf16/f32
+# pool on a walk, more on B3's tile body (csrc/paged_verify.cu)
+VERIFY_WALK_ROWS = 16
 
 
 def _counter(name: str, k_scale_pages: Optional[torch.Tensor]) -> str:
@@ -69,6 +77,30 @@ def decode_rows_per_block(g: int) -> int:
     """Query heads per block of the decode walk (``dec::rows_per_block``):
     1, 4 or 8; a kv head of G > 8 query heads takes ceil(G / 8) blocks."""
     return 1 if g == 1 else (4 if g <= 4 else 8)
+
+
+def verify_rows_per_block(rows: int, head_dim: int,
+                          int8: bool = False) -> int:
+    """Query rows per block of B4 for S * G packed rows
+    (``csrc/paged_verify.cu``) with bf16 queries: 16 on the tensor-core
+    walk for int8 pools, and for bf16 pools up to ``VERIFY_WALK_ROWS``
+    rows; above, B3's body and ``prefix_rows_per_block`` rows.  (f32
+    queries, the tests' type, take the FMA walk's 4 to 16.)  A kv head of
+    more rows takes ceil(S * G / rows per block) blocks, each reading its
+    pages."""
+    if int8 or rows <= VERIFY_WALK_ROWS:
+        return VERIFY_WALK_ROWS
+    return prefix_rows_per_block(head_dim)
+
+
+def _pages_per_split(blocks: int, nb: int, n_sm: int) -> int:
+    """Pages per split when a launch runs ``blocks`` blocks per split:
+    each row cut into enough splits for about ``DECODE_BLOCKS_PER_SM``
+    blocks per SM, never more splits than pages."""
+    if nb <= 1:
+        return max(nb, 1)
+    n_split = min(nb, -(-DECODE_BLOCKS_PER_SM * n_sm // blocks))
+    return -(-nb // n_split)
 
 
 def decode_pages_per_split(q: torch.Tensor, kv_heads: int, nb: int) -> int:
@@ -90,12 +122,37 @@ def decode_split_rule(b: int, h: int, kv_heads: int, nb: int,
     blocks reach that already, never more splits than pages).  Rows of
     different lengths leave SMs idle at the end of a launch; many short
     blocks even that out at the cost of more partials."""
-    if nb <= 1:
-        return max(nb, 1)
     g = h // kv_heads
     blocks = b * kv_heads * -(-g // decode_rows_per_block(g))
-    n_split = min(nb, -(-DECODE_BLOCKS_PER_SM * n_sm // blocks))
-    return -(-nb // n_split)
+    return _pages_per_split(blocks, nb, n_sm)
+
+
+def verify_pages_per_split(q: torch.Tensor, kv_heads: int, nb: int,
+                           int8: bool = False) -> int:
+    """The split of the pages that the serving path asks B4 (``int8``:
+    B4-int8) for: ``verify_split_rule`` with the card's SM count.  On the
+    CPU (the plain version) one split per row.  q: (B, S, H, D)."""
+    if q.device.type != "cuda":
+        return max(nb, 1)
+    b, s, h, d = q.shape
+    return verify_split_rule(b, s, h, kv_heads, d, nb, sm_count(q.device),
+                             int8)
+
+
+def verify_split_rule(b: int, s: int, h: int, kv_heads: int, d: int,
+                      nb: int, n_sm: int, int8: bool = False) -> int:
+    """Pages per split for B4 (``int8``: B4-int8) on a card of ``n_sm``
+    SMs, for the body that runs: a walk up to ``VERIFY_WALK_ROWS`` query
+    rows per kv head (and for int8 pools), B3's tile body above, which on
+    the card beat the walk at 20 and 80 rows (PERF.md).  A walk takes B1's
+    target of about ``DECODE_BLOCKS_PER_SM`` blocks per SM, counting
+    B * KV * ceil(S * G / verify_rows_per_block(S * G, d, int8)) blocks per
+    split; the tile body B3's own ``split_rule``."""
+    rows = s * (h // kv_heads)
+    if not int8 and rows > VERIFY_WALK_ROWS:
+        return split_rule(b, s, h, kv_heads, d, nb, n_sm)
+    blocks = b * kv_heads * -(-rows // verify_rows_per_block(rows, d, int8))
+    return _pages_per_split(blocks, nb, n_sm)
 
 
 def paged_decode_partials(q: torch.Tensor, k_pages: torch.Tensor,
@@ -144,23 +201,36 @@ def paged_verify_partials(q: torch.Tensor, k_pages: torch.Tensor,
                           scale: Optional[float] = None,
                           soft_cap: Optional[float] = None,
                           k_scale_pages: Optional[torch.Tensor] = None,
-                          v_scale_pages: Optional[torch.Tensor] = None
-                          ) -> Partials:
+                          v_scale_pages: Optional[torch.Tensor] = None,
+                          pages_per_split: int = 1) -> Partials:
     """Speculative verification, S queries per row in one page-fused pass.
     q: (B, S, H, D), the pending token plus S-1 proposals, already written
     into their pages; pos_q: (B, S) int32 absolute positions; the rest as
-    ``paged_decode_partials``.  Returns o (B, nb, S, H, D), l/m
-    (B, nb, S, H), f32."""
+    ``paged_decode_partials``.  Returns one partial per split of
+    ``pages_per_split`` page slots (the last split ragged): o
+    (B, ceil(nb / pps), S, H, D), l/m (B, ceil(nb / pps), S, H), f32.
+    ``pages_per_split=1`` is the TPU kernel's one partial per page."""
+    pps = int(pages_per_split)
+    if pps < 1:
+        raise ValueError(f"{VERIFY}: pages_per_split must be >= 1, "
+                         f"got {pages_per_split}")
     if q.device.type == "cpu":
         return paged_verify_partials_plain(
             q, k_pages, v_pages, pos_pages, block_tables, pos_q,
             window=window, scale=scale, soft_cap=soft_cap,
-            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
-    return _lib.page_partials("paged_verify", VERIFY,
-                              _counter(VERIFY, k_scale_pages), q, k_pages,
+            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
+            pages_per_split=pps)
+    if q.dim() != 4 or pos_q.dim() != 2:
+        raise ValueError(f"{VERIFY}: q must be (B, S, H, D) and pos_q "
+                         f"(B, S), got {tuple(q.shape)} and "
+                         f"{tuple(pos_q.shape)}")
+    counter = _counter(VERIFY, k_scale_pages)
+    _lib.check_tiles(counter, q.shape[-1], q, k_pages, v_pages,
+                     multiple=16 if k_scale_pages is not None else 8)
+    return _lib.page_partials("paged_verify", VERIFY, counter, q, k_pages,
                               v_pages, pos_pages, block_tables, pos_q,
                               window, scale, soft_cap, k_scale_pages,
-                              v_scale_pages)
+                              v_scale_pages, pages_per_split=pps)
 
 
 def split_kv_decode_partials(q: torch.Tensor, k: torch.Tensor,

@@ -18,7 +18,8 @@ from repro_torch.kernels.flash_prefill import (flash_prefill,
 from repro_torch.kernels.split_kv_decode import (decode_pages_per_split,
                                                  paged_decode_partials,
                                                  paged_verify_partials,
-                                                 split_kv_decode_partials)
+                                                 split_kv_decode_partials,
+                                                 verify_pages_per_split)
 
 KEYS = ("q", "k_pages", "v_pages", "pos_pages", "block_tables", "pos_q")
 
@@ -107,6 +108,24 @@ def quantize_pages(c):
         out[f"{name}_pages"] = np.clip(np.round(x / sc[..., None]), -127,
                                        127).astype(np.int8)
         out[f"{name}_scale_pages"] = sc
+    return out
+
+
+def poison_unseen_scales(c):
+    """The quantized case with NaN in the scale slots of every pool entry
+    that no query of any row sees without a window: holes, slots not
+    written yet, stale rolled-back tokens, the scratch page and unassigned
+    pages.  A kernel that lets a masked entry's scale (or a stale scale
+    slot of its own) reach p gives NaN partials."""
+    out = dict(c)
+    pos, tables = c["pos_pages"], c["block_tables"]
+    pq = np.asarray(c["pos_q"]).reshape(tables.shape[0], -1)
+    seen = np.zeros(pos.shape, bool)
+    for row in range(tables.shape[0]):
+        for page in tables[row][tables[row] >= 0]:
+            seen[page] |= (pos[page] >= 0) & (pos[page] <= pq[row].max())
+    for name in ("k_scale_pages", "v_scale_pages"):
+        out[name] = np.where(seen[..., None], c[name], np.float32(np.nan))
     return out
 
 
@@ -373,3 +392,89 @@ def test_cuda_decode_kernel_splits_vs_plain(dtype, d):
         paged_decode_partials(*(a[k] for k in KEYS),
                               k_scale_pages=a["k_scale_pages"],
                               v_scale_pages=a["v_scale_pages"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [2, 5, 9])
+def test_cuda_verify_kernel_splits_vs_plain(s, dtype, d):
+    """B4 and its int8 variant at 1 page per split (the TPU contract), 3
+    (a ragged last split, whole splits of dead entries) and the serving
+    split, at G = 1, 4 and 16, so that S * G runs from 2 past the 16 rows
+    of a walk block (an int8 kv head then takes several blocks, a bf16/f32
+    one B3's tile body), with and without
+    window plus soft cap, over tables with an empty slot, a dead slot
+    inside the live range, holes and stale rolled-back tokens.  Both sides
+    compute in f32 from the same inputs: 1e-4.  A head_dim off the 16-element
+    chunk of an int8 pool is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    nb = 24
+    for h, kv in ((8, 8), (8, 2), (16, 1)):
+        c = verify_case(27, 4, s, h, kv, d, 16, nb)
+        c["block_tables"][0, 1] = -1            # a dead slot mid-table
+        for quant in (False, True):
+            a = _on_card(quantize_pages(c) if quant else c, dt)
+            pages = tuple(a[k] for k in KEYS)
+            sc = (dict(k_scale_pages=a["k_scale_pages"],
+                       v_scale_pages=a["v_scale_pages"]) if quant else {})
+            serving = verify_pages_per_split(pages[0], kv, nb, quant)
+            for win, cap in ((None, None), (40, 30.0)):
+                for pps in (1, 3, serving):
+                    got = paged_verify_partials(*pages, window=win,
+                                                soft_cap=cap,
+                                                pages_per_split=pps, **sc)
+                    torch.cuda.synchronize()
+                    want = ref.paged_verify_partials_plain(
+                        *pages, window=win, soft_cap=cap,
+                        pages_per_split=pps, **sc)
+                    assert got[0].shape[1] == -(-nb // pps)
+                    for g, w in zip(got, want):
+                        torch.testing.assert_close(g, w, atol=1e-4,
+                                                   rtol=1e-4)
+    a = _on_card(quantize_pages(verify_case(28, 2, s, 4, 2, 24, 16, 4)), dt)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_verify_partials(*(a[k] for k in KEYS),
+                              k_scale_pages=a["k_scale_pages"],
+                              v_scale_pages=a["v_scale_pages"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_page_kernels_ignore_unseen_nan_scales(dtype):
+    """The stale-scale case: NaN in the scale slots of every pool entry no
+    query sees (``poison_unseen_scales``), so NaN also sits in tile rows
+    past a split's last key once such entries have passed through the
+    ring.  B1-int8 and B4-int8 (G = 1 and 4, S = 5: a key of the
+    in-flight tokens is visible to query s and masked for s - 1) at splits
+    1, 3 and the serving split give finite partials equal to the plain
+    version's: 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    nb = 24
+    for h, kv in ((8, 8), (8, 2)):
+        cases = [(paged_decode_partials, ref.paged_decode_partials_plain,
+                  decode_pages_per_split, paged_case(29, 4, h, kv, 128, 16,
+                                                     nb)),
+                 (paged_verify_partials, ref.paged_verify_partials_plain,
+                  lambda q, kv_, nb_: verify_pages_per_split(q, kv_, nb_,
+                                                             int8=True),
+                  verify_case(30, 4, 5, h, kv, 128, 16, nb))]
+        for kernel, plain, rule, c in cases:
+            a = _on_card(poison_unseen_scales(quantize_pages(c)), dt)
+            pages = tuple(a[k] for k in KEYS)
+            sc = dict(k_scale_pages=a["k_scale_pages"],
+                      v_scale_pages=a["v_scale_pages"])
+            assert torch.isnan(sc["v_scale_pages"]).any()
+            for pps in (1, 3, rule(pages[0], kv, nb)):
+                got = kernel(*pages, soft_cap=30.0, pages_per_split=pps,
+                             **sc)
+                torch.cuda.synchronize()
+                want = plain(*pages, soft_cap=30.0, pages_per_split=pps,
+                             **sc)
+                for g, w in zip(got, want):
+                    assert torch.isfinite(g).all()
+                    torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)

@@ -42,7 +42,10 @@ from repro_torch.kernels.flash_prefill import (flash_prefill,
 from repro_torch.kernels.split_kv_decode import (decode_pages_per_split,
                                                  decode_split_rule,
                                                  paged_decode_partials,
-                                                 paged_verify_partials)
+                                                 paged_verify_partials,
+                                                 verify_pages_per_split,
+                                                 verify_rows_per_block,
+                                                 verify_split_rule)
 from test_torch_cuda import dense_case as _dense_case
 from test_torch_cuda import paged_case as _paged_case
 from test_torch_cuda import verify_case as _verify_case
@@ -238,7 +241,8 @@ VERIFY = [(3, 2, 4, 4, 16, 8, 4, None, None),
 @pytest.mark.parametrize("b,s,h,kv,d,bs,nb,win,cap", VERIFY)
 def test_paged_verify_partials_vs_jax(b, s, h, kv, d, bs, nb, win, cap):
     c = _verify_case(12, b, s, h, kv, d, bs, nb)
-    got = paged_verify_partials(*_args(c, _t), window=win, soft_cap=cap)
+    got = paged_verify_partials(*_args(c, _t), window=win, soft_cap=cap,
+                                pages_per_split=1)
     want = j_paged_verify_partials(*_args(c, jnp.asarray), window=win,
                                    soft_cap=cap, interpret=True)
     assert [tuple(g.shape) for g in got] == [w.shape for w in want]
@@ -258,6 +262,107 @@ def test_paged_verify_attention_vs_jax_and_oracles(b, s, h, kv, d, bs, nb,
         *_args(c, _t), window=win, soft_cap=cap).numpy())
     _close(out.numpy(), JREF.paged_verify_attention_reference(
         *_args(c, jnp.asarray), window=win, soft_cap=cap))
+
+
+@pytest.mark.parametrize("split", [3, "nb"])
+@pytest.mark.parametrize("b,s,h,kv,d,bs,nb,win,cap", VERIFY)
+def test_paged_verify_split_partials_vs_jax_merge(b, s, h, kv, d, bs, nb,
+                                                  win, cap, split):
+    """B4's plain version with several pages per split (3: a ragged last
+    split, and an empty slot's dead splits; nb: one split per row) equals
+    the exact merge of JAX's per-page partials over each group."""
+    pps = nb if split == "nb" else split
+    c = _verify_case(12, b, s, h, kv, d, bs, nb)
+    got = paged_verify_partials(*_args(c, _t), window=win, soft_cap=cap,
+                                pages_per_split=pps)
+    want = merge_groups(j_paged_verify_partials(
+        *_args(c, jnp.asarray), window=win, soft_cap=cap, interpret=True),
+        pps)
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    assert got[0].shape[1] == -(-nb // pps)
+    _close(tuple(g.numpy() for g in got), want)
+
+
+@pytest.mark.parametrize("pps", [1, 3])
+@pytest.mark.parametrize("b,s,h,kv,d,bs,nb,win,cap", VERIFY)
+def test_paged_verify_attention_split_vs_jax_and_oracles(b, s, h, kv, d, bs,
+                                                         nb, win, cap, pps):
+    """The combined verify at one partial per page and per 3 pages (the
+    CPU default is one split per row) against JAX's and the oracle."""
+    c = _verify_case(13, b, s, h, kv, d, bs, nb)
+    out = ops.paged_verify_attention(*_args(c, _t), window=win, soft_cap=cap,
+                                     pages_per_split=pps)
+    _close(out.numpy(), JOPS.paged_verify_attention(
+        *_args(c, jnp.asarray), window=win, soft_cap=cap, interpret=True))
+    _close(out.numpy(), ref.paged_verify_attention_reference(
+        *_args(c, _t), window=win, soft_cap=cap).numpy())
+
+
+def test_dead_or_masked_verify_split_is_the_all_masked_partial():
+    """A verify split whose entries are all dead, and one whose live pages
+    hold only holes and keys after every query, give o = 0, l = 0,
+    m = NEG_INF for all S queries; a split seen only by the later queries
+    (the in-flight tokens) is all-masked for the earlier ones alone.  The
+    rest match JAX's merged per-page partials."""
+    b, s, h, kv, d, bs, nb = 2, 3, 4, 2, 16, 4, 9
+    c = _verify_case(15, b, s, h, kv, d, bs, nb)
+    n0, rng = c["k_pages"].shape[0], np.random.default_rng(16)
+    for key in ("k_pages", "v_pages"):         # six fresh pages
+        c[key] = np.concatenate([c[key], rng.normal(
+            size=(6,) + c[key].shape[1:]).astype(np.float32)])
+    c["pos_pages"] = np.concatenate([c["pos_pages"],
+                                     np.full((6, bs), -1, np.int32)])
+    tables, pos, fresh = c["block_tables"], c["pos_pages"], n0 + np.arange(6)
+    tables[0, 6:9] = -1                       # split 2 of row 0: dead
+    tables[1, 6:9] = fresh[:3]                # row 1, split 2: nothing seen
+    pos[fresh[:3]] = c["pos_q"][1, -1] + 1 + np.arange(bs)
+    pos[fresh[0], :2] = -1
+    tables[0, 3:6] = fresh[3:]                # row 0, split 1: only the
+    pos[fresh[3], 1] = c["pos_q"][0, -1]      # last query's own token
+    got = paged_verify_partials(*_args(c, _t), pages_per_split=3)
+    for row in (0, 1):
+        assert torch.equal(got[0][row, 2], torch.zeros_like(got[0][row, 2]))
+        assert torch.equal(got[1][row, 2], torch.zeros_like(got[1][row, 2]))
+        assert (got[2][row, 2] == NEG_INF).all()
+    assert torch.equal(got[1][0, 1, :-1], torch.zeros_like(got[1][0, 1, :-1]))
+    assert (got[2][0, 1, :-1] == NEG_INF).all()
+    assert (got[1][0, 1, -1] > 0).all()
+    want = merge_groups(j_paged_verify_partials(*_args(c, jnp.asarray),
+                                                interpret=True), 3)
+    _close(tuple(g.numpy() for g in got), want)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,nb,n_sm,int8,want", [
+    (8, 5, 40, 40, 128, 64, 132, False, 16),  # llama-13b: 320 walk blocks
+    (8, 4, 32, 8, 128, 64, 132, False, 4),    # 16 rows: one walk block
+    (4, 5, 32, 8, 128, 64, 132, False, 8),    # 20 rows: B3's body and rule
+    (4, 5, 32, 8, 128, 64, 132, True, 4),     # int8: two walk blocks
+    (2, 5, 32, 8, 256, 64, 132, True, 2),     # ... at head_dim 256 too
+    (2, 5, 128, 8, 128, 64, 132, True, 5),    # int8 G = 16: 80 rows, five
+    (2, 5, 128, 8, 128, 64, 132, False, 4),   # 16 blocks: 2 per SM (B3)
+    (64, 5, 40, 40, 128, 64, 132, False, 64),  # 2,560 blocks: one split
+    (3, 2, 4, 4, 64, 10, 132, True, 1),       # never more splits than pages
+    (1, 2, 8, 8, 64, 1, 132, False, 1)])
+def test_verify_split_rule(b, s, h, kv, d, nb, n_sm, int8, want):
+    """On the walk, B * KV * ceil(S * G / 16) blocks per split, each row
+    cut into enough splits for about eight blocks per SM; above 16 rows of
+    a bf16/f32 pool, B3's tile body and B3's own rule; never more splits
+    than pages."""
+    assert verify_split_rule(b, s, h, kv, d, nb, n_sm, int8) == want
+    assert verify_pages_per_split(torch.zeros((b, s, h, d)), kv, nb,
+                                  int8) == nb
+
+
+def test_verify_rows_per_block():
+    rows = (1, 4, 5, 8, 9, 16, 17, 80)
+    assert [verify_rows_per_block(r, 128) for r in rows] \
+        == [16, 16, 16, 16, 16, 16, 128, 128]
+    assert [verify_rows_per_block(r, 128, int8=True) for r in rows] \
+        == [16] * len(rows)
+    assert [verify_rows_per_block(r, 256) for r in (2, 5, 20)] \
+        == [16, 16, 64]
+    assert [verify_rows_per_block(r, 256, int8=True) for r in (2, 5, 20)] \
+        == [16, 16, 16]
 
 
 def test_verify_hides_later_in_flight_tokens_by_position():

@@ -52,8 +52,8 @@ from repro_torch.serving.engine import (DecodeEngine, EngineConfig,
                                         PrefillEngine)
 from repro_torch.serving.orchestrator import Orchestrator, OrchestratorConfig
 from repro_torch.serving.request import Request
-from test_torch_cuda import decode_case, paged_case, quantize_pages, \
-    verify_case
+from test_torch_cuda import decode_case, paged_case, poison_unseen_scales, \
+    quantize_pages, verify_case
 from test_torch_kernels import merge_groups
 
 PTINY = ModelConfig(name="tiny4", family=Family.DENSE, n_layers=4,
@@ -209,6 +209,69 @@ def test_int8_decode_split_partials_vs_jax_merge(b, h, kv, d, bs, nb, win,
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
         np.testing.assert_allclose(g.numpy(), w, **TOL)
+
+
+@pytest.mark.parametrize("split", [3, "nb"])
+@pytest.mark.parametrize("b,h,kv,d,bs,nb,win,cap", QPAGED)
+def test_int8_verify_split_partials_vs_jax_merge(b, h, kv, d, bs, nb, win,
+                                                 cap, split):
+    """B4-int8's plain version with several pages per split (3: a ragged
+    last split; nb: one split per row), S = 3 queries each at its own
+    position, window and soft cap, equals the exact merge of the JAX int8
+    kernel's per-page partials."""
+    pps = nb if split == "nb" else split
+    c = quantize_pages(verify_case(21, b, 3, h, kv, d, bs, nb))
+    got = paged_verify_partials(*_args(c, _t), window=win, soft_cap=cap,
+                                pages_per_split=pps, **_scales(c, _t))
+    want = merge_groups(j_paged_verify_partials(
+        *_args(c, jnp.asarray), window=win, soft_cap=cap, interpret=True,
+        **_scales(c, jnp.asarray)), pps)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), w, **TOL)
+
+
+@pytest.mark.parametrize("pps", [1, 3])
+def test_int8_verify_attention_split_vs_jax(pps):
+    """Combined int8 verify at one partial per page and per 3 pages (the
+    CPU default is one split per row), window and soft cap, against JAX's
+    ops and the dequantize-after-gather oracle."""
+    c = quantize_pages(verify_case(23, 3, 4, 4, 2, 32, 8, 6))
+    kw = dict(window=12, soft_cap=30.0)
+    out = ops.paged_verify_attention(*_args(c, _t), **kw, **_scales(c, _t),
+                                     pages_per_split=pps)
+    np.testing.assert_allclose(out.numpy(), np.asarray(
+        JOPS.paged_verify_attention(*_args(c, jnp.asarray), **kw,
+                                    interpret=True,
+                                    **_scales(c, jnp.asarray))), **TOL)
+    np.testing.assert_allclose(out.numpy(), ref.paged_verify_attention_reference(
+        *_args(c, _t), **kw, **_scales(c, _t)).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("pps", [1, 3])
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_int8_unseen_nan_scales_never_reach_the_partials(kind, pps):
+    """NaN in the scale slots of every entry no query sees (holes,
+    unwritten slots, stale tokens, the scratch page, unassigned pages)
+    leaves the plain int8 partials equal to those with the real scales:
+    the K scale is masked with the score, the V scale multiplies p only
+    where the key is visible.  The card runs the same case against the
+    kernels (``test_cuda_page_kernels_ignore_unseen_nan_scales``)."""
+    if kind == "decode":
+        c = quantize_pages(paged_case(25, 3, 4, 2, 16, 8, 4))
+        port = paged_decode_partials
+    else:
+        c = quantize_pages(verify_case(26, 3, 4, 4, 2, 16, 8, 4))
+        port = paged_verify_partials
+    bad = poison_unseen_scales(c)
+    assert np.isnan(bad["v_scale_pages"]).any()
+    want = port(*_args(c, _t), soft_cap=30.0, pages_per_split=pps,
+                **_scales(c, _t))
+    got = port(*_args(bad, _t), soft_cap=30.0, pages_per_split=pps,
+               **_scales(bad, _t))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("win,cap", [(None, None), (12, None), (None, 30.0)])
