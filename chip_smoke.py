@@ -54,7 +54,23 @@ Phases (any failure exits non-zero and prints no result line):
    forward, the device-busy share of one profiled decode iteration of the
    bf16 and the int8 plain runs (with B1's share of it), and the device
    time of B2, B3 and the GEMMs in one profiled chunk-resume prefill wave
-   of the bf16 plain run.
+   of the bf16 plain run.  Then migrate, on the same weights and the same
+   8 requests, bf16, 256-token chunks: (a) ``Server`` over one prefill
+   member and two 2-stage decode pipelines (``decode_split=2``) with
+   Algorithm 1 on; after the third decode iteration it forces, through
+   ``apply_action``, a span move of 4 layers decode0.0 -> decode0.1, one
+   of 4 layers decode1.1 -> decode1.0 and a KV_HEADS slot rebalance
+   between the pipelines; (b) 2 prefill and 2 decode full-stack members,
+   forcing a re-roll of prefill1 into decode; (c) a ``PrefillPipeline``
+   over [(0, 20), (20, 40)] held against a full-stack ``PrefillEngine``
+   (fresh and chunk-resume waves; states within STATE_TOL_REL, first
+   tokens within TOKEN_GAP_TOL), its states decoded to the end by a
+   ``DecodePipeline``.  Each run holds its streams to the teacher-forced
+   rule, checks that every span engine's weights are views of the full
+   parameters and that B1, B2 and B3 ((c): B1 and B2, never B3) ran, and
+   prints each forced action's host wall clock and billed cost, the
+   bytes a span move accounts, the actions Algorithm 1 applied, the
+   launches, peak memory and the phase's seconds.
 4. Print the ``kernels`` JSON line, then the result line.
 
 The script imports nothing of the JAX package and needs no network.
@@ -792,6 +808,8 @@ def serving_phase(torch, card: str):
     serve_all(bf16_runs)
     launches["self-draft"] = self_draft_run(torch, card, cfg, params)
     serve_all(int8_runs)
+    launches.update(migration_phase(torch, card, cfg, params,
+                                    stats["plain"]["streams"]))
     for q8, base in (("int8", "plain"), ("int8-ngram", "ngram")):
         a, b = stats[q8], stats[base]
         say(f"[{q8} vs {base}] decode {a['iter_ms']:.1f} vs "
@@ -1176,9 +1194,10 @@ def say_wave_profile(label, card, prof) -> None:
 def check_pools_restored(orch) -> None:
     """Every decode slot empty; each page's refcount equals its holders
     (slot rows plus the store's page holds); free list plus store-held
-    pages account for the whole pool."""
+    pages account for the whole pool (every stage of a pipeline)."""
     store = orch.store
-    for e in orch.decode_units():
+    for e in [e for u in orch.decode_units()
+              for e in getattr(u, "engines", [u])]:
         if e.active:
             fail(f"{e.name}: live slots after drain")
         holders = [e.slot_pages(i) for i in range(e.ecfg.max_batch)]
@@ -1191,6 +1210,309 @@ def check_pools_restored(orch) -> None:
         if len(held) != len(set(held)) or \
                 len(e._free) + len(held) != e.ecfg.max_batch * e._nb_slot:
             fail(f"{e.name}: leaked pages")
+
+
+# ---------------------------------------------------------------------------
+# Migration: span pipelines, live span moves, slot rebalance, re-roll
+# ---------------------------------------------------------------------------
+
+# A span-pipeline prefill and a full-stack one compute the same first
+# chunk with the same kernels; a resumed chunk attends through plain
+# attend (bf16 scores, as JAX) in the pipeline and through kernels B3 + B2
+# (f32 scores) in the full-stack engine.  Their K/V may then differ by
+# bf16 rounding carried through 40 layers: held to this share of the
+# largest |K|/|V| of the layer's state.
+STATE_TOL_REL = 0.05
+
+
+def storage_ptrs(torch, tree) -> set:
+    if isinstance(tree, dict):
+        return set().union(*(storage_ptrs(torch, v) for v in tree.values()))
+    if isinstance(tree, (tuple, list)):
+        return set().union(set(), *(storage_ptrs(torch, v) for v in tree))
+    return {tree.untyped_storage().data_ptr()} if torch.is_tensor(tree) \
+        else set()
+
+
+def check_views(torch, label, params, engines) -> None:
+    """Every span engine's weights are views of the full parameters."""
+    full = storage_ptrs(torch, params)
+    for e in engines:
+        if not storage_ptrs(torch, e.sparams) <= full:
+            fail(f"[{label}] {e.name}: span weights are not views of the "
+                 f"full parameters")
+    say(f"[{label}] weights: {len(engines)} span engines, every weight a "
+        f"view of the full parameters (storage shared)")
+
+
+def say_streams_vs_plain(label, reqs, plain_streams) -> None:
+    same = sum(r.generated == plain_streams[r.rid] for r in reqs)
+    say(f"[{label}] streams identical to the bf16 plain run's: "
+        f"{same}/{len(reqs)}")
+
+
+def timed_action(torch, orch, kind, src, dst, amount):
+    """Force one action through ``apply_action`` at the cost the
+    controller would bill it; returns (applied, host ms synchronised,
+    billed seconds)."""
+    from repro_torch.core.migration import MigrationAction
+
+    loads = {d.device: d for d in orch._device_loads()}
+    benefit, cost = orch._migration_cost(kind, loads[src], loads[dst],
+                                         amount)
+    act = MigrationAction(kind, src=src, dst=dst, amount=amount,
+                          predicted_benefit=benefit, predicted_cost=cost)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ok = orch.apply_action(act)
+    torch.cuda.synchronize()
+    return ok, (time.perf_counter() - t) * 1e3, cost
+
+
+def migration_run(torch, card, cfg, params, plain_streams, *, label,
+                  n_prefill, decode_split, force):
+    """One ``Server`` run over a migrating fleet; ``force(orch)`` applies
+    the forced actions once the run is under way.  Returns launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import Server
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.orchestrator import (Orchestrator,
+                                                  OrchestratorConfig)
+
+    ecfg = EngineConfig(max_len=1024, max_batch=8, block_size=16)
+    orch = Orchestrator(cfg, params, OrchestratorConfig(
+        n_prefill=n_prefill, n_decode=2, decode_split=decode_split,
+        migration=True, chunk_tokens=256, engine=ecfg))
+    reqs = served_requests(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    srv = Server(orch)
+    for r in reqs:
+        srv.submit(r, at=r.arrival)
+    n_forced = force(orch, srv)
+    srv.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for r in reqs:
+        if r.outcome is None or r.outcome.value != "completed":
+            fail(f"[{label}] request {r.rid}: outcome {r.outcome}")
+    check_pools_restored(orch)
+    check_views(torch, label, params,
+                [e for p in orch.decode_pipes for e in p.engines])
+    check_streams(torch, cfg, params, label, reqs, launches,
+                  ("paged_decode_partials", "flash_prefill",
+                   "paged_prefix_partials"), ("paged_verify_partials",))
+    say_streams_vs_plain(label, reqs, plain_streams)
+    s = orch.summary()
+    decoded = {m.name: m.decode.tokens_decoded for m in orch.decode_members()}
+    say(f"[{label}] tokens decoded per decode member {decoded}; actions "
+        f"applied (kind, src, dst, amount, billed ms): " + ", ".join(
+            f"({a.kind.value}, {a.src}, {a.dst}, {a.amount}, "
+            f"{a.predicted_cost * 1e3:.3f})" for a in orch.migration_log))
+    say(f"[{label}] fleet {s['fleet']}; span bounds "
+        f"{s.get('span_bounds', {})}; {s['migrations']} actions applied "
+        f"({n_forced} forced, {s['migrations'] - n_forced} planned by "
+        f"Algorithm 1 over {len(orch.util_trace)} control cycles); "
+        f"span_moves {s['span_moves']}, span_bytes_moved "
+        f"{s['span_bytes_moved']}; {s['decode_iters']} decode iterations; "
+        f"wall {wall:.2f} s; peak memory {peak / 2**30:.2f} GiB [{card}]")
+    say(f"[{label}] serving-path launches: {json.dumps(launches)}")
+    del orch, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_until(orch, srv, cond, what):
+    while not cond():
+        if not orch.clock:
+            fail(f"the run ended before {what}")
+        srv.step()
+
+
+def force_span_moves(torch, card, label):
+    """(a): after the third decode iteration, move 4 layers decode0.0 ->
+    decode0.1 and 4 layers decode1.1 -> decode1.0, then rebalance slots
+    between the two pipelines (KV_HEADS)."""
+    from repro_torch.core.migration import MigrationKind
+
+    def force(orch, srv):
+        run_until(orch, srv, lambda: orch.metrics.decode_iters >= 3
+                  and sum(p.active for p in orch.decode_pipes) >= 2,
+                  "three decode iterations with two residents")
+        for src, dst in (("decode0.0", "decode0.1"),
+                         ("decode1.1", "decode1.0")):
+            ok, ms, cost = timed_action(torch, orch, MigrationKind.LAYER,
+                                        src, dst, 4)
+            if not ok:
+                fail(f"[{label}] the span move {src} -> {dst} was refused")
+            rec = orch.span_move_log[-1]
+            say(f"[{label}] span move {src} -> {dst}: {rec['layers']} "
+                f"layers in {ms:.1f} ms host wall clock (synchronised), "
+                f"weight_bytes {rec['weight_bytes']} (views: re-sliced, not "
+                f"copied), kv_bytes {rec['kv_bytes']}, billed "
+                f"{cost * 1e3:.3f} ms (Eq. 4/11, H100 data sheet) [{card}]")
+        # the router keeps the pipelines level: move one pipeline's
+        # residents onto the other (extract/adopt), then let KV_HEADS
+        # rebalance them
+        heavy, light = orch.decode_pipes
+        for slot, r in enumerate(light.slots):
+            if r is not None:
+                heavy.adopt(*light.extract_slot(slot))
+        before = (heavy.active, light.active)
+        ok, ms, cost = timed_action(torch, orch, MigrationKind.KV_HEADS,
+                                    heavy.lead.name, light.lead.name, 1)
+        if not ok or light.active == 0:
+            fail(f"[{label}] the KV_HEADS rebalance was refused")
+        say(f"[{label}] KV_HEADS rebalance {heavy.name} -> {light.name}: "
+            f"residents {before} -> {(heavy.active, light.active)} in "
+            f"{ms:.1f} ms host wall clock (synchronised), billed "
+            f"{cost * 1e3:.3f} ms [{card}]")
+        return 3
+    return force
+
+
+def force_reroll(torch, card, label):
+    """(b): after the third decode iteration, once prefill1 is idle,
+    re-roll it into a decode member (its queue re-routes to prefill0)."""
+    from repro_torch.core.migration import MigrationKind
+
+    def force(orch, srv):
+        m = orch._by_name["prefill1"]
+        run_until(orch, srv, lambda: orch.metrics.decode_iters >= 3
+                  and not m.busy and m._wavegen is None,
+                  "three decode iterations with prefill1 idle")
+        pending = sum(r.phase.value in ("queued", "routed", "prefill")
+                      for r in orch._by_rid.values())
+        ok, ms, cost = timed_action(torch, orch, MigrationKind.LAYER,
+                                    "decode0", "prefill1", orch.cfg.n_layers)
+        if not ok or m.role != "decode":
+            fail(f"[{label}] the re-roll of prefill1 was refused")
+        say(f"[{label}] re-roll prefill1 -> decode in {ms:.1f} ms host wall "
+            f"clock (synchronised; a fresh decode engine and its pool; "
+            f"{m.tokens_prefilled} tokens prefilled there before, "
+            f"{pending} requests not yet handed off), billed "
+            f"{cost * 1e3:.3f} ms [{card}]")
+        return 1
+    return force
+
+
+def pipeline_engine_run(torch, card, cfg, params, plain_streams):
+    """(c): a ``PrefillPipeline`` over [(0, 20), (20, 40)] against a
+    full-stack ``PrefillEngine`` on the same 8 requests in 256-token
+    chunks (fresh and chunk-resume waves), its states decoded to the end
+    by a ``DecodePipeline``.  Returns the pipelines' launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig, PrefillEngine
+    from repro_torch.serving.span import DecodePipeline, PrefillPipeline
+
+    label = "migrate-c"
+    bounds = [(0, 20), (20, 40)]
+    ecfg = EngineConfig(max_len=1024, max_batch=8, block_size=16)
+    full = PrefillEngine(cfg, params, ecfg)
+    want = full.run_batch(served_requests(cfg), chunk_tokens=256)
+    del full
+    pp = PrefillPipeline(cfg, params, ecfg, bounds)
+    dp = DecodePipeline(cfg, params, ecfg, bounds)
+    check_views(torch, label, params, pp.engines + dp.engines)
+    reqs = served_requests(cfg)
+    resumed = sum(r.prompt_len > 256 for r in reqs)
+    if not resumed:
+        fail(f"[{label}] no prompt is long enough to resume")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    n_waves = 0
+    got = [None] * len(reqs)
+    for wave in pp.prefill_waves(reqs, chunk_tokens=256):
+        n_waves += 1
+        for i, st, lg in wave["done"]:
+            got[i] = (st, lg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    worst_state = worst_gap = first_chunk = 0.0
+    head = 256 // ecfg.block_size          # pages of the first, fresh chunk
+    for r, (st, lg), (wst, wlg) in zip(reqs, got, want):
+        if int(st["n_blocks"]) != int(wst["n_blocks"]) or \
+                int(st["length"]) != int(wst["length"]):
+            fail(f"[{label}] request {r.rid}: state shape differs")
+        for g, wg in zip(st["groups"], wst["groups"]):
+            if not torch.equal(g["pos"], wg["pos"]):
+                fail(f"[{label}] request {r.rid}: positions differ")
+            for key in ("k", "v"):
+                err = float((g[key].float() - wg[key].float()).abs().max())
+                rel = err / max(float(wg[key].float().abs().max()), 1e-9)
+                worst_state = max(worst_state, rel)
+                first_chunk = max(first_chunk, float(
+                    (g[key][:, :head].float()
+                     - wg[key][:, :head].float()).abs().max()))
+        gap = float(wlg.float().max() - wlg.float()[int(lg.argmax())])
+        worst_gap = max(worst_gap, gap)
+        if worst_state > STATE_TOL_REL or gap > TOKEN_GAP_TOL:
+            fail(f"[{label}] request {r.rid}: pipeline prefill off the "
+                 f"full-stack one (state {worst_state:.4f} of max |K|/|V|, "
+                 f"tolerance {STATE_TOL_REL}; first-token gap {gap:.3f}, "
+                 f"tolerance {TOKEN_GAP_TOL})")
+    del want
+    t1 = time.perf_counter()
+    for r, (st, lg) in zip(reqs, got):
+        dp.insert(r, st, int(torch.argmax(lg)))
+    del got
+    iters = 0
+    while dp.active:
+        dp.step()
+        iters += 1
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for e in dp.engines:
+        if e.active or len(e._free) != ecfg.max_batch * e._nb_slot:
+            fail(f"[{label}] {e.name}: pool not restored")
+    check_streams(torch, cfg, params, label, reqs, launches,
+                  ("paged_decode_partials", "flash_prefill"),
+                  ("paged_prefix_partials", "paged_verify_partials"))
+    say_streams_vs_plain(label, reqs, plain_streams)
+    tokens = sum(len(r.generated) for r in reqs)
+    say(f"[{label}] PrefillPipeline {bounds}: {n_waves} waves ({resumed} "
+        f"prompts resumed chunk by chunk) in {prefill_s:.3f} s; "
+        f"against the full-stack PrefillEngine: worst K/V difference "
+        f"{worst_state:.4f} of the layer's max |K|/|V| (tolerance "
+        f"{STATE_TOL_REL}; largest absolute difference in the first, fresh "
+        f"chunk {first_chunk:.3g}), worst first-token gap {worst_gap:.4f} "
+        f"(tolerance {TOKEN_GAP_TOL}); DecodePipeline: {tokens} tokens out "
+        f"in {iters} iterations, {decode_s:.3f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    say(f"[{label}] serving-path launches: {json.dumps(launches)}")
+    del pp, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def migration_phase(torch, card, cfg, params, plain_streams):
+    """The migration runs on the served runs' weights and requests:
+    (a) ``Server`` over two 2-stage decode pipelines with forced span
+    moves and a slot rebalance, Algorithm 1 planning alongside; (b) a
+    full-stack fleet with a forced re-roll of prefill1 into decode;
+    (c) span pipelines at the engine level.  Returns {run: launches}."""
+    t0 = time.perf_counter()
+    out = {}
+    out["migrate-a"] = migration_run(
+        torch, card, cfg, params, plain_streams, label="migrate-a",
+        n_prefill=1, decode_split=2,
+        force=force_span_moves(torch, card, "migrate-a"))
+    out["migrate-b"] = migration_run(
+        torch, card, cfg, params, plain_streams, label="migrate-b",
+        n_prefill=2, decode_split=1,
+        force=force_reroll(torch, card, "migrate-b"))
+    out["migrate-c"] = pipeline_engine_run(torch, card, cfg, params,
+                                           plain_streams)
+    say(f"migration phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -190,6 +190,10 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
       hit): ``ops.paged_prefill_attention`` reads the prefix pages (kernel
       B3) and the suffix (kernel B2) BEFORE the suffix is written into its
       pages, as in JAX (writing first would count the suffix twice);
+    * dense incremental prefill (``prefix_aware`` over a per-row cache, a
+      layer-span pipeline's chunk resume): plain ``attend`` over the
+      cache's keys followed by the in-context ones, then the write, as
+      JAX computes it outside any kernel;
     * paged decode: the new tokens' K/V are written into their pages
       FIRST, then read in place — S == 1 by ``ops.paged_decode_attention``
       (kernel B1), S > 1 (the speculative verify step: the pending token
@@ -254,17 +258,23 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             cache_v[wblk, off] = v
             slot_pos[wblk, off] = positions.to(slot_pos.dtype)
         elif mode == "prefill":
-            if prefix_aware:
-                raise NotImplementedError(
-                    "dense-cache incremental prefill is not ported; the "
-                    "port resumes prefill over paged caches only")
             cache_len = cache_k.shape[1]
             if s > cache_len:
                 raise NotImplementedError(
                     "prefill longer than the cache (ring wrap) is not "
                     "ported: windowed stacks come with a later slice")
-            o = ops.flash_attention(q, k, v, window=window, scale=scale,
-                                    soft_cap=cap)
+            if prefix_aware:
+                # chained (layer-span) resume over a dense per-row cache:
+                # plain attend over [cache ; in-context keys], as JAX
+                # computes it outside any kernel
+                o = attend(q, torch.cat([cache_k, k], dim=1),
+                           torch.cat([cache_v, v], dim=1), positions,
+                           torch.cat([slot_pos, positions.to(slot_pos.dtype)],
+                                     dim=1),
+                           window=window, scale=scale, soft_cap=cap)
+            else:
+                o = ops.flash_attention(q, k, v, window=window, scale=scale,
+                                        soft_cap=cap)
             rows = torch.arange(b, device=x.device)[:, None]
             write_pos = (positions % cache_len).long()
             cache_k[rows, write_pos] = k_w

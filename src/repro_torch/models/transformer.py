@@ -246,6 +246,8 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
           logits_slice: str = "all",
           logits_at: Optional[torch.Tensor] = None,
           paged_kernel: bool = False,
+          hidden_in: bool = False,
+          hidden_out: bool = False,
           ) -> Tuple[torch.Tensor, Optional[Cache], Dict[str, Any]]:
     """Run the stack.
 
@@ -262,6 +264,13 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     (the draft model's) is plain attention.  Decode positions are
     ``lengths + arange(S)`` and the returned lengths advance by S.
     ``mode="train"`` without a cache is the plain stateless forward.
+
+    Partial-stack (layer-span) execution, as in JAX: ``hidden_in=True``
+    takes ``tokens`` as the (B, S, d_model) residual stream of the
+    previous span and skips the embedding; ``hidden_out=True`` returns the
+    residual stream before ``out_norm`` and the unembedding (the logits
+    slice is then ignored).  Spans that partition the stack, chained,
+    run the monolithic forward op for op.
     """
     check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
@@ -280,7 +289,8 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         positions = cache["lengths"][:, None] + ar[None, :]
     else:
         positions = ar[None, :].expand(b, s)
-    x = params["embed"][tokens]
+    x = tokens.to(params["out_norm"].dtype) if hidden_in \
+        else params["embed"][tokens]
 
     def block(kind, p, st, x):
         return _apply_block(cfg, kind, p, x, positions=positions, state=st,
@@ -296,13 +306,16 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         st = cache["rem"][i] if cache is not None else None
         x = block(pat[i], params["rem"][i], st, x)
 
-    x = L.rms_norm(x, params["out_norm"], cfg.rms_eps)
-    if logits_slice == "last":
-        x = x[:, -1] if logits_at is None else \
-            x[torch.arange(b, device=dev), logits_at.to(dev).long()]
-    unembed = params["embed"].t() if cfg.tie_embeddings \
-        else params["unembed"]
-    logits = x @ unembed
+    if hidden_out:
+        logits = x                  # the residual stream for the next span
+    else:
+        x = L.rms_norm(x, params["out_norm"], cfg.rms_eps)
+        if logits_slice == "last":
+            x = x[:, -1] if logits_at is None else \
+                x[torch.arange(b, device=dev), logits_at.to(dev).long()]
+        unembed = params["embed"].t() if cfg.tie_embeddings \
+            else params["unembed"]
+        logits = x @ unembed
 
     new_cache = None
     if cache is not None:

@@ -21,8 +21,12 @@ multi-query pass over the pages (kernel B4), commits the longest prefix
 equal to greedy plus the verifier's bonus token, and rolls rejected
 tokens' fresh pages back through the pool.
 
-Both mirror the JAX package's ``serving/engine.py`` (full-stack engines)
-and report ``core.scheduling.LoadReport``s for the routers.  This slice
+Both mirror the JAX package's ``serving/engine.py`` and report
+``core.scheduling.LoadReport``s for the routers.  With ``layer_span``
+either hosts a contiguous span of the stack (its weights views of the
+full parameters): the stages of a ``serving/span.py`` pipeline, which
+chains the residual stream through them (``apply(hidden_in,
+hidden_out)``) and re-slices them live (``rebase_span``).  This slice
 serves pageable global-attention stacks, with bf16/f32 or int8 KV caches
 (``kv_quant``: int8 pages plus f32 scale pages, read by the int8 variants
 of kernels B1 and B4); other stacks raise ``NotImplementedError``.  As in
@@ -33,13 +37,14 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from .. import device as D
 from ..core import analytical as A
+from ..core import layer_migration as LM
 from ..core.kvstore import GlobalKVStore, chain_hashes
 from ..core.scheduling import LoadReport
 from ..models import kvcache as KC
@@ -102,6 +107,18 @@ def check_servable(cfg: ModelConfig, ecfg: EngineConfig) -> int:
             f"(cache length a multiple of block_size {ecfg.block_size}); "
             "windowed and other stacks come with a later slice (ROADMAP A10)")
     return plen
+
+
+def _span_view(cfg: ModelConfig, params,
+               layer_span: Optional[Tuple[int, int]]):
+    """(span, span config, span params): the identity for a full-stack
+    engine; otherwise the span's config and views of its layers' weights
+    (``layer_migration.span_params``: no weight is copied)."""
+    span = (0, cfg.n_layers) if layer_span is None else tuple(layer_span)
+    if span == (0, cfg.n_layers):
+        return span, cfg, params
+    return span, LM.span_config(cfg, *span), LM.span_params(cfg, params,
+                                                            *span)
 
 
 def engine_device(params, device: D.DeviceLike) -> torch.device:
@@ -213,21 +230,36 @@ class _Draft:
 
 
 class PrefillEngine:
-    """One prefill instance (full stack)."""
+    """One prefill instance.
+
+    ``layer_span=(a, b)`` makes it a partial-stack instance hosting layers
+    [a, b) (weights are views of the full parameters); a chain of span
+    engines covering the stack (``serving/span.py``'s ``PrefillPipeline``)
+    reproduces the full-stack prefill.  Bucketing and the wire format
+    follow the full stack, so chained stages agree and hand-off states
+    stay full-stack.  Span engines hold no store (its payloads are
+    full-stack)."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
                  store: Optional[GlobalKVStore] = None,
-                 name: str = "prefill0", device: D.DeviceLike = None):
+                 name: str = "prefill0", device: D.DeviceLike = None,
+                 layer_span: Optional[Tuple[int, int]] = None):
         self._page_len = check_servable(cfg, ecfg)
         self.device = engine_device(params, device)
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
         self.dtype = params["embed"].dtype
+        self.layer_span, self.scfg, self.sparams = \
+            _span_view(cfg, params, layer_span)
         # the store holds pages of linear bf16/f32 caches only (JAX drops
-        # it the same way for int8 KV)
-        self.store = store if KC.prefix_cacheable(cfg) else None
+        # it the same way for int8 KV), and full-stack pages only
+        full = self.layer_span == (0, cfg.n_layers)
+        self.store = store if full and KC.prefix_cacheable(cfg) else None
         self.name = name
+        # set by PrefillPipeline: the downstream span engines this one
+        # chains each wave's residual stream into
+        self._followers: List["PrefillEngine"] = []
         self.queue: Deque[Request] = deque()   # routed, not yet prefilled
         self.tokens_prefilled = 0         # suffix tokens actually computed
         self.n_prefilled = 0
@@ -239,6 +271,13 @@ class PrefillEngine:
             A.prefill_time(cfg, ecfg.block_size, ecfg.hw)
             / max(cfg.n_layers, 1) if ecfg.hw is not None else None)
         self.fetch_latency_s = 0.0
+
+    def rebase_span(self, layer_span: Tuple[int, int]) -> None:
+        """Re-slice this prefill stage to another contiguous span (a layer
+        move).  Prefill holds no resident serving state, so only the span
+        views change."""
+        self.layer_span, self.scfg, self.sparams = \
+            _span_view(self.cfg, self.params, layer_span)
 
     # -- queue / load ----------------------------------------------------
     def enqueue(self, req: Request) -> None:
@@ -259,7 +298,7 @@ class PrefillEngine:
                           memory_frac=0.0, queue_len=len(self.queue),
                           queue_delay_s=delay,
                           cached_prefix_tokens=dict(self._leading),
-                          layer_span=(0, self.cfg.n_layers))
+                          layer_span=self.layer_span)
 
     # -- store -------------------------------------------------------------
     def _match(self, tokens: np.ndarray,
@@ -325,7 +364,16 @@ class PrefillEngine:
         reqs, paged request state, last-token logits)]}``.  An int8-KV
         stack cannot resume a prompt (the JAX engine fails at its ``int8
         cache + prefix store not combined`` assert): a prompt longer than
-        ``chunk_tokens`` raises ``ValueError`` here, before any work."""
+        ``chunk_tokens`` raises ``ValueError`` here, before any work.
+
+        With chained followers (a span pipeline) every wave's residual
+        stream flows through each span in turn over dense per-span wave
+        caches, chunk resumes included (plain ``attend`` over the cached
+        prefix, as in JAX), and the per-span states merge back into the
+        full-stack wire format."""
+        if self.layer_span[0] != 0:
+            raise ValueError("mid-stack span engines run only as "
+                             "PrefillPipeline followers")
         chunk = max(int(chunk_tokens), 1) if chunk_tokens else None
         if self.cfg.kv_quant and chunk is not None:
             long = [r.rid for r in reqs if r.prompt_len > chunk]
@@ -376,9 +424,14 @@ class PrefillEngine:
                 chosen.append(i)
             chosen = chosen[: max(self.ecfg.max_batch, 1)]
             n_rows = min(_pow2_ceil(len(chosen)), max(self.ecfg.max_batch, 1))
+            chain = [self] + self._followers
+            bounds = [e.layer_span for e in chain]
             matched_of: Dict[int, int] = {}
             tables = None
-            if hit:
+            # hit waves of a single-span engine run paged (kernel B3 reads
+            # the prefix in place); a chain resumes over dense caches
+            use_paged = hit and len(chain) == 1
+            if use_paged:
                 cache = T.init_paged_cache(self.cfg, n_rows,
                                            self.ecfg.max_len, bs,
                                            dtype=self.dtype,
@@ -408,10 +461,22 @@ class PrefillEngine:
                     tables[row, :n_need] = np.arange(start, start + n_need)
                 cache["block_tables"] = torch.as_tensor(tables,
                                                         device=self.device)
+                caches = [cache]
             else:
-                cache = T.init_cache(self.cfg, n_rows, self.ecfg.max_len,
-                                     dtype=self.dtype, device=self.device)
-                for i in chosen:
+                caches = [T.init_cache(e.scfg, n_rows, self.ecfg.max_len,
+                                       dtype=self.dtype, device=self.device)
+                          for e in chain]
+                for row, i in enumerate(chosen):
+                    if i in partials:
+                        # chained resume: the parked full-stack state,
+                        # dense, split at the chain's cuts
+                        matched_of[i] = progress[i]
+                        dense = KC.paged_state_to_dense(
+                            partials.pop(i), bs, self._page_len)
+                        for c, part in zip(caches, LM.split_state_spans(
+                                self.cfg, dense, bounds)):
+                            KC.insert_request_state(c, row, part)
+                        continue
                     # records the lookup; a miss bucket matches nothing
                     matched_of[i] = store_matched[i] = \
                         self._match(toks[i], keys_of[i])[0]
@@ -423,23 +488,31 @@ class PrefillEngine:
                     s_i = s_i[:chunk]
                 suffix[row, : len(s_i)] = s_i
                 slens[row] = len(s_i)
-            logits, cache, _ = T.apply(
-                self.cfg, self.params,
-                torch.as_tensor(suffix, dtype=torch.long, device=self.device),
-                cache=cache, mode="prefill", prefix_aware=hit,
-                logits_slice="last",
-                logits_at=torch.as_tensor(slens - 1, device=self.device))
+            x = torch.as_tensor(suffix, dtype=torch.long, device=self.device)
+            logits_at = torch.as_tensor(slens - 1, device=self.device)
+            for k, e in enumerate(chain):
+                # stage k takes the previous span's residual stream and,
+                # except the last, hands one on
+                x, caches[k], _ = T.apply(
+                    e.scfg, e.sparams, x, cache=caches[k], mode="prefill",
+                    prefix_aware=hit, logits_slice="last",
+                    logits_at=logits_at, hidden_in=k > 0,
+                    hidden_out=k < len(chain) - 1)
+            logits = x
             done_wave: List[Tuple[int, Dict[str, Any], torch.Tensor]] = []
             wave_tokens = 0
             for row, i in enumerate(chosen):
                 new_len = matched_of[i] + int(slens[row])
-                if hit:
+                if use_paged:
                     st = KC.extract_paged_state(
-                        cache, row, bs,
+                        caches[0], row, bs,
                         table_row=tables[row][: -(-new_len // bs)],
                         length=new_len)
                 else:
-                    st = KC.extract_request_state(cache, row)
+                    st = (KC.extract_request_state(caches[0], row)
+                          if len(chain) == 1 else LM.merge_state_spans(
+                              self.cfg, [KC.extract_request_state(c, row)
+                                         for c in caches], bounds))
                     st = KC.dense_state_to_paged(st, bs, length=new_len)
                 self.tokens_prefilled += int(slens[row])
                 wave_tokens += int(slens[row])
@@ -490,13 +563,20 @@ class PrefillEngine:
 
 class DecodeEngine:
     """One decode instance: slot-based continuous batching over a
-    refcounted paged block pool (full stack).  ``draft=(cfg, params)``
-    is the draft model of ``speculation="draft"``."""
+    refcounted paged block pool.  ``draft=(cfg, params)`` is the draft
+    model of ``speculation="draft"``.
+
+    ``layer_span=(a, b)`` makes it a partial-stack stage hosting layers
+    [a, b): its weights are views of the full parameters, its pool covers
+    only the span, and a ``serving/span.py`` ``DecodePipeline`` chains
+    stages so the batch's residual stream runs the whole stack each
+    step.  ``rebase_span`` re-slices an emptied stage (a layer move)."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
                  name: str = "decode0", device: D.DeviceLike = None,
-                 draft: Optional[Tuple[ModelConfig, Any]] = None):
-        self.page_len = check_servable(cfg, ecfg)
+                 draft: Optional[Tuple[ModelConfig, Any]] = None,
+                 layer_span: Optional[Tuple[int, int]] = None):
+        check_servable(cfg, ecfg)
         self.device = engine_device(params, device)
         self.cfg = cfg
         self.params = params
@@ -515,26 +595,12 @@ class DecodeEngine:
         self.cow_forks = 0        # shared pages forked copy-on-write
         self.pages_shared = 0     # pages bound by reference (no copy)
         self.paged = True
-        self.cache = T.init_paged_cache(cfg, ecfg.max_batch, ecfg.max_len,
-                                        ecfg.block_size,
-                                        dtype=params["embed"].dtype,
-                                        device=self.device)
-        self._nb_slot = self.page_len // ecfg.block_size
-        # host mirrors: block tables and the refcounted pool (page 0 is the
-        # scratch page); the device table is refreshed when it goes stale
-        self._bt = np.full((ecfg.max_batch, self._nb_slot), -1, np.int32)
-        self._bt_dirty = False
-        self.pool = KC.BlockPool(1 + ecfg.max_batch * self._nb_slot)
-        self._slot_blocks: List[List[int]] = \
-            [[] for _ in range(ecfg.max_batch)]
         self.use_kernel = ecfg.decode_kernel is not False
         # speculation: the mode from the config, a runtime switch the
         # orchestrator flips per iteration, and per-slot adaptive depth
-        # from the measured acceptance.  It needs rollback-safe KV (full
-        # attention, no window, no recurrent or cross state), which every
-        # stack check_servable admits, so the gate is the mode alone.
+        # from the measured acceptance (the gate, ``_spec_ok``, is set
+        # per span)
         self.spec_on = ecfg.speculation != "off"
-        self._spec_ok = ecfg.speculation != "off"
         self._spec_k = np.full((ecfg.max_batch,), max(ecfg.spec_len, 1),
                                np.int64)
         self._spec_ema = np.ones((ecfg.max_batch,), np.float64)
@@ -544,6 +610,41 @@ class DecodeEngine:
                 raise ValueError("speculation='draft' needs "
                                  "draft=(draft_cfg, draft_params)")
             self._draft = _Draft(draft[0], draft[1], ecfg, self.device)
+        self._set_span(layer_span)
+
+    def _set_span(self, layer_span: Optional[Tuple[int, int]]) -> None:
+        """(Re-)derive the span's views and a blank pool for it."""
+        ecfg = self.ecfg
+        self.layer_span, self.scfg, self.sparams = \
+            _span_view(self.cfg, self.params, layer_span)
+        self.page_len = check_servable(self.scfg, ecfg)
+        self.cache = T.init_paged_cache(self.scfg, ecfg.max_batch,
+                                        ecfg.max_len, ecfg.block_size,
+                                        dtype=self.params["embed"].dtype,
+                                        device=self.device)
+        self._nb_slot = self.page_len // ecfg.block_size
+        # host mirrors: block tables and the refcounted pool (page 0 is the
+        # scratch page); the device table is refreshed when it goes stale
+        self._bt = np.full((ecfg.max_batch, self._nb_slot), -1, np.int32)
+        self._bt_dirty = False
+        self.pool = KC.BlockPool(1 + ecfg.max_batch * self._nb_slot)
+        self._slot_blocks: List[List[int]] = \
+            [[] for _ in range(ecfg.max_batch)]
+        # speculation needs rollback-safe KV (full attention, no window,
+        # no recurrent or cross state), which every stack check_servable
+        # admits, on a full-stack engine: span pipelines decode plain, as
+        # in JAX
+        self._spec_ok = (ecfg.speculation != "off"
+                         and self.layer_span == (0, self.cfg.n_layers))
+
+    def rebase_span(self, layer_span: Tuple[int, int]) -> None:
+        """Re-slice this stage to another contiguous span (a layer move).
+        The serving state does not survive: the ``DecodePipeline`` takes
+        every slot out first and re-adopts the split states after."""
+        if self.active:
+            raise RuntimeError("take the slots out before re-slicing the "
+                               "span")
+        self._set_span(layer_span)
 
     # -- zero-copy prefix sharing (store-held pages) ---------------------
     @property
@@ -597,12 +698,22 @@ class DecodeEngine:
     def kv_tokens(self) -> int:
         return int(self._slot_len.sum())
 
+    @property
+    def span_frac(self) -> float:
+        """This stage's share of the stack (1.0 for a full-stack engine)."""
+        a, b = self.layer_span
+        return (b - a) / max(self.cfg.n_layers, 1)
+
     def load_report(self) -> LoadReport:
+        """Occupancy as C/C_max and resident KV against the full cache as
+        M/M_max; a span stage scales both by its share of the stack
+        (per-layer compute and KV are additive in the hosted layers), so
+        the Algorithm 1 controller sees the heavier stage as hotter."""
         cap = max(self.ecfg.max_batch, 1)
         mem = self.kv_tokens / max(self.ecfg.max_batch * self.ecfg.max_len, 1)
-        return LoadReport(compute_frac=self.active / cap,
-                          memory_frac=min(mem, 1.0), queue_len=self.active,
-                          layer_span=(0, self.cfg.n_layers))
+        return LoadReport(compute_frac=self.active / cap * self.span_frac,
+                          memory_frac=min(mem, 1.0) * self.span_frac,
+                          queue_len=self.active, layer_span=self.layer_span)
 
     # -- slot transfer ---------------------------------------------------
     def _release_blocks(self, slot: int) -> None:
@@ -749,6 +860,18 @@ class DecodeEngine:
             self._bt_dirty = False
         return fresh_by
 
+    def _forward_step(self, x: torch.Tensor, *, hidden_in: bool = False,
+                      hidden_out: bool = False) -> torch.Tensor:
+        """One decode forward over this stage's span.  ``x`` is the token
+        column (first stage) or the upstream stage's residual stream;
+        returns last-token logits, or with ``hidden_out`` the residual
+        stream for the next stage."""
+        out, self.cache, _ = T.apply(
+            self.scfg, self.sparams, x, cache=self.cache, mode="decode",
+            logits_slice="last", paged_kernel=self.use_kernel,
+            hidden_in=hidden_in, hidden_out=hidden_out)
+        return out
+
     def commit(self, nxt: np.ndarray) -> List[Tuple[Request, int]]:
         """Append sampled tokens, retire finished requests, free their
         pages.  Returns finished (request, slot)."""
@@ -778,6 +901,22 @@ class DecodeEngine:
                 self._release_blocks(i)
         return finished
 
+    def follow_commit(self, nxt: np.ndarray,
+                      finished_slots: Set[int]) -> None:
+        """Mirror a pipeline lead's ``commit`` on a follower stage: the
+        same per-slot advance and retirement, no Request mutation (the
+        lead owns request lifecycles and token streams)."""
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            if i in finished_slots:
+                self.slots[i] = None
+                self._slot_len[i] = 0
+                self._release_blocks(i)
+                continue
+            self.next_token[i] = int(nxt[i])
+            self._slot_len[i] += 1
+
     def step(self) -> List[Tuple[Request, int]]:
         """One greedy decode iteration for all active slots.  With
         speculation on (and the stack rollback-safe) it verifies up to
@@ -792,10 +931,8 @@ class DecodeEngine:
                 return out
         self.decode_iters += 1
         self._prepare_pages()
-        tokens = torch.as_tensor(self.next_token[:, None], device=self.device)
-        logits, self.cache, _ = T.apply(
-            self.cfg, self.params, tokens, cache=self.cache, mode="decode",
-            logits_slice="last", paged_kernel=self.use_kernel)
+        logits = self._forward_step(
+            torch.as_tensor(self.next_token[:, None], device=self.device))
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         return self.commit(nxt)
 

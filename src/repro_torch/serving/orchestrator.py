@@ -1,6 +1,7 @@
 """Live disaggregated orchestrator of the port: an event-driven
-virtual-clock loop over real engines (the main-path subset of the JAX
-package's ``serving/orchestrator.py``).
+virtual-clock loop over real engines (the JAX package's
+``serving/orchestrator.py`` without preemption, fair-share scheduling and
+autoscaling).
 
 Tokens are exact (every forward really runs, on the card); time is
 virtual — each event's duration is charged from the §4.3 analytical model
@@ -16,20 +17,33 @@ Events:
   ``prefill_chunk`` requests (admission-controlled by reserved decode
   slots) and runs ONE prefill wave per event; with ``chunk_tokens`` long
   prompts split into successive chunk waves.  A finished request's paged
-  state is handed off to the least-loaded decode engine, billed as the
+  state is handed off to the least-loaded decode unit, billed as the
   §4.2 layer-wise overlapped transfer of the state's bytes (half of them
-  for int8 KV); prefix pages already resident in the target's pool are
-  bound by reference instead of copied (prefix-cacheable stacks only: an
-  int8-KV stack has no store pages to bind).
-* ``decode_kick`` / ``decode_done`` — a decode engine runs one
-  continuous-batching iteration per event.  With speculation configured,
-  each kick decides speculate-or-plain from the analytical cost per
-  committed token at the unit's live batch and the measured acceptance,
-  and bills the chosen cost.
+  for int8 KV); prefix pages already resident in a full-stack target's
+  pool are bound by reference instead of copied (prefix-cacheable stacks
+  only).  Hand-offs into span pipelines copy: the store never registers
+  their pools.
+* ``decode_kick`` / ``decode_done`` — a decode unit (a full-stack engine,
+  or with ``decode_split > 1`` a ``serving/span.py`` pipeline of span
+  stages, one fleet member each) runs one continuous-batching iteration
+  per event.  With speculation configured, a full-stack unit decides
+  speculate-or-plain from the analytical cost per committed token at its
+  live batch and the measured acceptance, and bills the chosen cost;
+  pipelines decode plain.
+* ``control`` — with ``migration`` on, every ``control_interval`` virtual
+  seconds the Algorithm 1 controller (§4.4.1, ``core/migration.py``)
+  plans over per-member ``DeviceLoad``s and ``apply_action`` executes
+  each action: LAYER between adjacent stages of one pipeline moves
+  boundary layers live (their weights are views; the resident slots' KV
+  is re-split at the new cut); LAYER between full-stack members re-rolls
+  a whole instance's role (Fig. 3); KV_HEADS moves in-flight slots
+  between decode units (attention-level migration).  Hosts and tests
+  force actions through ``apply_action`` as well.
 
-Not in this slice (ROADMAP A6, A11): the Algorithm 1 migration controller
-and role re-rolls, layer-span pipelines, preemption and fair-share
-scheduling, autoscaling.
+Every hand-off and migration is exact state surgery
+(``models/kvcache.py``, ``core/layer_migration.py``), so greedy streams
+equal a single-engine rollout.  Preemption, fair-share scheduling and
+autoscaling are not ported yet (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -42,15 +56,19 @@ import torch
 from .. import device as D
 from ..core import analytical as A
 from ..core.kvstore import GlobalKVStore, chain_hashes, leading_block_key
+from ..core.layer_migration import even_spans
+from ..core.migration import (ControllerConfig, DeviceLoad, MigrationAction,
+                              MigrationController, MigrationKind)
 from ..core.scheduling import (LoadAwareRouter, PrefixAwareRouter,
                                RequestInfo, RoundRobinRouter,
-                               live_instance_loads)
+                               live_instance_loads, utilization_gap)
 from ..models import kvcache as KC
 from ..models.config import ModelConfig
 from .api import BackendBase
 from .clock import VirtualClock
 from .engine import DecodeEngine, EngineConfig, PrefillEngine
 from .request import SLO, Metrics, Phase, Request
+from .span import DecodePipeline
 
 ROLE_PREFILL = "prefill"
 ROLE_DECODE = "decode"
@@ -66,6 +84,13 @@ def _make_router(name: str):
     raise ValueError(f"unknown router {name!r}")
 
 
+def _default_controller() -> ControllerConfig:
+    """The JAX orchestrator's Algorithm 1 settings, built per config (a
+    dataclass instance is no valid field default on Python 3.11+)."""
+    return ControllerConfig(delta_up=0.5, delta_down=0.25, rho=0.5,
+                            max_actions_per_cycle=2)
+
+
 @dataclasses.dataclass(frozen=True)
 class OrchestratorConfig:
     n_prefill: int = 2
@@ -76,25 +101,46 @@ class OrchestratorConfig:
     # pages and hand-offs bind cached prefixes by reference
     prefix_sharing: bool = True
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
+    # Algorithm 1 (§4.4.1): the migration controller's control loop
+    migration: bool = True
+    # its cadence in virtual seconds; None derives ~2 decode iterations of
+    # the fleet's model on its hardware
+    control_interval: Optional[float] = None
+    controller: ControllerConfig = dataclasses.field(
+        default_factory=_default_controller)
     hw: A.HardwareProfile = A.H100_SXM
     prefill_chunk: int = 4         # max requests per prefill batch
     # chunked prefill: max prompt tokens one row computes per wave (None =
     # one-shot); exactness holds at any value
     chunk_tokens: Optional[int] = None
+    min_prefill: int = 1           # role floors: the serving path must exist
+    min_decode: int = 1
+    # layer-span partitioning of the decode tier: each of the n_decode
+    # decode instances becomes a pipeline of this many span stages (one
+    # fleet member each); LAYER actions between adjacent stages move
+    # boundary layers instead of re-rolling whole instances
+    decode_split: int = 1
     slo: Optional[SLO] = None      # TTFT/TPOT targets for goodput accounting
     efficiency: float = 0.5        # prefill MFU for event costs (Eq. 20)
     trace_events: bool = False     # keep the clock's per-event (t, kind) log
 
 
 class _Member:
-    """One fleet slot: a named device playing one role.  Its prefill token
-    and fetch counters live here."""
+    """One fleet slot: a named device playing one role.  Exactly one of
+    ``prefill`` / ``decode`` is live; a re-roll swaps them.  A member may
+    be one *stage* of a decode pipeline (``pipe`` / ``stage`` set): it
+    then hosts a partial-stack engine, and LAYER moves re-slice its span
+    rather than its role.  Token counters live here, so they survive
+    re-rolls."""
 
     def __init__(self, name: str, role: str):
         self.name = name
         self.role = role
         self.prefill: Optional[PrefillEngine] = None
         self.decode: Optional[DecodeEngine] = None
+        self.pipe: Optional[DecodePipeline] = None
+        self.stage = 0
+        self.rerolled = False          # role changed at least once
         self.tokens_prefilled = 0
         self.fetch_latency_s = 0.0
         self.busy = False              # a prefill wave's event is in flight
@@ -102,10 +148,23 @@ class _Member:
         self._batch: List[Request] = []
         self._wave_left = 0            # batch requests not yet handed off
 
+    @property
+    def engine(self):
+        return self.prefill if self.role == ROLE_PREFILL else self.decode
+
+    @property
+    def unit(self):
+        """The decode unit this member serves in: its pipeline when it is
+        a span stage, else its own engine."""
+        return self.pipe if self.pipe is not None else self.decode
+
+    def load_report(self):
+        return self.engine.load_report()
+
 
 class Orchestrator(BackendBase):
     """Owns the fleet; the virtual clock drives route → (chunked) prefill
-    → hand-off → decode as independently timed events.  The
+    → hand-off → decode → control as independently timed events.  The
     submit/step/abort/drain front door comes from ``api.BackendBase``.
 
     ``device`` (default the CUDA card) is where every engine runs; the
@@ -120,6 +179,9 @@ class Orchestrator(BackendBase):
             raise ValueError("fleet needs >=1 prefill and >=1 decode "
                              f"instance, got {ocfg.n_prefill}p/"
                              f"{ocfg.n_decode}d")
+        if ocfg.decode_split < 1 or ocfg.decode_split > cfg.n_layers:
+            raise ValueError(f"decode_split {ocfg.decode_split} must be in "
+                             f"[1, {cfg.n_layers}]")
         self.device = D.resolve(device)
         self.cfg = cfg
         self.params = params
@@ -134,17 +196,35 @@ class Orchestrator(BackendBase):
         self.members: List[_Member] = []
         for i in range(ocfg.n_prefill):
             m = _Member(f"prefill{i}", ROLE_PREFILL)
-            store = self.store if self.store is not None else \
-                GlobalKVStore(block_size=self.ecfg.block_size)
-            m.prefill = PrefillEngine(cfg, params, self.ecfg, store,
-                                      name=m.name, device=self.device)
+            m.prefill = self._new_prefill(m.name)
             self.members.append(m)
+        self.decode_pipes: List[DecodePipeline] = []
         for i in range(ocfg.n_decode):
-            m = _Member(f"decode{i}", ROLE_DECODE)
-            m.decode = DecodeEngine(cfg, params, self.ecfg, name=m.name,
-                                    device=self.device, draft=draft)
-            self.members.append(m)
+            if ocfg.decode_split == 1:
+                m = _Member(f"decode{i}", ROLE_DECODE)
+                m.decode = self._new_decode(m.name)
+                self.members.append(m)
+                continue
+            # one pipeline of decode_split span stages, one member each
+            bounds = even_spans(cfg.n_layers, ocfg.decode_split)
+            stages = []
+            for j, span in enumerate(bounds):
+                m = _Member(f"decode{i}.{j}", ROLE_DECODE)
+                m.decode = DecodeEngine(cfg, params, self.ecfg, name=m.name,
+                                        device=self.device, draft=draft,
+                                        layer_span=span)
+                m.stage = j
+                stages.append(m)
+                self.members.append(m)
+            pipe = DecodePipeline(cfg, params, self.ecfg, bounds,
+                                  name=f"decode{i}",
+                                  engines=[m.decode for m in stages])
+            for m in stages:
+                m.pipe = pipe
+            self.decode_pipes.append(pipe)
         self._by_name = {m.name: m for m in self.members}
+        # zero-copy prefix sharing binds pages of full-stack decode pools
+        # the shared store holds; span pipelines take the copy path
         self.prefix_sharing = (ocfg.prefix_sharing
                                and self.store is not None
                                and KC.prefix_cacheable(cfg))
@@ -152,10 +232,25 @@ class Orchestrator(BackendBase):
         self.bound_bytes_saved = 0.0   # hand-off bytes the binds skipped
         if self.prefix_sharing:
             for m in self.decode_members():
-                m.decode.attach_store(self.store)
+                if m.pipe is None:
+                    m.decode.attach_store(self.store)
+        self.controller = (MigrationController(ocfg.controller,
+                                               self._migration_cost)
+                           if ocfg.migration else None)
         self.clock = VirtualClock(trace=ocfg.trace_events)
+        self.control_interval = (
+            float(ocfg.control_interval) if ocfg.control_interval is not None
+            else 2.0 * A.decode_iter_time(cfg, self.ecfg.max_len, ocfg.hw,
+                                          batch=max(self.ecfg.max_batch, 1)))
+        self._control_armed = False
         self.pending: Deque[Request] = deque()  # submitted, not yet routed
         self.metrics = Metrics(slo=ocfg.slo)
+        self.migration_log: List[MigrationAction] = []
+        self.util_trace: List[Dict[str, float]] = []
+        # (gap before, gap after) per control cycle that applied actions:
+        # the utilization gap the controller drives down (Eq. 35)
+        self.control_trace: List[tuple] = []
+        self.span_move_log: List[Dict] = []
         self.n_handoffs = 0
         self.handoff_serial_s = 0.0
         self.handoff_overlap_s = 0.0
@@ -163,6 +258,9 @@ class Orchestrator(BackendBase):
         # produces KV that has nowhere to land
         self._reserved = 0
         self._unit_busy: Set[str] = set()   # decode iteration in flight
+        # stale-event fencing: a re-roll bumps its member's epoch so decode
+        # completions scheduled for the old engine are dropped
+        self._epoch: Dict[str, int] = {}
         # speculation routing: iterations billed at the speculative cost vs
         # sent back to plain decode
         self.spec_iters = 0
@@ -170,18 +268,38 @@ class Orchestrator(BackendBase):
         self._init_backend()
 
     # -- fleet views -----------------------------------------------------
+    def _new_prefill(self, name: str) -> PrefillEngine:
+        store = self.store if self.store is not None else \
+            GlobalKVStore(block_size=self.ecfg.block_size)
+        return PrefillEngine(self.cfg, self.params, self.ecfg, store,
+                             name=name, device=self.device)
+
+    def _new_decode(self, name: str) -> DecodeEngine:
+        return DecodeEngine(self.cfg, self.params, self.ecfg, name=name,
+                            device=self.device, draft=self.draft)
+
     def prefill_members(self) -> List[_Member]:
         return [m for m in self.members if m.role == ROLE_PREFILL]
 
     def decode_members(self) -> List[_Member]:
         return [m for m in self.members if m.role == ROLE_DECODE]
 
-    def decode_units(self) -> List[DecodeEngine]:
-        return [m.decode for m in self.decode_members()]
+    def decode_units(self) -> List:
+        """Schedulable decode targets: a pipeline counts once (its stages
+        share one slot layout), a full-stack engine as itself."""
+        units, seen = [], set()
+        for m in self.decode_members():
+            u = m.unit
+            if id(u) not in seen:
+                seen.add(id(u))
+                units.append(u)
+        return units
 
-    def _unit_by_name(self, name: str) -> Optional[DecodeEngine]:
-        m = self._by_name.get(name)
-        return m.decode if m is not None else None
+    def _unit_by_name(self, name: str):
+        for u in self.decode_units():
+            if u.name == name:
+                return u
+        return None
 
     @property
     def fleet(self) -> Dict[str, str]:
@@ -198,10 +316,11 @@ class Orchestrator(BackendBase):
         return sum(u.free_slots for u in self.decode_units()) \
             - self._reserved
 
-    def _target(self) -> DecodeEngine:
-        """Hand-off target: the least-loaded engine with a free slot (ties
+    def _target(self, exclude=None):
+        """Hand-off target: the least-loaded unit with a free slot (ties
         broken by name, so the choice is deterministic)."""
-        return min((u for u in self.decode_units() if u.free_slots > 0),
+        return min((u for u in self.decode_units()
+                    if u is not exclude and u.free_slots > 0),
                    key=lambda u: (u.active, u.kv_tokens, u.name))
 
     # -- backend hooks this slice does not provide ----------------------
@@ -212,8 +331,9 @@ class Orchestrator(BackendBase):
         self.scheduler = None
 
     def _arm_control(self) -> None:
-        """No control loop in this slice (no migration controller and no
-        autoscaler)."""
+        if self.controller is not None and not self._control_armed:
+            self.clock.push_in(self.control_interval, "control")
+            self._control_armed = True
 
     # -- submission / routing ---------------------------------------------
     def abort(self, rid: int) -> bool:
@@ -260,6 +380,12 @@ class Orchestrator(BackendBase):
                                           t_layer, t_sync=0.0)
         self.handoff_overlap_s += t_ov
         return t_ov
+
+    def _sharing_target(self, tgt) -> bool:
+        """Does ``tgt`` bind store pages by reference?  Only full-stack
+        engines whose pool the shared store holds."""
+        return (self.prefix_sharing and isinstance(tgt, DecodeEngine)
+                and tgt._store is self.store)
 
     def _bind_shared(self, st: Dict, tgt: DecodeEngine,
                      keys: List[bytes]) -> tuple:
@@ -314,9 +440,10 @@ class Orchestrator(BackendBase):
             if not m.busy and (m._wavegen is not None or m.prefill.queue):
                 self.clock.push(self.clock.now, "prefill", m.name)
 
-    def _spec_capable(self, unit: DecodeEngine) -> bool:
-        """Can this unit run the speculative verify step at all?"""
-        return unit._spec_ok
+    def _spec_capable(self, unit) -> bool:
+        """Can this unit run the speculative verify step at all?  Only
+        full-stack engines with speculation configured."""
+        return isinstance(unit, DecodeEngine) and unit._spec_ok
 
     def _accept_estimate(self, unit: DecodeEngine) -> float:
         """The unit's measured acceptance rate, optimistic (0.8) until it
@@ -325,7 +452,7 @@ class Orchestrator(BackendBase):
             return unit.spec_accepted / unit.spec_proposed
         return 0.8
 
-    def _kick_decode(self, unit: Optional[DecodeEngine]) -> None:
+    def _kick_decode(self, unit) -> None:
         """Schedule one continuous-batching iteration for ``unit`` if it
         has work and none is in flight; cost = the analytical iteration
         time for the real batch shape (Eq. 22).
@@ -356,7 +483,8 @@ class Orchestrator(BackendBase):
             else:
                 self.plain_iters += 1
         self._unit_busy.add(unit.name)
-        self.clock.push_in(cost, "decode_done", unit.name)
+        self.clock.push_in(cost, "decode_done",
+                           (unit.name, self._epoch.get(unit.name, 0)))
 
     # -- event handlers ---------------------------------------------------
     def _handle(self, ev) -> List[Request]:
@@ -371,7 +499,9 @@ class Orchestrator(BackendBase):
         elif ev.kind == "decode_kick":
             self._kick_decode(self._unit_by_name(ev.payload))
         elif ev.kind == "decode_done":
-            return self._on_decode_done(ev.payload)
+            return self._on_decode_done(*ev.payload)
+        elif ev.kind == "control":
+            self._on_control()
         else:
             raise ValueError(f"unknown event kind {ev.kind!r}")
         return []
@@ -425,24 +555,30 @@ class Orchestrator(BackendBase):
             tgt = self._target()
             shared: List[int] = []
             keys: List[bytes] = []
-            if self.prefix_sharing:
+            if self._sharing_target(tgt):
                 keys = chain_hashes(req.prompt, self.ecfg.block_size)
                 st, shared = self._bind_shared(st, tgt, keys)
             # the hand-off bills only the pages that actually move
             t_ov = self._account_handoff(req, st)
-            slot = tgt.insert(req, st, int(torch.argmax(logits)),
-                              shared_pages=shared or None)
+            first = int(torch.argmax(logits))
+            slot = (tgt.insert(req, st, first, shared_pages=shared)
+                    if shared else tgt.insert(req, st, first))
             if keys:
                 self._register_prefix(req, tgt, slot, keys)
             req.t_first_token = self.clock.now + t_ov
             req.t_tokens.append(req.t_first_token)
             self.clock.push_in(t_ov, "decode_kick", tgt.name)
-        if m._wavegen is not None or m.prefill.queue:
+        if m.role == ROLE_PREFILL and (m._wavegen is not None
+                                       or m.prefill.queue):
             self.clock.push(self.clock.now, "prefill", m.name)
 
-    def _on_decode_done(self, name: str) -> List[Request]:
+    def _on_decode_done(self, name: str, epoch: int) -> List[Request]:
         self._unit_busy.discard(name)
+        if epoch != self._epoch.get(name, 0):
+            return []                      # unit re-rolled mid-iteration
         unit = self._unit_by_name(name)
+        if unit is None:
+            return []
         snapshot = [(r, len(r.generated))
                     for r in unit.slots if r is not None]
         finished = [req for req, _slot in unit.step()]
@@ -464,15 +600,225 @@ class Orchestrator(BackendBase):
             self._dispatch()               # freed slots -> admit more
         return finished
 
+    def _on_control(self) -> None:
+        self._control_armed = False
+        if self.controller is not None:
+            self._control()
+        if self.in_flight() > 0 or self.clock:
+            self._arm_control()
+
+    # -- Algorithm 1: control cycle --------------------------------------
+    def _device_loads(self) -> List[DeviceLoad]:
+        out = []
+        for m in self.members:
+            r = m.load_report()
+            out.append(DeviceLoad(
+                device=m.name, compute_frac=r.compute_frac,
+                memory_frac=r.memory_frac, supports_layer=True,
+                supports_attention=(m.role == ROLE_DECODE)))
+        return out
+
+    def _control(self) -> List[MigrationAction]:
+        loads = self._device_loads()
+        utils = {d.device: d.utilization for d in loads}
+        self.util_trace.append(utils)
+        acts = self.controller.plan(loads)
+        applied = [a for a in acts if self.apply_action(a)]
+        if applied:
+            after = {d.device: d.utilization for d in self._device_loads()}
+            self.control_trace.append((utilization_gap(utils),
+                                       utilization_gap(after)))
+        return applied
+
+    def _span_pair(self, src: _Member, dst: _Member
+                   ) -> Optional[DecodePipeline]:
+        """The pipeline owning src/dst iff they are adjacent stages of the
+        same one (the only topology a live span move serves)."""
+        if (src.pipe is not None and src.pipe is dst.pipe
+                and abs(src.stage - dst.stage) == 1):
+            return src.pipe
+        return None
+
+    def _can_reroll(self, member: _Member, new_role: str) -> bool:
+        if member.pipe is not None:
+            return False       # pipeline stages re-slice spans, not roles
+        if member.role == new_role:
+            return False
+        if member.role == ROLE_PREFILL:
+            if len(self.prefill_members()) <= self.ocfg.min_prefill:
+                return False
+            if member.busy or member._wavegen is not None:
+                return False   # a prefill batch is mid-flight on it
+        else:
+            if len(self.decode_units()) <= self.ocfg.min_decode:
+                return False
+            # resident KV must fit on the remaining decode units, net of
+            # slots reserved by in-flight prefill batches
+            spare = sum(u.free_slots for u in self.decode_units()
+                        if u is not member.unit) - self._reserved
+            if member.decode.active > spare:
+                return False
+        return True
+
+    def _migration_cost(self, kind: MigrationKind, d_o: DeviceLoad,
+                        d_u: DeviceLoad, amount: int):
+        """Benefit/cost hook for the controller, over live fleet state.
+        Benefit is the utilization-gap reduction a feasible action buys;
+        cost is the Eq. 4/11 analytical transfer time on ``ocfg.hw``."""
+        src = self._by_name[d_o.device]
+        dst = self._by_name[d_u.device]
+        gap = d_o.utilization - d_u.utilization
+        if kind == MigrationKind.LAYER:
+            pipe = self._span_pair(src, dst)
+            if pipe is not None:
+                # a span move: only the boundary layers' weights and
+                # resident KV, layer-wise overlapped (Eq. 4/11)
+                a, b = src.decode.layer_span
+                n = min(amount, (b - a) - 1)
+                t_layer = A.decode_time_per_token(
+                    self.cfg, self.ecfg.max_len, self.ocfg.hw) \
+                    / max(self.cfg.n_layers, 1)
+                cost = max(A.span_migration_time(
+                    self.cfg, max(n, 1), kv_tokens=src.decode.kv_tokens,
+                    hw=self.ocfg.hw, t_layer_compute=t_layer), 1e-6)
+                if n <= 0:
+                    return 0.0, cost
+                # moving n layers closes ~n/span of the stage gap
+                return gap * n / max(b - a, 1), cost
+            kv = dst.decode.kv_tokens if dst.role == ROLE_DECODE else 0
+            cost = max(A.layer_migration_time(self.cfg, self.cfg.n_layers,
+                                              kv_tokens=kv, hw=self.ocfg.hw),
+                       1e-6)
+            # span stages never trade roles with anything outside their
+            # pipeline: pricing such a pair as a re-roll would plan
+            # actions apply_action must refuse
+            if src.pipe is not None or not self._can_reroll(dst, src.role):
+                return 0.0, cost
+            return gap / 2.0, cost
+        # KV_HEADS: rebalance in-flight decode KV between two decode units
+        su = src.unit if src.role == ROLE_DECODE else None
+        du = dst.unit if dst.role == ROLE_DECODE else None
+        cost = max(A.attention_migration_time(
+            self.cfg, amount,
+            kv_tokens=su.kv_tokens if su is not None else 0,
+            hw=self.ocfg.hw), 1e-6)
+        if (su is None or du is None or su is du
+                or su.active <= du.active + 1 or du.free_slots <= 0):
+            return 0.0, cost
+        return gap / 4.0, cost
+
+    # -- action execution -------------------------------------------------
+    def apply_action(self, act: MigrationAction) -> bool:
+        """Execute one controller action against the live fleet.  Public so
+        hosts and tests can force a migration.  Returns True if applied.
+
+        LAYER between adjacent stages of one decode pipeline = a live span
+        move of ``act.amount`` boundary layers; LAYER between full-stack
+        members = a whole-instance role re-roll of ``act.dst`` into
+        ``act.src``'s role; KV_HEADS = a slot rebalance between decode
+        units."""
+        src = self._by_name.get(act.src)
+        dst = self._by_name.get(act.dst)
+        if src is None or dst is None:
+            return False
+        if act.kind == MigrationKind.LAYER:
+            pipe = self._span_pair(src, dst)
+            if pipe is not None:
+                res = pipe.move_span(src.stage, dst.stage, act.amount)
+                ok = res is not None
+                if ok:
+                    self.span_move_log.append(res)
+            elif src.pipe is None and dst.pipe is None:
+                ok = self._reroll(dst, src.role)
+            else:
+                ok = False     # span stages never trade roles with others
+        else:
+            ok = self._rebalance_decode(src, dst)
+        if ok:
+            self.migration_log.append(act)
+            # re-plumb the event flow around the new topology: requeued
+            # requests re-route, adopters and the new capacity get kicked
+            self._dispatch()
+            for u in self.decode_units():
+                self._kick_decode(u)
+        return ok
+
+    def _reroll(self, member: _Member, new_role: str) -> bool:
+        """Fig. 3 executable: repurpose ``member`` into ``new_role``."""
+        if not self._can_reroll(member, new_role):
+            return False
+        self._epoch[member.name] = self._epoch.get(member.name, 0) + 1
+        self._unit_busy.discard(member.name)
+        if new_role == ROLE_DECODE:
+            # prefill -> decode: queued (unstarted) requests go back to the
+            # front of the central queue; Algorithm 2 re-routes them
+            self.pending.extendleft(reversed(member.prefill.queue))
+            member.prefill.queue.clear()
+            member.prefill = None
+            member.decode = self._new_decode(member.name)
+            if self.prefix_sharing:
+                member.decode.attach_store(self.store)
+        else:
+            # decode -> prefill: evacuate resident KV to decode peers first
+            for req, st, tok in member.decode.drain():
+                self._target(exclude=member.unit).adopt(req, st, tok)
+            if self.store is not None:
+                # the pool's pages die with the engine: demote the store's
+                # page-resident entries to the backing tiers first
+                self.store.detach_pool(member.name)
+            member.decode = None
+            member.prefill = self._new_prefill(member.name)
+        member.role = new_role
+        member.rerolled = True
+        return True
+
+    def _rebalance_decode(self, src: _Member, dst: _Member) -> bool:
+        """Attention-level migration: move half the slot excess src→dst.
+        Units speak the full-stack wire format, so slots move freely
+        between pipelines (even with different cuts) and full-stack
+        engines."""
+        if src.role != ROLE_DECODE or dst.role != ROLE_DECODE:
+            return False
+        su, du = src.unit, dst.unit
+        if su is du:
+            return False
+        n = min((su.active - du.active) // 2, du.free_slots)
+        if n <= 0:
+            return False
+        moved = 0
+        for slot, s in enumerate(su.slots):
+            if moved >= n:
+                break
+            if s is None:
+                continue
+            req, st, tok = su.extract_slot(slot)
+            du.adopt(req, st, tok)
+            moved += 1
+        return moved > 0
+
     # -- reporting ---------------------------------------------------------
     def summary(self) -> dict:
         s = self.metrics.summary()
         s["router"] = self.ocfg.router
         s["global_store"] = self.ocfg.global_store
+        s["migrations"] = len(self.migration_log)
         s["fleet"] = self.fleet
         s["virtual_time_s"] = self.clock.now
         s["events"] = self.clock.n_processed
         s["chunk_tokens"] = self.ocfg.chunk_tokens
+        s["span_moves"] = len(self.span_move_log)
+        s["span_bytes_moved"] = sum(r["weight_bytes"] + r["kv_bytes"]
+                                    for r in self.span_move_log)
+        if self.decode_pipes:
+            s["span_bounds"] = {p.name: [tuple(b) for b in p.bounds]
+                                for p in self.decode_pipes}
+        if self.control_trace:
+            s["util_gap_before"] = float(
+                sum(g for g, _ in self.control_trace)
+                / len(self.control_trace))
+            s["util_gap_after"] = float(
+                sum(g for _, g in self.control_trace)
+                / len(self.control_trace))
         s["speculation"] = self.ecfg.speculation
         if self.ecfg.speculation != "off":
             s["spec_iters"] = self.spec_iters
@@ -481,21 +827,24 @@ class Orchestrator(BackendBase):
         s["handoff_serial_s"] = self.handoff_serial_s
         s["handoff_overlap_s"] = self.handoff_overlap_s
         s["store_fetch_s"] = sum(m.fetch_latency_s for m in self.members)
-        pw = [m.tokens_prefilled for m in self.prefill_members()]
+        # routing imbalance: members that held the prefill role throughout
+        pw = [m.tokens_prefilled for m in self.prefill_members()
+              if not m.rerolled]
         s["prefill_token_skew"] = ((max(pw) - min(pw)) / max(max(pw), 1)
                                    if pw else 0.0)
+        engines = [e for u in self.decode_units()
+                   for e in getattr(u, "engines", [u])]
         if self.store is not None:
             s["store_hit_rate"] = self.store.stats.hit_rate
             s["store_entries"] = len(self.store)
             s["prefix_sharing"] = self.prefix_sharing
             s["pages_bound"] = self.pages_bound
             s["bound_bytes_saved"] = self.bound_bytes_saved
-            s["cow_forks"] = sum(u.cow_forks for u in self.decode_units())
+            s["cow_forks"] = sum(e.cow_forks for e in engines)
             s["store_registered_blocks"] = \
                 self.store.stats.registered_blocks
             s["store_demotions"] = self.store.stats.demotions
-            s["hbm_pages_peak"] = sum(u.pool.peak_used
-                                      for u in self.decode_units())
+            s["hbm_pages_peak"] = sum(e.pool.peak_used for e in engines)
         else:
             # per-instance caches; an int8-KV stack's engines hold none
             stores = [m.prefill.store for m in self.prefill_members()

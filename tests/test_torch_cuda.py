@@ -478,3 +478,83 @@ def test_cuda_page_kernels_ignore_unseen_nan_scales(dtype):
                 for g, w in zip(got, want):
                     assert torch.isfinite(g).all()
                     torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def _small_stack():
+    """A 4-layer f32 stack at a width the kernels take (head_dim 64), its
+    weights on the card, and an engine config with 16-token pages."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import Family, ModelConfig
+    from repro_torch.serving.engine import EngineConfig
+    cfg = ModelConfig(name="span-card", family=Family.DENSE, n_layers=4,
+                      d_model=128, n_heads=2, n_kv_heads=2, d_ff=256,
+                      vocab_size=256)
+    return (cfg, T.init(cfg, seed=0, device="cuda"),
+            EngineConfig(max_len=256, max_batch=4, block_size=16))
+
+
+def _span_requests(n, max_new=12):
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(31)
+    return [Request(rid=i, arrival=0.0,
+                    prompt=rng.integers(0, 256, 40 + 23 * i).astype(np.int32),
+                    max_new_tokens=max_new) for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_cuda_decode_pipeline_span_move_matches_full_stack():
+    """A 2-stage DecodePipeline on the card (kernel B1 in every stage),
+    with one live span move mid-stream, decodes the same tokens as a
+    full-stack DecodeEngine from the same prefill states."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.serving.engine import DecodeEngine, PrefillEngine
+    from repro_torch.serving.span import DecodePipeline
+    cfg, params, ecfg = _small_stack()
+    pe = PrefillEngine(cfg, params, ecfg)
+    streams = []
+    for unit in (DecodeEngine(cfg, params, ecfg),
+                 DecodePipeline(cfg, params, ecfg, [(0, 2), (2, 4)])):
+        reqs = _span_requests(3)
+        for r, (st, lg) in zip(reqs, pe.run_batch(reqs)):
+            unit.insert(r, st, int(torch.argmax(lg)))
+        ops.reset_launches()
+        for _ in range(4):
+            unit.step()
+        if isinstance(unit, DecodePipeline):
+            assert unit.move_span(0, 1, 1)["kv_bytes"] > 0
+            assert unit.bounds == [(0, 1), (1, 4)]
+        while unit.active:
+            unit.step()
+        assert ops.LAUNCHES["paged_decode_partials"] > 0
+        streams.append([r.generated for r in reqs])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_pipeline_resume_matches_full_stack():
+    """A PrefillPipeline resumes 32-token chunks over its dense per-span
+    caches (plain attend, as JAX) where the full-stack engine resumes on
+    kernels B3 + B2: f32 on both sides, so states and last logits agree
+    to the summation order: 1e-4.  Positions and lengths exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.serving.engine import PrefillEngine
+    from repro_torch.serving.span import PrefillPipeline
+    cfg, params, ecfg = _small_stack()
+    want = PrefillEngine(cfg, params, ecfg).run_batch(_span_requests(3),
+                                                      chunk_tokens=32)
+    ops.reset_launches()
+    got = PrefillPipeline(cfg, params, ecfg, [(0, 3), (3, 4)]).run_batch(
+        _span_requests(3), chunk_tokens=32)
+    assert ops.LAUNCHES["flash_prefill"] > 0
+    assert ops.LAUNCHES["paged_prefix_partials"] == 0
+    for (st, lg), (wst, wlg) in zip(got, want):
+        assert int(st["length"]) == int(wst["length"])
+        assert int(st["n_blocks"]) == int(wst["n_blocks"])
+        torch.testing.assert_close(lg, wlg, atol=1e-4, rtol=1e-4)
+        for g, wg in zip(st["groups"], wst["groups"]):
+            assert torch.equal(g["pos"], wg["pos"])
+            for key in ("k", "v"):
+                torch.testing.assert_close(g[key], wg[key], atol=1e-4,
+                                           rtol=1e-4)
