@@ -41,7 +41,12 @@ Phases (any failure exits non-zero and prints no result line):
    completion, because the load-aware rule rightly never pays for a draft
    as large as the target; then the int8-KV stack (``with_kv_quant()``, the
    same weights and requests, no chunking: int8 KV cannot resume a prompt)
-   through ``Server`` plain and with n-gram speculation.  Each run checks
+   through ``Server`` plain and with n-gram speculation.  Every decode-side
+   forward (plain step, verify, draft micro-step, span stage) replays a
+   CUDA graph captured over the engine's static cache; the bf16 plain and
+   n-gram runs are served once more with graphs off (the same
+   static-buffer step run eagerly), and their streams and launch counts
+   must equal the replayed runs'.  Each run checks
    that every request completes, that the kernels of its path ran and, for
    the int8 runs, that the bf16 page kernels and B3 did not (the launch
    counts are zeroed just before the run and read just after), that the
@@ -52,7 +57,10 @@ Phases (any failure exits non-zero and prints no result line):
    proposals.  Prints prefill and decode throughput, peak memory, the
    speculation counters, the int8 runs' argmax agreement with the bf16
    forward, the device-busy share of one profiled decode iteration of the
-   bf16 and the int8 plain runs (with B1's share of it), and the device
+   bf16 (replayed and eager) and the int8 plain runs (with B1's share of
+   it, and the device span of its compiled step from CUDA events), the
+   graphs each decode engine captured and their capture time, and the
+   device
    time of B2, B3 and the GEMMs in one profiled chunk-resume prefill wave
    of the bf16 plain run.  Then migrate, on the same weights and the same
    8 requests, bf16, 256-token chunks: (a) ``Server`` over one prefill
@@ -760,11 +768,60 @@ def device_us(evt) -> float:
         or getattr(evt, "self_cuda_time_total", 0.0)
 
 
+class StepEvents:
+    """While active, CUDA events around every compiled-step call: the
+    device span of the decode forwards, from the static input's copy to
+    the graph's (or the eager step's) last kernel."""
+
+    def __init__(self, torch):
+        from repro_torch.serving import engine as E
+        self.torch, self.E, self.pairs = torch, E, []
+
+    def __enter__(self):
+        torch, pairs = self.torch, self.pairs
+        orig = self.orig = self.E.CompiledStep.__call__
+
+        def call(step, x):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = orig(step, x)
+            b.record()
+            pairs.append((a, b))
+            return out
+
+        self.E.CompiledStep.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        self.E.CompiledStep.__call__ = self.orig
+
+    def ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def say_graphs(label, card, engines) -> None:
+    """Graphs each decode engine captured (over its life: a span move
+    captures afresh), their warm-up plus capture time, and the steps it
+    holds at the end, as (mode, width)."""
+    parts = []
+    for e in engines:
+        r = e.compiled.report()
+        parts.append(f"{e.name} {r['graphs_captured']} graphs in "
+                     f"{r['capture_s'] * 1e3:.1f} ms, holds "
+                     f"{[k[:2] for k in r['steps']]}"
+                     if r["graphs"] else f"{e.name} eager (graphs off), "
+                     f"holds {[k[:2] for k in r['steps']]}")
+    say(f"[{label}] compiled steps: " + "; ".join(parts) + f" [{card}]")
+
+
 def serving_phase(torch, card: str):
-    """The plain and n-gram runs through ``Server``, the self-draft run at
-    the engine level, then the int8-KV plain and n-gram runs through
-    ``Server``, on one set of llama-13b weights (``kv_quant`` does not
-    change them).  Returns {run label: launches during that run}."""
+    """The plain and n-gram runs through ``Server``, each again with CUDA
+    graphs off, the self-draft run at the engine level, then the int8-KV
+    plain and n-gram runs through ``Server``, on one set of llama-13b
+    weights (``kv_quant`` does not change them).  Returns {run label:
+    launches during that run}."""
     from repro_torch.configs import get
     from repro_torch.models import transformer as T
 
@@ -794,18 +851,43 @@ def serving_phase(torch, card: str):
                   ("paged_verify_partials_int8", "flash_prefill"),
                   bf16_pages + ("paged_prefix_partials",))]
 
-    def serve_all(runs):
+    def serve_all(runs, graphs=True, suffix=""):
         for label, rcfg, mode, chunk, needed, forbidden in runs:
+            label += suffix
             stats[label] = serve_run(
                 torch, card, rcfg, params, label=label, speculation=mode,
                 chunk_tokens=chunk, needed=needed, forbidden=forbidden,
-                profile=label in ("plain", "int8"),
-                bf16_streams=stats.get("plain", {}).get("streams"))
+                profile=label in ("plain", "int8", "plain-eager"),
+                bf16_streams=stats.get("plain", {}).get("streams"),
+                graphs=graphs)
             launches[label] = stats[label]["launches"]
             gc.collect()         # the timing wrappers tie engine cycles
             torch.cuda.empty_cache()
 
     serve_all(bf16_runs)
+    serve_all(bf16_runs, graphs=False, suffix="-eager")
+    for base in ("plain", "ngram"):
+        a, b = stats[base], stats[base + "-eager"]
+        if a["streams"] != b["streams"]:
+            diff = [rid for rid in a["streams"]
+                    if a["streams"][rid] != b["streams"][rid]]
+            fail(f"[{base}] replayed streams differ from the eager run's "
+                 f"for requests {diff}")
+        if a["launches"] != b["launches"]:
+            fail(f"[{base}] replayed launches {a['launches']} differ from "
+                 f"the eager run's {b['launches']}")
+        speedup = b["steady_ms"] / max(a["steady_ms"], 1e-9)
+        say(f"[{base}] CUDA graphs vs eager: decode {a['steady_ms']:.1f} vs "
+            f"{b['steady_ms']:.1f} ms per iteration without capture "
+            f"({speedup:.2f}x; {a['iter_ms']:.1f} ms with it; compiled "
+            f"steps' device span {a['span_ms']:.1f} vs {b['span_ms']:.1f} "
+            f"ms), "
+            f"{a['decode_tps']:.1f} vs "
+            f"{b['decode_tps']:.1f} tok/s, prefill {a['prefill_tps']:.1f} "
+            f"vs {b['prefill_tps']:.1f} tok/s, peak memory "
+            f"{a['peak_gib']:.2f} vs {b['peak_gib']:.2f} GiB; streams "
+            f"{len(a['streams'])}/{len(b['streams'])} equal, launch counts "
+            f"equal [{card}]")
     launches["self-draft"] = self_draft_run(torch, card, cfg, params)
     serve_all(int8_runs)
     launches.update(migration_phase(torch, card, cfg, params,
@@ -954,6 +1036,7 @@ def self_draft_run(torch, card, cfg, params):
         de.step()
         torch.cuda.synchronize()
         decode_s += time.perf_counter() - t
+    capture_s = de.compiled.capture_s
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
@@ -973,14 +1056,16 @@ def self_draft_run(torch, card, cfg, params):
                   ("flash_prefill", "paged_verify_partials"))
     tokens_out = sum(len(r.generated) for r in reqs)
     iter_ms = decode_s / max(de.decode_iters, 1) * 1e3
+    steady_ms = (decode_s - capture_s) / max(de.decode_iters, 1) * 1e3
     prompt_tokens = sum(r.prompt_len for r in reqs)
     say(f"[{label}] engine-level run: {len(reqs)} requests, prefill "
         f"{prompt_tokens} tokens in {prefill_s:.3f} s = "
         f"{prompt_tokens / max(prefill_s, 1e-9):.1f} tok/s (one request per "
         f"forward, no store); decode {de.tokens_decoded} tokens in "
         f"{decode_s:.3f} s = {de.tokens_decoded / max(decode_s, 1e-9):.1f} "
-        f"tok/s over {de.decode_iters} iterations; peak memory "
-        f"{peak / 2**30:.2f} GiB [{card}]")
+        f"tok/s over {de.decode_iters} iterations ({steady_ms:.1f} ms each "
+        f"without the {capture_s:.3f} s of graph warm-up and capture); peak "
+        f"memory {peak / 2**30:.2f} GiB [{card}]")
     say_speculation(label, card, {
         "acceptance_rate": de.spec_accepted / de.spec_proposed,
         # as Server's summary counts it: every token out over the iterations
@@ -988,6 +1073,7 @@ def self_draft_run(torch, card, cfg, params):
         "spec_iters": de.decode_iters, "spec_plain_iters": 0,
         "spec_proposed": de.spec_proposed,
         "spec_accepted": de.spec_accepted}, iter_ms)
+    say_graphs(label, card, [de])
     say(f"[{label}] serving-path launches: {json.dumps(launches)}")
     del pe, de
     gc.collect()
@@ -996,9 +1082,10 @@ def self_draft_run(torch, card, cfg, params):
 
 
 def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
-              needed, forbidden, profile, bf16_streams=None):
-    """One run through ``Server``; returns its launches, streams and
-    decode figures."""
+              needed, forbidden, profile, bf16_streams=None, graphs=True):
+    """One run through ``Server`` (decode forwards replayed from CUDA
+    graphs, or with ``graphs`` off run eagerly over the same static
+    buffers); returns its launches, streams and decode figures."""
     from repro_torch.kernels import ops
     from repro_torch.serving.api import Server
     from repro_torch.serving.engine import EngineConfig
@@ -1006,13 +1093,16 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
                                                   OrchestratorConfig)
 
     ecfg = EngineConfig(max_len=1024, max_batch=8, block_size=16,
-                        speculation=speculation, spec_len=4)
+                        speculation=speculation, spec_len=4,
+                        cuda_graphs=graphs)
     orch = Orchestrator(cfg, params, OrchestratorConfig(
         n_prefill=1, n_decode=1, engine=ecfg, chunk_tokens=chunk_tokens))
     reqs = served_requests(cfg)
 
     # wall-clock per phase (synchronized), wrapped around the engines
-    clocks = {"prefill_s": 0.0, "decode_s": 0.0, "decode_tokens": 0,
+    clocks = {"prefill_s": 0.0, "decode_s": 0.0, "span_ms": 0.0,
+              "capture_s": 0.0,
+              "decode_tokens": 0,
               "decode_iters": 0, "profiled_waves": 0,
               "profiled_tokens": 0, "profiled_s": 0.0}
     pe = orch.prefill_members()[0].prefill
@@ -1060,17 +1150,23 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
         if profile and de.decode_iters == PROFILE_ITER - 1:
             prof["rows"] = de.active
             t = time.perf_counter()
-            with torch.profiler.profile(activities=acts) as p:
+            with torch.profiler.profile(activities=acts) as p, \
+                    StepEvents(torch) as ev:
                 out = step()
                 torch.cuda.synchronize()
             prof["wall_ms"] = (time.perf_counter() - t) * 1e3
             prof["profile"] = p          # summarised after the timed run
+            prof["step_ms"] = ev.ms()
             return out
         t = time.perf_counter()
         before = de.tokens_decoded
-        out = step()
-        torch.cuda.synchronize()
+        cap = de.compiled.capture_s
+        with StepEvents(torch) as ev:
+            out = step()
+            torch.cuda.synchronize()
         clocks["decode_s"] += time.perf_counter() - t
+        clocks["capture_s"] += de.compiled.capture_s - cap
+        clocks["span_ms"] += ev.ms()
         clocks["decode_tokens"] += de.tokens_decoded - before
         clocks["decode_iters"] += 1
         return out
@@ -1109,6 +1205,10 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
         f"{summary['pages_bound']} pages bound, {summary['cow_forks']} COW "
         f"forks, {sum(len(r.generated) for r in reqs)} tokens out")
     iter_ms = clocks["decode_s"] / max(clocks["decode_iters"], 1) * 1e3
+    # the steady iteration: the graphs' one-time warm-up and capture out
+    steady_ms = (clocks["decode_s"] - clocks["capture_s"]) \
+        / max(clocks["decode_iters"], 1) * 1e3
+    span_ms = clocks["span_ms"] / max(clocks["decode_iters"], 1)
     say(f"[{label}] wall clock"
         f"{' (profiled iteration and waves left out)' if prof else ''}: "
         f"{wall:.2f} s; prefill {prefill_tokens} tokens ("
@@ -1119,7 +1219,11 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
         f"{clocks['decode_s']:.3f} s = "
         f"{clocks['decode_tokens'] / max(clocks['decode_s'], 1e-9):.1f} "
         f"tok/s ({clocks['decode_iters']} timed iterations, {iter_ms:.1f} "
-        f"ms each); {summary['decode_iters']} decode iterations in all, "
+        f"ms each, {steady_ms:.1f} ms without the "
+        f"{clocks['capture_s']:.3f} s of graph warm-up and capture; the "
+        f"compiled steps' device span "
+        f"{span_ms:.1f} ms by CUDA events); {summary['decode_iters']} "
+        f"decode iterations in all, "
         f"tokens_per_decode_iter {summary['tokens_per_decode_iter']:.3f}; "
         f"peak memory {peak / 2**30:.2f} GiB [{card}]")
     if speculation != "off":
@@ -1131,17 +1235,21 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
         busy = sum(device_us(e) for e in kern) / 1e3
         n_aten = sum(e.count for e in evs if e.key.startswith("aten::"))
         top = sorted(kern, key=device_us, reverse=True)[:5]
-        head = (f"[{label}] decode iteration {PROFILE_ITER} under "
+        head = (f"[{label}] decode iteration {PROFILE_ITER} "
+                f"({'replayed' if graphs else 'eager'}) under "
                 f"torch.profiler ({prof['rows']} rows, {n_aten} aten op "
                 f"calls, nested included; wall {prof['wall_ms']:.1f} ms with "
-                f"the profiler on): device busy ")
+                f"the profiler on; compiled step's device span "
+                f"{prof['step_ms']:.2f} ms by CUDA events, profiler on): "
+                f"device busy ")
         # B1 (bf16 or int8 pools) by its kernel symbol
         b1 = [e for e in kern if "paged_decode_kernel" in e.key]
         b1_ms = sum(device_us(e) for e in b1) / 1e3
         if busy > 0:
             say(head + f"{busy:.2f} ms in {sum(e.count for e in kern)} "
-                f"kernels = {busy / iter_ms:.0%} of a timed iteration; B1 "
-                f"{b1_ms:.3f} ms x{sum(e.count for e in b1)} = "
+                f"kernels = {busy / steady_ms:.0%} of a timed iteration "
+                f"without capture; B1 {b1_ms:.3f} ms "
+                f"x{sum(e.count for e in b1)} = "
                 f"{b1_ms / busy:.1%} of the busy time; top: "
                 + "; ".join(f"{e.key[:72]} {device_us(e) / 1e3:.2f} ms "
                             f"x{e.count}" for e in top))
@@ -1149,13 +1257,17 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
             say(head + "not measured (the profiler recorded no device time)")
     if profile_wave:
         say_wave_profile(label, card, prof)
+    say_graphs(label, card, [de])
     say(f"[{label}] serving-path launches: {json.dumps(launches)}")
     del orch, pe, de
     return {"launches": launches,
             "streams": {r.rid: list(r.generated) for r in reqs},
             "iter_ms": iter_ms,
+            "steady_ms": steady_ms,
+            "span_ms": span_ms,
             "decode_tps": clocks["decode_tokens"]
             / max(clocks["decode_s"], 1e-9),
+            "prefill_tps": prefill_tokens / max(clocks["prefill_s"], 1e-9),
             "peak_gib": peak / 2**30}
 
 
@@ -1319,6 +1431,8 @@ def migration_run(torch, card, cfg, params, plain_streams, *, label,
         f"span_moves {s['span_moves']}, span_bytes_moved "
         f"{s['span_bytes_moved']}; {s['decode_iters']} decode iterations; "
         f"wall {wall:.2f} s; peak memory {peak / 2**30:.2f} GiB [{card}]")
+    say_graphs(label, card, [e for u in orch.decode_units()
+                             for e in getattr(u, "engines", [u])])
     say(f"[{label}] serving-path launches: {json.dumps(launches)}")
     del orch, srv
     gc.collect()
@@ -1486,6 +1600,7 @@ def pipeline_engine_run(torch, card, cfg, params, plain_streams):
         f"(tolerance {TOKEN_GAP_TOL}); DecodePipeline: {tokens} tokens out "
         f"in {iters} iterations, {decode_s:.3f} s; peak memory "
         f"{peak / 2**30:.2f} GiB [{card}]")
+    say_graphs(label, card, dp.engines)
     say(f"[{label}] serving-path launches: {json.dumps(launches)}")
     del pp, dp
     gc.collect()

@@ -21,6 +21,13 @@ multi-query pass over the pages (kernel B4), commits the longest prefix
 equal to greedy plus the verifier's bonus token, and rolls rejected
 tokens' fresh pages back through the pool.
 
+Every decode-side forward (the plain step, each verify width, the draft's
+micro-step, each span stage's step) is a ``CompiledStep`` over the
+engine's static cache: on the card a CUDA graph captured once and
+replayed, the port's counterpart of JAX's jitted forward with the cache
+donated.  Prefill waves run eagerly; ``PrefillEngine.compile_report``
+lists their (rows, padded suffix, hit) shapes, as JAX's does.
+
 Both mirror the JAX package's ``serving/engine.py`` and report
 ``core.scheduling.LoadReport``s for the routers.  With ``layer_span``
 either hosts a contiguous span of the stack (its weights views of the
@@ -36,6 +43,7 @@ prompt chunk by chunk.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Set, Tuple
 
@@ -47,6 +55,7 @@ from ..core import analytical as A
 from ..core import layer_migration as LM
 from ..core.kvstore import GlobalKVStore, chain_hashes
 from ..core.scheduling import LoadReport
+from ..kernels import _lib
 from ..models import kvcache as KC
 from ..models import transformer as T
 from ..models.config import ModelConfig
@@ -76,6 +85,10 @@ class EngineConfig:
     speculation: str = "off"
     spec_len: int = 4             # max proposed tokens per iteration
     spec_adaptive: bool = True    # adapt per-slot depth to acceptance
+    # decode, verify and draft forwards replayed from CUDA graphs captured
+    # over the engine's static cache; False runs the same static-buffer
+    # step eagerly on the card, for comparison (the CPU has no graphs)
+    cuda_graphs: bool = True
 
     def __post_init__(self):
         if self.speculation not in SPECULATION_MODES:
@@ -107,6 +120,128 @@ def check_servable(cfg: ModelConfig, ecfg: EngineConfig) -> int:
             f"(cache length a multiple of block_size {ecfg.block_size}); "
             "windowed and other stacks come with a later slice (ROADMAP A10)")
     return plen
+
+
+StepKey = Tuple[str, int, bool, bool, bool]
+
+
+class CompiledStep:
+    """One decode-side forward over static buffers: the port's counterpart
+    of the JAX package's ``_jit_apply`` (a jitted forward with the cache
+    donated, ``src/repro/serving/engine.py``).
+
+    It runs ``T.apply(cfg, params, x, cache=cache, mode="decode",
+    **apply_kw)`` on a static input ``x`` of one shape and on the engine's
+    cache, whose tensors (pools, block tables, lengths) are updated in
+    place and never rebound; the step leaves the advanced lengths in the
+    cache's own ``lengths``.  ``graphed``: captured once into a CUDA graph
+    (its memory from ``pool``) and replayed on every call; otherwise the
+    same function runs eagerly over the same buffers (the CPU, or
+    ``EngineConfig.cuda_graphs=False``), so there is one decode code path.
+    The forward decides on the host from shapes only (the kernel
+    wrappers' checks and page splits), and does so once, at capture.
+    The output is a static tensor, valid until the next call.
+
+    Capture first runs the forward on a side stream, as PyTorch asks,
+    then restores the lengths it advanced; its page writes sit where the
+    replay writes again.  ``_lib.LAUNCHES`` counts on the host, so the
+    launches of the warm-up and the capture are taken back, and each
+    replay adds those the capture recorded.  A forward that cannot be
+    captured raises; nothing runs it eagerly instead.
+
+    JAX shares executables across engines (an ``lru_cache`` keyed on the
+    config).  A graph is bound to the addresses of one engine's tensors,
+    so every engine captures its own, and one that rebuilds its cache (a
+    span move) or is built anew (a re-roll) captures afresh."""
+
+    def __init__(self, cfg: ModelConfig, params, cache, shape: Tuple[int, ...],
+                 dtype: torch.dtype, *, graphed: bool, pool=None,
+                 **apply_kw):
+        self.cfg, self.params, self.cache = cfg, params, cache
+        self.apply_kw = apply_kw
+        self.x = torch.zeros(shape, dtype=dtype,
+                             device=cache["lengths"].device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.launches: Dict[str, int] = {}     # per replay
+        self.capture_s = 0.0
+        if graphed:
+            self._capture(pool)
+
+    def _run(self) -> torch.Tensor:
+        out, new, _ = T.apply(self.cfg, self.params, self.x,
+                              cache=self.cache, mode="decode",
+                              **self.apply_kw)
+        self.cache["lengths"].copy_(new["lengths"])
+        return out
+
+    def _capture(self, pool) -> None:
+        t0 = time.perf_counter()
+        counts = dict(_lib.LAUNCHES)
+        lengths = self.cache["lengths"].clone()
+        side = torch.cuda.Stream(self.x.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._run()
+        torch.cuda.current_stream().wait_stream(side)
+        self.cache["lengths"].copy_(lengths)
+        warm = dict(_lib.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool):
+            self.out = self._run()
+        self.launches = {k: n - warm[k] for k, n in _lib.LAUNCHES.items()
+                         if n != warm[k]}
+        _lib.LAUNCHES.update(counts)
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(x)
+        if self.graph is None:
+            return self._run()
+        self.graph.replay()
+        for k, n in self.launches.items():
+            _lib.LAUNCHES[k] += n
+        return self.out
+
+
+class StepCache:
+    """A decode engine's ``CompiledStep``s, keyed by what changes their
+    shape or code path: (mode "decode" / "verify" / "draft", width S,
+    hidden_in, hidden_out, int8 pools).  Their graphs share one memory
+    pool.  ``reset`` drops them all (the engine rebuilt its cache); the
+    totals count every capture of the engine's life."""
+
+    def __init__(self, device: torch.device, cuda_graphs: bool):
+        self.graphed = device.type == "cuda" and cuda_graphs
+        self.steps: Dict[StepKey, CompiledStep] = {}
+        self.pool = None
+        self.graphs_captured = 0
+        self.capture_s = 0.0
+
+    def get(self, key: StepKey, cfg: ModelConfig, params, cache,
+            shape: Tuple[int, ...], dtype: torch.dtype,
+            **apply_kw) -> CompiledStep:
+        step = self.steps.get(key)
+        if step is None:
+            if self.graphed and self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            step = self.steps[key] = CompiledStep(
+                cfg, params, cache, shape, dtype, graphed=self.graphed,
+                pool=self.pool, **apply_kw)
+            self.graphs_captured += step.graph is not None
+            self.capture_s += step.capture_s
+        return step
+
+    def reset(self) -> None:
+        self.steps = {}
+        self.pool = None
+
+    def report(self) -> Dict[str, Any]:
+        """Steps held now, and graphs captured (with their seconds of
+        warm-up and capture) over the engine's life."""
+        return {"steps": sorted(self.steps), "graphs": self.graphed,
+                "graphs_captured": self.graphs_captured,
+                "capture_s": self.capture_s}
 
 
 def _span_view(cfg: ModelConfig, params,
@@ -157,7 +292,7 @@ class _Draft:
     length mirror."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
-                 device: torch.device):
+                 device: torch.device, compiled: StepCache):
         if (not cfg.uses_kv_cache or cfg.uses_recurrent_state
                 or cfg.sliding_window is not None):
             raise ValueError(f"{cfg.name}: the draft model needs "
@@ -171,6 +306,7 @@ class _Draft:
                                   device=self.device)
         # valid resident tokens per slot (a prefix of the committed stream)
         self.len = np.zeros((ecfg.max_batch,), np.int64)
+        self.compiled = compiled  # the decode engine's: one graph pool
 
     def reset_slot(self, slot: int) -> None:
         self.len[slot] = 0
@@ -209,18 +345,19 @@ class _Draft:
             return {}, 0
         bsz = self.ecfg.max_batch
         n_steps = max(greedy_from[i] + n_out for i in schedules)
-        self.cache["lengths"] = torch.as_tensor(self.len.astype(np.int32),
-                                                device=self.device)
+        self.cache["lengths"].copy_(torch.from_numpy(
+            self.len.astype(np.int32)))
+        step = self.compiled.get(
+            ("draft", 1, False, False, self.cfg.kv_quant), self.cfg,
+            self.params, self.cache, (bsz, 1), torch.long,
+            logits_slice="last")
         col = np.zeros((bsz,), np.int64)
         prev = np.zeros((bsz,), np.int64)
         outs: Dict[int, List[int]] = {i: [] for i in schedules}
         for t in range(n_steps):
             for i, sched in schedules.items():
                 col[i] = sched[t] if t < len(sched) else prev[i]
-            logits, self.cache, _ = T.apply(
-                self.cfg, self.params,
-                torch.as_tensor(col[:, None], device=self.device),
-                cache=self.cache, mode="decode", logits_slice="last")
+            logits = step(torch.from_numpy(col[:, None]))
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
             for i in schedules:
                 prev[i] = nxt[i]
@@ -267,6 +404,9 @@ class PrefillEngine:
         self._leading: Dict[bytes, int] = {}
         # padded writes must never wrap the cache (linear: the page space)
         self._pad_cap = self._page_len
+        # (rows, padded suffix, hit) of every wave forward run: JAX's
+        # jit-shape log, the keys of prefill forwards (compile_report)
+        self.prefill_shapes: Set[Tuple[int, int, bool]] = set()
         self._t_layer_fetch = (
             A.prefill_time(cfg, ecfg.block_size, ecfg.hw)
             / max(cfg.n_layers, 1) if ecfg.hw is not None else None)
@@ -349,6 +489,30 @@ class PrefillEngine:
         row's remaining cache capacity."""
         padded = min(_pow2_ceil(slen), self._pad_cap - matched)
         return padded if padded >= slen else slen
+
+    def prefill_shape_bound(self) -> int:
+        """Upper bound on distinct prefill wave shapes under the padded
+        bucket discipline, as JAX's: power-of-two rows x (power-of-two
+        suffix lengths + block-aligned capacity caps) x hit/miss."""
+        def pow2s(cap: int) -> set:
+            vals, v = {cap}, 1
+            while v < cap:
+                vals.add(v)
+                v <<= 1
+            return vals
+        lens = pow2s(self.ecfg.max_len)
+        lens |= {self._pad_cap - j * self.ecfg.block_size
+                 for j in range(0, self._pad_cap
+                                // max(self.ecfg.block_size, 1))}
+        return 2 * len(pow2s(max(self.ecfg.max_batch, 1))) \
+            * len({v for v in lens if v >= 1})
+
+    def compile_report(self) -> Dict[str, Any]:
+        """Distinct (rows, padded_suffix, hit) wave shapes this engine ran
+        (JAX's dict: each is at most one XLA compile there)."""
+        return {"shapes": sorted(self.prefill_shapes),
+                "n_shapes": len(self.prefill_shapes),
+                "bound": self.prefill_shape_bound()}
 
     # -- prefill -----------------------------------------------------------
     def prefill_waves(self, reqs: List[Request],
@@ -488,6 +652,7 @@ class PrefillEngine:
                     s_i = s_i[:chunk]
                 suffix[row, : len(s_i)] = s_i
                 slens[row] = len(s_i)
+            self.prefill_shapes.add((n_rows, blen, hit))
             x = torch.as_tensor(suffix, dtype=torch.long, device=self.device)
             logits_at = torch.as_tensor(slens - 1, device=self.device)
             for k, e in enumerate(chain):
@@ -604,17 +769,24 @@ class DecodeEngine:
         self._spec_k = np.full((ecfg.max_batch,), max(ecfg.spec_len, 1),
                                np.int64)
         self._spec_ema = np.ones((ecfg.max_batch,), np.float64)
+        # the compiled decode, verify and draft steps (CUDA graphs on the
+        # card), dropped whenever the cache is rebuilt; ``report()`` gives
+        # the graphs captured and their capture time
+        self.compiled = StepCache(self.device, ecfg.cuda_graphs)
         self._draft: Optional[_Draft] = None
         if ecfg.speculation == "draft":
             if draft is None:
                 raise ValueError("speculation='draft' needs "
                                  "draft=(draft_cfg, draft_params)")
-            self._draft = _Draft(draft[0], draft[1], ecfg, self.device)
+            self._draft = _Draft(draft[0], draft[1], ecfg, self.device,
+                                 self.compiled)
         self._set_span(layer_span)
 
     def _set_span(self, layer_span: Optional[Tuple[int, int]]) -> None:
-        """(Re-)derive the span's views and a blank pool for it."""
+        """(Re-)derive the span's views and a blank pool for it; the
+        compiled steps were bound to the old ones and go."""
         ecfg = self.ecfg
+        self.compiled.reset()
         self.layer_span, self.scfg, self.sparams = \
             _span_view(self.cfg, self.params, layer_span)
         self.page_len = check_servable(self.scfg, ecfg)
@@ -640,7 +812,8 @@ class DecodeEngine:
     def rebase_span(self, layer_span: Tuple[int, int]) -> None:
         """Re-slice this stage to another contiguous span (a layer move).
         The serving state does not survive: the ``DecodePipeline`` takes
-        every slot out first and re-adopts the split states after."""
+        every slot out first and re-adopts the split states after.  The
+        compiled steps are captured afresh."""
         if self.active:
             raise RuntimeError("take the slots out before re-slicing the "
                                "span")
@@ -855,22 +1028,36 @@ class DecodeEngine:
             # recycled pages carry the previous owner's positions
             KC.reset_page_positions(self.cache, fresh, self.ecfg.block_size)
         if fresh or cow_src or self._bt_dirty:
-            self.cache["block_tables"] = torch.as_tensor(self._bt,
-                                                         device=self.device)
+            # in place: the compiled steps read this very table
+            self.cache["block_tables"].copy_(torch.from_numpy(self._bt))
             self._bt_dirty = False
         return fresh_by
 
+    def _step_for(self, mode: str, s: int, x_shape: Tuple[int, ...],
+                  x_dtype: torch.dtype, *, hidden_in: bool = False,
+                  hidden_out: bool = False,
+                  logits_slice: str = "last") -> CompiledStep:
+        return self.compiled.get(
+            (mode, s, hidden_in, hidden_out, self.cfg.kv_quant), self.scfg,
+            self.sparams, self.cache, x_shape, x_dtype,
+            logits_slice=logits_slice, paged_kernel=self.use_kernel,
+            hidden_in=hidden_in, hidden_out=hidden_out)
+
     def _forward_step(self, x: torch.Tensor, *, hidden_in: bool = False,
                       hidden_out: bool = False) -> torch.Tensor:
-        """One decode forward over this stage's span.  ``x`` is the token
-        column (first stage) or the upstream stage's residual stream;
-        returns last-token logits, or with ``hidden_out`` the residual
-        stream for the next stage."""
-        out, self.cache, _ = T.apply(
-            self.scfg, self.sparams, x, cache=self.cache, mode="decode",
-            logits_slice="last", paged_kernel=self.use_kernel,
-            hidden_in=hidden_in, hidden_out=hidden_out)
-        return out
+        """One decode forward over this stage's span (its compiled step).
+        ``x`` is the (max_batch, 1) token column (first stage) or the
+        upstream stage's (max_batch, 1, d_model) residual stream, on any
+        device; returns last-token logits, or with ``hidden_out`` the
+        residual stream for the next stage."""
+        bsz = self.ecfg.max_batch
+        if hidden_in:
+            shape = (bsz, 1, self.cfg.d_model)
+            dtype = self.params["embed"].dtype
+        else:
+            shape, dtype = (bsz, 1), torch.long
+        return self._step_for("decode", 1, shape, dtype, hidden_in=hidden_in,
+                              hidden_out=hidden_out)(x)
 
     def commit(self, nxt: np.ndarray) -> List[Tuple[Request, int]]:
         """Append sampled tokens, retire finished requests, free their
@@ -931,8 +1118,7 @@ class DecodeEngine:
                 return out
         self.decode_iters += 1
         self._prepare_pages()
-        logits = self._forward_step(
-            torch.as_tensor(self.next_token[:, None], device=self.device))
+        logits = self._forward_step(torch.from_numpy(self.next_token[:, None]))
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         return self.commit(nxt)
 
@@ -980,8 +1166,8 @@ class DecodeEngine:
     def _pin_lengths(self) -> None:
         """Device lengths from the committed host mirror (a verify pass
         advances them by its full width, committed or not)."""
-        self.cache["lengths"] = torch.as_tensor(
-            self._slot_len.astype(np.int32), device=self.device)
+        self.cache["lengths"].copy_(torch.from_numpy(
+            self._slot_len.astype(np.int32)))
 
     def _spec_step(self) -> Optional[List[Tuple[Request, int]]]:
         """One speculative iteration: propose per slot, score the pending
@@ -1043,10 +1229,8 @@ class DecodeEngine:
         fresh_by = self._prepare_pages(s_len)
         self._pin_lengths()
         self.decode_iters += 1
-        logits, self.cache, _ = T.apply(
-            self.cfg, self.params, torch.as_tensor(toks, device=self.device),
-            cache=self.cache, mode="decode", logits_slice="all",
-            paged_kernel=self.use_kernel)
+        logits = self._step_for("verify", s_len, (bsz, s_len), torch.long,
+                                logits_slice="all")(torch.from_numpy(toks))
         g = torch.argmax(logits, dim=-1).cpu().numpy()      # (B, s_len)
         finished = []
         for i, req in enumerate(self.slots):

@@ -215,14 +215,15 @@ class DecodePipeline:
     # -- pipelined decode -------------------------------------------------
     def step(self) -> List[Tuple[Request, int]]:
         """One decode iteration: the token column enters stage 0, the
-        residual stream chains through every span, logits leave the last
-        stage; the lead commits and the followers mirror it."""
+        residual stream chains through every span (each stage replays its
+        own compiled step, copying the upstream stream into its static
+        input), logits leave the last stage; the lead commits and the
+        followers mirror it."""
         if self.active == 0:
             return []
         for e in self.engines:
             e._prepare_pages()
-        x = torch.as_tensor(self.lead.next_token[:, None],
-                            device=self.lead.device)
+        x = torch.from_numpy(self.lead.next_token[:, None])
         last = len(self.engines) - 1
         for k, e in enumerate(self.engines):
             x = e._forward_step(x, hidden_in=k > 0, hidden_out=k < last)

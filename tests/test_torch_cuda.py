@@ -558,3 +558,185 @@ def test_cuda_prefill_pipeline_resume_matches_full_stack():
             for key in ("k", "v"):
                 torch.testing.assert_close(g[key], wg[key], atol=1e-4,
                                            rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Compiled decode-side steps: CUDA graph replays against eager steps
+# ---------------------------------------------------------------------------
+
+GRAPH_MODES = {
+    # mode: (speculation, kv_quant, dtype, span bounds or None)
+    "plain-f32": ("off", False, "float32", None),
+    "plain-bf16": ("off", False, "bfloat16", None),
+    "plain-int8": ("off", True, "float32", None),
+    "draft-f32": ("draft", False, "float32", None),
+    "draft-int8": ("draft", True, "float32", None),
+    "span-f32": ("off", False, "float32", [(0, 2), (2, 4)]),
+}
+
+
+def _graph_run(mode, graphs, monkeypatch, max_new=12):
+    """Serve ``_span_requests(3)`` on the small stack in ``mode`` with
+    CUDA graphs on or off.  Returns (every compiled step's output, cloned,
+    in call order; the streams; the decode launches; the decode units)."""
+    import dataclasses
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.span import DecodePipeline
+    spec, quant, dtype, bounds = GRAPH_MODES[mode]
+    cfg, params, ecfg = _small_stack()
+    cfg = dataclasses.replace(cfg, kv_quant=quant)
+    dt = getattr(torch, dtype)
+    params = _tree_to(params, dt)
+    ecfg = dataclasses.replace(ecfg, speculation=spec, spec_len=4,
+                               cuda_graphs=graphs)
+    pe = E.PrefillEngine(cfg, params, ecfg)
+    if bounds is None:
+        unit = E.DecodeEngine(cfg, params, ecfg, draft=(
+            dataclasses.replace(cfg, kv_quant=False), params)
+            if spec == "draft" else None)
+    else:
+        unit = DecodePipeline(cfg, params, ecfg, bounds)
+    reqs = _span_requests(3, max_new)
+    for r, (st, lg) in zip(reqs, pe.run_batch(reqs)):
+        unit.insert(r, st, int(torch.argmax(lg)))
+    outs = []
+    orig = E.CompiledStep.__call__
+
+    def record(step, x):
+        out = orig(step, x)
+        outs.append(out.clone())
+        return out
+
+    monkeypatch.setattr(E.CompiledStep, "__call__", record)
+    ops.reset_launches()
+    while unit.active:
+        unit.step()
+    torch.cuda.synchronize()
+    monkeypatch.setattr(E.CompiledStep, "__call__", orig)
+    return outs, [r.generated for r in reqs], dict(ops.LAUNCHES), unit
+
+
+def _tree_to(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_to(v, dtype) for v in tree)
+    return tree.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_cuda_graph_replays_equal_eager_steps(mode, monkeypatch):
+    """Plain decode (f32, bf16, int8 pools), draft speculation (the draft
+    micro-step and every verify width the run takes; bf16/f32 and int8
+    pools) and a 2-stage span pipeline: every replayed step's output
+    equals the eager static-buffer step's bit for bit, the streams are
+    equal, and the launch counts of the two runs are equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    eager, e_streams, e_launch, _ = _graph_run(mode, False, monkeypatch)
+    graph, g_streams, g_launch, unit = _graph_run(mode, True, monkeypatch)
+    engines = getattr(unit, "engines", [unit])
+    assert all(e.compiled.report()["graphs_captured"] > 0 for e in engines)
+    assert len(graph) == len(eager) > 0
+    gaps = [float((g.float() - e.float()).abs().max())
+            for g, e in zip(graph, eager)]
+    assert max(gaps) == 0.0, f"largest replay-vs-eager gap {max(gaps)}"
+    assert g_streams == e_streams
+    assert g_launch == e_launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain-int8", "draft-int8"])
+def test_cuda_int8_graphs_launch_only_int8_page_kernels(mode, monkeypatch):
+    """An int8 engine's captured steps launch B1-int8 (decode) and
+    B4-int8 (verify), never the bf16/f32 page kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    _, _, launches, de = _graph_run(mode, True, monkeypatch)
+    int8 = {"paged_decode_partials_int8", "paged_verify_partials_int8"}
+    for key, step in de.compiled.steps.items():
+        if key[0] == "draft":
+            assert not step.launches      # dense cache: plain attention
+            continue
+        assert step.graph is not None and set(step.launches) <= int8
+        want = ("paged_verify_partials_int8" if key[0] == "verify"
+                else "paged_decode_partials_int8")
+        assert step.launches[want] == 4   # one per layer
+    assert launches["paged_decode_partials"] == 0
+    assert launches["paged_verify_partials"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_replays_count_their_launches():
+    """After one step has captured the decode graph, N more steps add
+    exactly N times one eager step's launches; the capture itself (and
+    its warm-up) adds none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    from repro_torch.serving.engine import DecodeEngine, PrefillEngine
+    cfg, params, ecfg = _small_stack()
+    counts = {}
+    for graphs in (False, True):
+        ecfg_g = dataclasses.replace(ecfg, cuda_graphs=graphs)
+        pe = PrefillEngine(cfg, params, ecfg_g)
+        de = DecodeEngine(cfg, params, ecfg_g)
+        reqs = _span_requests(3, max_new=40)
+        for r, (st, lg) in zip(reqs, pe.run_batch(reqs)):
+            de.insert(r, st, int(torch.argmax(lg)))
+        ops.reset_launches()
+        de.step()
+        counts[graphs, 1] = dict(ops.LAUNCHES)
+        ops.reset_launches()
+        for _ in range(7):
+            de.step()
+        counts[graphs, 7] = dict(ops.LAUNCHES)
+    one = counts[False, 1]
+    assert one["paged_decode_partials"] == cfg.n_layers
+    assert counts[True, 1] == one
+    assert counts[True, 7] == {k: 7 * n for k, n in one.items()}
+    assert counts[False, 7] == counts[True, 7]
+
+
+@pytest.mark.cuda
+def test_cuda_uncapturable_forward_raises(monkeypatch):
+    """A forward that cannot be captured (a host copy inside it) raises
+    on a graph engine; nothing runs it eagerly instead.  The same
+    forward runs on an engine with graphs off.  (Last in the file: a
+    failed capture is the one case here that leaves the stream's capture
+    to CUDA's error path.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    from repro_torch.models import layers as L
+    from repro_torch.serving.engine import DecodeEngine, PrefillEngine
+    cfg, params, ecfg = _small_stack()
+    orig = L.mlp_apply
+
+    def mlp_with_host_copy(cfg_, p, x):
+        x.cpu()
+        return orig(cfg_, p, x)
+
+    streams = []
+    for graphs in (True, False):
+        ecfg_g = dataclasses.replace(ecfg, cuda_graphs=graphs)
+        pe = PrefillEngine(cfg, params, ecfg_g)
+        de = DecodeEngine(cfg, params, ecfg_g)
+        reqs = _span_requests(2, max_new=3)
+        for r, (st, lg) in zip(reqs, pe.run_batch(reqs)):
+            de.insert(r, st, int(torch.argmax(lg)))
+        monkeypatch.setattr(L, "mlp_apply", mlp_with_host_copy)
+        ops.reset_launches()
+        if graphs:
+            with pytest.raises(RuntimeError):
+                de.step()
+            assert de.compiled.report()["graphs_captured"] == 0
+            assert all(len(r.generated) == 1 for r in reqs)
+        else:
+            while de.active:
+                de.step()
+            streams.append([r.generated for r in reqs])
+        monkeypatch.setattr(L, "mlp_apply", orig)
+        torch.cuda.synchronize()
+    assert all(len(s) == 3 for s in streams[0])
