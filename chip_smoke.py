@@ -78,7 +78,31 @@ Phases (any failure exits non-zero and prints no result line):
    parameters and that B1, B2 and B3 ((c): B1 and B2, never B3) ran, and
    prints each forced action's host wall clock and billed cost, the
    bytes a span move accounts, the actions Algorithm 1 applied, the
-   launches, peak memory and the phase's seconds.
+   launches, peak memory and the phase's seconds.  Then the front door,
+   on the same weights and requests (bf16, 256-token chunks, graphs on,
+   Algorithm 1 off): (d) ``Server`` with a ``SchedulerConfig`` of two
+   tenants (bronze priority 0, gold weight 4 and priority 1) and swap
+   preemption over one prefill and one decode member at ``max_batch``
+   4, requests 0-3 bronze at t = 0 and 4-7 gold, submitted once the
+   four bronze ones are decode-resident; (e) the same with sacrifice
+   preemption; (f) one prefill and two decode members under
+   ``AutoscaleConfig(max_prefill=2, max_decode=3)``, a decode member
+   forced up on the H100 profile at the start, requests 0-3 at t = 0 and
+   4-7 at its warm-up's end, and a forced drain of one decode member
+   once a decode unit is active after that.  Each holds its streams to
+   the teacher-forced rule, checks that B1 and B2 ran and the pools are
+   restored; (d) and (e) that something was preempted (and for swap
+   that pages were swapped and billed), printing each swap-out's and
+   resume's synchronised host ms and bytes, or the B2 launches of the
+   clones' re-prefills; (f) that the spawned member took no hand-off
+   before its warm-up and at least one after, that its weights are
+   views of the parameters and that the drained member retired,
+   printing the fleet timeline, the policy's own decisions and the
+   spawned engine's graph capture.  Finally, with the weights freed,
+   (g) the serving CLI as two subprocesses, the live fleet over
+   llama-13b (``--requests 8 --max-new 16 --max-len 1024 --autoscale
+   --profiles h100_sxm``) and the simulator (``--backend sim --smoke``),
+   each of which must exit 0 with every request completed.
 4. Print the ``kernels`` JSON line, then the result line.
 
 The script imports nothing of the JAX package and needs no network.
@@ -87,6 +111,8 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -892,6 +918,8 @@ def serving_phase(torch, card: str):
     serve_all(int8_runs)
     launches.update(migration_phase(torch, card, cfg, params,
                                     stats["plain"]["streams"]))
+    launches.update(frontdoor_phase(torch, card, cfg, params,
+                                    stats["plain"]["streams"]))
     for q8, base in (("int8", "plain"), ("int8-ngram", "ngram")):
         a, b = stats[q8], stats[base]
         say(f"[{q8} vs {base}] decode {a['iter_ms']:.1f} vs "
@@ -1353,7 +1381,7 @@ def check_views(torch, label, params, engines) -> None:
         if not storage_ptrs(torch, e.sparams) <= full:
             fail(f"[{label}] {e.name}: span weights are not views of the "
                  f"full parameters")
-    say(f"[{label}] weights: {len(engines)} span engines, every weight a "
+    say(f"[{label}] weights: {len(engines)} engines, every weight a "
         f"view of the full parameters (storage shared)")
 
 
@@ -1631,6 +1659,286 @@ def migration_phase(torch, card, cfg, params, plain_streams):
 
 
 # ---------------------------------------------------------------------------
+# The front door: fair share with preemption, autoscaling, the CLI
+# ---------------------------------------------------------------------------
+
+TENANTS = ("bronze", "gold")
+
+
+def synced_ms(torch, fn, *a):
+    """Host milliseconds of ``fn(*a)``, synchronised on both sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*a)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def time_preemption(torch, orch, log):
+    """Wrap the orchestrator's swap-out and resume: each logs (kind, rid,
+    host ms synchronised, bytes of the state moved)."""
+    from repro_torch.models import kvcache as KC
+
+    swap_out, resume = orch._swap_out, orch._resume_swapped
+
+    def timed_swap_out(unit, slot):
+        rid = unit.slots[slot].rid
+        _, ms = synced_ms(torch, swap_out, unit, slot)
+        log.append(("swap-out", rid, ms,
+                    KC.state_num_bytes(orch._swapped[rid][1])))
+
+    def timed_resume():
+        parked = {rid: KC.state_num_bytes(st)
+                  for rid, (_, st, _) in orch._swapped.items()}
+        _, ms = synced_ms(torch, resume)
+        back = [rid for rid in parked if rid not in orch._swapped]
+        if back:
+            log.append(("resume", back, ms, sum(parked[r] for r in back)))
+
+    orch._swap_out, orch._resume_swapped = timed_swap_out, timed_resume
+
+
+def count_clone_waves(orch, acc):
+    """Count the B2 launches of prefill waves whose batch holds a
+    sacrifice clone (negative rid)."""
+    from repro_torch.kernels import ops
+
+    for m in orch.prefill_members():
+        def waves(reqs, chunk_tokens=None, _orig=m.prefill.prefill_waves):
+            clones = any(r.rid < 0 for r in reqs)
+            gen = _orig(reqs, chunk_tokens=chunk_tokens)
+            while True:
+                before = ops.LAUNCHES["flash_prefill"]
+                wave = next(gen, None)
+                if wave is None:
+                    return
+                if clones:
+                    acc["waves"] += 1
+                    acc["b2"] += ops.LAUNCHES["flash_prefill"] - before
+                yield wave
+        m.prefill.prefill_waves = waves
+
+
+def frontdoor_run(torch, card, cfg, params, plain_streams, *, label, drive,
+                  n_decode, max_batch, scheduler=None, autoscaler=None):
+    """One ``Server`` run of the 8 served requests over a fleet of one
+    prefill and ``n_decode`` full-stack decode members (256-token chunks,
+    graphs on); ``drive(orch, srv, reqs)`` submits and steps the run and
+    returns what it checked.  Holds the streams to the teacher-forced rule,
+    checks B1 and B2 ran and the pools are restored.  Returns (launches,
+    the orchestrator's summary, what ``drive`` returned, the
+    orchestrator)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import Server
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.orchestrator import (Orchestrator,
+                                                  OrchestratorConfig)
+
+    ecfg = EngineConfig(max_len=1024, max_batch=max_batch, block_size=16)
+    orch = Orchestrator(cfg, params, OrchestratorConfig(
+        n_prefill=1, n_decode=n_decode, chunk_tokens=256, engine=ecfg,
+        migration=False))
+    reqs = served_requests(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    srv = Server(orch, scheduler=scheduler, autoscaler=autoscaler)
+    out = drive(orch, srv, reqs)
+    srv.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for r in reqs:
+        if r.outcome is None or r.outcome.value != "completed":
+            fail(f"[{label}] request {r.rid}: outcome {r.outcome}")
+    check_pools_restored(orch)
+    check_streams(torch, cfg, params, label, reqs, launches,
+                  ("paged_decode_partials", "flash_prefill"),
+                  ("paged_verify_partials",))
+    say_streams_vs_plain(label, reqs, plain_streams)
+    s = orch.summary()
+    say(f"[{label}] {s['n_requests']} completed; fleet {s['fleet']}; "
+        f"{s['decode_iters']} decode iterations; virtual "
+        f"{s['virtual_time_s']:.3f} s; wall {wall:.2f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    say_graphs(label, card, orch.decode_units())
+    say(f"[{label}] serving-path launches: {json.dumps(launches)}")
+    return launches, s, out, orch
+
+
+def tenant_drive(torch, label, preemption, log, clone_b2):
+    """(d)/(e): requests 0-3 are bronze, at t = 0, 4-7 gold, submitted
+    once all four bronze ones are decode-resident."""
+    def drive(orch, srv, reqs):
+        time_preemption(torch, orch, log)
+        count_clone_waves(orch, clone_b2)
+        for i, r in enumerate(reqs):
+            r.tenant = TENANTS[i >= 4]
+            if i < 4:
+                srv.submit(r, at=0.0)
+        run_until(orch, srv, lambda: sum(
+            u.active for u in orch.decode_units()) == 4,
+            "all four bronze requests decode-resident")
+        t_gold = orch.clock.now
+        for r in reqs[4:]:
+            srv.submit(r)
+        return t_gold
+    return drive
+
+
+def preemption_run(torch, card, cfg, params, plain_streams, *, label,
+                   preemption):
+    from repro_torch.serving.fairshare import SchedulerConfig, TenantPolicy
+
+    log, clone_b2 = [], {"waves": 0, "b2": 0}
+    sched = SchedulerConfig(preemption=preemption, tenants={
+        "bronze": TenantPolicy(priority=0),
+        "gold": TenantPolicy(weight=4, priority=1)})
+    launches, s, t_gold, orch = frontdoor_run(
+        torch, card, cfg, params, plain_streams, label=label,
+        drive=tenant_drive(torch, label, preemption, log, clone_b2),
+        n_decode=1, max_batch=4, scheduler=sched)
+    n = s[f"n_preempted_{preemption}"]
+    if n < 1:
+        fail(f"[{label}] no request was preempted")
+    if preemption == "swap":
+        if s["pages_swapped"] <= 0 or s["swap_io_s"] <= 0:
+            fail(f"[{label}] pages_swapped {s['pages_swapped']}, swap_io_s "
+                 f"{s['swap_io_s']}")
+        for kind, rid, ms, nb in log:
+            say(f"[{label}] {kind} of request(s) {rid}: {ms:.2f} ms host "
+                f"wall clock (synchronised), {nb} bytes ({nb / 2**20:.1f} "
+                f"MiB) [{card}]")
+        say(f"[{label}] {n} swapped, {s['pages_swapped']} pages; billed "
+            f"swap_io_s {s['swap_io_s'] * 1e3:.3f} ms both ways at the "
+            f"store's host tier")
+    else:
+        if clone_b2["b2"] <= 0:
+            fail(f"[{label}] the clones' re-prefills launched no B2")
+        say(f"[{label}] {n} sacrificed; the clones' re-prefills ran "
+            f"{clone_b2['waves']} waves with {clone_b2['b2']} B2 launches")
+    say(f"[{label}] gold submitted at virtual {t_gold:.4f} s; per tenant: "
+        + "; ".join(f"{t}: {v['n_requests']} done, mean ttft "
+                    f"{v['mean_ttft_s'] * 1e3:.2f} ms, preempted swap "
+                    f"{v.get('n_preempted_swap', 0)} / sacrifice "
+                    f"{v.get('n_preempted_sacrifice', 0)}"
+                    for t, v in sorted(s["tenants"].items())))
+    del orch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def autoscale_run(torch, card, cfg, params, plain_streams):
+    """(f): a decode member forced up on the H100 profile at the start;
+    requests 0-3 at t = 0, 4-7 at its warm-up's end; a forced drain of
+    one decode member once a decode unit is active after that."""
+    from repro_torch.core import analytical as A
+    from repro_torch.serving.autoscale import AutoscaleConfig
+
+    label = "autoscale-f"
+    got = {}
+
+    def drive(orch, srv, reqs):
+        got["name"] = name = orch._scale_up("decode", A.H100_SXM)
+        m = orch._by_name[name]
+        got["member"], got["t_warm"] = m, m.warming_until
+        adopt, got["adopts"] = m.decode.adopt, []
+
+        def logged_adopt(*a, **kw):
+            got["adopts"].append(orch.clock.now)
+            return adopt(*a, **kw)
+
+        m.decode.adopt = logged_adopt
+        for i, r in enumerate(reqs):
+            srv.submit(r, at=0.0 if i < 4 else m.warming_until)
+        run_until(orch, srv, lambda: orch.clock.now >= m.warming_until
+                  and any(u.active for u in orch.decode_units()),
+                  "a decode unit active after the warm-up")
+        _, got["drain_ms"] = synced_ms(torch, orch._scale_down, "decode")
+        got["t_drain"] = orch.clock.now
+        return got
+
+    launches, s, got, orch = frontdoor_run(
+        torch, card, cfg, params, plain_streams, label=label, drive=drive,
+        n_decode=2, max_batch=8, autoscaler=AutoscaleConfig(
+            max_prefill=2, max_decode=3, profiles=(A.H100_SXM,)))
+    m, t_warm = got["member"], got["t_warm"]
+    early = [t for t in got["adopts"] if t < t_warm]
+    if early or not got["adopts"]:
+        fail(f"[{label}] {m.name} took hand-offs at {got['adopts']}; its "
+             f"warm-up ends at {t_warm}")
+    check_views(torch, label, params, [m.decode])
+    if s["n_retired"] < 1:
+        fail(f"[{label}] the drained member did not retire")
+    rep = m.decode.compiled.report()
+    warm = A.instance_warmup_time(cfg, A.H100_SXM)
+    say(f"[{label}] {m.name} warming until virtual {t_warm:.3f} s "
+        f"(A.instance_warmup_time: {warm:.3f} s), {len(got['adopts'])} "
+        f"hand-offs, the first at "
+        f"{got['adopts'][0]:.3f} s; {rep['graphs_captured']} graphs "
+        f"captured in {rep['capture_s'] * 1e3:.1f} ms; drain forced at "
+        f"{got['t_drain']:.3f} s in {got['drain_ms']:.2f} ms host wall "
+        f"clock, retired {[r.name for r in orch.retired]} [{card}]")
+    say(f"[{label}] fleet timeline: " + ", ".join(
+        f"{t:.3f} s {c}" for t, c in orch.metrics.fleet_timeline))
+    say(f"[{label}] policy decisions: " + (", ".join(
+        f"{t:.3f} s {d}" for t, d in orch.autoscaler.decisions) or "none")
+        + f"; instance_seconds {s.get('instance_seconds', 0.0):.3f}")
+    del orch, m, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def frontdoor_phase(torch, card, cfg, params, plain_streams):
+    """(d) fair share with swap preemption, (e) the same with sacrifice,
+    (f) autoscaling, on the served runs' weights and requests.  Returns
+    {run: launches}."""
+    t0 = time.perf_counter()
+    out = {}
+    for label, mode in (("fairshare-d", "swap"), ("fairshare-e",
+                                                  "sacrifice")):
+        out[label] = preemption_run(torch, card, cfg, params, plain_streams,
+                                    label=label, preemption=mode)
+    out["autoscale-f"] = autoscale_run(torch, card, cfg, params,
+                                       plain_streams)
+    say(f"front-door phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
+CLI_RUNS = [
+    ["--backend", "live", "--arch", "llama-13b", "--requests", "8",
+     "--max-new", "16", "--max-len", "1024", "--autoscale", "--profiles",
+     "h100_sxm"],
+    ["--backend", "sim", "--smoke"],
+]
+
+
+def cli_phase(card) -> None:
+    """(g): the serving CLI as subprocesses (each initialises its own
+    weights); each must exit 0 with every request completed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for argv in CLI_RUNS:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                            *argv], cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        what = " ".join(argv)
+        if p.returncode != 0:
+            fail(f"[cli] {what} exited {p.returncode}: {p.stderr[-2000:]}")
+        done = re.findall(r"^== (\d+) completed / \d+ rejected / \d+ "
+                          r"aborted of (\d+) submitted$", p.stdout, re.M)
+        if not done or done[-1][0] != done[-1][1] or done[-1][0] == "0":
+            fail(f"[cli] {what}: not every request completed: {done}")
+        tail = [ln for ln in p.stdout.splitlines()[-5:] if ln.strip()]
+        say(f"[cli] {what}: exit 0 in {wall:.1f} s; " + " | ".join(tail)
+            + f" [{card}]")
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = [
     # (timing key, launch counter, source, TPU kernel it replaces)
@@ -1703,6 +2011,9 @@ def main() -> None:
 
     # -- phase 3
     per_run = serving_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_phase(card)
     launches = {k: sum(run[k] for run in per_run.values())
                 for k in _lib.LAUNCHES}
 

@@ -1,7 +1,6 @@
 """Live disaggregated orchestrator of the port: an event-driven
 virtual-clock loop over real engines (the JAX package's
-``serving/orchestrator.py`` without preemption, fair-share scheduling and
-autoscaling).
+``serving/orchestrator.py``).
 
 Tokens are exact (every forward really runs, on the card); time is
 virtual — each event's duration is charged from the §4.3 analytical model
@@ -30,20 +29,36 @@ Events:
   speculate-or-plain from the analytical cost per committed token at its
   live batch and the measured acceptance, and bills the chosen cost;
   pipelines decode plain.
-* ``control`` — with ``migration`` on, every ``control_interval`` virtual
-  seconds the Algorithm 1 controller (§4.4.1, ``core/migration.py``)
-  plans over per-member ``DeviceLoad``s and ``apply_action`` executes
-  each action: LAYER between adjacent stages of one pipeline moves
-  boundary layers live (their weights are views; the resident slots' KV
-  is re-split at the new cut); LAYER between full-stack members re-rolls
-  a whole instance's role (Fig. 3); KV_HEADS moves in-flight slots
-  between decode units (attention-level migration).  Hosts and tests
-  force actions through ``apply_action`` as well.
+* ``control`` — with ``migration`` on or an autoscaler installed, every
+  ``control_interval`` virtual seconds the Algorithm 1 controller
+  (§4.4.1, ``core/migration.py``) plans over per-member ``DeviceLoad``s
+  and ``apply_action`` executes each action: LAYER between adjacent
+  stages of one pipeline moves boundary layers live (their weights are
+  views; the resident slots' KV is re-split at the new cut); LAYER
+  between full-stack members re-rolls a whole instance's role (Fig. 3);
+  KV_HEADS moves in-flight slots between decode units (attention-level
+  migration).  Hosts and tests
+  force actions through ``apply_action`` as well.  The same tick runs
+  the SLO autoscaler (``serving/autoscale.py``): ``_scale_up`` spawns an
+  engine on the fleet's device over the same parameter tensors, serving
+  once its virtual warm-up (``A.instance_warmup_time``) has passed
+  (``warmed``); ``_scale_down`` drains a member (decode residents move by
+  extract/adopt) and retires it once nothing references it.
 
-Every hand-off and migration is exact state surgery
+With a fair-share scheduler (``Server(scheduler=...)``) the central queue
+is released in WFQ order up to the fleet's uncommitted decode capacity;
+when it is exhausted a decode resident of a strictly lower-priority
+tenant is preempted: *swap* extracts its paged state (kept on the card,
+billed both ways at the store's host-tier bandwidth) and re-adopts it
+once capacity frees, *sacrifice* drops it and re-prefills a clone of its
+prompt plus committed tokens, whose state the original adopts at the
+clone's hand-off.  ``preempt`` forces either.  Members may sit on their
+own ``HardwareProfile`` (``hw_profiles``, or an autoscaled spawn's part):
+each is billed on its own roofline.
+
+Every hand-off, migration and preemption is exact state surgery
 (``models/kvcache.py``, ``core/layer_migration.py``), so greedy streams
-equal a single-engine rollout.  Preemption, fair-share scheduling and
-autoscaling are not ported yet (ROADMAP A7).
+equal a single-engine rollout.
 """
 from __future__ import annotations
 
@@ -51,6 +66,7 @@ import dataclasses
 from collections import deque
 from typing import Deque, Dict, List, Optional, Set
 
+import numpy as np
 import torch
 
 from .. import device as D
@@ -65,6 +81,7 @@ from ..core.scheduling import (LoadAwareRouter, PrefixAwareRouter,
 from ..models import kvcache as KC
 from ..models.config import ModelConfig
 from .api import BackendBase
+from .autoscale import FleetSignals, TierSignals
 from .clock import VirtualClock
 from .engine import DecodeEngine, EngineConfig, PrefillEngine
 from .request import SLO, Metrics, Phase, Request
@@ -109,6 +126,12 @@ class OrchestratorConfig:
     controller: ControllerConfig = dataclasses.field(
         default_factory=_default_controller)
     hw: A.HardwareProfile = A.H100_SXM
+    # heterogeneous fleets: per-member profiles cycled over the initial
+    # fleet (prefill members first, then decode); None = homogeneous
+    # ``hw``.  Each member's event costs, store-fetch overlap and
+    # queue-delay reports are billed on its own part.  Span pipelines stay
+    # on the fleet default (one pipeline = one part).
+    hw_profiles: Optional[tuple] = None
     prefill_chunk: int = 4         # max requests per prefill batch
     # chunked prefill: max prompt tokens one row computes per wave (None =
     # one-shot); exactness holds at any value
@@ -133,9 +156,13 @@ class _Member:
     rather than its role.  Token counters live here, so they survive
     re-rolls."""
 
-    def __init__(self, name: str, role: str):
+    def __init__(self, name: str, role: str,
+                 hw: Optional[A.HardwareProfile] = None):
         self.name = name
         self.role = role
+        self.hw = hw                   # this part's roofline (None = fleet)
+        self.warming_until = 0.0       # autoscaled: no traffic before
+        self.draining = False          # autoscaled: no new work; retires
         self.prefill: Optional[PrefillEngine] = None
         self.decode: Optional[DecodeEngine] = None
         self.pipe: Optional[DecodePipeline] = None
@@ -194,15 +221,16 @@ class Orchestrator(BackendBase):
                       if ocfg.global_store else None)
         self.router = _make_router(ocfg.router)
         self.members: List[_Member] = []
+        self._hw_seq = 0
         for i in range(ocfg.n_prefill):
-            m = _Member(f"prefill{i}", ROLE_PREFILL)
-            m.prefill = self._new_prefill(m.name)
+            m = _Member(f"prefill{i}", ROLE_PREFILL, hw=self._next_hw())
+            m.prefill = self._new_prefill(m.name, m.hw)
             self.members.append(m)
         self.decode_pipes: List[DecodePipeline] = []
         for i in range(ocfg.n_decode):
             if ocfg.decode_split == 1:
-                m = _Member(f"decode{i}", ROLE_DECODE)
-                m.decode = self._new_decode(m.name)
+                m = _Member(f"decode{i}", ROLE_DECODE, hw=self._next_hw())
+                m.decode = self._new_decode(m.name, m.hw)
                 self.members.append(m)
                 continue
             # one pipeline of decode_split span stages, one member each
@@ -265,18 +293,55 @@ class Orchestrator(BackendBase):
         # sent back to plain decode
         self.spec_iters = 0
         self.plain_iters = 0
+        # swap-preempted decode residents, parked with their state on the
+        # card: rid -> (request, paged state, pending token).  Resumed
+        # (adopt) once capacity frees and no admitted work still waits
+        # for a slot.
+        self._swapped: Dict[int, tuple] = {}
+        # sacrifice re-prefill clones: clone rid -> (clone, original)
+        self._resume_of: Dict[int, tuple] = {}
+        self._clone_rid = -1           # clones use negative rids
+        self.swap_io_s = 0.0           # modelled host-tier swap traffic
+        self.retired: List[_Member] = []    # drained-down members
+        self._scale_seq = 0                 # autoscaled-member naming
         self._init_backend()
 
     # -- fleet views -----------------------------------------------------
-    def _new_prefill(self, name: str) -> PrefillEngine:
+    def _next_hw(self) -> A.HardwareProfile:
+        hw = (self.ocfg.hw_profiles[self._hw_seq % len(self.ocfg.hw_profiles)]
+              if self.ocfg.hw_profiles else self.ocfg.hw)
+        self._hw_seq += 1
+        return hw
+
+    def _member_hw(self, m: Optional[_Member]) -> A.HardwareProfile:
+        return m.hw if m is not None and m.hw is not None else self.ocfg.hw
+
+    def _ecfg_for(self, hw: Optional[A.HardwareProfile]) -> EngineConfig:
+        """The fleet engine config rebased onto one member's part, so the
+        engine's store-fetch overlap and queue-delay reports price its own
+        roofline."""
+        if hw is None or hw is self.ecfg.hw:
+            return self.ecfg
+        return dataclasses.replace(self.ecfg, hw=hw)
+
+    def _new_prefill(self, name: str,
+                     hw: Optional[A.HardwareProfile] = None) -> PrefillEngine:
         store = self.store if self.store is not None else \
             GlobalKVStore(block_size=self.ecfg.block_size)
-        return PrefillEngine(self.cfg, self.params, self.ecfg, store,
+        return PrefillEngine(self.cfg, self.params, self._ecfg_for(hw), store,
                              name=name, device=self.device)
 
-    def _new_decode(self, name: str) -> DecodeEngine:
-        return DecodeEngine(self.cfg, self.params, self.ecfg, name=name,
-                            device=self.device, draft=self.draft)
+    def _new_decode(self, name: str,
+                    hw: Optional[A.HardwareProfile] = None) -> DecodeEngine:
+        """A full-stack decode engine on the fleet's device over the same
+        parameter tensors (no copy); it captures its own CUDA graphs at
+        its first decode step."""
+        return DecodeEngine(self.cfg, self.params, self._ecfg_for(hw),
+                            name=name, device=self.device, draft=self.draft)
+
+    def _serving_member(self, m: _Member) -> bool:
+        """Eligible for new work: warmed up and not draining."""
+        return m.warming_until <= self.clock.now and not m.draining
 
     def prefill_members(self) -> List[_Member]:
         return [m for m in self.members if m.role == ROLE_PREFILL]
@@ -295,6 +360,20 @@ class Orchestrator(BackendBase):
                 units.append(u)
         return units
 
+    def _unit_member(self, unit) -> _Member:
+        """The member that owns a unit's counters (a pipeline's lead
+        stage, or the engine's own member)."""
+        name = unit.lead.name if isinstance(unit, DecodePipeline) \
+            else unit.name
+        return self._by_name[name]
+
+    def _placeable_units(self) -> List:
+        """Decode units that may take new residents: their member is warmed
+        up and not draining.  Warming and draining units still run the
+        iterations for whatever they already hold."""
+        return [u for u in self.decode_units()
+                if self._serving_member(self._unit_member(u))]
+
     def _unit_by_name(self, name: str):
         for u in self.decode_units():
             if u.name == name:
@@ -303,43 +382,46 @@ class Orchestrator(BackendBase):
 
     @property
     def fleet(self) -> Dict[str, str]:
-        return {m.name: m.role for m in self.members}
+        out = {}
+        for m in self.members:
+            role = m.role
+            if m.warming_until > self.clock.now:
+                role += ":warming"
+            elif m.draining:
+                role += ":draining"
+            out[m.name] = role
+        return out
 
     def in_flight(self) -> int:
         return (len(self.pending)
                 + sum(len(m.prefill.queue) for m in self.prefill_members())
                 + self._reserved
-                + sum(u.active for u in self.decode_units()))
+                + sum(u.active for u in self.decode_units())
+                + len(self._swapped))
 
     def _free_capacity(self) -> int:
         """Decode slots available for NEW prefill admissions."""
-        return sum(u.free_slots for u in self.decode_units()) \
+        return sum(u.free_slots for u in self._placeable_units()) \
             - self._reserved
 
-    def _target(self, exclude=None):
-        """Hand-off target: the least-loaded unit with a free slot (ties
-        broken by name, so the choice is deterministic)."""
-        return min((u for u in self.decode_units()
-                    if u is not exclude and u.free_slots > 0),
+    def _target(self):
+        """Hand-off target: the least-loaded placeable unit with a free
+        slot (ties broken by name, so the choice is deterministic)."""
+        return min((u for u in self._placeable_units() if u.free_slots > 0),
                    key=lambda u: (u.active, u.kv_tokens, u.name))
 
-    # -- backend hooks this slice does not provide ----------------------
-    def set_scheduler(self, sched) -> None:
-        if sched is not None:
-            raise NotImplementedError("fair-share scheduling and preemption "
-                                      "are not ported yet")
-        self.scheduler = None
-
     def _arm_control(self) -> None:
-        if self.controller is not None and not self._control_armed:
+        if (self.controller is not None or self.autoscaler is not None) \
+                and not self._control_armed:
             self.clock.push_in(self.control_interval, "control")
             self._control_armed = True
 
     # -- submission / routing ---------------------------------------------
     def abort(self, rid: int) -> bool:
         """Cancel a request wherever it lives.  A decode-resident request
-        frees its slot and pages immediately; a mid-prefill one is dropped
-        at its hand-off."""
+        frees its slot and pages immediately, a swap-parked one drops its
+        parked state; a mid-prefill one (or a sacrificed one whose clone
+        is mid-prefill) is dropped at its hand-off."""
         req = self._by_rid.get(rid)
         if req is None or req.outcome is not None or req.phase == Phase.DONE:
             return False
@@ -357,6 +439,25 @@ class Orchestrator(BackendBase):
                     ok = self._finish_abort(req)
                     self._dispatch()          # freed capacity admits more
                     return ok
+        if rid in self._swapped:                      # swap-parked
+            self._swapped.pop(rid)
+            return self._finish_abort(req)
+        # a sacrificed original waiting on its re-prefill clone: pull the
+        # clone from any queue it still sits in (a mid-prefill clone stays
+        # mapped; the hand-off handler drops its recomputed state instead)
+        for crid, (clone, orig) in list(self._resume_of.items()):
+            if orig.rid != rid:
+                continue
+            if clone in self.pending:
+                self.pending.remove(clone)
+                del self._resume_of[crid]
+            else:
+                for m in self.prefill_members():
+                    if clone in m.prefill.queue:
+                        m.prefill.queue.remove(clone)
+                        del self._resume_of[crid]
+                        break
+            break
         return self._finish_abort(req)
 
     def _prefix_key(self, req: Request) -> Optional[bytes]:
@@ -415,10 +516,16 @@ class Orchestrator(BackendBase):
         self.store.register_pages(keys[:n_full], tgt.name, row[:n_full])
 
     def _dispatch(self) -> None:
-        """Algorithm 2 over the central queue, then kick idle members."""
-        release = list(self.pending)
+        """Algorithm 2 over the central queue (with a fair-share scheduler,
+        over the WFQ-ordered slice capacity can serve) onto serving
+        prefill members, then kick idle members."""
+        members = [m for m in self.prefill_members()
+                   if self._serving_member(m)]
+        if not members:
+            return                   # whole tier warming/draining: wait
+        release = (self._sched_release() if self.scheduler is not None
+                   else list(self.pending))
         if release:
-            members = self.prefill_members()
             loads = live_instance_loads([m.prefill for m in members])
             budget = max(self.ecfg.max_batch * self.ecfg.max_len, 1)
             infos = [RequestInfo(
@@ -432,13 +539,148 @@ class Orchestrator(BackendBase):
             plan = self.router.dispatch(infos, loads)
             for req in release:
                 self._by_name[plan[req.rid]].prefill.enqueue(req)
-        self.pending.clear()
+        if self.scheduler is None:
+            self.pending.clear()
         self._kick_prefills()
 
+    def _sched_release(self) -> List[Request]:
+        """The fair-share gate between the central queue and the router:
+        release at most the fleet's uncommitted decode capacity, in WFQ
+        order (the FIFO policy releases everything).  When capacity is
+        exhausted and preemption is configured, evict a victim for the
+        best-ranked waiter."""
+        if not self.pending:
+            return []
+        queued = sum(len(m.prefill.queue) for m in self.prefill_members())
+        budget = self._free_capacity() - queued
+        if self.scheduler.preemption is not None:
+            while budget < 1 and self.pending:
+                head = self.scheduler.peek(list(self.pending),
+                                           self.clock.now)
+                if not self._preempt_for(head):
+                    break
+                budget = self._free_capacity() - queued
+        chosen = self.scheduler.select(list(self.pending), self.clock.now,
+                                       budget=max(budget, 0))
+        for r in chosen:
+            self.pending.remove(r)
+        return chosen
+
     def _kick_prefills(self) -> None:
+        self._resume_swapped()
         for m in self.prefill_members():
+            if m.warming_until > self.clock.now:
+                continue       # wakes via its "warmed" event
             if not m.busy and (m._wavegen is not None or m.prefill.queue):
                 self.clock.push(self.clock.now, "prefill", m.name)
+
+    # -- decode preemption (swap / sacrifice) ------------------------------
+    def _preempt_for(self, waiting: Request) -> bool:
+        """Ask the scheduler for a decode-resident victim whose tenant
+        ranks strictly below ``waiting``'s, then apply the configured
+        eviction policy.  Returns True when a slot was freed."""
+        running, where = [], {}
+        for u in self.decode_units():
+            for slot, r in enumerate(u.slots):
+                if r is None:
+                    continue
+                running.append((r, r.max_new_tokens - len(r.generated)))
+                where[r.rid] = (u, slot)
+        victim = self.scheduler.pick_victim(waiting, running)
+        if victim is None:
+            return False
+        u, slot = where[victim.rid]
+        if self.scheduler.preemption == "swap":
+            self._swap_out(u, slot)
+        else:
+            self._sacrifice(u, slot)
+        return True
+
+    def _swap_out(self, unit, slot: int) -> None:
+        """Swap a decode resident out: its pages free at once, its gathered
+        state parks (on the card, where ``extract_slot`` leaves it), and
+        the store bills its host tier's bandwidth (here and at resume)."""
+        req, st, tok = unit.extract_slot(slot)
+        nbytes = KC.state_num_bytes(st)
+        self.swap_io_s += (self.store.swap_out(nbytes)
+                           if self.store is not None
+                           else nbytes / self.ocfg.hw.host_bw)
+        self._swapped[req.rid] = (req, st, tok)
+        pages = int(st["n_blocks"]) if "n_blocks" in st else 0
+        self.metrics.record_preempted(req, "swap", pages=pages)
+
+    def _sacrifice(self, unit, slot: int) -> None:
+        """Drop a decode resident's KV and recompute it later: a clone
+        request (prompt = the original prompt plus every committed token
+        but the last) rides the normal chunked-prefill path, and the
+        original adopts the recomputed state at the clone's hand-off."""
+        victim = unit.release_slot(slot)
+        clone = Request(
+            rid=self._clone_rid, arrival=self.clock.now,
+            prompt=np.concatenate([
+                victim.prompt,
+                np.asarray(victim.generated[:-1],
+                           dtype=victim.prompt.dtype)]),
+            max_new_tokens=max(
+                victim.max_new_tokens - len(victim.generated), 1),
+            tenant=victim.tenant)
+        self._clone_rid -= 1
+        self._resume_of[clone.rid] = (clone, victim)
+        self.metrics.record_preempted(victim, "sacrifice")
+        self.pending.append(clone)
+
+    def _finish_resume(self, clone: Request, st: Dict) -> None:
+        """A sacrifice clone's recompute finished: the original adopts the
+        rebuilt state and continues from its last committed token, so its
+        stream equals an uninterrupted run's."""
+        _, orig = self._resume_of.pop(clone.rid)
+        if orig.outcome is not None:
+            return                     # aborted while recomputing
+        tgt = self._target()
+        t_ov = self._account_handoff(orig, st)
+        tgt.adopt(orig, st, int(orig.generated[-1]))
+        self.clock.push_in(t_ov, "decode_kick", tgt.name)
+
+    def _resume_swapped(self) -> None:
+        """Bring swap-parked victims back, but only when spare capacity
+        exceeds the claims of admitted work still waiting for a slot, so a
+        fresh preemption is not undone at once."""
+        if not self._swapped:
+            return
+        claimed = len(self.pending) + sum(
+            len(m.prefill.queue) for m in self.prefill_members())
+        while self._swapped and self._free_capacity() - claimed > 0:
+            rid = next(iter(self._swapped))
+            req, st, tok = self._swapped.pop(rid)
+            if req.outcome is not None:
+                continue
+            nbytes = KC.state_num_bytes(st)
+            t_in = (self.store.swap_in(nbytes) if self.store is not None
+                    else nbytes / self.ocfg.hw.host_bw)
+            self.swap_io_s += t_in
+            tgt = self._target()
+            tgt.adopt(req, st, tok)
+            self.clock.push_in(t_in, "decode_kick", tgt.name)
+
+    def preempt(self, rid: int, mode: Optional[str] = None) -> bool:
+        """Force-preempt a decode-resident request: ``swap`` parks its
+        state, ``sacrifice`` drops it for re-prefill.  ``mode`` defaults
+        to the scheduler's policy.  False when ``rid`` is not
+        decode-resident."""
+        if mode is None and self.scheduler is not None:
+            mode = self.scheduler.preemption
+        if mode not in ("swap", "sacrifice"):
+            raise ValueError(f"unknown preemption mode {mode!r}")
+        for u in self.decode_units():
+            for slot, r in enumerate(u.slots):
+                if r is not None and r.rid == rid:
+                    if mode == "swap":
+                        self._swap_out(u, slot)
+                    else:
+                        self._sacrifice(u, slot)
+                    self._dispatch()
+                    return True
+        return False
 
     def _spec_capable(self, unit) -> bool:
         """Can this unit run the speculative verify step at all?  Only
@@ -464,7 +706,7 @@ class Orchestrator(BackendBase):
         the next ``step()`` obey, and the chosen cost is billed."""
         if unit is None or unit.name in self._unit_busy or unit.active == 0:
             return
-        hw = self.ocfg.hw
+        hw = self._member_hw(self._unit_member(unit))
         ctx = unit.kv_tokens // max(unit.active, 1)
         cost = A.decode_iter_time(self.cfg, max(ctx, 1), hw,
                                   batch=unit.active)
@@ -502,6 +744,8 @@ class Orchestrator(BackendBase):
             return self._on_decode_done(*ev.payload)
         elif ev.kind == "control":
             self._on_control()
+        elif ev.kind == "warmed":
+            self._on_warmed(ev.payload)
         else:
             raise ValueError(f"unknown event kind {ev.kind!r}")
         return []
@@ -513,6 +757,11 @@ class Orchestrator(BackendBase):
         if m is None or m.role != ROLE_PREFILL or m.busy:
             return
         if m._wavegen is None:
+            if m.draining:
+                # a draining member finishes its in-flight wave but never
+                # starts another; it retires once idle
+                self._try_retire_member(m)
+                return
             n = min(self.ocfg.prefill_chunk, len(m.prefill.queue),
                     self._free_capacity())
             if n <= 0:
@@ -538,17 +787,21 @@ class Orchestrator(BackendBase):
         if m._wave_left <= 0:
             m._wavegen = None
             m._batch = []
-        cost = A.prefill_time(self.cfg, wave["padded_len"], self.ocfg.hw,
-                              batch=wave["rows"],
+        cost = A.prefill_time(self.cfg, wave["padded_len"],
+                              self._member_hw(m), batch=wave["rows"],
                               efficiency=self.ocfg.efficiency)
         m.busy = True
         self.clock.push_in(cost, "prefill_done", (name, done))
 
     def _on_prefill_done(self, name: str, done) -> None:
-        m = self._by_name[name]
-        m.busy = False
+        m = self._by_name.get(name)
+        if m is not None:
+            m.busy = False
         for req, st, logits in done:
             self._reserved -= 1
+            if req.rid in self._resume_of:
+                self._finish_resume(req, st)   # a sacrifice clone landed
+                continue
             if req.outcome is not None:
                 continue       # aborted mid-prefill: its KV is dropped here
             req.advance(Phase.TRANSFER)
@@ -568,9 +821,11 @@ class Orchestrator(BackendBase):
             req.t_first_token = self.clock.now + t_ov
             req.t_tokens.append(req.t_first_token)
             self.clock.push_in(t_ov, "decode_kick", tgt.name)
-        if m.role == ROLE_PREFILL and (m._wavegen is not None
-                                       or m.prefill.queue):
+        if m is not None and m.role == ROLE_PREFILL and \
+                (m._wavegen is not None or m.prefill.queue):
             self.clock.push(self.clock.now, "prefill", m.name)
+        if m is not None and m.draining:
+            self._try_retire_member(m)
 
     def _on_decode_done(self, name: str, epoch: int) -> List[Request]:
         self._unit_busy.discard(name)
@@ -604,13 +859,186 @@ class Orchestrator(BackendBase):
         self._control_armed = False
         if self.controller is not None:
             self._control()
+        self._autoscale_tick()
+        for m in [m for m in self.members if m.draining]:
+            self._try_retire_member(m)
+        if self.autoscaler is not None:
+            self.metrics.record_util(self.clock.now, {
+                d.device: d.utilization for d in self._device_loads()})
         if self.in_flight() > 0 or self.clock:
             self._arm_control()
+
+    # -- autoscaling hooks (api.BackendBase._autoscale_tick drives them) --
+    def set_autoscaler(self, policy) -> None:
+        if policy is not None and self.ocfg.decode_split != 1:
+            raise ValueError("autoscaling requires decode_split == 1 "
+                             "(span pipelines scale by re-slicing, not "
+                             "by spawn/retire)")
+        super().set_autoscaler(policy)
+
+    def _on_warmed(self, name: str) -> None:
+        """A spawned member finished its billed warm-up and starts taking
+        traffic."""
+        if name not in self._by_name:
+            return
+        self._record_fleet()
+        self._dispatch()
+
+    def _fleet_counts(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for m in self.members:
+            if m.warming_until > self.clock.now:
+                k = "warming"
+            elif m.draining:
+                k = "draining"
+            else:
+                k = m.role
+            out[k] = out.get(k, 0) + 1
+        return out
+
+    def _autoscale_signals(self) -> FleetSignals:
+        now = self.clock.now
+        warm = {ROLE_PREFILL: 0, ROLE_DECODE: 0}
+        drain = {ROLE_PREFILL: 0, ROLE_DECODE: 0}
+        act_p: List[_Member] = []
+        act_d: List[_Member] = []
+        for m in self.members:
+            if m.warming_until > now:
+                warm[m.role] += 1
+            elif m.draining:
+                drain[m.role] += 1
+            elif m.role == ROLE_PREFILL:
+                act_p.append(m)
+            elif m.pipe is None or m.stage == 0:
+                act_d.append(m)        # pipelines count once (lead stage)
+        backlog_p = len(self.pending) + sum(
+            len(m.prefill.queue) for m in act_p)
+        qd_p = util_p = 0.0
+        if act_p:
+            reps = [m.load_report() for m in act_p]
+            qd_p = sum(r.queue_delay_s for r in reps) / len(act_p)
+            util_p = sum(min(r.compute_frac, 1.0)
+                         for r in reps) / len(act_p)
+        qd_p += sum(A.prefill_time(self.cfg, r.prompt_len, self.ocfg.hw,
+                                   efficiency=self.ocfg.efficiency)
+                    for r in self.pending) / max(len(act_p), 1)
+        prefill = TierSignals(
+            n_active=len(act_p), n_warming=warm[ROLE_PREFILL],
+            n_draining=drain[ROLE_PREFILL], util=util_p,
+            queue_delay_s=qd_p, backlog=backlog_p)
+        units = [m.unit for m in act_d]
+        active = sum(u.active for u in units)
+        total = sum(u.active + u.free_slots for u in units)
+        backlog_d = len(self._swapped)
+        qd_d = 0.0
+        if backlog_d and active:
+            ctx = sum(u.kv_tokens for u in units) / active
+            t_iter = A.decode_iter_time(
+                self.cfg, max(int(ctx), 1), self.ocfg.hw,
+                batch=max(active // max(len(units), 1), 1))
+            rem = sum(r.max_new_tokens - len(r.generated)
+                      for u in units for r in u.slots if r is not None)
+            qd_d = (rem / max(active, 1)) * t_iter * backlog_d \
+                / max(len(units), 1)
+        decode = TierSignals(
+            n_active=len(act_d), n_warming=warm[ROLE_DECODE],
+            n_draining=drain[ROLE_DECODE],
+            util=active / max(total, 1),
+            queue_delay_s=qd_d, backlog=backlog_d)
+        return FleetSignals(t=now, prefill=prefill, decode=decode)
+
+    def _scale_up(self, role: str, profile=None) -> Optional[str]:
+        """Spawn a live engine for ``role`` on the fleet's device, over the
+        same parameter tensors.  The member exists (and costs
+        instance-seconds) at once, but takes no traffic until its warm-up
+        (the weights at the part's host bandwidth plus the compile
+        constant) has passed on the virtual clock."""
+        if role == ROLE_DECODE and self.ocfg.decode_split != 1:
+            return None
+        hw = profile or self.ocfg.hw
+        self._scale_seq += 1
+        name = f"{role}-s{self._scale_seq}"
+        m = _Member(name, role, hw=hw)
+        if role == ROLE_PREFILL:
+            m.prefill = self._new_prefill(name, hw)
+        else:
+            m.decode = self._new_decode(name, hw)
+            if self.prefix_sharing:
+                m.decode.attach_store(self.store)
+        jit_s = (self.autoscaler.cfg.jit_compile_s
+                 if self.autoscaler is not None else 2.0)
+        m.warming_until = self.clock.now + A.instance_warmup_time(
+            self.cfg, hw, jit_compile_s=jit_s)
+        self.members.append(m)
+        self._by_name[name] = m
+        self.clock.push(m.warming_until, "warmed", name)
+        return name
+
+    def _scale_down(self, role: str) -> bool:
+        """Start draining the least-loaded serving member of ``role``.
+        Prefill: queued requests re-route centrally, the in-flight wave
+        finishes, then the member retires.  Decode: residents move to
+        peers by extract/adopt (streams unchanged), then it retires."""
+        if role == ROLE_PREFILL:
+            cands = [m for m in self.prefill_members()
+                     if self._serving_member(m)]
+            if len(cands) <= max(self.ocfg.min_prefill, 1):
+                return False
+            victim = min(cands, key=lambda m: (
+                len(m.prefill.queue), m.tokens_prefilled))
+            victim.draining = True
+            if victim.prefill.queue:
+                self.pending.extendleft(reversed(victim.prefill.queue))
+                victim.prefill.queue.clear()
+                self._dispatch()
+            self._try_retire_member(victim)
+            return True
+        cands = [m for m in self.decode_members()
+                 if self._serving_member(m) and m.pipe is None]
+        if len(cands) <= max(self.ocfg.min_decode, 1):
+            return False
+        victim = min(cands, key=lambda m: (m.decode.active,
+                                           m.decode.kv_tokens))
+        victim.draining = True
+        spare = sum(u.free_slots for u in self._placeable_units()) \
+            - self._reserved
+        if victim.decode.active > spare:
+            victim.draining = False
+            return False        # residents would not fit on the peers
+        self._epoch[victim.name] = self._epoch.get(victim.name, 0) + 1
+        self._unit_busy.discard(victim.name)
+        for req, st, tok in victim.decode.drain():
+            tgt = self._target()
+            t_ov = self._account_handoff(req, st)
+            tgt.adopt(req, st, tok)
+            self.clock.push_in(t_ov, "decode_kick", tgt.name)
+        if self.store is not None:
+            self.store.detach_pool(victim.name)
+        self._try_retire_member(victim)
+        return True
+
+    def _try_retire_member(self, m: _Member) -> bool:
+        """Remove a drained member once nothing references it."""
+        if not m.draining or m.name not in self._by_name:
+            return False
+        if m.role == ROLE_PREFILL:
+            if m.busy or m._wavegen is not None or m.prefill.queue:
+                return False
+        elif m.decode is not None and (m.decode.active > 0
+                                       or m.name in self._unit_busy):
+            return False
+        self.members.remove(m)
+        del self._by_name[m.name]
+        self.retired.append(m)
+        self._record_fleet()
+        return True
 
     # -- Algorithm 1: control cycle --------------------------------------
     def _device_loads(self) -> List[DeviceLoad]:
         out = []
         for m in self.members:
+            if not self._serving_member(m):
+                continue   # the migration controller leaves them alone
             r = m.load_report()
             out.append(DeviceLoad(
                 device=m.name, compute_frac=r.compute_frac,
@@ -644,6 +1072,8 @@ class Orchestrator(BackendBase):
             return False       # pipeline stages re-slice spans, not roles
         if member.role == new_role:
             return False
+        if not self._serving_member(member):
+            return False       # the autoscaler owns warming/draining members
         if member.role == ROLE_PREFILL:
             if len(self.prefill_members()) <= self.ocfg.min_prefill:
                 return False
@@ -654,7 +1084,7 @@ class Orchestrator(BackendBase):
                 return False
             # resident KV must fit on the remaining decode units, net of
             # slots reserved by in-flight prefill batches
-            spare = sum(u.free_slots for u in self.decode_units()
+            spare = sum(u.free_slots for u in self._placeable_units()
                         if u is not member.unit) - self._reserved
             if member.decode.active > spare:
                 return False
@@ -761,7 +1191,10 @@ class Orchestrator(BackendBase):
         else:
             # decode -> prefill: evacuate resident KV to decode peers first
             for req, st, tok in member.decode.drain():
-                self._target(exclude=member.unit).adopt(req, st, tok)
+                tgt = min((u for u in self._placeable_units()
+                           if u is not member.unit and u.free_slots > 0),
+                          key=lambda u: (u.active, u.name))
+                tgt.adopt(req, st, tok)
             if self.store is not None:
                 # the pool's pages die with the engine: demote the store's
                 # page-resident entries to the backing tiers first
@@ -826,6 +1259,13 @@ class Orchestrator(BackendBase):
         s["handoffs"] = self.n_handoffs
         s["handoff_serial_s"] = self.handoff_serial_s
         s["handoff_overlap_s"] = self.handoff_overlap_s
+        if self.autoscaler is not None:
+            s["autoscale_decisions"] = len(self.autoscaler.decisions)
+            s["n_retired"] = len(self.retired)
+        if self.scheduler is not None:
+            s["scheduler"] = self.scheduler.cfg.policy
+            s["sched_rejections"] = dict(self.scheduler.rejections)
+            s["swap_io_s"] = self.swap_io_s
         s["store_fetch_s"] = sum(m.fetch_latency_s for m in self.members)
         # routing imbalance: members that held the prefill role throughout
         pw = [m.tokens_prefilled for m in self.prefill_members()

@@ -561,6 +561,93 @@ def test_cuda_prefill_pipeline_resume_matches_full_stack():
 
 
 # ---------------------------------------------------------------------------
+# The front door: swap/sacrifice preemption and a spawned decode member
+# ---------------------------------------------------------------------------
+
+def _served(orch, reqs, preempt=None):
+    """Serve ``reqs`` through ``Server`` over ``orch``; with ``preempt``
+    (swap or sacrifice) preempt each request once, after its second
+    token.  Returns (streams, preempted rids)."""
+    from repro_torch.serving.api import Server
+    srv = Server(orch)
+    handles = [srv.submit(r, at=r.arrival) for r in reqs]
+    hit = []
+    for _ in range(10_000):
+        if not srv.step() and srv.in_flight() == 0:
+            break
+        for u in orch.decode_units() if preempt else ():
+            rid = next((r.rid for r in u.slots if r is not None
+                        and r.rid not in hit and len(r.generated) >= 2
+                        and len(r.generated) < r.max_new_tokens), None)
+            if rid is not None:
+                assert orch.preempt(rid, preempt)
+                hit.append(rid)
+                break
+    srv.drain()
+    assert all(h.outcome.value == "completed" for h in handles)
+    for e in orch.decode_units():
+        held = orch.store.pool_pages(e.name).values()
+        assert e.active == 0
+        assert len(e._free) + len(held) == e.ecfg.max_batch * e._nb_slot
+    return [h.tokens for h in handles], hit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["swap", "sacrifice"])
+def test_cuda_forced_preemption_streams_equal_uninterrupted(mode):
+    """On the f32 small stack with CUDA graphs on, preempting every
+    request once mid-decode (swap: the state parks on the card and is
+    adopted back into the static cache; sacrifice: a clone re-prefills
+    on B2/B3) gives the uninterrupted run's streams token for token."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.serving.orchestrator import (Orchestrator,
+                                                  OrchestratorConfig)
+    cfg, params, ecfg = _small_stack()
+
+    def orch():
+        return Orchestrator(cfg, params, OrchestratorConfig(
+            n_prefill=1, n_decode=2, engine=ecfg, chunk_tokens=32))
+
+    want, _ = _served(orch(), _span_requests(4))
+    o = orch()
+    ops.reset_launches()
+    got, hit = _served(o, _span_requests(4), preempt=mode)
+    assert len(hit) == 4 and got == want
+    assert o.summary()[f"n_preempted_{mode}"] == 4
+    assert ops.LAUNCHES["paged_decode_partials"] > 0
+    assert all(u.compiled.report()["graphs_captured"] > 0
+               for u in o.decode_units())
+    if mode == "sacrifice":
+        assert ops.LAUNCHES["flash_prefill"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_spawned_decode_member_captures_its_graphs():
+    """``_scale_up`` spawns a decode engine on the card over the same
+    parameter tensors; it takes work only after its virtual warm-up and
+    captures its own CUDA graphs at its first decode step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.core import analytical as A
+    from repro_torch.serving.orchestrator import (Orchestrator,
+                                                  OrchestratorConfig)
+    cfg, params, ecfg = _small_stack()
+    o = Orchestrator(cfg, params, OrchestratorConfig(
+        n_prefill=1, n_decode=1, engine=ecfg, migration=False))
+    name = o._scale_up("decode", A.H100_SXM)
+    m = o._by_name[name]
+    assert o.fleet[name] == "decode:warming" and m.decode.device.type == "cuda"
+    assert m.decode.params is params
+    reqs = _span_requests(4)
+    for r in reqs:
+        r.arrival = m.warming_until
+    _served(o, reqs)
+    assert m.decode.tokens_decoded > 0
+    assert m.decode.compiled.report()["graphs_captured"] > 0
+
+
+# ---------------------------------------------------------------------------
 # Compiled decode-side steps: CUDA graph replays against eager steps
 # ---------------------------------------------------------------------------
 

@@ -3,9 +3,9 @@ from a JAX ``PrefillEngine`` into the port's ``DecodeEngine``, the port's
 prefill engine against JAX's, and ``Server`` over the port's
 ``Orchestrator`` against the ``greedy_reference`` rollout.
 
-The JAX orchestrator does not import on Python 3.12 (its config gives a
-dataclass field a non-frozen default), so the port's orchestrator is held
-against the greedy rollout and the JAX engines, which do import.
+The port's orchestrator is held here against the greedy rollout and the
+JAX engines; ``test_torch_frontdoor.py`` holds it event by event against
+the JAX orchestrator itself.
 
 Tolerances: greedy tokens exactly; wire-state leaves and logits ``1e-4``
 (float32, four layers summed in another order); positions exactly.
@@ -30,6 +30,7 @@ from repro_torch.models.weights import params_from_jax, tree_from_numpy
 from repro_torch.serving.api import Server
 from repro_torch.serving.engine import (DecodeEngine, EngineConfig,
                                         PrefillEngine)
+from repro_torch.serving.fairshare import FairShareScheduler, SchedulerConfig
 from repro_torch.serving.orchestrator import Orchestrator, OrchestratorConfig
 from repro_torch.serving.request import Outcome, Request
 from repro_torch.serving.workload import WorkloadConfig, generate
@@ -268,5 +269,5 @@ def test_abort_in_decode_frees_the_slot(port_params, make_workload):
     assert all(r.outcome == Outcome.COMPLETED for r in reqs
                if r is not victim)
     assert_pools_restored(orch)
-    with pytest.raises(NotImplementedError):
-        orch.set_scheduler(object())
+    orch.set_scheduler(SchedulerConfig(preemption="swap"))
+    assert isinstance(orch.scheduler, FairShareScheduler)
