@@ -14,7 +14,8 @@ Phases (any failure exits non-zero and prints no result line):
 2. Hold each kernel against its plain PyTorch version on the card: at the
    serving path's llama-13b shapes, at a GQA shape (granite-8b heads) and
    on a windowed, soft-capped head_dim-256 case with dead table entries
-   and holes, in float32 and bfloat16; B1, B1-int8, B3, B4 and B4-int8 at
+   and holes, and at granite-moe-3b-a800m's heads (24/8 of head_dim 64),
+   in float32 and bfloat16; B1, B1-int8, B3, B4 and B4-int8 at
    one partial per page (the TPU kernels' contract), per 3 pages and per
    the split the serving path picks; the int8 variants of B1/B4 on the
    same pools quantized to int8 with per-entry scales; B5 over a dense
@@ -27,9 +28,11 @@ Phases (any failure exits non-zero and prints no result line):
    serving split (one partial per page on an earlier line), B2 also at one
    1024-token sequence (the int8 runs' longest wave), B4 also at the
    granite-8b case (20 query rows per kv head: B3's tile body), B5 also
-   with every key valid against unmasked SDPA.  B4's two bodies, the key
-   walk (from a copy of B4 built with every row count on it) and B3's
-   tensor-core body, are timed on the same verify inputs at 5, 20 and 80
+   with every key valid against unmasked SDPA; each kernel again at
+   granite-moe-3b-a800m's serving shapes (head_dim 64, 24/8 heads, so 15
+   verify rows per kv head), on lines of their own.  B4's two bodies,
+   the key walk (from a copy of B4 built with every row count on it) and
+   B3's tensor-core body, are timed on the same verify inputs at 5, 20 and 80
    query rows per kv head (llama-13b, granite-8b and llama3-405b heads).
 3. Serve llama-13b at full width and depth in bf16 (random weights from a
    seed), 8 requests of a shared-prefix workload, five times: through
@@ -102,7 +105,28 @@ Phases (any failure exits non-zero and prints no result line):
    (g) the serving CLI as two subprocesses, the live fleet over
    llama-13b (``--requests 8 --max-new 16 --max-len 1024 --autoscale
    --profiles h100_sxm``) and the simulator (``--backend sim --smoke``),
-   each of which must exit 0 with every request completed.
+   each of which must exit 0 with every request completed.  Then the MoE
+   stacks, in f32 (random weights from seed 0; a probe first prints how
+   far bf16 rounding, amplified through the routing, moves granite-moe's
+   logits, past what the teacher-forced rule can tell from a fault):
+   (h) granite-moe-3b-a800m at full width and depth through ``Server``
+   on the same 8 requests: plain with 256-token chunks, replayed (B1, B2
+   and B3 must launch), the same run eagerly (streams and launch counts
+   must equal the replayed run's), n-gram (B4 must launch) and
+   ``with_kv_quant()`` plain, unchunked (B1-int8 must launch, the bf16
+   page kernels and B3 must not); each prints its decode and prefill
+   clocks, peak memory and the router load of its first wave, and the
+   plain runs the device ms of one profiled decode iteration by family
+   (expert GEMMs, the MoE's other ops, attention kernels, the rest);
+   (i) ``Server`` over two 2-stage granite-moe decode pipelines with one
+   forced span move of a quarter of the stack; then (h) plain once more
+   with the weights in bf16, its clocks printed and its tokens reported
+   against the bf16 forward, not scored; (j) grok-1-314b at full width,
+   depth cut to 2 of its 64 layers, plain.  Every f32 served token is
+   held to the teacher-forced rule, but those the int8 run decodes over
+   its quantized cache: its first tokens are held to it, and the others
+   are reported against two references of other GEMM shapes
+   (``check_streams`` says why).
 4. Print the ``kernels`` JSON line, then the result line.
 
 The script imports nothing of the JAX package and needs no network.
@@ -139,6 +163,10 @@ TOL_BF16_OUT = 2e-2
 # the plain forward round bf16 activations at different places, and random
 # weights leave near-ties, so equality of argmax is not the criterion.
 TOKEN_GAP_TOL = 0.25
+
+# The kernel cases at the served stacks' shapes (8 decode rows, 4 x 256
+# prefill rows, 1024-token page space); the other cases are smaller.
+SERVED_CASES = ("llama-13b", "granite-moe")
 
 # One mid-run decode iteration runs under torch.profiler (and is left out
 # of the wall and decode clocks) to show how much of an iteration the card
@@ -332,7 +360,7 @@ def kernel_phase(torch):
                                                    paged_prefix_partials,
                                                    prefix_pages_per_split)
     from repro_torch.kernels.split_kv_decode import (
-        decode_pages_per_split, decode_tile_keys, paged_decode_partials,
+        decode_pages_per_split, paged_decode_partials,
         paged_verify_partials, split_kv_decode_partials,
         verify_pages_per_split)
     from repro_torch.models.layers import quantize_kv
@@ -342,23 +370,31 @@ def kernel_phase(torch):
     # B5 draws from a generator of its own, so the B1-B4 inputs are the
     # same as before B5 was added
     gen5 = torch.Generator(device=dev).manual_seed(5)
-    # (label, heads, kv heads, head_dim, window, soft cap); the last case
-    # also takes the kernels' widest head_dim
+    # granite-moe-3b-a800m's case draws from its own generator too, so the
+    # other cases' inputs stay as they were before it was added
+    gen_moe = torch.Generator(device=dev).manual_seed(6)
+    # (label, heads, kv heads, head_dim, window, soft cap); the third case
+    # also takes the kernels' widest head_dim; granite-moe is head_dim 64
+    # with 3 query heads per kv head (15 verify rows per kv head)
     cases = [("llama-13b", 40, 40, 128, None, None),
              ("granite-8b GQA", 32, 8, 128, None, None),
-             ("window+cap", 8, 2, 256, 48, 30.0)]
+             ("window+cap", 8, 2, 256, 48, 30.0),
+             ("granite-moe", 24, 8, 64, None, None)]
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         tname = str(dtype).split(".")[-1]
         for label, h, kv, d, win, cap in cases:
-            main = label == "llama-13b"
+            # the served stacks' cases take the serving path's shapes
+            main = label in SERVED_CASES
+            g = gen_moe if label == "granite-moe" else gen
+            g5 = gen_moe if label == "granite-moe" else gen5
             bs, nb = 16, 64                           # max_len 1024
             b_dec = 8 if main else 4
             lengths = [int(x) for x in torch.randint(
-                1, nb * bs, (b_dec,), generator=gen, device=dev)]
+                1, nb * bs, (b_dec,), generator=g, device=dev)]
             # -- B1: paged decode partials
             q, kp, vp, pp, tb, pq = paged_case(
-                torch, gen, dev, dtype, b=b_dec, h=h, kv=kv, d=d, bs=bs,
+                torch, g, dev, dtype, b=b_dec, h=h, kv=kv, d=d, bs=bs,
                 nb=nb, lengths=lengths)
             if main:
                 tb[-1] = -1                # an empty slot: all-dead row
@@ -394,9 +430,9 @@ def kernel_phase(torch):
             s = 256 if main else 64
             b_pre = 4 if main else 2
             n_prefix = [int(x) * bs for x in torch.randint(
-                1, (nb * bs - s) // bs, (b_pre,), generator=gen, device=dev)]
+                1, (nb * bs - s) // bs, (b_pre,), generator=g, device=dev)]
             q3, kp3, vp3, pp3, tb3, pq3 = paged_case(
-                torch, gen, dev, dtype, b=b_pre, h=h, kv=kv, d=d, bs=bs,
+                torch, g, dev, dtype, b=b_pre, h=h, kv=kv, d=d, bs=bs,
                 nb=nb, lengths=None, s=s, n_prefix=n_prefix)
             # one partial per page (the TPU contract), per 3 pages (ragged
             # last split, dead splits) and per the serving path's split
@@ -416,11 +452,11 @@ def kernel_phase(torch):
                 err=err, args=(q3, kp3, vp3, pp3, tb3, pq3), pps=pps_srv)
             # -- B2: flash prefill, normalized and partials
             b2, s2 = (4, 256) if main else (2, 192)
-            q2 = torch.randn((b2, s2, h, d), generator=gen, device=dev
+            q2 = torch.randn((b2, s2, h, d), generator=g, device=dev
                              ).to(dtype)
-            k2 = torch.randn((b2, s2, kv, d), generator=gen, device=dev
+            k2 = torch.randn((b2, s2, kv, d), generator=g, device=dev
                              ).to(dtype)
-            v2 = torch.randn((b2, s2, kv, d), generator=gen, device=dev
+            v2 = torch.randn((b2, s2, kv, d), generator=g, device=dev
                              ).to(dtype)
             got = flash_prefill(q2, k2, v2, **kw)
             want = ref.flash_prefill_plain(q2, k2, v2, **kw)
@@ -440,11 +476,11 @@ def kernel_phase(torch):
             # -- B4: speculative verify partials (S = spec_len + 1 = 5)
             sv = 5
             vlen = [int(x) for x in torch.randint(
-                1, nb * bs - sv - 2, (b_dec,), generator=gen, device=dev)]
+                1, nb * bs - sv - 2, (b_dec,), generator=g, device=dev)]
             if main:
                 vlen[-1] = None            # an empty slot: all-dead row
             q4, kp4, vp4, pp4, tb4, pq4 = verify_case(
-                torch, gen, dev, dtype, b=b_dec, s=sv, h=h, kv=kv, d=d,
+                torch, g, dev, dtype, b=b_dec, s=sv, h=h, kv=kv, d=d,
                 bs=bs, nb=nb, lengths=vlen)
             # one partial per page (the TPU contract), per 3 pages and per
             # the serving path's split
@@ -478,12 +514,12 @@ def kernel_phase(torch):
             # the TPU kernel has neither); the main case at llama-13b's
             # decode shape, the others with L off the block multiple
             b5, l5 = (8, nb * bs) if main else (3, 600)
-            q5 = torch.randn((b5, h, d), generator=gen5, device=dev).to(dtype)
-            k5 = torch.randn((b5, l5, kv, d), generator=gen5, device=dev
+            q5 = torch.randn((b5, h, d), generator=g5, device=dev).to(dtype)
+            k5 = torch.randn((b5, l5, kv, d), generator=g5, device=dev
                              ).to(dtype)
-            v5 = torch.randn((b5, l5, kv, d), generator=gen5, device=dev
+            v5 = torch.randn((b5, l5, kv, d), generator=g5, device=dev
                              ).to(dtype)
-            lens5 = torch.randint(1, l5 + 1, (b5, 1), generator=gen5,
+            lens5 = torch.randint(1, l5 + 1, (b5, 1), generator=g5,
                                   device=dev)
             valid5 = torch.arange(l5, device=dev)[None] < lens5
             got = ops.decode_partials(q5, k5, v5, valid5, block_k=512)
@@ -510,9 +546,145 @@ def kernel_phase(torch):
                 for kk in ("B1", "B1-int8", "B2", "B3", "B4", "B4-int8",
                            "B5")) + f"  (B5 combined output {out5:.2e})")
 
-    # -- timings at the serving path's shapes (llama-13b, bf16)
-    timing = {}
+    # -- timings at the served stacks' shapes (bf16): llama-13b's under the
+    # kernels' own keys, granite-moe's under "<kernel> granite-moe"
+    timing = serving_timings(torch, results, "llama-13b", "")
+    timing.update(serving_timings(torch, results, "granite-moe",
+                                  " granite-moe"))
     r1 = results[("B1", "llama-13b", "bfloat16")]
+    q, kp, vp, pp, tb, pq = r1["args"]
+    b, h, d = q.shape
+    nb, bs, kv = tb.shape[1], kp.shape[1], kp.shape[2]
+    # one 1024-token sequence: the int8 runs' longest unchunked wave
+    gl = torch.Generator(device=dev).manual_seed(2)
+    ql, kl_, vl_ = (torch.randn((1, 1024, h, d), generator=gl, device=dev
+                                ).to(torch.bfloat16) for _ in range(3))
+    qlt, klt, vlt = (t.transpose(1, 2).contiguous() for t in (ql, kl_, vl_))
+    check_close(torch, "B2 (1, 1024) bfloat16", flash_prefill(ql, kl_, vl_),
+                ref.flash_prefill_plain(ql, kl_, vl_), TOL_BF16_OUT)
+    timing["B2 (1, 1024)"] = dict(
+        ms=time_ms(torch, lambda: flash_prefill(ql, kl_, vl_), 50),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qlt, klt, vlt, is_causal=True), 50),
+        bytes=4 * nbytes(ql), flops=4 * d * h * 1024 * 1025 // 2,
+        dtype="bfloat16")
+    # B4's two bodies on the same verify inputs at B4's serving split: the
+    # key walk (from a copy of B4 built with every row count on the walk)
+    # and B3's tensor-core body (prefix_kernel, through B3's own entry), at
+    # llama-13b's 5 query rows per kv head, granite-8b's 20 (GQA 4) and
+    # llama3-405b's 80 (GQA 16); B4 runs the walk up to 8 rows, B3's body
+    # above (csrc/paged_verify.cu)
+    gen_v = torch.Generator(device=dev).manual_seed(4)
+    v405 = verify_case(torch, gen_v, dev, torch.bfloat16, b=4, s=5, h=128,
+                       kv=8, d=128, bs=bs, nb=nb, lengths=[
+                           int(x) for x in torch.randint(
+                               1, nb * bs - 7, (4,), generator=gen_v,
+                               device=dev)])
+    shapes = [(name, results[("B4", name, "bfloat16")]["args"])
+              for name in ("llama-13b", "granite-8b GQA")]
+    shapes.append(("llama3-405b heads", v405))
+    r4g = results[("B4", "granite-8b GQA", "bfloat16")]
+    timing["B4 granite-8b GQA"] = verify_timing(torch, r4g["args"], {},
+                                                r4g["pps"], 100)
+    flags = _lib.NVCC_FLAGS
+    _lib.NVCC_FLAGS = flags + ("-DREPRO_VERIFY_WALK_ROWS=1024",)
+    _lib._loaded.pop("paged_verify", None)
+    try:
+        for label, args in shapes:
+            _, sv, hv, _ = args[0].shape
+            kvv = args[1].shape[2]
+            pps_g = verify_pages_per_split(args[0], kvv, nb)
+            for body, fn in (("walk", paged_verify_partials),
+                             ("B3 body", paged_prefix_partials)):
+                check_close(torch, f"B4 {body} on verify inputs, {label}",
+                            fn(*args, pages_per_split=pps_g),
+                            ref.paged_verify_partials_plain(
+                                *args, pages_per_split=pps_g), TOL_F32)
+                timing[f"B4 {body} {label}, S*G {sv * hv // kvv}"] = \
+                    verify_timing(torch, args, {}, pps_g, 100, fn)
+    finally:
+        _lib.NVCC_FLAGS = flags
+        _lib._loaded.pop("paged_verify", None)
+    # B5 with every key valid: like for like with SDPA, which then needs no
+    # mask
+    q5, k5, v5, valid5 = results[("B5", "llama-13b", "bfloat16")]["args"]
+    qt5, kt5, vt5 = q5[:, :, None], k5.transpose(1, 2), v5.transpose(1, 2)
+    all5 = torch.ones_like(valid5)
+    check_close(torch, "B5 every key valid",
+                split_kv_decode_partials(q5, k5, v5, all5, block_k=512),
+                ref.split_kv_decode_partials_plain(q5, k5, v5, all5,
+                                                   block_k=512), TOL_F32)
+    timing["B5 every key valid"] = dict(
+        b5_timing(torch, q5, k5, v5, all5, 200),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt5, kt5, vt5), 50))
+    names = ("B1", "B1-int8", "B2", "B3", "B4", "B4-int8", "B5")
+    errs = {kname: max(v["err"] for (kk, _, _), v in results.items()
+                       if kk == kname) for kname in names}
+    return timing, errs
+
+
+def verify_timing(torch, args, sc, pps, iters, fn=None):
+    """A verify kernel (B4, B4-int8, or ``fn``: B3's body on the same
+    inputs) at ``pps`` pages per split; its bytes: q, the table and
+    positions, each live page's K/V (int8: and their f32 scales) and
+    positions, and the partials its split writes."""
+    from repro_torch.kernels.split_kv_decode import paged_verify_partials
+    fn = fn or paged_verify_partials
+    qq, kk, _, pp_, tb_, pq_ = args
+    bq, sq, hq, dq = qq.shape
+    nbq, bsq, kvq = tb_.shape[1], kk.shape[1], kk.shape[2]
+    n_live = torch.unique(tb_[tb_ >= 0]).numel()
+    per_page = 2 * kk[0].numel() * kk.element_size() + bsq * 4 \
+        + (2 * bsq * kvq * 4 if sc else 0)
+    out_b = bq * -(-nbq // pps) * sq * hq * (dq + 2) * 4
+    return dict(
+        ms=time_ms(torch, lambda: fn(*args, **sc, pages_per_split=pps),
+                   iters),
+        bytes=nbytes(qq, tb_, pq_) + n_live * per_page + out_b,
+        flops=4 * dq * hq * visible_pairs(torch, pp_, tb_, pq_, None),
+        dtype="bfloat16", pages_per_split=pps)
+
+
+def b5_timing(torch, q5, k5, v5, valid, iters):
+    """B5 over ``valid``; its bytes: q, the validity flags, K and V of the
+    key tiles that hold a valid key (the tiles it reads) and the
+    per-block partials."""
+    from repro_torch.kernels.split_kv_decode import (decode_tile_keys,
+                                                     split_kv_decode_partials)
+    b5, l5, kv, d = k5.shape
+    h = q5.shape[1]
+    tile5 = decode_tile_keys(d, k5.element_size())
+    blocks = valid.reshape(b5, l5 // 512, 512)
+    n_tiles = -(-512 // tile5)
+    pad = n_tiles * tile5 - 512
+    tiles = torch.nn.functional.pad(blocks, (0, pad)).reshape(
+        b5, l5 // 512, n_tiles, tile5)
+    keys = tiles.any(dim=3).float() @ torch.as_tensor(
+        [min(tile5, 512 - t * tile5) for t in range(n_tiles)],
+        dtype=torch.float32, device=valid.device)
+    read = int(keys.sum()) * kv * d * k5.element_size() * 2
+    return dict(
+        ms=time_ms(torch, lambda: split_kv_decode_partials(
+            q5, k5, v5, valid, block_k=512), iters),
+        bytes=nbytes(q5, valid) + read
+        + b5 * (l5 // 512) * h * (d + 2) * 4,
+        flops=4 * d * h * int(valid.sum()), dtype="bfloat16")
+
+
+def serving_timings(torch, results, label, tag):
+    """Each kernel's card time, plain and library time at one served
+    stack's bf16 shapes (``kernel_phase``'s ``label`` case), under the keys
+    "<kernel><tag>"; B1, B1-int8, B3, B4 and B4-int8 at the serving split,
+    and again at one partial per page ("<kernel><tag> per page")."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   paged_prefix_partials)
+    from repro_torch.kernels.split_kv_decode import paged_decode_partials
+
+    timing = {}
+    r1 = results[("B1", label, "bfloat16")]
     q, kp, vp, pp, tb, pq = r1["args"]
     b, h, d = q.shape
     nb, bs, kv = tb.shape[1], kp.shape[1], kp.shape[2]
@@ -531,7 +703,7 @@ def kernel_phase(torch):
         """B1 (or B1-int8) at ``pps`` pages per split; its bytes: q, the
         table and positions, each live page's K/V (int8: and their f32
         scales) and positions, and the partials written."""
-        r = results[(key, "llama-13b", "bfloat16")]
+        r = results[(key, label, "bfloat16")]
         args, sc = r["args"], r["scales"]
         pairs = visible_pairs(torch, pp, tb, pq, None)
         n_live = torch.unique(tb[tb >= 0]).numel()
@@ -547,14 +719,14 @@ def kernel_phase(torch):
 
     pps1 = r1["pps"]
     # JAX's one partial per page, reported on a line of its own
-    timing["B1 per page"] = b1_timing("B1", 1, 200)
-    timing["B1"] = dict(
+    timing[f"B1{tag} per page"] = b1_timing("B1", 1, 200)
+    timing[f"B1{tag}"] = dict(
         b1_timing("B1", pps1, 200),
         plain_ms=time_ms(torch, lambda: ref.paged_decode_partials_plain(
             q, kp, vp, pp, tb, pq, pages_per_split=pps1), 20),
         library_ms=time_ms(torch, lib_decode, 50))
 
-    r3 = results[("B3", "llama-13b", "bfloat16")]
+    r3 = results[("B3", label, "bfloat16")]
     q3, kp3, vp3, pp3, tb3, pq3 = r3["args"]
     b3, s3 = q3.shape[:2]
     pps3 = r3["pps"]
@@ -582,59 +754,26 @@ def kernel_phase(torch):
             flops=4 * d * h * pairs, dtype="bfloat16", pages_per_split=pps)
 
     # JAX's one partial per page, reported on a line of its own
-    timing["B3 per page"] = b3_timing(1, 20)
-    timing["B3"] = dict(
+    timing[f"B3{tag} per page"] = b3_timing(1, 20)
+    timing[f"B3{tag}"] = dict(
         b3_timing(pps3, 50),
         plain_ms=time_ms(torch, lambda: ref.paged_prefix_partials_plain(
             q3, kp3, vp3, pp3, tb3, pq3, pages_per_split=pps3), 5),
         library_ms=time_ms(torch, lib_prefix, 20))
 
-    r2 = results[("B2", "llama-13b", "bfloat16")]
-    q2, k2, v2 = r2["args"]
+    q2, k2, v2 = results[("B2", label, "bfloat16")]["args"]
     b2, s2 = q2.shape[:2]
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q2, k2, v2))
-    timing["B2"] = dict(
+    timing[f"B2{tag}"] = dict(
         ms=time_ms(torch, lambda: flash_prefill(q2, k2, v2), 50),
         plain_ms=time_ms(torch, lambda: ref.flash_prefill_plain(q2, k2, v2),
                          10),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 50),
+            qt, kt, vt, is_causal=True, enable_gqa=h != kv), 50),
         bytes=nbytes(q2, k2, v2) + nbytes(q2),        # q, k, v in; out
         flops=4 * d * h * b2 * s2 * (s2 + 1) // 2, dtype="bfloat16")
-    # one 1024-token sequence: the int8 runs' longest unchunked wave
-    gl = torch.Generator(device=dev).manual_seed(2)
-    ql, kl_, vl_ = (torch.randn((1, 1024, h, d), generator=gl, device=dev
-                                ).to(torch.bfloat16) for _ in range(3))
-    qlt, klt, vlt = (t.transpose(1, 2).contiguous() for t in (ql, kl_, vl_))
-    check_close(torch, "B2 (1, 1024) bfloat16", flash_prefill(ql, kl_, vl_),
-                ref.flash_prefill_plain(ql, kl_, vl_), TOL_BF16_OUT)
-    timing["B2 (1, 1024)"] = dict(
-        ms=time_ms(torch, lambda: flash_prefill(ql, kl_, vl_), 50),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qlt, klt, vlt, is_causal=True), 50),
-        bytes=4 * nbytes(ql), flops=4 * d * h * 1024 * 1025 // 2,
-        dtype="bfloat16")
 
-    def verify_timing(args, sc, pps, iters, fn=paged_verify_partials):
-        """A verify kernel (B4, B4-int8, or ``fn``: B3's body on the same
-        inputs) at ``pps`` pages per split; its bytes: q, the table and
-        positions, each live page's K/V (int8: and their f32 scales) and
-        positions, and the partials its split writes."""
-        qq, kk, _, pp_, tb_, pq_ = args
-        bq, sq, hq, dq = qq.shape
-        nbq, bsq, kvq = tb_.shape[1], kk.shape[1], kk.shape[2]
-        n_live = torch.unique(tb_[tb_ >= 0]).numel()
-        per_page = 2 * kk[0].numel() * kk.element_size() + bsq * 4 \
-            + (2 * bsq * kvq * 4 if sc else 0)
-        out_b = bq * -(-nbq // pps) * sq * hq * (dq + 2) * 4
-        return dict(
-            ms=time_ms(torch, lambda: fn(*args, **sc, pages_per_split=pps),
-                       iters),
-            bytes=nbytes(qq, tb_, pq_) + n_live * per_page + out_b,
-            flops=4 * dq * hq * visible_pairs(torch, pp_, tb_, pq_, None),
-            dtype="bfloat16", pages_per_split=pps)
-
-    r4 = results[("B4", "llama-13b", "bfloat16")]
+    r4 = results[("B4", label, "bfloat16")]
     q4, kp4, vp4, pp4, tb4, pq4 = r4["args"]
     b4 = q4.shape[0]
 
@@ -651,49 +790,12 @@ def kernel_phase(torch):
 
     pps4 = r4["pps"]
     # JAX's one partial per page, reported on a line of its own
-    timing["B4 per page"] = verify_timing(r4["args"], {}, 1, 200)
-    timing["B4"] = dict(
-        verify_timing(r4["args"], {}, pps4, 200),
+    timing[f"B4{tag} per page"] = verify_timing(torch, r4["args"], {}, 1, 200)
+    timing[f"B4{tag}"] = dict(
+        verify_timing(torch, r4["args"], {}, pps4, 200),
         plain_ms=time_ms(torch, lambda: ref.paged_verify_partials_plain(
             *r4["args"], pages_per_split=pps4), 20),
         library_ms=time_ms(torch, lib_verify, 50))
-    # B4's two bodies on the same verify inputs at B4's serving split: the
-    # key walk (from a copy of B4 built with every row count on the walk)
-    # and B3's tensor-core body (prefix_kernel, through B3's own entry), at
-    # llama-13b's 5 query rows per kv head, granite-8b's 20 (GQA 4) and
-    # llama3-405b's 80 (GQA 16); B4 runs the walk up to 8 rows, B3's body
-    # above (csrc/paged_verify.cu)
-    gen_v = torch.Generator(device=dev).manual_seed(4)
-    v405 = verify_case(torch, gen_v, dev, torch.bfloat16, b=4, s=5, h=128,
-                       kv=8, d=128, bs=bs, nb=nb, lengths=[
-                           int(x) for x in torch.randint(
-                               1, nb * bs - 7, (4,), generator=gen_v,
-                               device=dev)])
-    shapes = [(name, results[("B4", name, "bfloat16")]["args"])
-              for name in ("llama-13b", "granite-8b GQA")]
-    shapes.append(("llama3-405b heads", v405))
-    r4g = results[("B4", "granite-8b GQA", "bfloat16")]
-    timing["B4 granite-8b GQA"] = verify_timing(r4g["args"], {}, r4g["pps"],
-                                                100)
-    flags = _lib.NVCC_FLAGS
-    _lib.NVCC_FLAGS = flags + ("-DREPRO_VERIFY_WALK_ROWS=1024",)
-    _lib._loaded.pop("paged_verify", None)
-    try:
-        for label, args in shapes:
-            _, sv, hv, _ = args[0].shape
-            kvv = args[1].shape[2]
-            pps_g = verify_pages_per_split(args[0], kvv, nb)
-            for body, fn in (("walk", paged_verify_partials),
-                             ("B3 body", paged_prefix_partials)):
-                check_close(torch, f"B4 {body} on verify inputs, {label}",
-                            fn(*args, pages_per_split=pps_g),
-                            ref.paged_verify_partials_plain(
-                                *args, pages_per_split=pps_g), TOL_F32)
-                timing[f"B4 {body} {label}, S*G {sv * hv // kvv}"] = \
-                    verify_timing(args, {}, pps_g, 100, fn)
-    finally:
-        _lib.NVCC_FLAGS = flags
-        _lib._loaded.pop("paged_verify", None)
 
     def lib_int8(args, scales, s_axis):
         """Dequantize-gather the int8 pages to bf16, then masked SDPA."""
@@ -716,72 +818,36 @@ def kernel_phase(torch):
             qt, kl.transpose(1, 2), vl.transpose(1, 2), attn_mask=mask,
             enable_gqa=True)
 
-    r1q = results[("B1-int8", "llama-13b", "bfloat16")]
-    timing["B1-int8 per page"] = b1_timing("B1-int8", 1, 200)
-    timing["B1-int8"] = dict(
+    r1q = results[("B1-int8", label, "bfloat16")]
+    timing[f"B1-int8{tag} per page"] = b1_timing("B1-int8", 1, 200)
+    timing[f"B1-int8{tag}"] = dict(
         b1_timing("B1-int8", pps1, 200),
         plain_ms=time_ms(torch, lambda: ref.paged_decode_partials_plain(
             *r1q["args"], **r1q["scales"], pages_per_split=pps1), 20),
         library_ms=time_ms(torch, lambda: lib_int8(r1q["args"],
                                                    r1q["scales"], False),
                            50))
-    r4q = results[("B4-int8", "llama-13b", "bfloat16")]
-    timing["B4-int8 per page"] = verify_timing(r4q["args"], r4q["scales"],
-                                               1, 200)
+    r4q = results[("B4-int8", label, "bfloat16")]
+    timing[f"B4-int8{tag} per page"] = verify_timing(
+        torch, r4q["args"], r4q["scales"], 1, 200)
     pps4q = r4q["pps"]
-    timing["B4-int8"] = dict(
-        verify_timing(r4q["args"], r4q["scales"], pps4q, 200),
+    timing[f"B4-int8{tag}"] = dict(
+        verify_timing(torch, r4q["args"], r4q["scales"], pps4q, 200),
         plain_ms=time_ms(torch, lambda: ref.paged_verify_partials_plain(
             *r4q["args"], **r4q["scales"], pages_per_split=pps4q), 20),
         library_ms=time_ms(torch, lambda: lib_int8(r4q["args"],
                                                    r4q["scales"], True), 50))
 
-    r5 = results[("B5", "llama-13b", "bfloat16")]
-    q5, k5, v5, valid5 = r5["args"]
-    b5, l5 = k5.shape[:2]
+    q5, k5, v5, valid5 = results[("B5", label, "bfloat16")]["args"]
     qt5, kt5, vt5 = q5[:, :, None], k5.transpose(1, 2), v5.transpose(1, 2)
-    tile5 = decode_tile_keys(d, k5.element_size())
-
-    def b5_timing(valid, iters):
-        """B5 over ``valid``; its bytes: q, the validity flags, K and V of
-        the key tiles that hold a valid key (the tiles it reads) and the
-        per-block partials."""
-        blocks = valid.reshape(b5, l5 // 512, 512)
-        n_tiles = -(-512 // tile5)
-        pad = n_tiles * tile5 - 512
-        tiles = torch.nn.functional.pad(blocks, (0, pad)).reshape(
-            b5, l5 // 512, n_tiles, tile5)
-        keys = tiles.any(dim=3).float() @ torch.as_tensor(
-            [min(tile5, 512 - t * tile5) for t in range(n_tiles)],
-            dtype=torch.float32, device=valid.device)
-        read = int(keys.sum()) * kv * d * k5.element_size() * 2
-        return dict(
-            ms=time_ms(torch, lambda: split_kv_decode_partials(
-                q5, k5, v5, valid, block_k=512), iters),
-            bytes=nbytes(q5, valid) + read
-            + b5 * (l5 // 512) * h * (d + 2) * 4,
-            flops=4 * d * h * int(valid.sum()), dtype="bfloat16")
-
-    timing["B5"] = dict(
-        b5_timing(valid5, 200),
+    timing[f"B5{tag}"] = dict(
+        b5_timing(torch, q5, k5, v5, valid5, 200),
         plain_ms=time_ms(torch, lambda: ref.split_kv_decode_partials_plain(
             q5, k5, v5, valid5, block_k=512), 20),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt5, kt5, vt5, attn_mask=valid5[:, None, None, :]), 50))
-    # every key valid: like for like with SDPA, which then needs no mask
-    all5 = torch.ones_like(valid5)
-    check_close(torch, "B5 every key valid",
-                split_kv_decode_partials(q5, k5, v5, all5, block_k=512),
-                ref.split_kv_decode_partials_plain(q5, k5, v5, all5,
-                                                   block_k=512), TOL_F32)
-    timing["B5 every key valid"] = dict(
-        b5_timing(all5, 200),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt5, kt5, vt5), 50))
-    names = ("B1", "B1-int8", "B2", "B3", "B4", "B4-int8", "B5")
-    errs = {kname: max(v["err"] for (kk, _, _), v in results.items()
-                       if kk == kname) for kname in names}
-    return timing, errs
+            qt5, kt5, vt5, attn_mask=valid5[:, None, None, :],
+            enable_gqa=h != kv), 50))
+    return timing
 
 
 # ---------------------------------------------------------------------------
@@ -792,6 +858,14 @@ def device_us(evt) -> float:
     """Self device time of a profiler entry, in microseconds."""
     return getattr(evt, "self_device_time_total", None) \
         or getattr(evt, "self_cuda_time_total", 0.0)
+
+
+def device_kernels(entries):
+    """The device entries of a profile's ``key_averages()``: its kernels
+    and copies, without ``MoeRanges``' annotation, whose device time
+    repeats its kernels'."""
+    return [e for e in entries if str(e.device_type).endswith("CUDA")
+            and e.key != "moe_apply"]
 
 
 class StepEvents:
@@ -944,12 +1018,14 @@ def served_requests(cfg):
     return reqs
 
 
-def int8_forward_logits(torch, cfg, params, prompt, generated):
+def int8_forward_logits(torch, cfg, params, prompt, generated,
+                        stepwise=False):
     """The port's own int8-KV forward over a served stream, teacher-forced:
     the prompt prefilled into a dense int8 cache (attending over the
     unquantized K/V, as serving does), then every served token but the
-    last decoded in one multi-token step over the quantized cache.  Row i
-    scores the choice of generated[i]."""
+    last decoded over the quantized cache in one multi-token step, or with
+    ``stepwise`` one token a step as serving decodes (the same arithmetic
+    in other GEMM shapes).  Row i scores the choice of generated[i]."""
     from repro_torch.models import transformer as T
 
     n_p, n_g = len(prompt), len(generated)
@@ -957,23 +1033,46 @@ def int8_forward_logits(torch, cfg, params, prompt, generated):
     toks = torch.as_tensor([int(t) for t in prompt], device="cuda")[None]
     lg0, cache, _ = T.apply(cfg, params, toks, cache=cache, mode="prefill",
                             logits_slice="last")
-    if n_g == 1:
-        return lg0
+    lgs = [lg0]
     rest = torch.as_tensor(generated[:-1], device="cuda")[None]
-    lgs, _, _ = T.apply(cfg, params, rest, cache=cache, mode="decode",
-                        logits_slice="all")
-    return torch.cat([lg0, lgs[0]], dim=0)
+    for chunk in (rest.split(1, dim=1) if stepwise else (rest,)):
+        if chunk.shape[1]:
+            lg, cache, _ = T.apply(cfg, params, chunk, cache=cache,
+                                   mode="decode", logits_slice="all")
+            lgs.append(lg[0])
+    return torch.cat(lgs, dim=0)
+
+
+def token_gaps(torch, lg, tokens):
+    """How far below its row's best logit each chosen token's logit is."""
+    got = lg.gather(1, torch.as_tensor(tokens, device=lg.device)[:, None])
+    return lg.max(dim=1).values - got[:, 0]
 
 
 def check_streams(torch, cfg, params, label, reqs, launches, needed,
-                  forbidden=(), bf16_streams=None):
+                  forbidden=(), bf16_streams=None, score=True):
     """Every request got its full budget, the kernels in ``needed`` ran and
     those in ``forbidden`` did not, and — teacher-forced through the port's
     own forward (the plain monolithic one; for an int8-KV stack
     ``int8_forward_logits``) — every served token is within TOKEN_GAP_TOL
     of its step's best logit.  For int8 also reports, as information, the
-    teacher-forced argmax agreement with the bf16 forward (JAX's policy
-    asks >= 90 %) and the served tokens equal to the bf16 run's."""
+    teacher-forced argmax agreement with the unquantized forward (JAX's
+    policy asks >= 90 %) and the served tokens equal to the unquantized
+    run's.
+
+    A MoE stack over int8 KV scores its first tokens only, which come from
+    the prefill's logits over unquantized K/V; its decoded tokens are
+    reported, not scored.  They read the quantized cache, and no reference
+    follows them: an f32 rounding difference of another GEMM shape moves a
+    K/V entry across an int8 rounding boundary, the step moves the
+    attention output slightly, and where that flips the router's top-k
+    the expert outputs (~100x the attention's at JAX's 1/sqrt(E) expert
+    scale, ROADMAP R4) move the logits by whole units.  The report shows
+    it: the gaps against two references that differ only in GEMM shapes
+    (one multi-token decode step; one token a step, as serving decodes),
+    and how far the two references differ from each other.  With
+    ``score`` off (a bf16 MoE stack, PERF.md §7) every gap is reported and
+    none fails the run."""
     from repro_torch.models import transformer as T
 
     for r in reqs:
@@ -988,9 +1087,11 @@ def check_streams(torch, cfg, params, label, reqs, launches, needed,
         if launches[name] != 0:
             fail(f"[{label}] kernel {name} was launched {launches[name]} "
                  f"times; this path must not run it")
+    moe_int8 = cfg.kv_quant and cfg.n_experts > 0
     worst = 0.0
     spread = []
-    agree = total = same = 0
+    agree = total = same = scored = over = 0
+    multi, step_gaps, ref_diff, ref_argmax = [], [], [], 0
     for r in reqs:
         stream = list(map(int, r.prompt)) + r.generated
         toks = torch.as_tensor(stream[:-1], device="cuda")[None]
@@ -1007,21 +1108,47 @@ def check_streams(torch, cfg, params, label, reqs, launches, needed,
                                                    bf16_streams[r.rid]))
         if not torch.isfinite(lg).all():
             fail(f"[{label}] request {r.rid}: non-finite logits")
-        got = lg.gather(1, torch.as_tensor(r.generated, device="cuda")[:, None])
-        gap = float((lg.max(dim=1).values - got[:, 0]).max())
+        if moe_int8:
+            step = int8_forward_logits(torch, cfg, params, r.prompt,
+                                       r.generated, stepwise=True).float()
+            if not torch.isfinite(step).all():
+                fail(f"[{label}] request {r.rid}: non-finite logits")
+            multi += token_gaps(torch, lg, r.generated)[1:].tolist()
+            step_gaps += token_gaps(torch, step, r.generated)[1:].tolist()
+            ref_diff.append(float((lg - step)[1:].abs().max()))
+            ref_argmax += int((lg.argmax(dim=1) != step.argmax(dim=1))[1:]
+                              .sum())
+            lg = lg[:1]
+        gaps = token_gaps(torch, lg, r.generated[:len(lg)])
+        gap = float(gaps.max())
+        scored += len(lg)
+        over += int((gaps > TOKEN_GAP_TOL).sum())
         worst = max(worst, gap)
         spread.append(float(lg.std()))
-        if gap > TOKEN_GAP_TOL:
+        if gap > TOKEN_GAP_TOL and score:
             fail(f"[{label}] request {r.rid}: a served token is {gap:.3f} "
                  f"below its step's best logit (tolerance {TOKEN_GAP_TOL})")
-    say(f"[{label}] teacher-forced: worst served-token gap {worst:.4f} "
-        f"(tolerance {TOKEN_GAP_TOL}; logit std "
-        f"{sum(spread) / len(spread):.3f})")
+    say(f"[{label}] teacher-forced{'' if score else ', reported and not scored'}"
+        f": worst served-token gap {worst:.4f}, {over}/{scored} "
+        f"{'scored ' if score else ''}tokens over the tolerance "
+        f"{TOKEN_GAP_TOL} (logit std {sum(spread) / len(spread):.3f})")
+    if moe_int8:
+        def over(gaps):
+            return sum(g > TOKEN_GAP_TOL for g in gaps)
+        n = len(multi)
+        say(f"[{label}] decoded tokens over int8 KV in a MoE stack, reported "
+            f"and not scored (check_streams says why): against the "
+            f"multi-token reference {over(multi)}/{n} steps over "
+            f"{TOKEN_GAP_TOL}, largest gap {max(multi):.4f}; against the "
+            f"one-token-a-step reference {over(step_gaps)}/{n}, largest "
+            f"{max(step_gaps):.4f}; the two references differ by up to "
+            f"{max(ref_diff):.4f} logits and in argmax at {ref_argmax}/{n} "
+            f"steps")
     if cfg.kv_quant:
-        say(f"[{label}] int8 vs bf16 forward, teacher-forced on the served "
-            f"streams: argmax agrees on {agree}/{total} steps "
+        say(f"[{label}] int8 vs unquantized forward, teacher-forced on the "
+            f"served streams: argmax agrees on {agree}/{total} steps "
             f"({agree / max(total, 1):.1%}); served tokens equal to the "
-            f"bf16 plain run's at the same place: {same}/{total}")
+            f"unquantized plain run's at the same place: {same}/{total}")
 
 
 def say_speculation(label, card, stats, iter_ms) -> None:
@@ -1110,10 +1237,12 @@ def self_draft_run(torch, card, cfg, params):
 
 
 def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
-              needed, forbidden, profile, bf16_streams=None, graphs=True):
+              needed, forbidden, profile, bf16_streams=None, graphs=True,
+              score=True):
     """One run through ``Server`` (decode forwards replayed from CUDA
     graphs, or with ``graphs`` off run eagerly over the same static
-    buffers); returns its launches, streams and decode figures."""
+    buffers); returns its launches, streams and decode figures.
+    ``score``: as ``check_streams``'."""
     from repro_torch.kernels import ops
     from repro_torch.serving.api import Server
     from repro_torch.serving.engine import EngineConfig
@@ -1223,7 +1352,7 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
                                  or summary["spec_proposed"] <= 0):
         fail(f"[{label}] no speculative iteration scored a proposal")
     check_streams(torch, cfg, params, label, reqs, launches, needed,
-                  forbidden, bf16_streams)
+                  forbidden, bf16_streams, score)
     prefill_tokens = sum(m.tokens_prefilled for m in orch.prefill_members()) \
         - clocks["profiled_tokens"]
     say(f"[{label}] served {len(reqs)} requests: prompts "
@@ -1259,7 +1388,7 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
     if "profile" in prof:
         evs = prof["profile"].key_averages()
         # device entries only: an aten op's device time repeats its kernels'
-        kern = [e for e in evs if str(e.device_type).endswith("CUDA")]
+        kern = device_kernels(evs)
         busy = sum(device_us(e) for e in kern) / 1e3
         n_aten = sum(e.count for e in evs if e.key.startswith("aten::"))
         top = sorted(kern, key=device_us, reverse=True)[:5]
@@ -1296,7 +1425,8 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
             "decode_tps": clocks["decode_tokens"]
             / max(clocks["decode_s"], 1e-9),
             "prefill_tps": prefill_tokens / max(clocks["prefill_s"], 1e-9),
-            "peak_gib": peak / 2**30}
+            "peak_gib": peak / 2**30,
+            "decode_profile": prof.get("profile")}
 
 
 def say_wave_profile(label, card, prof) -> None:
@@ -1305,8 +1435,7 @@ def say_wave_profile(label, card, prof) -> None:
     and the card's busy share of the wave's wall time (profiler on)."""
     if "wave" not in prof:
         fail(f"[{label}] no profiled prefill wave launched B3")
-    kern = [e for e in prof["wave"].key_averages()
-            if str(e.device_type).endswith("CUDA")]
+    kern = device_kernels(prof["wave"].key_averages())
     fams = {"B2": 0.0, "B3": 0.0, "GEMM": 0.0, "other": 0.0}
     counts = dict.fromkeys(fams, 0)
     for e in kern:
@@ -1387,7 +1516,7 @@ def check_views(torch, label, params, engines) -> None:
 
 def say_streams_vs_plain(label, reqs, plain_streams) -> None:
     same = sum(r.generated == plain_streams[r.rid] for r in reqs)
-    say(f"[{label}] streams identical to the bf16 plain run's: "
+    say(f"[{label}] streams identical to the plain run's: "
         f"{same}/{len(reqs)}")
 
 
@@ -1487,16 +1616,7 @@ def force_span_moves(torch, card, label):
                   "three decode iterations with two residents")
         for src, dst in (("decode0.0", "decode0.1"),
                          ("decode1.1", "decode1.0")):
-            ok, ms, cost = timed_action(torch, orch, MigrationKind.LAYER,
-                                        src, dst, 4)
-            if not ok:
-                fail(f"[{label}] the span move {src} -> {dst} was refused")
-            rec = orch.span_move_log[-1]
-            say(f"[{label}] span move {src} -> {dst}: {rec['layers']} "
-                f"layers in {ms:.1f} ms host wall clock (synchronised), "
-                f"weight_bytes {rec['weight_bytes']} (views: re-sliced, not "
-                f"copied), kv_bytes {rec['kv_bytes']}, billed "
-                f"{cost * 1e3:.3f} ms (Eq. 4/11, H100 data sheet) [{card}]")
+            forced_span_move(torch, card, label, orch, src, dst, 4)
         # the router keeps the pipelines level: move one pipeline's
         # residents onto the other (extract/adopt), then let KV_HEADS
         # rebalance them
@@ -1514,6 +1634,39 @@ def force_span_moves(torch, card, label):
             f"{ms:.1f} ms host wall clock (synchronised), billed "
             f"{cost * 1e3:.3f} ms [{card}]")
         return 3
+    return force
+
+
+def forced_span_move(torch, card, label, orch, src, dst, n_layers) -> None:
+    """Force a span move of ``n_layers`` layers ``src`` -> ``dst`` and print
+    its host ms, the bytes it accounts and its billed cost."""
+    from repro_torch.core.migration import MigrationKind
+
+    ok, ms, cost = timed_action(torch, orch, MigrationKind.LAYER, src, dst,
+                                n_layers)
+    if not ok:
+        fail(f"[{label}] the span move {src} -> {dst} was refused")
+    rec = orch.span_move_log[-1]
+    say(f"[{label}] span move {src} -> {dst}: {rec['layers']} "
+        f"layers in {ms:.1f} ms host wall clock (synchronised), "
+        f"weight_bytes {rec['weight_bytes']} (views: re-sliced, not "
+        f"copied), kv_bytes {rec['kv_bytes']}, billed "
+        f"{cost * 1e3:.3f} ms (Eq. 4/11, H100 data sheet) [{card}]")
+
+
+def force_one_span_move(torch, card, label):
+    """(i): after the third decode iteration, once a pipeline holds a
+    request, move a quarter of the stack from its first stage to its
+    second (the KV of its residents moves with the layers)."""
+    def force(orch, srv):
+        run_until(orch, srv, lambda: orch.metrics.decode_iters >= 3
+                  and any(p.active for p in orch.decode_pipes),
+                  "three decode iterations with a resident")
+        pipe = max(orch.decode_pipes, key=lambda p: p.active)
+        src, dst = (e.name for e in pipe.engines)
+        forced_span_move(torch, card, label, orch, src, dst,
+                         orch.cfg.n_layers // 4)
+        return 1
     return force
 
 
@@ -1939,6 +2092,313 @@ def cli_phase(card) -> None:
 
 
 # ---------------------------------------------------------------------------
+# MoE stacks: granite-moe-3b-a800m at full size, grok-1-314b at 2 layers
+# ---------------------------------------------------------------------------
+
+# the port's attention kernels, by their CUDA symbols
+ATTENTION_SYMBOLS = ("paged_decode_kernel", "paged_verify", "flash_kernel",
+                     "prefix_kernel")
+MOE_FAMILIES = ("expert GEMMs", "MoE's other ops (router, sort, gathers, "
+                "activation, combine)", "attention kernels", "the rest")
+
+
+class RouterLoad:
+    """While active, keeps ``aux["router_load"]`` of the first prefill
+    forward (one served wave) and the shape of its tokens; the load stays
+    on the card until ``say`` reads it, after the run's clocks."""
+
+    def __init__(self, torch):
+        from repro_torch.models import transformer as T
+        self.T, self.wave = T, None
+
+    def __enter__(self):
+        orig = self.orig = self.T.apply
+
+        def apply(cfg, params, tokens, **kw):
+            out = orig(cfg, params, tokens, **kw)
+            if kw.get("mode") == "prefill" and self.wave is None:
+                self.wave = (tuple(tokens.shape[:2]), out[2]["router_load"])
+            return out
+
+        self.T.apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        self.T.apply = self.orig
+
+    def say(self, label, card) -> None:
+        if self.wave is None:
+            fail(f"[{label}] no prefill wave reported a router load")
+        (rows, n), load = self.wave
+        load = load.float().cpu()
+        e = load.numel()
+        if abs(float(load.sum()) - 1.0) > 1e-4:
+            fail(f"[{label}] router load sums to {float(load.sum())}")
+        say(f"[{label}] router_load of the first served wave ({rows} rows x "
+            f"{n} tokens, mean over the layers): largest share "
+            f"{float(load.max()):.4f} (expert {int(load.argmax())}), smallest "
+            f"{float(load.min()):.4f} (expert {int(load.argmin())}); even "
+            f"share {1 / e:.4f}, largest x E = {float(load.max()) * e:.2f} "
+            f"[{card}]")
+
+
+class MoeRanges:
+    """While active, each ``moe_apply`` call made under the profiler runs
+    inside a ``record_function("moe_apply")`` range, so an eager profile
+    can tell the experts' and the dispatch's kernels from the rest; with
+    the profiler off the call goes straight through."""
+
+    def __init__(self, torch):
+        from repro_torch.models import layers as L
+        self.torch, self.L = torch, L
+
+    def __enter__(self):
+        orig = self.orig = self.L.moe_apply
+        rf = self.torch.profiler.record_function
+        profiling = self.torch.autograd._profiler_enabled
+
+        def moe_apply(*a, **kw):
+            if not profiling():
+                return orig(*a, **kw)
+            with rf("moe_apply"):
+                return orig(*a, **kw)
+
+        self.L.moe_apply = moe_apply
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_apply = self.orig
+
+
+def kernel_family(name: str, op) -> str:
+    """The family of a kernel ``name`` launched by profiler event ``op``."""
+    if any(sym in name for sym in ATTENTION_SYMBOLS):
+        return "attention kernels"
+    inside, e = False, op
+    while e is not None:
+        if e.name == "moe_apply":
+            inside = True
+            break
+        e = getattr(e, "cpu_parent", None)
+    if not inside:
+        return "the rest"
+    return MOE_FAMILIES[0] if op.name == "aten::bmm" else MOE_FAMILIES[1]
+
+
+def eager_families(prof):
+    """{kernel name: {family: device us}} of an eager profile, each kernel
+    by the op that launched it (``MoeRanges`` on)."""
+    out = {}
+    for e in prof.events():
+        for k in getattr(e, "kernels", None) or ():
+            fam = kernel_family(k.name, e)
+            d = out.setdefault(k.name, {})
+            d[fam] = d.get(fam, 0.0) + k.duration
+    return out
+
+
+def say_moe_families(label, card, replayed, eager) -> None:
+    """Device ms by family of one profiled decode iteration: the eager
+    one exactly (each kernel by its launching op), the replayed one with
+    each kernel name split as its launches split in the eager iteration
+    (a graph replays the same kernels; its launches have no op)."""
+    if replayed is None or eager is None:
+        fail(f"[{label}] no profiled decode iteration")
+    fams = eager_families(eager)
+    for name, prof in (("eager", eager), ("replayed", replayed)):
+        kern = device_kernels(prof.key_averages())
+        busy = sum(device_us(e) for e in kern) / 1e3
+        if busy <= 0 or not fams:
+            say(f"[{label}] decode iteration by family ({name}): not "
+                f"measured (the profiler recorded no device time or no "
+                f"kernel-to-op links)")
+            continue
+        ms = dict.fromkeys(MOE_FAMILIES, 0.0)
+        unseen = 0.0
+        for e in kern:
+            split = fams.get(e.key)
+            us = device_us(e)
+            if not split:
+                fam = kernel_family(e.key, None)
+                ms[fam] += us / 1e3
+                unseen += us / 1e3
+                continue
+            tot = sum(split.values())
+            for fam, v in split.items():
+                ms[fam] += us * v / tot / 1e3
+        say(f"[{label}] decode iteration {PROFILE_ITER} ({name}) device ms "
+            f"by family: " + "; ".join(
+                f"{k} {v:.3f} ms ({v / busy:.0%})" for k, v in ms.items())
+            + f"; busy {busy:.3f} ms in {sum(e.count for e in kern)} "
+            f"kernels ({unseen:.3f} ms of them with no launching op in the "
+            f"eager iteration, by name only) [{card}]")
+
+
+def describe(cfg) -> str:
+    return (f"{cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+            f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, "
+            f"{cfg.activation.value}, vocab {cfg.vocab_size}, "
+            f"{'tied' if cfg.tie_embeddings else 'untied'}; "
+            f"{cfg.param_count() / 1e9:.2f} B parameters)")
+
+
+def say_precision_probe(torch, card, cfg, params, prompt) -> None:
+    """Why the MoE stacks are scored in f32: the same stateless forward
+    over ``prompt`` and over its first ``n - 64`` tokens (the same
+    positions, other GEMM shapes), in f32 and with every weight but the
+    router cast to bf16.  Prints the largest logit difference between
+    the two lengths in each dtype and between the dtypes, beside the
+    logits' spread."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.weights import cast_params
+
+    toks = torch.as_tensor([int(t) for t in prompt], device="cuda")[None]
+    n = toks.shape[1] - 64
+    got = {}
+    for name, p in (("f32", params),
+                    ("bf16", cast_params(params, torch.bfloat16))):
+        full, _, _ = T.apply(cfg, p, toks, mode="train")
+        head, _, _ = T.apply(cfg, p, toks[:, :n], mode="train")
+        got[name] = (full[0, :n].float(), head[0].float())
+        del p, full, head
+    diff = {k: float((a - b).abs().max()) for k, (a, b) in got.items()}
+    cross = float((got["bf16"][1] - got["f32"][1]).abs().max())
+    say(f"[{cfg.name} precision] the same forward over {toks.shape[1]} and "
+        f"its first {n} tokens: largest logit difference f32 "
+        f"{diff['f32']:.3g}, bf16 {diff['bf16']:.3g}; bf16 vs f32 "
+        f"{cross:.3g}; logit std {float(got['f32'][1].std()):.3f} (the "
+        f"teacher-forced rule allows {TOKEN_GAP_TOL}) [{card}]")
+
+
+def moe_phase(torch, card):
+    """(h) granite-moe-3b-a800m at full width and depth, served plain
+    (replayed, then eager), n-gram and with int8 KV; (i) its span
+    pipelines with one forced span move; (j) grok-1-314b at full width,
+    depth cut to 2 layers, plain.  In f32: in bf16 a random-weight MoE
+    stack amplifies rounding through its routing (``say_precision_probe``
+    prints by how much), past what the teacher-forced rule can tell from
+    a fault.  (h) also serves granite-moe plain in bf16, its tokens
+    reported and not scored.  Returns {run: launches}."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+    from repro_torch.models.weights import cast_params
+
+    t0 = time.perf_counter()
+    out, stats = {}, {}
+    cfg = get("granite-moe-3b-a800m")
+    params = T.init(cfg, seed=0, dtype=torch.float32)
+    torch.cuda.synchronize()
+    say(f"{describe(cfg)}, init in f32 (seed 0): "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]")
+    say_precision_probe(torch, card, cfg, params,
+                        served_requests(cfg)[0].prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_pages = ("paged_decode_partials", "paged_verify_partials")
+    # (label, config, speculation, chunk_tokens, graphs, must launch,
+    # must not launch)
+    runs = [("moe-plain", cfg, "off", 256, True,
+             ("paged_decode_partials", "flash_prefill",
+              "paged_prefix_partials"), ("paged_verify_partials",)),
+            ("moe-plain-eager", cfg, "off", 256, False,
+             ("paged_decode_partials", "flash_prefill",
+              "paged_prefix_partials"), ("paged_verify_partials",)),
+            ("moe-ngram", cfg, "ngram", 256, True,
+             ("flash_prefill", "paged_prefix_partials",
+              "paged_verify_partials"), ()),
+            ("moe-int8", cfg.with_kv_quant(), "off", None, True,
+             ("paged_decode_partials_int8", "flash_prefill"),
+             bf16_pages + ("paged_prefix_partials",
+                           "paged_verify_partials_int8"))]
+    for label, rcfg, mode, chunk, graphs, needed, forbidden in runs:
+        with RouterLoad(torch) as rl, MoeRanges(torch):
+            stats[label] = serve_run(
+                torch, card, rcfg, params, label=label, speculation=mode,
+                chunk_tokens=chunk, needed=needed, forbidden=forbidden,
+                profile=label in ("moe-plain", "moe-plain-eager"),
+                bf16_streams=stats.get("moe-plain", {}).get("streams"),
+                graphs=graphs)
+        rl.say(label, card)
+        out[label] = stats[label]["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = stats["moe-plain"], stats["moe-plain-eager"]
+    if a["streams"] != b["streams"]:
+        diff = [rid for rid in a["streams"]
+                if a["streams"][rid] != b["streams"][rid]]
+        fail(f"[moe-plain] replayed streams differ from the eager run's for "
+             f"requests {diff}")
+    if a["launches"] != b["launches"]:
+        fail(f"[moe-plain] replayed launches {a['launches']} differ from the "
+             f"eager run's {b['launches']}")
+    say(f"[moe-plain] CUDA graphs vs eager: decode {a['steady_ms']:.2f} vs "
+        f"{b['steady_ms']:.2f} ms per iteration without capture "
+        f"({a['iter_ms']:.2f} ms with it; compiled steps' device span "
+        f"{a['span_ms']:.2f} vs {b['span_ms']:.2f} ms), prefill "
+        f"{a['prefill_tps']:.1f} vs {b['prefill_tps']:.1f} tok/s, peak "
+        f"memory {a['peak_gib']:.2f} vs {b['peak_gib']:.2f} GiB; streams "
+        f"{len(a['streams'])}/{len(b['streams'])} equal, launch counts "
+        f"equal [{card}]")
+    say_moe_families("moe-plain", card, a["decode_profile"],
+                     b["decode_profile"])
+    for st in stats.values():
+        st.pop("decode_profile", None)
+    out["moe-migrate-i"] = migration_run(
+        torch, card, cfg, params, stats["moe-plain"]["streams"],
+        label="moe-migrate-i", n_prefill=1, decode_split=2,
+        force=force_one_span_move(torch, card, "moe-migrate-i"))
+    # (h) in bf16, the dtype a deployment serves: what it costs on the
+    # card; its tokens are reported, not scored (PERF.md §7)
+    params = cast_params(params, torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with RouterLoad(torch) as rl:
+        st = serve_run(torch, card, cfg, params, label="moe-plain-bf16",
+                       speculation="off", chunk_tokens=256,
+                       needed=runs[0][5], forbidden=runs[0][6],
+                       profile=False, score=False)
+    rl.say("moe-plain-bf16", card)
+    out["moe-plain-bf16"] = st["launches"]
+    f32 = stats["moe-plain"]["streams"]
+    same = sum(a == b for rid, s_ in st["streams"].items()
+               for a, b in zip(s_, f32[rid]))
+    say(f"[moe-plain-bf16] served tokens equal to the f32 plain run's at "
+        f"the same place: {same}/{sum(map(len, f32.values()))} [{card}]")
+    del params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    full = get("grok-1-314b")
+    gcfg = dataclasses.replace(full, name="grok-1-314b-2l", n_layers=2)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init(gcfg, seed=0, dtype=torch.float32)
+    torch.cuda.synchronize()
+    say(f"{describe(gcfg)}: grok-1-314b at full width, depth cut to "
+        f"{gcfg.n_layers} of its {full.n_layers} layers; init in f32 (seed "
+        f"0): {time.perf_counter() - t1:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    with RouterLoad(torch) as rl:
+        st = serve_run(torch, card, gcfg, params, label="grok-2l",
+                       speculation="off", chunk_tokens=256,
+                       needed=("paged_decode_partials", "flash_prefill",
+                               "paged_prefix_partials"),
+                       forbidden=("paged_verify_partials",), profile=False)
+    rl.say("grok-2l", card)
+    out["grok-2l"] = st["launches"]
+    del params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"MoE phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = [
     # (timing key, launch counter, source, TPU kernel it replaces)
@@ -2014,6 +2474,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     cli_phase(card)
+    per_run.update(moe_phase(torch, card))
     launches = {k: sum(run[k] for run in per_run.values())
                 for k in _lib.LAUNCHES}
 

@@ -289,7 +289,7 @@ class PartitionedExecutor:
         per_layer_flops = 2.0 * cfg.active_param_count() \
             / max(cfg.n_layers, 1) * b * s
         for i, (kind, lp) in enumerate(self.layers):
-            x = T._apply_block(
+            x, _ = T._apply_block(
                 cfg, kind, lp, x, positions=positions,
                 state=states[i] if states is not None else None, mode=mode,
                 prefix_aware=False, block_tables=None, paged_kernel=False)

@@ -1,4 +1,4 @@
-"""Neural-net blocks of the port: the dense attention + gated-MLP subset.
+"""Neural-net blocks of the port: attention, the gated MLP and top-k MoE.
 
 Plain functions on tensors, the same conventions as the JAX package's
 ``models/layers.py``:
@@ -17,7 +17,7 @@ scale per (token, kv head) in the ``k_scale``/``v_scale`` leaves
 (``quantize_kv``); attention folds the scales in (``masked_attention``,
 or kernels B1/B4's int8 variants on the paged path).
 
-Not ported yet (later slices): head offload, cross-attention, MoE and the
+Not ported yet (later slices): head offload, cross-attention and the
 recurrent blocks.
 """
 from __future__ import annotations
@@ -60,14 +60,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def dense_init(gen: torch.Generator, shape, dtype, device,
-               scale: Optional[float] = None) -> torch.Tensor:
+def dense_init(gen: Optional[torch.Generator], shape, dtype, device,
+               scale: Optional[float] = None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Normal weights with JAX ``layers._dense``'s scale: 1/sqrt(fan_in)
-    with fan_in = shape[0] (or the given scale), drawn in f32."""
+    with fan_in = shape[0] (or the given scale), drawn in f32.  For an
+    expert leaf (E, d, f) that is 1/sqrt(E), as in JAX.  With ``out`` the
+    draw is cast into it (the caller's stacked layer slot), so the peak is
+    this leaf's f32 draw."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    w.mul_(scale)
+    return w.to(dtype) if out is None else out.copy_(w)
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -93,14 +98,15 @@ def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype,
-                   device) -> Params:
+                   device, out: Optional[Params] = None) -> Params:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    o = out or {}
     return {
-        "wq": dense_init(gen, (d, h, hd), dtype, device),
-        "wk": dense_init(gen, (d, kv, hd), dtype, device),
-        "wv": dense_init(gen, (d, kv, hd), dtype, device),
+        "wq": dense_init(gen, (d, h, hd), dtype, device, out=o.get("wq")),
+        "wk": dense_init(gen, (d, kv, hd), dtype, device, out=o.get("wk")),
+        "wv": dense_init(gen, (d, kv, hd), dtype, device, out=o.get("wv")),
         "wo": dense_init(gen, (h, hd, d), dtype, device,
-                         scale=1.0 / math.sqrt(h * hd)),
+                         scale=1.0 / math.sqrt(h * hd), out=o.get("wo")),
     }
 
 
@@ -347,22 +353,131 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# Gated MLP (SwiGLU / GeGLU)
+# Gated MLP (SwiGLU / GeGLU) and MoE
 # ---------------------------------------------------------------------------
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, dtype,
-             device) -> Params:
+             device, out: Optional[Params] = None) -> Params:
     d, f = cfg.d_model, cfg.d_ff
+    o = out or {}
     return {
-        "w_gate": dense_init(gen, (d, f), dtype, device),
-        "w_up": dense_init(gen, (d, f), dtype, device),
-        "w_down": dense_init(gen, (f, d), dtype, device),
+        "w_gate": dense_init(gen, (d, f), dtype, device, out=o.get("w_gate")),
+        "w_up": dense_init(gen, (d, f), dtype, device, out=o.get("w_up")),
+        "w_down": dense_init(gen, (f, d), dtype, device, out=o.get("w_down")),
     }
+
+
+def _act(cfg: ModelConfig, g: torch.Tensor) -> torch.Tensor:
+    return (F.gelu(g, approximate="tanh") if cfg.activation == Activation.GEGLU
+            else F.silu(g))
 
 
 def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
-    act = (F.gelu(g, approximate="tanh") if cfg.activation == Activation.GEGLU
-           else F.silu(g))
-    return (act * u) @ p["w_down"]
+    return (_act(cfg, g) * u) @ p["w_down"]
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype,
+             device, out: Optional[Params] = None) -> Params:
+    """The router (d, E) in f32 whatever ``dtype``; the experts' gated MLPs
+    stacked: ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d), each at
+    ``dense_init``'s scale, whose fan-in is the leading axis: 1/sqrt(E),
+    as JAX's ``init_moe`` draws them."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    o = out or {}
+    return {
+        "router": dense_init(gen, (d, e), torch.float32, device,
+                             out=o.get("router")),
+        "w_gate": dense_init(gen, (e, d, f), dtype, device,
+                             out=o.get("w_gate")),
+        "w_up": dense_init(gen, (e, d, f), dtype, device, out=o.get("w_up")),
+        "w_down": dense_init(gen, (e, f, d), dtype, device,
+                             out=o.get("w_down")),
+    }
+
+
+MOE_IMPLS = ("dense", "sorted", "local_sorted")
+
+
+def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+              impl: str = "sorted",
+              capacity_factor: Optional[float] = None,
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE, as JAX's ``moe_apply``.  Returns (y, router_load), the
+    load being each expert's share of the T * k (token, expert) pairs.
+
+    The router runs in f32 (``x`` cast to f32 against the f32 router),
+    then softmax, top-k and the top-k gates renormalised to sum to 1.
+
+    impl="dense": every expert on every token, gate-weighted.
+    impl="sorted": the (token, expert) pairs sorted stably by expert into
+    an (E, cap, d) buffer, one batched product per expert weight.
+    ``capacity_factor=None`` is no-drop (cap = T, what serving runs); a
+    float bounds cap at ceil(T * k / E * cf), and pairs ranked past it
+    within their expert, in the stable sorted order, are dropped.
+    impl="local_sorted" (JAX: the sorted dispatch per data shard under
+    ``shard_map``) needs a device mesh and raises.
+
+    Static shapes and no host read-back, so the step can be captured in a
+    CUDA graph.  No scatter-add: the buffer is gathered from the sorted
+    pairs, and each token's k expert rows are gathered back through the
+    inverse permutation and summed over k in one fixed-order reduction,
+    so the output does not vary from run to run."""
+    if impl == "local_sorted":
+        raise NotImplementedError(
+            "moe_apply(impl='local_sorted') shards the dispatch over a "
+            "device mesh: not ported yet (ROADMAP A9, multi-device)")
+    if impl not in MOE_IMPLS:
+        raise ValueError(f"unknown MoE impl {impl!r}")
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    n = t * k
+    dev = x.device
+    xt = x.reshape(t, d)
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+    gate_vals, idx = torch.topk(probs, k, dim=-1)                  # (T, k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    eid = idx.reshape(n)
+    router_load = torch.zeros(e, dtype=torch.float32, device=dev
+                              ).scatter_add_(0, eid, torch.ones(
+                                  n, dtype=torch.float32, device=dev)) / n
+
+    def expert_ffn(xe):                                            # (E, C, d)
+        g = torch.bmm(xe, p["w_gate"])
+        u = torch.bmm(xe, p["w_up"])
+        return torch.bmm(_act(cfg, g) * u, p["w_down"])
+
+    if impl == "dense":
+        h = expert_ffn(xt[None].expand(e, t, d))                   # (E, T, d)
+        w = torch.zeros((t, e), dtype=x.dtype, device=dev).scatter_(
+            1, idx, gate_vals.to(x.dtype))
+        y = torch.einsum("etd,te->td", h, w)
+        return y.reshape(b, s, d), router_load
+
+    cap = t if capacity_factor is None \
+        else int(math.ceil(t * k / e * capacity_factor))
+    cap = max(cap, 1)
+    order = torch.argsort(eid, stable=True)                        # (n,)
+    ar_e = torch.arange(e, dtype=eid.dtype, device=dev)
+    eid_s = eid[order]
+    seg_start = torch.searchsorted(eid_s, ar_e)                    # (E,)
+    count = torch.searchsorted(eid_s, ar_e, right=True) - seg_start
+    # dispatch: slot (expert, r) holds the r-th pair of that expert
+    ar_c = torch.arange(cap, device=dev)
+    filled = ar_c[None] < count[:, None]                           # (E, cap)
+    src = order[(seg_start[:, None] + ar_c[None]).clamp_max(n - 1)] // k
+    buf = torch.where(filled.reshape(-1, 1), xt[src.reshape(-1)],
+                      torch.zeros((), dtype=x.dtype, device=dev))
+    h = expert_ffn(buf.reshape(e, cap, d)).reshape(e * cap, d)
+    # combine: pair i's rank within its expert, from its sorted position
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(n, dtype=order.dtype, device=dev)
+    rank = pos - seg_start[eid]
+    keep = rank < cap
+    dest = eid * cap + torch.where(keep, rank, torch.zeros_like(rank))
+    rows = torch.where(keep[:, None], h[dest],
+                       torch.zeros((), dtype=x.dtype, device=dev))
+    y = (rows * gate_vals.reshape(n, 1).to(x.dtype)).reshape(t, k, d).sum(1)
+    return y.reshape(b, s, d), router_load

@@ -19,10 +19,10 @@ Public API
     logits, cache, aux = apply(cfg, params, tokens, cache=..., mode=...)
 
 This slice runs attention-only stacks (global or sliding-window attention
-with a gated MLP), with bf16/f32 or int8 KV caches (``kv_quant``: int8
-``k``/``v`` leaves plus f32 ``k_scale``/``v_scale`` leaves); other block
-kinds, MoE and cross-attention raise ``NotImplementedError`` (ROADMAP
-A10).
+with a gated MLP or a top-k MoE), with bf16/f32 or int8 KV caches
+(``kv_quant``: int8 ``k``/``v`` leaves plus f32 ``k_scale``/``v_scale``
+leaves); recurrent blocks and cross-attention raise
+``NotImplementedError`` (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -45,14 +45,12 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = []
     if any(k not in _ATTN_KINDS for k in cfg.blocks()):
         missing.append("recurrent blocks (RG-LRU, mLSTM, sLSTM)")
-    if cfg.n_experts > 0:
-        missing.append("MoE")
     if cfg.cross_attention:
         missing.append("cross-attention")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet "
-            "(ROADMAP A10: a later slice of the port)")
+            "(ROADMAP A6: a later slice of the port)")
 
 
 def _group_shapes(cfg: ModelConfig):
@@ -78,29 +76,32 @@ def _layer(tree, r: int):
 # Init
 # ---------------------------------------------------------------------------
 
-def _init_block(cfg: ModelConfig, gen: torch.Generator, dtype,
-                device) -> Params:
-    p: Params = {"norm1": torch.zeros(cfg.d_model, dtype=dtype, device=device),
-                 "attn": L.init_attention(cfg, gen, dtype, device)}
+def _init_block(cfg: ModelConfig, gen: Optional[torch.Generator], dtype,
+                device, out: Optional[Params] = None) -> Params:
+    """One layer's weights; with ``out`` (its views into the stacked
+    group) every leaf is drawn and cast straight into its slot."""
+    o = out or {}
+
+    def zeros(key):
+        return o[key].zero_() if key in o else torch.zeros(
+            cfg.d_model, dtype=dtype, device=device)
+
+    p: Params = {"norm1": zeros("norm1"),
+                 "attn": L.init_attention(cfg, gen, dtype, device,
+                                          out=o.get("attn"))}
     if cfg.d_ff > 0:
-        p["norm2"] = torch.zeros(cfg.d_model, dtype=dtype, device=device)
-        p["ffn"] = L.init_mlp(cfg, gen, dtype, device)
+        p["norm2"] = zeros("norm2")
+        init_ffn = L.init_moe if cfg.n_experts > 0 else L.init_mlp
+        p["ffn"] = init_ffn(cfg, gen, dtype, device, out=o.get("ffn"))
     return p
-
-
-def _stack_into(dst, src, r: int):
-    if isinstance(src, dict):
-        for k in src:
-            _stack_into(dst[k], src[k], r)
-    else:
-        dst[r].copy_(src)
 
 
 def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
          device: D.DeviceLike = None) -> Params:
     """Random weights drawn from ``seed`` on ``device`` (default the CUDA
-    card), with the scales of the JAX ``init``.  Stacked groups are
-    filled one layer at a time, so the peak is one layer's f32 draw."""
+    card), with the scales of the JAX ``init`` (the MoE router in f32).
+    Stacked groups are allocated at once and filled leaf by leaf, so the
+    peak beyond the weights is one leaf's f32 draw."""
     check_supported(cfg)
     dev = D.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -115,15 +116,15 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                                          dtype, dev, scale=0.02)
     groups = []
     for _ in pat:
-        stacked = None
+        if not n_rep:
+            groups.append({})
+            continue
+        shapes = _init_block(cfg, None, dtype, torch.device("meta"))
+        stacked = _tree_map(lambda a: torch.empty(
+            (n_rep,) + tuple(a.shape), dtype=a.dtype, device=dev), shapes)
         for r in range(n_rep):
-            blk = _init_block(cfg, gen, dtype, dev)
-            if stacked is None:
-                stacked = _tree_map(
-                    lambda a: torch.empty((n_rep,) + tuple(a.shape),
-                                          dtype=a.dtype, device=dev), blk)
-            _stack_into(stacked, blk, r)
-        groups.append(stacked if stacked is not None else {})
+            _init_block(cfg, gen, dtype, dev, out=_layer(stacked, r))
+        groups.append(stacked)
     params["groups"] = tuple(groups)
     params["rem"] = tuple(_init_block(cfg, gen, dtype, dev)
                           for _ in range(rem))
@@ -221,8 +222,11 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
                  x: torch.Tensor, *, positions, state, mode,
-                 prefix_aware: bool, block_tables,
-                 paged_kernel: bool) -> torch.Tensor:
+                 prefix_aware: bool, block_tables, paged_kernel: bool,
+                 moe_impl: str = "sorted", moe_cf=None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (x, router_load); the load is None for a gated-MLP block
+    (JAX returns zeros there, which add nothing)."""
     window = (cfg.local_window if kind == BlockKind.LOCAL_ATTENTION
               else cfg.sliding_window)
     h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
@@ -232,16 +236,24 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
                              block_tables=block_tables,
                              paged_kernel=paged_kernel)
     x = x + y
+    load = None
     if cfg.d_ff > 0:
-        x = x + L.mlp_apply(cfg, p["ffn"],
-                            L.rms_norm(x, p["norm2"], cfg.rms_eps))
-    return x
+        h2 = L.rms_norm(x, p["norm2"], cfg.rms_eps)
+        if cfg.n_experts > 0:
+            y2, load = L.moe_apply(cfg, p["ffn"], h2, impl=moe_impl,
+                                   capacity_factor=moe_cf)
+        else:
+            y2 = L.mlp_apply(cfg, p["ffn"], h2)
+        x = x + y2
+    return x, load
 
 
 @torch.no_grad()
 def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
           cache: Optional[Cache] = None,
           mode: str = "train",
+          moe_impl: str = "sorted",
+          moe_cf=None,
           prefix_aware: bool = False,
           logits_slice: str = "all",
           logits_at: Optional[torch.Tensor] = None,
@@ -271,6 +283,12 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     residual stream before ``out_norm`` and the unembedding (the logits
     slice is then ignored).  Spans that partition the stack, chained,
     run the monolithic forward op for op.
+
+    MoE blocks route with ``moe_impl`` ("sorted" or "dense";
+    ``moe_cf`` the sorted dispatch's capacity factor, None = no drop).
+    ``aux["router_load"]`` is the per-expert load summed over the layers
+    and divided by ``n_layers``, as JAX returns it (zeros of shape (1,)
+    for a stack without experts).
     """
     check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
@@ -292,11 +310,17 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     x = tokens.to(params["out_norm"].dtype) if hidden_in \
         else params["embed"][tokens]
 
+    loads = []
+
     def block(kind, p, st, x):
-        return _apply_block(cfg, kind, p, x, positions=positions, state=st,
-                            mode=mode, prefix_aware=prefix_aware,
-                            block_tables=block_tables,
-                            paged_kernel=paged_kernel)
+        x, rl = _apply_block(cfg, kind, p, x, positions=positions, state=st,
+                             mode=mode, prefix_aware=prefix_aware,
+                             block_tables=block_tables,
+                             paged_kernel=paged_kernel, moe_impl=moe_impl,
+                             moe_cf=moe_cf)
+        if rl is not None:
+            loads.append(rl)
+        return x
 
     for r in range(n_rep):
         for g, kind in enumerate(pat):
@@ -323,4 +347,5 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                      "groups": cache["groups"], "rem": cache["rem"]}
         if block_tables is not None:
             new_cache["block_tables"] = block_tables
-    return logits, new_cache, {}
+    load = sum(loads) if loads else torch.zeros(1, device=dev)
+    return logits, new_cache, {"router_load": load / max(cfg.n_layers, 1)}

@@ -46,6 +46,20 @@ def tree_from_numpy(tree: Any, device: D.DeviceLike = None, dtype=None):
     return conv(tree)
 
 
+def cast_params(tree: Any, dtype=None):
+    """A parameter tree with every floating leaf in ``dtype`` but the MoE
+    router, which stays f32 as JAX keeps it (``init_moe``); ``dtype`` None
+    returns ``tree`` as it is."""
+    if dtype is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: v if k == "router" else cast_params(v, dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(cast_params(v, dtype) for v in tree)
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
 def _expected_block(cfg: ModelConfig):
     d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
@@ -53,7 +67,10 @@ def _expected_block(cfg: ModelConfig):
                                    "wv": (d, kv, hd), "wo": (h, hd, d)}}
     if f > 0:
         blk["norm2"] = (d,)
-        blk["ffn"] = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+        e = cfg.n_experts
+        blk["ffn"] = ({"router": (d, e), "w_gate": (e, d, f),
+                       "w_up": (e, d, f), "w_down": (e, f, d)} if e > 0 else
+                      {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)})
     return blk
 
 
@@ -75,7 +92,9 @@ def params_from_jax(cfg: ModelConfig, tree: Any,
                     device: D.DeviceLike = None, dtype=None):
     """The port's parameters from JAX ``transformer.init`` output passed
     through numpy (e.g. ``jax.tree.map(np.asarray, params)``).  The stacked
-    group layout (``transformer._group_shapes``) is kept as is."""
+    group layout (``transformer._group_shapes``) is kept as is.  ``dtype``
+    casts every floating leaf but the MoE router, which stays f32 as JAX
+    keeps it."""
     check_supported(cfg)
     pat, n_rep, rem = _group_shapes(cfg)
     top = {"embed": (cfg.vocab_size, cfg.d_model),
@@ -97,7 +116,7 @@ def params_from_jax(cfg: ModelConfig, tree: Any,
                f"groups[{g}]")
     for i in range(rem):
         _check(tree["rem"][i], _expected_block(cfg), (), f"rem[{i}]")
-    out = tree_from_numpy(tree, device, dtype)
+    out = cast_params(tree_from_numpy(tree, device), dtype)
     out["groups"] = tuple(out["groups"])
     out["rem"] = tuple(out["rem"])
     return out

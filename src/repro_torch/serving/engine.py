@@ -34,7 +34,9 @@ either hosts a contiguous span of the stack (its weights views of the
 full parameters): the stages of a ``serving/span.py`` pipeline, which
 chains the residual stream through them (``apply(hidden_in,
 hidden_out)``) and re-slices them live (``rebase_span``).  This slice
-serves pageable global-attention stacks, with bf16/f32 or int8 KV caches
+serves pageable global-attention stacks (a gated MLP or a top-k MoE after
+each attention; MoE through ``T.apply``'s default no-drop sorted
+dispatch, as JAX serves it), with bf16/f32 or int8 KV caches
 (``kv_quant``: int8 pages plus f32 scale pages, read by the int8 variants
 of kernels B1 and B4); other stacks raise ``NotImplementedError``.  As in
 the JAX package, an int8 stack has no prefix store and cannot resume a
@@ -118,7 +120,7 @@ def check_servable(cfg: ModelConfig, ecfg: EngineConfig) -> int:
         raise NotImplementedError(
             f"{cfg.name}: the port serves pageable global-attention stacks "
             f"(cache length a multiple of block_size {ecfg.block_size}); "
-            "windowed and other stacks come with a later slice (ROADMAP A10)")
+            "windowed and other stacks come with a later slice (ROADMAP A6)")
     return plen
 
 

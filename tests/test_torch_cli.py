@@ -76,6 +76,7 @@ SIM_ARGS = [
      "--profiles", "tpu_v5e,tpu_v5p"],
     ["--backend", "sim", "--closed-loop", "3", "--admission-limit", "4",
      "--requests", "10"],
+    ["--backend", "sim", "--smoke", "--arch", "granite-moe-3b-a800m"],
 ]
 
 
@@ -101,6 +102,15 @@ def test_live_cli_serves_smoke_size_on_the_cpu(extra, capsys):
     assert "== 6 completed / 0 rejected / 0 aborted of 6 submitted" in out
     if extra:
         assert "autoscale:" in out
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "grok-1-314b"])
+def test_live_cli_serves_moe_smoke_size_on_the_cpu(arch, capsys):
+    s = serve.main(["--backend", "live", "--smoke", "--device", "cpu",
+                    "--arch", arch, "--requests", "4", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}-smoke" in out
+    assert s["n_requests"] == s["n_submitted"] == 4
 
 
 @pytest.mark.parametrize("backend", ["live", "sim"])

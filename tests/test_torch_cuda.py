@@ -20,6 +20,7 @@ from repro_torch.kernels.split_kv_decode import (decode_pages_per_split,
                                                  paged_verify_partials,
                                                  split_kv_decode_partials,
                                                  verify_pages_per_split)
+from repro_torch.models.weights import cast_params
 
 KEYS = ("q", "k_pages", "v_pages", "pos_pages", "block_tables", "pos_q")
 
@@ -480,15 +481,21 @@ def test_cuda_page_kernels_ignore_unseen_nan_scales(dtype):
                     torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
 
-def _small_stack():
+def _small_stack(moe=False):
     """A 4-layer f32 stack at a width the kernels take (head_dim 64), its
-    weights on the card, and an engine config with 16-token pages."""
+    weights on the card, and an engine config with 16-token pages.  With
+    ``moe`` its MLPs are 8 experts, top-2 (a 2:1 GQA stack, as
+    granite-moe's 3:1)."""
     from repro_torch.models import transformer as T
     from repro_torch.models.config import Family, ModelConfig
     from repro_torch.serving.engine import EngineConfig
     cfg = ModelConfig(name="span-card", family=Family.DENSE, n_layers=4,
                       d_model=128, n_heads=2, n_kv_heads=2, d_ff=256,
                       vocab_size=256)
+    if moe:
+        cfg = ModelConfig(name="moe-card", family=Family.MOE, n_layers=4,
+                          d_model=128, n_heads=4, n_kv_heads=2, head_dim=64,
+                          d_ff=64, n_experts=8, top_k=2, vocab_size=256)
     return (cfg, T.init(cfg, seed=0, device="cuda"),
             EngineConfig(max_len=256, max_batch=4, block_size=16))
 
@@ -662,18 +669,19 @@ GRAPH_MODES = {
 }
 
 
-def _graph_run(mode, graphs, monkeypatch, max_new=12):
-    """Serve ``_span_requests(3)`` on the small stack in ``mode`` with
-    CUDA graphs on or off.  Returns (every compiled step's output, cloned,
-    in call order; the streams; the decode launches; the decode units)."""
+def _graph_run(mode, graphs, monkeypatch, max_new=12, moe=False):
+    """Serve ``_span_requests(3)`` on the small stack (``moe``: its MoE
+    variant) in ``mode`` with CUDA graphs on or off.  Returns (every
+    compiled step's output, cloned, in call order; the streams; the
+    decode launches; the decode units)."""
     import dataclasses
     from repro_torch.serving import engine as E
     from repro_torch.serving.span import DecodePipeline
     spec, quant, dtype, bounds = GRAPH_MODES[mode]
-    cfg, params, ecfg = _small_stack()
+    cfg, params, ecfg = _small_stack(moe)
     cfg = dataclasses.replace(cfg, kv_quant=quant)
     dt = getattr(torch, dtype)
-    params = _tree_to(params, dt)
+    params = cast_params(params, dt)
     ecfg = dataclasses.replace(ecfg, speculation=spec, spec_len=4,
                                cuda_graphs=graphs)
     pe = E.PrefillEngine(cfg, params, ecfg)
@@ -703,14 +711,6 @@ def _graph_run(mode, graphs, monkeypatch, max_new=12):
     return outs, [r.generated for r in reqs], dict(ops.LAUNCHES), unit
 
 
-def _tree_to(tree, dtype):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_to(v, dtype) for v in tree)
-    return tree.to(dtype)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", list(GRAPH_MODES))
 def test_cuda_graph_replays_equal_eager_steps(mode, monkeypatch):
@@ -731,6 +731,33 @@ def test_cuda_graph_replays_equal_eager_steps(mode, monkeypatch):
     assert max(gaps) == 0.0, f"largest replay-vs-eager gap {max(gaps)}"
     assert g_streams == e_streams
     assert g_launch == e_launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain-f32", "plain-bf16", "draft-f32",
+                                  "span-f32"])
+def test_cuda_moe_graph_replays_equal_eager_steps(mode, monkeypatch):
+    """The MoE forward (f32 router, stable sort, gather dispatch and
+    combine) captures in every decode-side step: each engine captures
+    its graphs, and every replayed step equals the eager one bit for
+    bit, with equal streams and launch counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    eager, e_streams, e_launch, _ = _graph_run(mode, False, monkeypatch,
+                                               moe=True)
+    graph, g_streams, g_launch, unit = _graph_run(mode, True, monkeypatch,
+                                                  moe=True)
+    for e in getattr(unit, "engines", [unit]):
+        assert e.compiled.report()["graphs_captured"] > 0
+        assert all(st.graph is not None for st in e.compiled.steps.values())
+    assert len(graph) == len(eager) > 0
+    gaps = [float((g.float() - e.float()).abs().max())
+            for g, e in zip(graph, eager)]
+    assert max(gaps) == 0.0, f"largest replay-vs-eager gap {max(gaps)}"
+    assert g_streams == e_streams
+    assert g_launch == e_launch
+    assert g_launch["paged_decode_partials"] \
+        + g_launch["paged_verify_partials"] > 0
 
 
 @pytest.mark.cuda

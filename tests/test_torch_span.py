@@ -351,7 +351,7 @@ MIXED_ECFG = EngineConfig(max_len=64, max_batch=2, block_size=8)
 def test_mixed_arch_span_pipeline_token_exact(kind):
     """JAX serves a ring-only stage (paged at its own window, de-paged at
     the wire); the port serves global-attention stacks only and refuses
-    the mixed stack's pipelines, as its engines do (ROADMAP A10)."""
+    the mixed stack's pipelines, as its engines do (ROADMAP A6)."""
     from repro_torch.models import transformer as T
     params = T.init(MIXED, seed=0, device="cpu")
     cls = PrefillPipeline if kind == "prefill" else DecodePipeline
