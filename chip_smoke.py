@@ -28,7 +28,9 @@ Phases (any failure exits non-zero and prints no result line):
    serving split (one partial per page on an earlier line), B2 also at one
    1024-token sequence (the int8 runs' longest wave), B4 also at the
    granite-8b case (20 query rows per kv head: B3's tile body), B5 also
-   with every key valid against unmasked SDPA; each kernel again at
+   with every key valid against unmasked SDPA and at the dense-row
+   serving shape of run (k) (8 rows of a 1000-slot cache read in place,
+   the last 512-key block ragged) against masked SDPA; each kernel again at
    granite-moe-3b-a800m's serving shapes (head_dim 64, 24/8 heads, so 15
    verify rows per kv head), on lines of their own.  B4's two bodies,
    the key walk (from a copy of B4 built with every row count on it) and
@@ -101,7 +103,22 @@ Phases (any failure exits non-zero and prints no result line):
    before its warm-up and at least one after, that its weights are
    views of the parameters and that the drained member retired,
    printing the fleet timeline, the policy's own decisions and the
-   spawned engine's graph capture.  Finally, with the weights freed,
+   spawned engine's graph capture.  Then, on the same weights: (k) dense
+   rows, ``max_len`` 1000 (no multiple of the 16-token block, so the
+   engines serve dense rows, as JAX's do), plain with 256-token chunks
+   through ``Server``, replayed and eagerly: B2 and B5 must launch and
+   no page kernel, the streams and launches of the two runs must be
+   equal, every token within the tolerance; it prints the streams equal
+   to the paged plain run's, the decode clocks and B5's share of a
+   profiled iteration; (l) Fig. 4 head offload at the model level: the
+   served prompts prefilled into one dense cache, one decode step with
+   ``head_offload`` n in (0, 1, 20, 39), each n > 0 held to n = 0's
+   logits within OFFLOAD_TOL and to two B5 launches per layer; (m) int8
+   weights (``quantize_weights``: residency printed against bf16) served
+   plain through ``Server`` (replayed; tokens scored against the
+   quantized forward) and over two 2-stage pipelines with a forced
+   4-layer span move (its accounted bytes printed, streams against the
+   plain int8 run's).  Finally, with the weights freed,
    (g) the serving CLI as two subprocesses, the live fleet over
    llama-13b (``--requests 8 --max-new 16 --max-len 1024 --autoscale
    --profiles h100_sxm``) and the simulator (``--backend sim --smoke``),
@@ -618,9 +635,53 @@ def kernel_phase(torch):
         b5_timing(torch, q5, k5, v5, all5, 200),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt5, kt5, vt5), 50))
+    # B5 at the dense-row serving shape of run (k): 8 rows of a 1000-slot
+    # cache (max_len 1000), read in place with the last 512-key block
+    # ragged (488 keys; no padded copy), valid up to the served lengths
+    gd = torch.Generator(device=dev).manual_seed(7)
+    qd = torch.randn((8, h, d), generator=gd, device=dev).to(torch.bfloat16)
+    kd, vd = (torch.randn((8, 1000, kv, d), generator=gd, device=dev
+                          ).to(torch.bfloat16) for _ in range(2))
+    validd = torch.arange(1000, device=dev)[None] < torch.randint(
+        189, 640, (8, 1), generator=gd, device=dev)
+    err_d = check_close(
+        torch, "B5 dense rows (8 x 1000 keys)",
+        split_kv_decode_partials(qd, kd, vd, validd, block_k=512),
+        ref.split_kv_decode_partials_plain(qd, kd, vd, validd, block_k=512),
+        TOL_F32)
+    # timed from memory, as a serving step reads it (other layers' weights
+    # and caches between two of its calls): the calls cycle over three
+    # copies of the cache, 492 MB, ten times the card's 50 MB L2; back to
+    # back on one copy, much of it is served from L2
+    copies = [(kd, vd)] + [(kd.clone(), vd.clone()) for _ in range(2)]
+    nxt = iter(range(1 << 30))
+
+    def cold(fn):
+        def call():
+            k_, v_ = copies[next(nxt) % len(copies)]
+            return fn(k_, v_)
+        return call
+
+    timing["B5 dense rows (8 x 1000 keys)"] = dict(
+        b5_timing(torch, qd, kd, vd, validd, 200, fn=cold(
+            lambda k_, v_: split_kv_decode_partials(qd, k_, v_, validd,
+                                                    block_k=512))),
+        plain_ms=time_ms(torch, lambda: ref.split_kv_decode_partials_plain(
+            qd, kd, vd, validd, block_k=512), 20),
+        library_ms=time_ms(torch, cold(
+            lambda k_, v_: F.scaled_dot_product_attention(
+                qd[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
+                attn_mask=validd[:, None, None, :])), 50))
+    warm_ms = time_ms(torch, lambda: split_kv_decode_partials(
+        qd, kd, vd, validd, block_k=512), 200)
+    say(f"B5 dense rows (8 x 1000 keys, 40/40 heads of 128, block_k 512, "
+        f"last block ragged): max |err| vs plain {err_d:.2e}; "
+        f"{warm_ms:.4f} ms back to back on one copy (L2-warm)")
+    del kd, vd, copies
     names = ("B1", "B1-int8", "B2", "B3", "B4", "B4-int8", "B5")
     errs = {kname: max(v["err"] for (kk, _, _), v in results.items()
                        if kk == kname) for kname in names}
+    errs["B5"] = max(errs["B5"], err_d)
     return timing, errs
 
 
@@ -646,29 +707,34 @@ def verify_timing(torch, args, sc, pps, iters, fn=None):
         dtype="bfloat16", pages_per_split=pps)
 
 
-def b5_timing(torch, q5, k5, v5, valid, iters):
-    """B5 over ``valid``; its bytes: q, the validity flags, K and V of the
-    key tiles that hold a valid key (the tiles it reads) and the
-    per-block partials."""
+def b5_timing(torch, q5, k5, v5, valid, iters, fn=None):
+    """B5 over ``valid`` (block_k 512, the last block ragged when 512 does
+    not divide L), or ``fn`` (B5 on copies of the same inputs); its bytes:
+    q, the validity flags, K and V of the key tiles that hold a valid key
+    (the tiles it reads) and the per-block partials."""
     from repro_torch.kernels.split_kv_decode import (decode_tile_keys,
                                                      split_kv_decode_partials)
     b5, l5, kv, d = k5.shape
     h = q5.shape[1]
+    nj = -(-l5 // 512)
     tile5 = decode_tile_keys(d, k5.element_size())
-    blocks = valid.reshape(b5, l5 // 512, 512)
+    blocks = torch.nn.functional.pad(valid, (0, nj * 512 - l5)).reshape(
+        b5, nj, 512)
     n_tiles = -(-512 // tile5)
     pad = n_tiles * tile5 - 512
     tiles = torch.nn.functional.pad(blocks, (0, pad)).reshape(
-        b5, l5 // 512, n_tiles, tile5)
-    keys = tiles.any(dim=3).float() @ torch.as_tensor(
-        [min(tile5, 512 - t * tile5) for t in range(n_tiles)],
+        b5, nj, n_tiles, tile5)
+    # keys in tile t of block j: the last block holds only L - 512 j
+    per_tile = torch.as_tensor(
+        [[max(0, min(tile5, min(512, l5 - j * 512) - t * tile5))
+          for t in range(n_tiles)] for j in range(nj)],
         dtype=torch.float32, device=valid.device)
+    keys = tiles.any(dim=3).float() * per_tile
     read = int(keys.sum()) * kv * d * k5.element_size() * 2
     return dict(
-        ms=time_ms(torch, lambda: split_kv_decode_partials(
-            q5, k5, v5, valid, block_k=512), iters),
-        bytes=nbytes(q5, valid) + read
-        + b5 * (l5 // 512) * h * (d + 2) * 4,
+        ms=time_ms(torch, fn or (lambda: split_kv_decode_partials(
+            q5, k5, v5, valid, block_k=512)), iters),
+        bytes=nbytes(q5, valid) + read + b5 * nj * h * (d + 2) * 4,
         flops=4 * d * h * int(valid.sum()), dtype="bfloat16")
 
 
@@ -994,6 +1060,7 @@ def serving_phase(torch, card: str):
                                     stats["plain"]["streams"]))
     launches.update(frontdoor_phase(torch, card, cfg, params,
                                     stats["plain"]["streams"]))
+    launches.update(dense_phase(torch, card, cfg, params, stats["plain"]))
     for q8, base in (("int8", "plain"), ("int8-ngram", "ngram")):
         a, b = stats[q8], stats[base]
         say(f"[{q8} vs {base}] decode {a['iter_ms']:.1f} vs "
@@ -1002,6 +1069,174 @@ def serving_phase(torch, card: str):
             f"vs {b['peak_gib']:.2f} GiB (the bf16 run prefills in 256-token "
             f"chunks, the int8 run unchunked) [{card}]")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Dense rows (k), Fig. 4 head offload (l), int8 weights (m)
+# ---------------------------------------------------------------------------
+
+# (l): head-offloaded logits against the monolithic step's.  On the CPU in
+# f32 the two agree to 2e-4 (tests/test_torch_offload.py), from another
+# summation order in the branches.  On the card both run B5 per kv head
+# with the same blocks (llama-13b has one query head per kv head, so a
+# branch's blocks are the monolithic launch's blocks for its heads) and
+# the same combine, so the attention outputs should be bit for bit the
+# same; the allowance is one bf16 step (2^-8) of the attention output
+# carried through 40 layers of bf16 rounding, bounded at half the
+# served-token tolerance.
+OFFLOAD_TOL = TOKEN_GAP_TOL / 2
+
+PAGE_KERNELS = ("paged_decode_partials", "paged_decode_partials_int8",
+                "paged_prefix_partials", "paged_verify_partials",
+                "paged_verify_partials_int8")
+
+
+def dense_phase(torch, card, cfg, params, plain):
+    """(k) llama-13b on dense rows (``max_len`` 1000, 1000 % 16 = 8)
+    through ``Server``, replayed and eagerly: B2 and B5 must launch, no
+    page kernel; (l) Fig. 4 head offload at the model level on a dense
+    cache of the served prompts; (m) int8 weights served plain (replayed)
+    and over two 2-stage pipelines with a forced 4-layer span move.
+    ``plain``: the paged bf16 plain run's stats.  Returns {run label:
+    launches}."""
+    from repro_torch.core.layer_migration import layer_param_bytes
+    from repro_torch.models import quant as Q
+
+    t0 = time.perf_counter()
+    launches, runs = {}, {}
+    for graphs, label in ((True, "dense"), (False, "dense-eager")):
+        runs[label] = serve_run(
+            torch, card, cfg, params, label=label, speculation="off",
+            chunk_tokens=256, needed=("flash_prefill",
+                                      "split_kv_decode_partials"),
+            forbidden=PAGE_KERNELS, profile=graphs, graphs=graphs,
+            max_len=1000, decode_kernel=("B5", "split_decode_kernel"))
+        launches[label] = runs[label]["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs["dense"], runs["dense-eager"]
+    if a["streams"] != b["streams"] or a["launches"] != b["launches"]:
+        fail(f"[dense] replayed streams or launches differ from the eager "
+             f"run's: {a['launches']} vs {b['launches']}")
+    same = sum(a["streams"][rid] == plain["streams"][rid]
+               for rid in a["streams"])
+    say(f"[dense] dense rows (max_len 1000) vs paged plain (max_len 1024): "
+        f"streams equal to the paged run's {same}/{len(a['streams'])}; "
+        f"decode {a['steady_ms']:.1f} (replayed) / {b['steady_ms']:.1f} "
+        f"(eager) vs {plain['steady_ms']:.1f} ms per iteration without "
+        f"capture, device span {a['span_ms']:.1f} vs {plain['span_ms']:.1f} "
+        f"ms; prefill {a['prefill_tps']:.1f} vs {plain['prefill_tps']:.1f} "
+        f"tok/s; peak memory {a['peak_gib']:.2f} vs {plain['peak_gib']:.2f} "
+        f"GiB; replayed and eager streams and launches equal [{card}]")
+    launches["offload"] = head_offload_run(torch, card, cfg, params)
+
+    t = time.perf_counter()
+    qparams = Q.quantize_weights(params)
+    torch.cuda.synchronize()
+    say(f"[int8w] quantize_weights: {time.perf_counter() - t:.1f} s; "
+        f"weights {layer_param_bytes(qparams) / 2**30:.2f} GiB (int8 values "
+        f"plus f32 scales) against {layer_param_bytes(params) / 2**30:.2f} "
+        f"GiB in bf16 "
+        f"[{card}]")
+    st = serve_run(torch, card, cfg, qparams, label="int8w",
+                   speculation="off", chunk_tokens=256,
+                   needed=("paged_decode_partials", "flash_prefill",
+                           "paged_prefix_partials"),
+                   forbidden=("split_kv_decode_partials",
+                              "paged_verify_partials"), profile=True)
+    launches["int8w"] = st["launches"]
+    say(f"[int8w vs plain] decode {st['steady_ms']:.1f} vs "
+        f"{plain['steady_ms']:.1f} ms per iteration without capture "
+        f"(device span {st['span_ms']:.1f} vs {plain['span_ms']:.1f} ms), "
+        f"prefill {st['prefill_tps']:.1f} vs {plain['prefill_tps']:.1f} "
+        f"tok/s, peak memory {st['peak_gib']:.2f} vs "
+        f"{plain['peak_gib']:.2f} GiB [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["int8w-span"] = migration_run(
+        torch, card, cfg, qparams, st["streams"], label="int8w-span",
+        n_prefill=1, decode_split=2,
+        force=force_one_span_move(torch, card, "int8w-span", 4))
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"dense rows, head offload and int8 weights (k)-(m): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def head_offload_run(torch, card, cfg, params):
+    """(l): the 8 served prompts prefilled into one dense bf16 cache of
+    1000 slots, then one decode step per ``head_offload`` n in (0, 1, 20,
+    39), each on the same cache (a step writes the same K/V at the same
+    places whatever n): logits against n = 0's within OFFLOAD_TOL, B5
+    launched once per layer at n = 0 and twice with n > 0.  Returns the
+    launches of the offloaded steps."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    reqs = served_requests(cfg)
+    lens = [r.prompt_len for r in reqs]
+    toks = torch.zeros((len(reqs), max(lens)), dtype=torch.long,
+                       device="cuda")
+    for i, r in enumerate(reqs):
+        toks[i, :lens[i]] = torch.as_tensor(r.prompt, device="cuda")
+    cache = T.init_cache(cfg, len(reqs), 1000,
+                         dtype=params["out_norm"].dtype)
+    at = torch.as_tensor([n - 1 for n in lens], device="cuda")
+    lg, cache, _ = T.apply(cfg, params, toks, cache=cache, mode="prefill",
+                           logits_slice="last", logits_at=at)
+    # each row resumes at its own length; the pad tokens past it sit at
+    # later positions, masked, and the step overwrites the first of them
+    cache["lengths"] = torch.as_tensor(lens, dtype=torch.int32,
+                                       device="cuda")
+    nxt = lg.argmax(dim=-1)[:, None]
+    out, counts, ms = {}, {}, {}
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    for n_off in (0, 1, 20, 39):
+        ops.reset_launches()
+        logits, _, _ = T.apply(cfg, params, nxt, cache=cache, mode="decode",
+                               logits_slice="last", head_offload=n_off)
+        torch.cuda.synchronize()
+        counts[n_off] = dict(ops.LAUNCHES)
+        out[n_off] = logits.float()
+        if not torch.isfinite(out[n_off]).all():
+            fail(f"[offload] head_offload={n_off}: non-finite logits")
+        # the device time of one eager step, its kernels summed
+        ms[n_off] = time_ms(torch, lambda: T.apply(
+            cfg, params, nxt, cache=cache, mode="decode",
+            logits_slice="last", head_offload=n_off), 3, warmup=1)
+        if n_off:
+            for k, v in counts[n_off].items():
+                total[k] += v
+    ops.reset_launches()
+    parts = []
+    for n_off in (1, 20, 39):
+        diff = float((out[n_off] - out[0]).abs().max())
+        b5 = counts[n_off]["split_kv_decode_partials"]
+        if b5 != 2 * cfg.n_layers or any(
+                v for k, v in counts[n_off].items()
+                if k != "split_kv_decode_partials"):
+            fail(f"[offload] head_offload={n_off}: launches "
+                 f"{counts[n_off]}; expected B5 twice per layer only")
+        if diff > OFFLOAD_TOL:
+            fail(f"[offload] head_offload={n_off}: logits {diff:.4f} from "
+                 f"the monolithic step's (tolerance {OFFLOAD_TOL})")
+        same = bool(torch.equal(out[n_off].argmax(1), out[0].argmax(1)))
+        parts.append(f"n={n_off} (hot {cfg.n_kv_heads - n_off} / cold "
+                     f"{n_off} kv heads): max |logit diff| {diff:.6f}, "
+                     f"argmax {'equal' if same else 'differs'}, B5 x{b5}, "
+                     f"{ms[n_off]:.2f} ms of device time a step")
+    if counts[0]["split_kv_decode_partials"] != cfg.n_layers:
+        fail(f"[offload] the monolithic step launched {counts[0]}")
+    say(f"[offload] Fig. 4 head offload, llama-13b bf16, 8 rows, dense "
+        f"cache of the served prompts ({min(lens)}-{max(lens)} tokens, 1000 "
+        f"slots), against head_offload=0 (B5 x{cfg.n_layers}, "
+        f"{ms[0]:.2f} ms of device time a step, eager), tolerance "
+        f"{OFFLOAD_TOL}: "
+        + "; ".join(parts) + f" [{card}]")
+    del cache
+    return total
 
 
 def served_requests(cfg):
@@ -1238,22 +1473,28 @@ def self_draft_run(torch, card, cfg, params):
 
 def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
               needed, forbidden, profile, bf16_streams=None, graphs=True,
-              score=True):
+              score=True, max_len=1024, decode_kernel=("B1",
+                                                        "paged_decode_kernel")):
     """One run through ``Server`` (decode forwards replayed from CUDA
     graphs, or with ``graphs`` off run eagerly over the same static
     buffers); returns its launches, streams and decode figures.
-    ``score``: as ``check_streams``'."""
+    ``score``: as ``check_streams``'.  ``max_len`` 1000 (no multiple of
+    the 16-token block) serves on dense rows; ``decode_kernel`` (name,
+    symbol) is the attention kernel whose share of a profiled decode
+    iteration is printed.  A chunked paged run profiles one chunk-resume
+    wave (B3's); dense rows resume without B3, so none."""
     from repro_torch.kernels import ops
     from repro_torch.serving.api import Server
     from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.orchestrator import (Orchestrator,
                                                   OrchestratorConfig)
 
-    ecfg = EngineConfig(max_len=1024, max_batch=8, block_size=16,
+    ecfg = EngineConfig(max_len=max_len, max_batch=8, block_size=16,
                         speculation=speculation, spec_len=4,
                         cuda_graphs=graphs)
     orch = Orchestrator(cfg, params, OrchestratorConfig(
         n_prefill=1, n_decode=1, engine=ecfg, chunk_tokens=chunk_tokens))
+    dense = not orch.decode_units()[0].paged
     reqs = served_requests(cfg)
 
     # wall-clock per phase (synchronized), wrapped around the engines
@@ -1272,7 +1513,7 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
     # with chunked prefill, waves run under torch.profiler (and are left
     # out of the prefill clock) until one of them resumes a prompt over
     # its published pages (B3 launches in it)
-    profile_wave = profile and chunk_tokens is not None
+    profile_wave = profile and chunk_tokens is not None and not dense
 
     def timed_waves(*a, **kw):
         gen = waves(*a, **kw)
@@ -1399,13 +1640,14 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
                 f"the profiler on; compiled step's device span "
                 f"{prof['step_ms']:.2f} ms by CUDA events, profiler on): "
                 f"device busy ")
-        # B1 (bf16 or int8 pools) by its kernel symbol
-        b1 = [e for e in kern if "paged_decode_kernel" in e.key]
+        # B1 (bf16 or int8 pools), or B5 on dense rows, by its symbol
+        kname, ksym = decode_kernel
+        b1 = [e for e in kern if ksym in e.key]
         b1_ms = sum(device_us(e) for e in b1) / 1e3
         if busy > 0:
             say(head + f"{busy:.2f} ms in {sum(e.count for e in kern)} "
                 f"kernels = {busy / steady_ms:.0%} of a timed iteration "
-                f"without capture; B1 {b1_ms:.3f} ms "
+                f"without capture; {kname} {b1_ms:.3f} ms "
                 f"x{sum(e.count for e in b1)} = "
                 f"{b1_ms / busy:.1%} of the busy time; top: "
                 + "; ".join(f"{e.key[:72]} {device_us(e) / 1e3:.2f} ms "
@@ -1463,12 +1705,15 @@ def say_wave_profile(label, card, prof) -> None:
 def check_pools_restored(orch) -> None:
     """Every decode slot empty; each page's refcount equals its holders
     (slot rows plus the store's page holds); free list plus store-held
-    pages account for the whole pool (every stage of a pipeline)."""
+    pages account for the whole pool (every stage of a pipeline).  A
+    dense-row engine has no pool: only its slots are checked."""
     store = orch.store
     for e in [e for u in orch.decode_units()
               for e in getattr(u, "engines", [u])]:
         if e.active:
             fail(f"{e.name}: live slots after drain")
+        if not e.paged:
+            continue
         holders = [e.slot_pages(i) for i in range(e.ecfg.max_batch)]
         held = sorted(store.pool_pages(e.name).values()) if store else []
         holders += [[p] for p in held]
@@ -1654,10 +1899,11 @@ def forced_span_move(torch, card, label, orch, src, dst, n_layers) -> None:
         f"{cost * 1e3:.3f} ms (Eq. 4/11, H100 data sheet) [{card}]")
 
 
-def force_one_span_move(torch, card, label):
-    """(i): after the third decode iteration, once a pipeline holds a
-    request, move a quarter of the stack from its first stage to its
-    second (the KV of its residents moves with the layers)."""
+def force_one_span_move(torch, card, label, n_layers=None):
+    """(i), (m): after the third decode iteration, once a pipeline holds a
+    request, move ``n_layers`` (default a quarter of the stack) from its
+    first stage to its second (the KV of its residents moves with the
+    layers)."""
     def force(orch, srv):
         run_until(orch, srv, lambda: orch.metrics.decode_iters >= 3
                   and any(p.active for p in orch.decode_pipes),
@@ -1665,7 +1911,7 @@ def force_one_span_move(torch, card, label):
         pipe = max(orch.decode_pipes, key=lambda p: p.active)
         src, dst = (e.name for e in pipe.engines)
         forced_span_move(torch, card, label, orch, src, dst,
-                         orch.cfg.n_layers // 4)
+                         n_layers or orch.cfg.n_layers // 4)
         return 1
     return force
 

@@ -8,6 +8,13 @@ and the exact softmax over the union is
 
     M = max_j m_j,  L = Σ_j l_j e^{m_j − M},  O = Σ_j o_j e^{m_j − M} / L.
 
+``split_kv_attention`` runs an N-way partition of one decode query's KV
+as a loop over partitions: along the sequence (context-parallel decode)
+or along the heads (Fig. 4's hot and cold devices, each branch its own
+exact softmax).  ``reference_attention`` is the one-softmax form the
+tests hold both against.  (JAX's ``sharded_decode_attention`` shards the
+sequence over a device mesh: ROADMAP A9.)
+
 The combine is plain torch (it is plain XLA in the JAX package, not a
 Pallas kernel): the page-fused kernels emit one partial per page and
 ``kernels/ops.py`` reduces them here.  Masked partitions carry the kernels'
@@ -72,3 +79,57 @@ def combine_partials(os_: Sequence[torch.Tensor], ls: Sequence[torch.Tensor],
     """Exact softmax reconstruction from per-partition (o, l, m)."""
     return combine_stacked((torch.stack(list(os_)), torch.stack(list(ls)),
                             torch.stack(list(ms))))
+
+
+def expand_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, H, D) queries -> grouped (B, KV, G, D) for per-KV-head partials."""
+    b, h, d = q.shape
+    return q.reshape(b, n_kv, h // n_kv, d)
+
+
+def split_kv_attention(q: torch.Tensor, k_parts: Sequence[torch.Tensor],
+                       v_parts: Sequence[torch.Tensor],
+                       masks: Optional[Sequence[Optional[torch.Tensor]]]
+                       = None,
+                       axis: str = "seq",
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """Exact attention with the KV scattered across partitions.
+
+    axis="seq":  every part holds all heads and a slice of the sequence;
+                 q (B, H, D), parts (B, L_j, H, D) -> (B, H, D) f32.
+    axis="head": Fig. 4: the parts hold disjoint, consecutive head subsets;
+                 q (B, H, D) is split to match, parts (B, L, H_j, D), and
+                 each part's exact softmax is concatenated -> (B, H, D)."""
+    if masks is None:
+        masks = [None] * len(k_parts)
+    if axis == "seq":
+        parts = [partial_attention(q, k, v, m, scale)
+                 for k, v, m in zip(k_parts, v_parts, masks)]
+        return combine_partials(*zip(*parts))
+    if axis == "head":
+        outs = []
+        h0 = 0
+        for k, v, m in zip(k_parts, v_parts, masks):
+            hj = k.shape[2]
+            o, l, mm = partial_attention(q[:, h0:h0 + hj], k, v, m, scale)
+            outs.append(combine_partials([o], [l], [mm]))
+            h0 += hj
+        return torch.cat(outs, dim=1)
+    raise ValueError(axis)
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """One softmax over the whole KV (the paper's form, for tests).
+    q: (B, H, D); k, v: (B, L, H, D); mask (B, L) or (B, H, L).  Returns
+    (B, H, D) f32; a fully masked row gives zeros."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhd,blhd->bhl", q.float(), k.float()) * scale
+    if mask is not None:
+        if mask.ndim == 2:
+            mask = mask[:, None, :]
+        s = torch.where(mask, s, float("-inf"))
+    p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    return torch.einsum("bhl,blhd->bhd", p, v.float())

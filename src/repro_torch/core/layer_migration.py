@@ -164,7 +164,8 @@ def span_params(cfg: ModelConfig, params: Dict[str, Any], start: int,
     layout: the embedding, out-norm (and unembedding) ride along on every
     span; the per-layer weights are views into ``params`` (one group per
     layer, each a one-repeat slice on the layer axis), so no weight is
-    copied."""
+    copied.  An int8 leaf's values and per-layer scales are cut together
+    (a per-tensor scale becomes the layer's one-element scale)."""
     out: Dict[str, Any] = {"embed": params["embed"],
                            "out_norm": params["out_norm"]}
     if "unembed" in params:

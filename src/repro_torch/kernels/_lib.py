@@ -50,7 +50,7 @@ KERNELS = {
     "flash_prefill": {
         "flash_prefill": [_P] * 6 + [_I] * 7 + [_F, _I, _F, _I, _I, _P]},
     "split_kv_decode": {
-        "split_kv_decode_partials": [_P] * 7 + [_I] * 6 + [_F, _I, _P]},
+        "split_kv_decode_partials": [_P] * 7 + [_I] * 7 + [_F, _I, _P]},
 }
 
 LAUNCHES: Dict[str, int] = {"paged_decode_partials": 0,

@@ -19,6 +19,15 @@
 // kernel: a finite NEG_INF = -1e30, p zeroed where the key is invalid, so
 // a fully invalid block gives l = 0; no soft cap and no window.
 //
+// K and V may be a contiguous range of kv heads of a wider cache: key t of
+// row b starts (b * L + t) * KVS * D elements in, head h of the range h * D
+// after that, with KVS >= KV the cache's own head count (KVS = KV for a
+// whole cache).  Fig. 4's head offload scores each branch's heads in
+// place that way, without copying them out.  Unlike the TPU kernel, L need
+// not be a multiple of block_k: the last block is ragged, so a dense
+// serving cache of any length (1000 keys at max_len 1000) is read in place
+// with no padded copy.
+//
 // Bound on the H100: bytes.  Each key's K and V are read once per kv head
 // and do 4 * G * D flops, about G flops per byte of bf16 cache, far below
 // the card's ~295 flop/byte ridge; the walk keeps three tiles in flight
@@ -29,17 +38,19 @@
 
 namespace repro {
 
-// q: (B, H, D); k, v: (B, L, KV, D); valid: (B, L) uint8; L = J * bk.
-// o: (B, J, H, D) f32; l, m: (B, J, H) f32.  blockIdx.x = j * n_grp +
-// query-head group.
+// q: (B, H, D); k, v: (B, L, KV, D) with keys KVS heads apart; valid:
+// (B, L) uint8; J = ceil(L / bk) key blocks, the last one ragged (its keys
+// past L count as invalid).  o: (B, J, H, D) f32; l, m: (B, J, H) f32.
+// blockIdx.x = j * n_grp + query-head group.
 template <typename T, int DP, int RG>
 __global__ void __launch_bounds__(dec::kThreads)
 split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v,
                     const unsigned char* __restrict__ valid,
                     float* __restrict__ o, float* __restrict__ l,
-                    float* __restrict__ m, int H, int KV, int D, int L,
-                    int bk, int J, int n_grp, int stages, float scale) {
+                    float* __restrict__ m, int H, int KV, int KVS, int D,
+                    int L, int bk, int J, int n_grp, int stages,
+                    float scale) {
   using W = dec::Walk<T, T, DP, RG>;
   constexpr int BK = W::kBk;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -54,12 +65,13 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV, g0 = grp * RG, n_rows = min(RG, G - g0);
   const int tid = threadIdx.x, lane = tid % 32;
+  const int n_keys = min(bk, L - j * bk);   // the last block is ragged
   const size_t key0 = static_cast<size_t>(b) * L + static_cast<size_t>(j) * bk;
 
   for (int t = tid; t < n_all; t += dec::kThreads) tile_any[t] = 0;
   __syncthreads();
   for (int i = tid; i < bk; i += dec::kThreads) {
-    const unsigned char f = valid[key0 + i];
+    const unsigned char f = i < n_keys ? valid[key0 + i] : 0;
     valid_s[i] = f;
     if (f) tile_any[i / BK] = 1;
   }
@@ -86,11 +98,12 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t0 = tiles_s[i] * BK;
     walk.issue(st, kh, vh, D, [&](int r) -> long long {
       const int key = t0 + r;
-      return key < bk ? static_cast<long long>(key0 + key) * KV * D : -1;
+      return key < n_keys ? static_cast<long long>(key0 + key) * KVS * D
+                          : -1;
     });
     if (tid < BK) {
       const int key = t0 + tid;
-      walk.meta(st)[tid] = key < bk ? valid_s[key] : 0;
+      walk.meta(st)[tid] = key < n_keys ? valid_s[key] : 0;
     }
   };
   walk.run(n_tiles_s, issue, [](int ok, int) { return ok != 0; }, scale,
@@ -110,14 +123,15 @@ size_t split_decode_smem(int stages, int bk) {
 template <typename T>
 cudaError_t launch_split_decode(const void* q, const void* k, const void* v,
                                 const void* valid, void* o, void* l, void* m,
-                                int B, int H, int KV, int D, int L, int bk,
-                                float scale, cudaStream_t stream) {
+                                int B, int H, int KV, int KVS, int D, int L,
+                                int bk, float scale, cudaStream_t stream) {
   if (B <= 0 || L <= 0) return cudaSuccess;
-  if (KV <= 0 || H % KV != 0 || D <= 0 || D > 256 || D % 8 != 0 ||
-      bk <= 0 || bk > 16384 || L % bk != 0 || KV > 65535 || B > 65535 ||
+  if (KV <= 0 || KVS < KV || H % KV != 0 || D <= 0 || D > 256 ||
+      D % 8 != 0 ||
+      bk <= 0 || bk > 16384 || KV > 65535 || B > 65535 ||
       !aligned16(k, v))
     return cudaErrorInvalidValue;
-  const int J = L / bk;
+  const int J = (L + bk - 1) / bk;
   const int G = H / KV, rg = dec::rows_per_block(G);
   const int n_grp = (G + rg - 1) / rg;
   if (static_cast<long long>(J) * n_grp > INT_MAX)
@@ -136,29 +150,33 @@ cudaError_t launch_split_decode(const void* q, const void* k, const void* v,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const unsigned char*>(valid),
         static_cast<float*>(o), static_cast<float*>(l),
-        static_cast<float*>(m), H, KV, D, L, bk, J, n_grp, stages, scale);
+        static_cast<float*>(m), H, KV, KVS, D, L, bk, J, n_grp, stages,
+        scale);
     return cudaGetLastError();
   });
 }
 
 }  // namespace repro
 
-// q: (B, H, D); k, v: (B, L, KV, D); valid: (B, L) uint8; L a multiple of
-// bk <= 16384; D a multiple of 8 up to 256; k and v 16-byte aligned.
-// o: (B, L / bk, H, D) f32; l, m: (B, L / bk, H) f32.
+// q: (B, H, D); k, v: (B, L, KV, D), consecutive keys kv_stride >= KV
+// heads apart (a range of a wider cache's heads); valid: (B, L) uint8;
+// bk <= 16384, the last block of keys ragged when bk does not divide L; D a
+// multiple of 8 up to 256; k and v 16-byte aligned.
+// o: (B, ceil(L / bk), H, D) f32; l, m: (B, ceil(L / bk), H) f32.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int split_kv_decode_partials(const void* q, const void* k,
                                         const void* v, const void* valid,
                                         void* o, void* l, void* m, int B,
-                                        int H, int KV, int D, int L, int bk,
-                                        float scale, int dtype,
-                                        void* stream) {
+                                        int H, int KV, int kv_stride, int D,
+                                        int L, int bk, float scale,
+                                        int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::DTYPE_F32)
     return repro::launch_split_decode<float>(q, k, v, valid, o, l, m, B, H,
-                                             KV, D, L, bk, scale, st);
+                                             KV, kv_stride, D, L, bk, scale,
+                                             st);
   if (dtype == repro::DTYPE_BF16)
     return repro::launch_split_decode<__nv_bfloat16>(
-        q, k, v, valid, o, l, m, B, H, KV, D, L, bk, scale, st);
+        q, k, v, valid, o, l, m, B, H, KV, kv_stride, D, L, bk, scale, st);
   return cudaErrorInvalidValue;
 }

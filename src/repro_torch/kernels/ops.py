@@ -66,26 +66,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    valid: torch.Tensor, *, block_k: int = 512):
+                    valid: torch.Tensor, *, block_k: int = 512,
+                    scale: Optional[float] = None):
     """Raw per-block partials of single-token decode over a dense cache —
-    what attention-level migration ships across devices.  Pads L to a
-    multiple of bk = min(block_k, L) with invalid keys.  q: (B, H, D);
-    k, v: (B, L, KV, D); valid: (B, L) bool.  Returns o (B, J, H, D),
-    l/m (B, J, H), f32."""
-    bk = min(block_k, k.shape[1])
-    return split_kv_decode_partials(
-        q, _pad_to(k, 1, bk), _pad_to(v, 1, bk),
-        _pad_to(valid.bool(), 1, bk), block_k=bk)
+    what attention-level migration ships across devices, one per
+    bk = min(block_k, L) keys (the last block ragged: the kernel reads the
+    cache in place, no padded copy).  q: (B, H, D); k, v: (B, L, KV, D),
+    or a contiguous range of a wider cache's kv heads; valid: (B, L) bool.
+    Returns o (B, J, H, D), l/m (B, J, H), f32."""
+    return split_kv_decode_partials(q, k, v, valid.bool(), block_k=block_k,
+                                    scale=scale)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor, *,
-                     block_k: int = 512) -> torch.Tensor:
+                     valid: torch.Tensor, *, block_k: int = 512,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """Single-token decode attention over a (ring or linear) dense cache:
     per-block partials from ``split_kv_decode_partials``, combined exactly
     over the block axis (flash decoding).  q: (B, H, D); k, v:
     (B, L, KV, D); valid: (B, L) bool.  Returns (B, H, D) in q's dtype."""
-    o, l, m = decode_partials(q, k, v, valid, block_k=block_k)
+    o, l, m = decode_partials(q, k, v, valid, block_k=block_k, scale=scale)
     out = combine_stacked((o.movedim(1, 0), l.movedim(1, 0),
                            m.movedim(1, 0)))
     return out.to(q.dtype)

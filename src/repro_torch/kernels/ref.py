@@ -30,6 +30,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -193,21 +194,22 @@ def split_kv_decode_partials_plain(q: torch.Tensor, k: torch.Tensor,
                                    scale: Optional[float] = None
                                    ) -> Partials:
     """Per-key-block partials of one decode query per row over a dense
-    cache.  q: (B, H, D); k, v: (B, L, KV, D); valid: (B, L) bool; L a
-    multiple of bk = min(block_k, L).  No soft cap, no window: the JAX
-    kernel has neither.  Returns o (B, J, H, D), l/m (B, J, H), f32."""
+    cache.  q: (B, H, D); k, v: (B, L, KV, D); valid: (B, L) bool; one
+    partial per bk = min(block_k, L) keys, the last block ragged (its keys
+    past L invalid), as the CUDA kernel.  No soft cap, no window: the JAX
+    kernel has neither.  Returns o (B, J, H, D), l/m (B, J, H), f32,
+    J = ceil(L / bk)."""
     b, h, d = q.shape
     length, kv = k.shape[1], k.shape[2]
     bk = min(block_k, length)
-    if length % bk:
-        raise ValueError(f"L = {length} is not a multiple of block_k {bk}")
-    nj = length // bk
+    nj = -(-length // bk)
+    pad = nj * bk - length
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     qg = q.float().reshape(b, kv, h // kv, d)
-    kb = k.float().reshape(b, nj, bk, kv, d)
-    vb = v.float().reshape(b, nj, bk, kv, d)
-    mask = valid.bool().reshape(b, nj, 1, 1, bk)
+    kb = F.pad(k.float(), (0, 0, 0, 0, 0, pad)).reshape(b, nj, bk, kv, d)
+    vb = F.pad(v.float(), (0, 0, 0, 0, 0, pad)).reshape(b, nj, bk, kv, d)
+    mask = F.pad(valid.bool(), (0, pad)).reshape(b, nj, 1, 1, bk)
     sc = torch.einsum("bkgd,bjtkd->bjkgt", qg, kb) * scale
     sc = torch.where(mask, sc, NEG_INF)
     m = sc.amax(dim=-1)                              # (B, J, KV, G)

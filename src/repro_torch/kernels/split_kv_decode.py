@@ -233,34 +233,60 @@ def paged_verify_partials(q: torch.Tensor, k_pages: torch.Tensor,
                               v_scale_pages, pages_per_split=pps)
 
 
+def _kv_stride(k: torch.Tensor, v: torch.Tensor) -> Optional[int]:
+    """Heads between consecutive keys when K and V are both a contiguous
+    range of the kv heads of one (B, L, KV', D) layout (KV' for the whole
+    cache), else None."""
+    b, length, kv, d = k.shape
+    if v.shape != k.shape or v.stride() != k.stride() or d == 0:
+        return None
+    st = k.stride()
+    row = st[1] // d if st[1] % d == 0 else 0
+    if st[3] != 1 or st[2] != d or row < kv:
+        return None
+    if b > 1 and st[0] != length * st[1]:
+        return None
+    return row
+
+
 def split_kv_decode_partials(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, valid: torch.Tensor, *,
                              block_k: int = 512,
                              scale: Optional[float] = None) -> Partials:
-    """Dense-cache split-KV decode.  q: (B, H, D); k, v: (B, L, KV, D);
-    valid: (B, L) bool (or uint8); L a multiple of bk = min(block_k, L)
-    (``ops.decode_attention`` pads).  Returns per-block partials
-    o (B, J, H, D), l/m (B, J, H), f32, J = L / bk."""
+    """Dense-cache split-KV decode.  q: (B, H, D); k, v: (B, L, KV, D),
+    contiguous or a contiguous range of a wider (B, L, KV', D) cache's kv
+    heads (``cache[:, :, a:b]``: read in place, keys KV' heads apart);
+    valid: (B, L) bool (or uint8).  One partial per bk = min(block_k, L)
+    keys, the last block ragged when bk does not divide L (its keys past
+    L invalid).  Returns o (B, J, H, D), l/m (B, J, H), f32,
+    J = ceil(L / bk)."""
     if q.device.type == "cpu":
         return split_kv_decode_partials_plain(q, k, v, valid,
                                               block_k=block_k, scale=scale)
-    q, k, v, valid = (q.contiguous(), k.contiguous(), v.contiguous(),
-                      valid.contiguous())
-    dev = _lib.check_cuda(SPLIT, q, k, v, valid)
+    b, h, d = q.shape
+    length, kv = k.shape[1], k.shape[2]
+    kvs = _kv_stride(k, v)
+    if kvs is None:
+        raise ValueError(f"{SPLIT}: k and v must be one contiguous range of "
+                         f"the kv heads of a (B, L, KV, D) cache, got "
+                         f"strides {k.stride()} / {v.stride()}")
+    q, valid = q.contiguous(), valid.contiguous()
+    dev = _lib.check_cuda(SPLIT, q, valid)
+    if k.device != dev or v.device != dev:
+        raise ValueError(f"{SPLIT}: all inputs must be on one CUDA device, "
+                         f"got {k.device} / {v.device} and {dev}")
     code = _lib.dtype_code(SPLIT, q, k, v)
     if valid.dtype == torch.bool:
         valid = valid.view(torch.uint8)
-    b, h, d = q.shape
-    length, kv = k.shape[1], k.shape[2]
     bk = min(int(block_k), length)
     _lib.check_tiles(SPLIT, d, k, v)
     if (k.shape[0] != b or k.shape[3] != d or h % kv or v.shape != k.shape
             or valid.shape != (b, length) or valid.dtype != torch.uint8
-            or bk < 1 or bk > MAX_BLOCK_K or length % bk):
+            or bk < 1 or bk > MAX_BLOCK_K):
         raise ValueError(f"{SPLIT}: inconsistent inputs q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, valid {tuple(valid.shape)} "
                          f"{valid.dtype}, block_k {bk}")
-    nj = length // bk
+    nj = -(-length // bk)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     o = torch.empty((b, nj, h, d), dtype=torch.float32, device=dev)
     l = torch.empty((b, nj, h), dtype=torch.float32, device=dev)
@@ -268,5 +294,5 @@ def split_kv_decode_partials(q: torch.Tensor, k: torch.Tensor,
     with torch.cuda.device(dev):
         _lib.launch("split_kv_decode", SPLIT, SPLIT,
                     *map(_lib.ptr, (q, k, v, valid, o, l, m)),
-                    b, h, kv, d, length, bk, scale, code)
+                    b, h, kv, kvs, d, length, bk, scale, code)
     return o, l, m

@@ -1,18 +1,25 @@
-"""Per-request cache state manipulation — the paged subset of the JAX
-package's ``models/kvcache.py``, on torch tensors.
+"""Per-request cache state manipulation — the port of the JAX package's
+``models/kvcache.py``, on torch tensors.
 
 * ``BlockPool`` — host-side refcounted page accounting (free at refcount
   zero; page 0 is the reserved scratch page).
 * ``extract_paged_state`` / ``insert_paged_state`` — move one request
-  between pools by copying only its pages: the prefill→decode hand-off.
+  between pools by copying only its pages: the prefill→decode hand-off
+  (their cores ``gather_pages`` / ``scatter_pages`` take the physical page
+  ids as a tensor).
+* ``dense_to_paged`` / ``paged_to_dense`` — a whole batched cache between
+  the dense and the pool layout, exactly.
 * ``copy_pages`` — the copy-on-write fork inside one pool;
   ``reset_page_positions`` — invalidate recycled pages' positions.
 * ``dense_state_to_paged`` / ``paged_state_to_dense`` /
   ``split_paged_state`` / ``page_payload`` / ``pages_from_payloads`` /
   ``paged_state_block`` — the hand-off wire format and the store's
   per-block payloads.
-* ``extract_request_state`` / ``insert_request_state`` — one row of a
-  dense batched cache.
+* ``extract_request_state`` / ``insert_request_state`` /
+  ``blank_request_state`` — one row of a dense batched cache (the
+  dense-row engines' hand-off).
+* ``slice_prefix_kv`` / ``merge_prefix_kv`` — a token range of a dense
+  request state: the store's per-block payloads on dense rows.
 * ``layer_transfer_schedule`` — the ordered per-layer byte schedule of a
   hand-off payload (the store and the orchestrator bill it).
 
@@ -112,6 +119,55 @@ def insert_request_state(cache: Cache, row: int,
     return cache
 
 
+def blank_request_state(cache: Cache) -> RequestState:
+    """An empty request state of the cache's structure: positions -1,
+    everything else zero, length 0."""
+    st = extract_request_state(cache, 0)
+
+    def reset(g, ax):
+        return {k: (a.fill_(-1) if a.dtype == torch.int32 and a.ndim >= 1
+                    else a.zero_()) for k, a in g.items()}
+
+    groups, rem = _map_groups(reset, st)
+    return {"length": torch.zeros((), dtype=torch.int32), "groups": groups,
+            "rem": rem}
+
+
+def slice_prefix_kv(st: RequestState, start: int, end: int) -> RequestState:
+    """Token range [start, end) of every attention KV of a dense request
+    state (a store payload).  Only meaningful for prefix-cacheable stacks,
+    whose linear caches hold token i in slot i.  The slices are copies."""
+    def cut(g, ax):
+        out = {}
+        for k, a in g.items():
+            if k in ("k", "v"):
+                out[k] = a[..., start:end, :, :].clone()
+            elif k == "pos":
+                out[k] = a[..., start:end].clone()
+            else:
+                out[k] = a
+        return out
+
+    groups, rem = _map_groups(cut, st)
+    return {"length": torch.tensor(end - start, dtype=torch.int32),
+            "groups": groups, "rem": rem}
+
+
+def merge_prefix_kv(dst: RequestState, src: RequestState,
+                    offset: int) -> RequestState:
+    """Write ``src``'s token range into ``dst`` from slot ``offset`` on
+    (in place; the returned state's length is offset + src's)."""
+    for d, sg in zip(tuple(dst["groups"]) + tuple(dst["rem"]),
+                     tuple(src["groups"]) + tuple(src["rem"])):
+        n = sg["pos"].shape[-1]
+        for k in ("k", "v"):
+            d[k][..., offset:offset + n, :, :] = sg[k].to(d[k].device)
+        d["pos"][..., offset:offset + n] = sg["pos"].to(d["pos"].device)
+    return {"length": torch.tensor(offset + int(src["length"]),
+                                   dtype=torch.int32),
+            "groups": dst["groups"], "rem": dst["rem"]}
+
+
 def global_attention(cfg: ModelConfig) -> bool:
     """Pure global-attention stacks: every cache is linear over the whole
     page space (no window, no recurrent state)."""
@@ -149,6 +205,124 @@ def _pool_batch(pcache: Cache) -> int:
     return int(pcache["block_tables"].shape[0])
 
 
+def _is_dense_paged_leaf(key: str, a: Any, batch_axis: int,
+                         plen: int) -> bool:
+    """A dense-layout cache leaf that belongs in the block pool:
+    (lead..., B, plen, tail...)."""
+    return (key in PAGED_KEYS and torch.is_tensor(a)
+            and a.ndim == batch_axis + 2 + _LEAF_TAIL[key]
+            and a.shape[batch_axis + 1] == plen)
+
+
+def dense_to_paged(cache: Cache, block_size: int) -> Cache:
+    """Exact conversion of a dense batched cache into a block pool plus
+    block tables: every logical block of every row gets its own page
+    (row r's block j is page 1 + r * nb + j; page 0 is the scratch page),
+    so ``paged_to_dense`` round-trips it bit for bit.  Returns new
+    tensors."""
+    batch = int(cache["lengths"].shape[0])
+    plen = page_len(cache)
+    if plen is None:
+        raise ValueError("cache has no attention KV to page")
+    if plen % block_size:
+        raise ValueError(f"page length {plen} not a multiple of "
+                         f"block_size {block_size}")
+    nb = plen // block_size
+    dev = cache["lengths"].device
+    tables = (torch.arange(batch * nb, dtype=torch.int32, device=dev)
+              .reshape(batch, nb) + 1)
+
+    def conv(g, ax):
+        out = {}
+        for k, a in g.items():
+            if _is_dense_paged_leaf(k, a, ax, plen):
+                lead, tail = a.shape[:ax], a.shape[ax + 2:]
+                pages = a.reshape(lead + (batch * nb, block_size) + tail)
+                scratch = torch.full(lead + (1, block_size) + tail,
+                                     _leaf_fill(k), dtype=a.dtype,
+                                     device=a.device)
+                out[k] = torch.cat([scratch, pages], dim=ax)
+            else:
+                out[k] = a.clone()
+        return out
+
+    groups, rem = _map_groups(conv, cache)
+    return {"lengths": cache["lengths"].clone(), "block_tables": tables,
+            "groups": groups, "rem": rem}
+
+
+def paged_to_dense(pcache: Cache, block_size: int) -> Cache:
+    """Exact inverse of ``dense_to_paged``: each row's pages gathered
+    through its table, unassigned blocks (-1) as blanks (zeros, pos = -1).
+    Returns new tensors."""
+    tables = pcache["block_tables"]
+    batch, nb = tables.shape
+    plen = nb * block_size
+    safe = tables.clamp_min(0).long()
+    live = tables >= 0
+
+    def conv(g, ax):
+        out = {}
+        for k, a in g.items():
+            if _is_pool_leaf(k, a, ax, batch, block_size):
+                got = a[_idx(ax, safe)]               # (..., B, nb, bs, tail)
+                lshape = ((1,) * ax + (batch, nb)
+                          + (1,) * (got.ndim - ax - 2))
+                got = torch.where(live.reshape(lshape), got,
+                                  torch.full((), _leaf_fill(k),
+                                             dtype=a.dtype, device=a.device))
+                out[k] = got.reshape(got.shape[:ax] + (batch, plen)
+                                     + got.shape[ax + 3:])
+            else:
+                out[k] = a.clone()
+        return out
+
+    groups, rem = _map_groups(conv, pcache)
+    return {"lengths": pcache["lengths"].clone(), "groups": groups,
+            "rem": rem}
+
+
+def gather_pages(pcache: Cache, idx: torch.Tensor, slot: int, length, *,
+                 block_size: int) -> RequestState:
+    """The pages at physical ids ``idx`` (n,) plus ``slot``'s slot-dense
+    leaves, as a request state of copies (no ``n_blocks``): the core of
+    ``extract_paged_state``.  Cost ∝ n pages, never the pool."""
+    batch = _pool_batch(pcache)
+    idx = idx.to(device=pcache["block_tables"].device, dtype=torch.long)
+
+    def conv(g, ax):
+        return {k: (a[_idx(ax, idx)] if _is_pool_leaf(k, a, ax, batch,
+                                                     block_size)
+                    else a[_idx(ax, slot)].clone())
+                for k, a in g.items()}
+
+    groups, rem = _map_groups(conv, pcache)
+    return {"length": torch.as_tensor(int(length), dtype=torch.int32),
+            "groups": groups, "rem": rem}
+
+
+def scatter_pages(pcache: Cache, st: RequestState, idx: torch.Tensor,
+                  slot: int, *, block_size: int) -> Cache:
+    """Write the state's pages into physical blocks ``idx`` (n,) plus its
+    slot-dense leaves, ``slot``'s table row (pages at logical blocks
+    0..n-1, the rest -1) and its length, in place: the core of
+    ``insert_paged_state``.  Cost ∝ n pages, never the pool."""
+    batch = _pool_batch(pcache)
+    tables = pcache["block_tables"]
+    idx = idx.to(device=tables.device, dtype=torch.long)
+    for cs, ss, ax in ((pcache["groups"], st["groups"], 1),
+                       (pcache["rem"], st["rem"], 0)):
+        for c, s in zip(cs, ss):
+            for k, a in c.items():
+                at = idx if _is_pool_leaf(k, a, ax, batch, block_size) \
+                    else slot
+                a[_idx(ax, at)] = s[k].to(a.device)
+    tables[slot] = -1
+    tables[slot, :idx.numel()] = idx.to(tables.dtype)
+    pcache["lengths"][slot] = int(st["length"])
+    return pcache
+
+
 def extract_paged_state(pcache: Cache, slot: int, block_size: int, *,
                         table_row: Optional[np.ndarray] = None,
                         length=None) -> RequestState:
@@ -158,20 +332,11 @@ def extract_paged_state(pcache: Cache, slot: int, block_size: int, *,
     row = np.asarray(table_row if table_row is not None
                      else pcache["block_tables"][slot].cpu().numpy())
     phys = row[row >= 0]
-    batch = _pool_batch(pcache)
-    dev = pcache["block_tables"].device
-    idx = torch.as_tensor(phys, dtype=torch.long, device=dev)
-
-    def conv(g, ax):
-        return {k: (a[_idx(ax, idx)] if _is_pool_leaf(k, a, ax, batch,
-                                                     block_size)
-                    else a[_idx(ax, slot)].clone())
-                for k, a in g.items()}
-
-    groups, rem = _map_groups(conv, pcache)
     n = pcache["lengths"][slot] if length is None else length
-    return {"length": torch.as_tensor(int(n), dtype=torch.int32),
-            "n_blocks": int(len(phys)), "groups": groups, "rem": rem}
+    st = gather_pages(pcache, torch.as_tensor(phys, dtype=torch.long), slot,
+                      n, block_size=block_size)
+    st["n_blocks"] = int(len(phys))
+    return st
 
 
 def insert_paged_state(pcache: Cache, slot: int, st: RequestState,
@@ -182,26 +347,9 @@ def insert_paged_state(pcache: Cache, slot: int, st: RequestState,
     blocks 0..n-1, the rest -1) and its length."""
     n = int(st["n_blocks"])
     assert len(phys_blocks) == n, (len(phys_blocks), n)
-    batch = _pool_batch(pcache)
-    tables = pcache["block_tables"]
-    dev = tables.device
-    idx = torch.as_tensor(list(phys_blocks), dtype=torch.long, device=dev)
-    for c, s in zip(pcache["groups"], st["groups"]):
-        _scatter(c, s, 1, idx, slot, batch, block_size)
-    for c, s in zip(pcache["rem"], st["rem"]):
-        _scatter(c, s, 0, idx, slot, batch, block_size)
-    tables[slot] = -1
-    tables[slot, :n] = idx.to(tables.dtype)
-    pcache["lengths"][slot] = int(st["length"])
-    return pcache
-
-
-def _scatter(c, s, ax, idx, slot, batch, block_size) -> None:
-    for k, a in c.items():
-        if _is_pool_leaf(k, a, ax, batch, block_size):
-            a[_idx(ax, idx)] = s[k].to(a.device)
-        else:
-            a[_idx(ax, slot)] = s[k].to(a.device)
+    return scatter_pages(pcache, st, torch.as_tensor(list(phys_blocks),
+                                                     dtype=torch.long),
+                         slot, block_size=block_size)
 
 
 def reset_page_positions(pcache: Cache, phys_blocks: Sequence[int],

@@ -17,8 +17,11 @@ scale per (token, kv head) in the ``k_scale``/``v_scale`` leaves
 (``quantize_kv``); attention folds the scales in (``masked_attention``,
 or kernels B1/B4's int8 variants on the paged path).
 
-Not ported yet (later slices): head offload, cross-attention and the
-recurrent blocks.
+Fig. 4's head offload (``head_offload``) splits a dense decode step's
+attention on the kv-head axis into a hot and a cold branch, each its own
+exact softmax (``_decode_head_offload``).
+
+Not ported yet (later slices): cross-attention and the recurrent blocks.
 """
 from __future__ import annotations
 
@@ -174,6 +177,52 @@ def attend(q, k, v, pos_q, pos_k, *, window: Optional[int], scale: float,
     return torch.cat(outs, dim=1)
 
 
+def dense_valid(slot_pos: torch.Tensor, pos_q: torch.Tensor,
+                window: Optional[int]) -> torch.Tensor:
+    """(B, L) keys a decode query at ``pos_q`` (B,) sees in a dense cache:
+    0 <= slot_pos <= pos_q, and inside the window."""
+    pq = pos_q[:, None]
+    valid = (slot_pos >= 0) & (slot_pos <= pq)
+    if window is not None:
+        valid = valid & (slot_pos > pq - window)
+    return valid
+
+
+def _decode_head_offload(cfg: ModelConfig, q, cache_k, cache_v, positions,
+                         slot_pos, window, scale, n_off: int) -> torch.Tensor:
+    """Fig. 4: split a decode step's attention on the kv-head axis.  The
+    hot branch keeps kv heads ``[:kv - n_off]``, the cold branch computes
+    ``[kv - n_off:]``; the branches hold disjoint heads, so each is its
+    own exact softmax and the outputs concatenate on the head axis (only
+    (o, l, m) would cross the devices).
+
+    Each branch is ``ops.decode_attention``: B5's per-block partials
+    (``ops.decode_partials``; the kernel on a CUDA tensor, its plain
+    version on the CPU) over the branch's contiguous range of kv heads,
+    read in place, and that range's query heads, reduced by
+    ``combine_stacked``.  B5 is GQA-native, so JAX's ``jnp.repeat`` of K/V
+    per query head is not needed.  As JAX's ``partial_attention``, no
+    soft cap.  q: (B, 1, H, D); returns (B, 1, H, D) in q's dtype (each
+    branch cast on its own: the same values as JAX's cast after the
+    concatenation)."""
+    b, s, h, d = q.shape
+    kv = cache_k.shape[2]
+    if not 0 <= n_off <= kv:
+        raise ValueError(f"head_offload must be in 0..{kv} kv heads, "
+                         f"got {n_off}")
+    if s != 1:
+        raise ValueError(f"head offload is a decode step of one token, "
+                         f"got {s} query positions")
+    g = h // kv
+    cut = kv - n_off
+    valid = dense_valid(slot_pos, positions[:, 0], window)
+    q0 = q[:, 0]
+    outs = [ops.decode_attention(
+        q0[:, lo * g:hi * g], cache_k[:, :, lo:hi], cache_v[:, :, lo:hi],
+        valid, scale=scale) for lo, hi in ((0, cut), (cut, kv)) if hi > lo]
+    return torch.cat(outs, dim=1)[:, None]
+
+
 def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                     positions: torch.Tensor,
                     state: Optional[State],
@@ -182,6 +231,7 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                     prefix_aware: bool = False,
                     block_tables: Optional[torch.Tensor] = None,
                     paged_kernel: bool = False,
+                    head_offload: int = 0,
                     ) -> Tuple[torch.Tensor, Optional[State]]:
     """Self attention.  Returns (y, new_state).
 
@@ -207,9 +257,18 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
       where each query's position hides the in-flight tokens after it; or,
       with ``paged_kernel=False``, the pages are gathered and attended
       with plain ``attend`` (the A/B reference);
-    * dense decode (the draft model's per-row cache): ring write at
-      ``positions % cache_len``, then plain ``attend``, as the JAX package
-      computes it outside any kernel.
+    * dense decode (the dense-row engine's and the draft model's per-row
+      cache): ring write at ``positions % cache_len``, then, for one token
+      per row over a bf16/f32 cache without a soft cap,
+      ``ops.decode_attention`` (kernel B5 on a CUDA tensor, its plain
+      version on the CPU) under the validity mask ``0 <= slot_pos <= pos``
+      plus the window (``dense_valid``); JAX computes this step in XLA.
+      The config alone fixes the other route, plain ``attend``: for a
+      verify step (S > 1), an int8 cache or a soft-capped stack, since B5
+      takes no scales and no cap (JAX computes these outside any kernel
+      too).  ``head_offload > 0`` (Fig. 4) splits the one-token step's
+      heads (``_decode_head_offload``, B5 per branch); on an int8 cache it
+      is ignored, as JAX's ``and not quant`` does.
 
     An int8 cache (``k_scale``/``v_scale`` in ``state``) is written with
     ``quantize_kv``'s values and scales at the same places; prefill still
@@ -219,7 +278,8 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     ``ValueError``.
 
     Dead table entries (-1) write into the reserved scratch page 0, which
-    every reader masks out.
+    every reader masks out.  ``head_offload > 0`` on a paged cache raises
+    ``ValueError`` (JAX asserts that the two are not combined).
     """
     scale = 1.0 / math.sqrt(cfg.head_dim)
     cap = cfg.logit_soft_cap
@@ -235,6 +295,9 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     else:
         cache_k, cache_v, slot_pos = state["k"], state["v"], state["pos"]
         quant = "k_scale" in state
+        if head_offload and block_tables is not None:
+            raise ValueError("head offload and paged caches are not "
+                             "combined (as in the JAX package)")
         k_sc = state.get("k_scale")
         v_sc = state.get("v_scale")
         if quant and prefix_aware:
@@ -329,8 +392,9 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                            v_scale=(v_sc[safe].reshape(b, plen, kvh)
                                     if quant else None))
         else:
-            # dense per-row cache (the draft model's): ring write at
-            # positions % cache_len, then plain attention over the row
+            # dense per-row cache (dense-row engines, the draft model):
+            # ring write at positions % cache_len, then attention over the
+            # row (B5 for one token of a bf16/f32 cache without a cap)
             cache_len = cache_k.shape[1]
             rows = torch.arange(b, device=x.device)[:, None]
             write_pos = (positions % cache_len).long()
@@ -340,9 +404,19 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             if quant:
                 k_sc[rows, write_pos] = ks_w
                 v_sc[rows, write_pos] = vs_w
-            o = attend(q, cache_k, cache_v, positions, slot_pos,
-                       window=window, scale=scale, soft_cap=cap,
-                       k_scale=k_sc, v_scale=v_sc)
+            if head_offload > 0 and not quant:
+                o = _decode_head_offload(cfg, q, cache_k, cache_v, positions,
+                                         slot_pos, window, scale,
+                                         head_offload)
+            elif s == 1 and not quant and cap is None:
+                o = ops.decode_attention(
+                    q[:, 0], cache_k, cache_v,
+                    dense_valid(slot_pos, positions[:, 0], window),
+                    scale=scale)[:, None]
+            else:
+                o = attend(q, cache_k, cache_v, positions, slot_pos,
+                           window=window, scale=scale, soft_cap=cap,
+                           k_scale=k_sc, v_scale=v_sc)
         new_state = {"k": cache_k, "v": cache_v, "pos": slot_pos}
         if quant:
             new_state.update(k_scale=k_sc, v_scale=v_sc)
@@ -436,7 +510,7 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     n = t * k
     dev = x.device
     xt = x.reshape(t, d)
-    probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+    probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
     gate_vals, idx = torch.topk(probs, k, dim=-1)                  # (T, k)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
     eid = idx.reshape(n)

@@ -17,6 +17,14 @@ Public API
     pcache             = init_paged_cache(cfg, batch, max_len, block_size,
                                           dtype, device)
     logits, cache, aux = apply(cfg, params, tokens, cache=..., mode=...)
+    logits, aux        = forward_train(cfg, params, tokens)
+    logits, cache, aux = prefill(cfg, params, tokens, cache)
+    logits, cache, aux = decode_step(cfg, params, token, cache)
+
+Parameters may be int8 (``models/quant.py`` ``quantize_weights``: a matrix
+leaf becomes ``{"q", "s"}``); ``apply`` dequantizes each layer's leaves
+inside the layer loop and the embedding and unembedding where it reads
+them, as JAX does, so nothing else sees a quantized leaf.
 
 This slice runs attention-only stacks (global or sliding-window attention
 with a gated MLP or a top-k MoE), with bf16/f32 or int8 KV caches
@@ -32,6 +40,7 @@ import torch
 
 from .. import device as D
 from . import layers as L
+from . import quant as Q
 from .config import BlockKind, ModelConfig
 
 Params = Dict[str, Any]
@@ -223,10 +232,12 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
                  x: torch.Tensor, *, positions, state, mode,
                  prefix_aware: bool, block_tables, paged_kernel: bool,
-                 moe_impl: str = "sorted", moe_cf=None
+                 moe_impl: str = "sorted", moe_cf=None, head_offload: int = 0
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (x, router_load); the load is None for a gated-MLP block
-    (JAX returns zeros there, which add nothing)."""
+    (JAX returns zeros there, which add nothing).  The layer's int8 leaves
+    are dequantized to x's dtype first (a no-op for unquantized weights)."""
+    p = Q.dequant_tree(p, x.dtype)
     window = (cfg.local_window if kind == BlockKind.LOCAL_ATTENTION
               else cfg.sliding_window)
     h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
@@ -234,7 +245,8 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
                              state=state, mode=mode, window=window,
                              prefix_aware=prefix_aware,
                              block_tables=block_tables,
-                             paged_kernel=paged_kernel)
+                             paged_kernel=paged_kernel,
+                             head_offload=head_offload)
     x = x + y
     load = None
     if cfg.d_ff > 0:
@@ -260,6 +272,7 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
           paged_kernel: bool = False,
           hidden_in: bool = False,
           hidden_out: bool = False,
+          head_offload: int = 0,
           ) -> Tuple[torch.Tensor, Optional[Cache], Dict[str, Any]]:
     """Run the stack.
 
@@ -272,9 +285,16 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     variants on an int8 cache; False: gather-then-attend, the A/B
     reference); prefill on it is the incremental resume
     (``prefix_aware=True``; kernels B3 + B2; not for an int8 cache).  Fresh
-    prefill over a dense cache runs kernel B2; decode over a dense cache
-    (the draft model's) is plain attention.  Decode positions are
-    ``lengths + arange(S)`` and the returned lengths advance by S.
+    prefill over a dense cache runs kernel B2; one-token decode over a
+    dense bf16/f32 cache (dense-row engines, the draft model) kernel B5,
+    and plain attention otherwise (``layers.attention_apply`` says when).
+    Decode positions are ``lengths + arange(S)`` and the returned lengths
+    advance by S.
+    ``head_offload=n`` runs a one-token decode over a dense bf16/f32 cache
+    as Fig. 4's hot/cold split, the last n kv heads a separate branch
+    (``layers._decode_head_offload``: kernel B5 per branch); ignored on an
+    int8 cache and outside decode, as in JAX; a paged cache, or n outside
+    0..n_kv_heads, raises ``ValueError`` before any work.
     ``mode="train"`` without a cache is the plain stateless forward.
 
     Partial-stack (layer-span) execution, as in JAX: ``hidden_in=True``
@@ -302,13 +322,26 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             raise ValueError("paged caches serve decode and the incremental "
                              "(prefix-aware) prefill")
         block_tables = cache["block_tables"]
+    if head_offload and block_tables is not None:
+        raise ValueError("head offload and paged caches are not combined "
+                         "(as in the JAX package)")
+    if not 0 <= head_offload <= cfg.n_kv_heads:
+        raise ValueError(f"head_offload must be in 0..{cfg.n_kv_heads} kv "
+                         f"heads, got {head_offload}")
     ar = torch.arange(s, dtype=torch.int32, device=dev)
     if cache is not None:
         positions = cache["lengths"][:, None] + ar[None, :]
     else:
         positions = ar[None, :].expand(b, s)
-    x = tokens.to(params["out_norm"].dtype) if hidden_in \
-        else params["embed"][tokens]
+    dtype = params["out_norm"].dtype           # norms are never quantized
+    emb = params["embed"]
+    if hidden_in:
+        x = tokens.to(dtype)
+    elif Q.is_quantized(emb):
+        # the rows a step reads, dequantized: JAX's values, row for row
+        x = Q.dequant({"q": emb["q"][tokens], "s": emb["s"]}, dtype)
+    else:
+        x = emb[tokens]
 
     loads = []
 
@@ -317,7 +350,7 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                              mode=mode, prefix_aware=prefix_aware,
                              block_tables=block_tables,
                              paged_kernel=paged_kernel, moe_impl=moe_impl,
-                             moe_cf=moe_cf)
+                             moe_cf=moe_cf, head_offload=head_offload)
         if rl is not None:
             loads.append(rl)
         return x
@@ -337,8 +370,8 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         if logits_slice == "last":
             x = x[:, -1] if logits_at is None else \
                 x[torch.arange(b, device=dev), logits_at.to(dev).long()]
-        unembed = params["embed"].t() if cfg.tie_embeddings \
-            else params["unembed"]
+        unembed = Q.dequant(params["embed"], dtype).t() \
+            if cfg.tie_embeddings else Q.dequant(params["unembed"], dtype)
         logits = x @ unembed
 
     new_cache = None
@@ -349,3 +382,30 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             new_cache["block_tables"] = block_tables
     load = sum(loads) if loads else torch.zeros(1, device=dev)
     return logits, new_cache, {"router_load": load / max(cfg.n_layers, 1)}
+
+
+# Convenience entry points, as JAX's ----------------------------------------
+
+def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  moe_impl: str = "sorted", moe_cf=None):
+    """The stateless forward: (logits (B, S, V), aux)."""
+    logits, _, aux = apply(cfg, params, tokens, mode="train",
+                           moe_impl=moe_impl, moe_cf=moe_cf)
+    return logits, aux
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            cache: Cache, moe_impl: str = "sorted",
+            prefix_aware: bool = False):
+    """Prefill ``tokens`` into ``cache``: (last-token logits (B, V), cache,
+    aux)."""
+    return apply(cfg, params, tokens, cache=cache, mode="prefill",
+                 moe_impl=moe_impl, logits_slice="last",
+                 prefix_aware=prefix_aware)
+
+
+def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
+                cache: Cache, moe_impl: str = "sorted"):
+    """One decode step of ``token`` (B, 1): (logits (B, V), cache, aux)."""
+    return apply(cfg, params, token, cache=cache, mode="decode",
+                 moe_impl=moe_impl, logits_slice="last")

@@ -4,7 +4,10 @@ The port keeps the JAX parameter and cache layouts (``groups``: one
 stacked tree per block-pattern position with a leading ``n_rep`` axis;
 ``rem``: the unstacked remainder layers), so conversion is leaf for leaf.
 ``params_from_jax`` checks the tree against the port's own ``init`` shapes
-before it converts anything.
+before it converts anything; it takes JAX's int8 trees too
+(``quantize_weights``: a matrix leaf ``{"q": int8, "s": f32}``, one scale
+per stacked layer or per tensor), whose scales stay f32 whatever
+``dtype``.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 
 from .. import device as D
 from .config import ModelConfig
+from .quant import is_quantized
 from .transformer import _group_shapes, check_supported
 
 
@@ -48,9 +52,10 @@ def tree_from_numpy(tree: Any, device: D.DeviceLike = None, dtype=None):
 
 def cast_params(tree: Any, dtype=None):
     """A parameter tree with every floating leaf in ``dtype`` but the MoE
-    router, which stays f32 as JAX keeps it (``init_moe``); ``dtype`` None
-    returns ``tree`` as it is."""
-    if dtype is None:
+    router, which stays f32 as JAX keeps it (``init_moe``), and int8
+    leaves, which keep their values and f32 scales; ``dtype`` None returns
+    ``tree`` as it is."""
+    if dtype is None or is_quantized(tree):
         return tree
     if isinstance(tree, dict):
         return {k: v if k == "router" else cast_params(v, dtype)
@@ -75,6 +80,14 @@ def _expected_block(cfg: ModelConfig):
 
 
 def _check(tree, expect, lead, where: str) -> None:
+    if not isinstance(expect, dict) and is_quantized(tree):
+        # an int8 leaf: its values at the leaf's shape, one scale per
+        # stacked layer (lead) or per tensor
+        _check(tree["q"], expect, lead, f"{where}.q")
+        if tuple(np.shape(tree["s"])) != tuple(lead):
+            raise ValueError(f"{where}.s: shape {np.shape(tree['s'])} != "
+                             f"{tuple(lead)}")
+        return
     if isinstance(expect, dict):
         if not isinstance(tree, dict) or set(tree) != set(expect):
             raise ValueError(f"{where}: keys {sorted(tree)} != "

@@ -8,7 +8,7 @@ one bucket runs per wave; suffixes and row counts pad to power-of-two
 buckets.  Fresh waves run over a dense wave cache (kernel B2); hit waves
 (store hits and chunk resumes) run over a paged wave cache whose prefix
 pages kernel B3 reads in place.  Every state leaves a wave in the paged
-wire format (``models.kvcache``).
+wire format (``models.kvcache``), or on dense rows (below) as a row.
 
 ``DecodeEngine`` — slot-based continuous batching over a refcounted paged
 block pool: per-slot block tables, page-fused decode (kernel B1),
@@ -34,13 +34,23 @@ either hosts a contiguous span of the stack (its weights views of the
 full parameters): the stages of a ``serving/span.py`` pipeline, which
 chains the residual stream through them (``apply(hidden_in,
 hidden_out)``) and re-slices them live (``rebase_span``).  This slice
-serves pageable global-attention stacks (a gated MLP or a top-k MoE after
-each attention; MoE through ``T.apply``'s default no-drop sorted
-dispatch, as JAX serves it), with bf16/f32 or int8 KV caches
-(``kv_quant``: int8 pages plus f32 scale pages, read by the int8 variants
-of kernels B1 and B4); other stacks raise ``NotImplementedError``.  As in
-the JAX package, an int8 stack has no prefix store and cannot resume a
-prompt chunk by chunk.
+serves global-attention stacks (a gated MLP or a top-k MoE after each
+attention; MoE through ``T.apply``'s default no-drop sorted dispatch, as
+JAX serves it), with bf16/f32 or int8 KV caches (``kv_quant``: int8 pages
+plus f32 scale pages, read by the int8 variants of kernels B1 and B4),
+and with int8 weights (``models/quant.py``); other stacks raise
+``NotImplementedError``.  As in the JAX package, an int8 stack has no
+prefix store and cannot resume a prompt chunk by chunk.
+
+Dense rows.  When the page space (``max_len``) is not a multiple of
+``block_size``, both engines serve on dense rows instead, as JAX's engines
+do (``_paged_page_len`` None there): a wave or decode cache is
+``T.init_cache``'s (B, max_len) rows, states cross engines in the dense
+layout (``extract_request_state`` / ``insert_request_state``), the store's
+per-block payloads are ``slice_prefix_kv`` slices merged back by
+``merge_prefix_kv``, a one-token decode step runs kernel B5 over the rows
+in place (``layers.attention_apply``), and a dense decode engine binds no
+shared pages.
 """
 from __future__ import annotations
 
@@ -109,19 +119,19 @@ def serving_page_len(cfg: ModelConfig, max_len: int) -> Optional[int]:
     return max(lens) if lens else None
 
 
-def check_servable(cfg: ModelConfig, ecfg: EngineConfig) -> int:
-    """The page length of a stack this slice serves (pageable global
-    attention, bf16/f32 or int8 KV); raises ``NotImplementedError``
-    otherwise (no dense fallback)."""
+def check_servable(cfg: ModelConfig, ecfg: EngineConfig) -> Optional[int]:
+    """The page length of a global-attention stack (bf16/f32 or int8 KV)
+    served on the paged runtime, or None when its page space is not a
+    multiple of ``block_size``: then it is served on dense rows, as JAX's
+    ``_paged_page_len`` decides.  Every other stack raises
+    ``NotImplementedError``."""
     T.check_supported(cfg)
     plen = serving_page_len(cfg, ecfg.max_len)
-    if not KC.global_attention(cfg) or plen is None \
-            or plen % ecfg.block_size:
+    if not KC.global_attention(cfg) or plen is None:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves pageable global-attention stacks "
-            f"(cache length a multiple of block_size {ecfg.block_size}); "
+            f"{cfg.name}: the port serves global-attention stacks; "
             "windowed and other stacks come with a later slice (ROADMAP A6)")
-    return plen
+    return None if plen % ecfg.block_size else plen
 
 
 StepKey = Tuple[str, int, bool, bool, bool]
@@ -262,7 +272,7 @@ def engine_device(params, device: D.DeviceLike) -> torch.device:
     """The engine's device (default the CUDA card); the parameters must
     already live there — nothing is moved behind the caller's back."""
     dev = D.resolve(device)
-    have = params["embed"].device
+    have = params["out_norm"].device
     if have.type != dev.type or (dev.index is not None
                                  and have.index != dev.index):
         raise ValueError(f"parameters live on {have}, engine device is "
@@ -304,7 +314,7 @@ class _Draft:
         self.params = params
         self.ecfg = ecfg
         self.cache = T.init_cache(cfg, ecfg.max_batch, ecfg.max_len,
-                                  dtype=params["embed"].dtype,
+                                  dtype=params["out_norm"].dtype,
                                   device=self.device)
         # valid resident tokens per slot (a prefix of the committed stream)
         self.len = np.zeros((ecfg.max_batch,), np.int64)
@@ -324,7 +334,7 @@ class _Draft:
         buf = np.zeros((1, padded), np.int64)
         buf[0, :n] = np.asarray(resident, np.int64)
         cache = T.init_cache(self.cfg, 1, self.ecfg.max_len,
-                             dtype=self.params["embed"].dtype,
+                             dtype=self.params["out_norm"].dtype,
                              device=self.device)
         _, cache, _ = T.apply(
             self.cfg, self.params, torch.as_tensor(buf, device=self.device),
@@ -383,12 +393,13 @@ class PrefillEngine:
                  store: Optional[GlobalKVStore] = None,
                  name: str = "prefill0", device: D.DeviceLike = None,
                  layer_span: Optional[Tuple[int, int]] = None):
+        # None: dense rows (waves, partials and hand-offs stay dense)
         self._page_len = check_servable(cfg, ecfg)
         self.device = engine_device(params, device)
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
-        self.dtype = params["embed"].dtype
+        self.dtype = params["out_norm"].dtype
         self.layer_span, self.scfg, self.sparams = \
             _span_view(cfg, params, layer_span)
         # the store holds pages of linear bf16/f32 caches only (JAX drops
@@ -405,7 +416,7 @@ class PrefillEngine:
         # leading-block hash -> cached tokens (prefix-aware routing signal)
         self._leading: Dict[bytes, int] = {}
         # padded writes must never wrap the cache (linear: the page space)
-        self._pad_cap = self._page_len
+        self._pad_cap = serving_page_len(cfg, ecfg.max_len)
         # (rows, padded suffix, hit) of every wave forward run: JAX's
         # jit-shape log, the keys of prefill forwards (compile_report)
         self.prefill_shapes: Set[Tuple[int, int, bool]] = set()
@@ -469,8 +480,9 @@ class PrefillEngine:
 
     def _publish(self, tokens: np.ndarray, st: Dict[str, Any],
                  matched: int, keys: List[bytes]) -> None:
-        """Insert freshly computed full blocks (pages of the paged state)
-        into the global store."""
+        """Insert freshly computed full blocks into the global store: pages
+        of a paged state, or token slices of a dense one (the same
+        per-block payload shape)."""
         bs = self.ecfg.block_size
         if not keys:
             return
@@ -478,8 +490,12 @@ class PrefillEngine:
         self._leading[keys[0]] = max(self._leading.get(keys[0], 0), n_full)
         if self.store is None:
             return
-        payloads = [KC.paged_state_block(st, j, bs)
-                    for j in range(matched // bs, n_full // bs)]
+        if "n_blocks" in st:
+            payloads = [KC.paged_state_block(st, j, bs)
+                        for j in range(matched // bs, n_full // bs)]
+        else:
+            payloads = [KC.slice_prefix_kv(st, i, i + bs)
+                        for i in range(matched, n_full, bs)]
         if payloads:
             nbytes = KC.state_num_bytes(payloads[0])
             self.store.insert(tokens[:n_full],
@@ -555,7 +571,7 @@ class PrefillEngine:
         for req in reqs:
             req.advance(Phase.PREFILL)
         bs = self.ecfg.block_size
-        nb_slot = self._page_len // bs
+        nb_slot = (self._page_len or 0) // bs
         toks = [np.asarray(r.prompt, np.int32) for r in reqs]
         keys_of = [chain_hashes(t, bs) if self.store is not None else []
                    for t in toks]
@@ -594,9 +610,10 @@ class PrefillEngine:
             bounds = [e.layer_span for e in chain]
             matched_of: Dict[int, int] = {}
             tables = None
-            # hit waves of a single-span engine run paged (kernel B3 reads
-            # the prefix in place); a chain resumes over dense caches
-            use_paged = hit and len(chain) == 1
+            # hit waves of a single-span paged engine run paged (kernel B3
+            # reads the prefix in place); a chain and dense rows resume over
+            # dense caches
+            use_paged = hit and len(chain) == 1 and nb_slot > 0
             if use_paged:
                 cache = T.init_paged_cache(self.cfg, n_rows,
                                            self.ecfg.max_len, bs,
@@ -634,18 +651,29 @@ class PrefillEngine:
                           for e in chain]
                 for row, i in enumerate(chosen):
                     if i in partials:
-                        # chained resume: the parked full-stack state,
-                        # dense, split at the chain's cuts
+                        # resume: the parked full-stack state, dense,
+                        # split at the chain's cuts
                         matched_of[i] = progress[i]
-                        dense = KC.paged_state_to_dense(
-                            partials.pop(i), bs, self._page_len)
-                        for c, part in zip(caches, LM.split_state_spans(
-                                self.cfg, dense, bounds)):
+                        dense = partials.pop(i)
+                        if "n_blocks" in dense:
+                            dense = KC.paged_state_to_dense(
+                                dense, bs, self._page_len)
+                        parts = [dense] if len(chain) == 1 else \
+                            LM.split_state_spans(self.cfg, dense, bounds)
+                        for c, part in zip(caches, parts):
                             KC.insert_request_state(c, row, part)
                         continue
-                    # records the lookup; a miss bucket matches nothing
-                    matched_of[i] = store_matched[i] = \
-                        self._match(toks[i], keys_of[i])[0]
+                    # a miss bucket matches nothing; a store hit on dense
+                    # rows merges the fetched blocks into the row (span
+                    # chains hold no store)
+                    matched, payloads = self._match(toks[i], keys_of[i])
+                    matched_of[i] = store_matched[i] = matched
+                    if matched > 0:
+                        reqs[i].cached_tokens = matched
+                        st = KC.extract_request_state(caches[0], row)
+                        for j, pl in enumerate(payloads):
+                            st = KC.merge_prefix_kv(st, pl, j * bs)
+                        KC.insert_request_state(caches[0], row, st)
             suffix = np.zeros((n_rows, blen), np.int32)
             slens = np.ones((n_rows,), np.int32)   # dummy rows read pos 0
             for row, i in enumerate(chosen):
@@ -680,7 +708,11 @@ class PrefillEngine:
                           if len(chain) == 1 else LM.merge_state_spans(
                               self.cfg, [KC.extract_request_state(c, row)
                                          for c in caches], bounds))
-                    st = KC.dense_state_to_paged(st, bs, length=new_len)
+                    if nb_slot:
+                        st = KC.dense_state_to_paged(st, bs, length=new_len)
+                    else:               # dense rows: the wire state as is
+                        st["length"] = torch.tensor(new_len,
+                                                    dtype=torch.int32)
                 self.tokens_prefilled += int(slens[row])
                 wave_tokens += int(slens[row])
                 # publish completed full blocks at every chunk boundary
@@ -690,7 +722,7 @@ class PrefillEngine:
                     self._publish(toks[i], st, pub_from, keys_part)
                     published[i] = len(keys_part) * bs
                 if new_len < len(toks[i]):
-                    partials[i] = st            # park mid-prompt, paged
+                    partials[i] = st     # park mid-prompt (paged or dense)
                     progress[i] = new_len
                     continue
                 self.n_prefilled += 1
@@ -737,7 +769,13 @@ class DecodeEngine:
     [a, b): its weights are views of the full parameters, its pool covers
     only the span, and a ``serving/span.py`` ``DecodePipeline`` chains
     stages so the batch's residual stream runs the whole stack each
-    step.  ``rebase_span`` re-slices an emptied stage (a layer move)."""
+    step.  ``rebase_span`` re-slices an emptied stage (a layer move).
+
+    On dense rows (``paged`` False: the page space is not a multiple of
+    ``block_size``) the cache is ``T.init_cache``'s, one row per slot:
+    dense states go in and out through ``insert_request_state`` /
+    ``extract_request_state``, there are no pages to prepare, fork or roll
+    back, and page sharing is refused, as JAX asserts."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
                  name: str = "decode0", device: D.DeviceLike = None,
@@ -761,7 +799,6 @@ class DecodeEngine:
         self._store: Optional[GlobalKVStore] = None
         self.cow_forks = 0        # shared pages forked copy-on-write
         self.pages_shared = 0     # pages bound by reference (no copy)
-        self.paged = True
         self.use_kernel = ecfg.decode_kernel is not False
         # speculation: the mode from the config, a runtime switch the
         # orchestrator flips per iteration, and per-slot adaptive depth
@@ -792,16 +829,24 @@ class DecodeEngine:
         self.layer_span, self.scfg, self.sparams = \
             _span_view(self.cfg, self.params, layer_span)
         self.page_len = check_servable(self.scfg, ecfg)
-        self.cache = T.init_paged_cache(self.scfg, ecfg.max_batch,
-                                        ecfg.max_len, ecfg.block_size,
-                                        dtype=self.params["embed"].dtype,
-                                        device=self.device)
-        self._nb_slot = self.page_len // ecfg.block_size
+        self.paged = self.page_len is not None
+        dtype = self.params["out_norm"].dtype
+        if self.paged:
+            self.cache = T.init_paged_cache(self.scfg, ecfg.max_batch,
+                                            ecfg.max_len, ecfg.block_size,
+                                            dtype=dtype, device=self.device)
+        else:
+            self.cache = T.init_cache(self.scfg, ecfg.max_batch,
+                                      ecfg.max_len, dtype=dtype,
+                                      device=self.device)
+        self._nb_slot = (self.page_len or 0) // ecfg.block_size
         # host mirrors: block tables and the refcounted pool (page 0 is the
-        # scratch page); the device table is refreshed when it goes stale
+        # scratch page; dense rows have none); the device table is
+        # refreshed when it goes stale
         self._bt = np.full((ecfg.max_batch, self._nb_slot), -1, np.int32)
         self._bt_dirty = False
-        self.pool = KC.BlockPool(1 + ecfg.max_batch * self._nb_slot)
+        self.pool = (KC.BlockPool(1 + ecfg.max_batch * self._nb_slot)
+                     if self.paged else None)
         self._slot_blocks: List[List[int]] = \
             [[] for _ in range(ecfg.max_batch)]
         # speculation needs rollback-safe KV (full attention, no window,
@@ -828,7 +873,10 @@ class DecodeEngine:
 
     def attach_store(self, store: GlobalKVStore) -> None:
         """Let the global store hold refcounted references into this
-        engine's block pool (zero-copy prefix sharing)."""
+        engine's block pool (zero-copy prefix sharing).  Dense rows have
+        no pool: ``ValueError``, as JAX asserts."""
+        if not self.paged:
+            raise ValueError("page sharing needs the paged layout")
         self._store = store
         store.attach_pool(self.name, self)
 
@@ -892,6 +940,8 @@ class DecodeEngine:
 
     # -- slot transfer ---------------------------------------------------
     def _release_blocks(self, slot: int) -> None:
+        if not self.paged:
+            return                 # dense rows: the next adopt overwrites
         # pages free only at refcount zero: a page the store (or a sharing
         # sibling) still holds stays resident
         self.pool.unref(list(reversed(self._slot_blocks[slot])))
@@ -907,11 +957,34 @@ class DecodeEngine:
         """Place an in-flight request's paged state into a free slot: page
         copies into fresh blocks, plus ``shared_pages`` (pages of this pool
         holding the request's prefix) bound by reference in front; the
-        state must already be head-split past them."""
+        state must already be head-split past them.  On dense rows the
+        (dense) state overwrites the slot's row, and ``shared_pages``
+        raise ``ValueError``."""
         if slot is None:
             slot = self.free_slot()
         assert slot is not None and self.slots[slot] is None, \
             "decode engine full"
+        if self.paged:
+            self._adopt_pages(slot, state, shared_pages)
+        else:
+            if shared_pages:
+                raise ValueError("dense rows cannot bind shared pages")
+            KC.insert_request_state(self.cache, slot, state)
+        self.slots[slot] = req
+        self.next_token[slot] = int(next_token)
+        self._slot_len[slot] = int(state["length"])
+        # speculation starts optimistic; the draft cache rebuilds lazily
+        # from the committed stream on the first verify iteration
+        self._spec_ema[slot] = 1.0
+        self._spec_k[slot] = max(self.ecfg.spec_len, 1)
+        if self._draft is not None:
+            self._draft.reset_slot(slot)
+        req.decode_instance = self.name
+        return slot
+
+    def _adopt_pages(self, slot: int, state: Dict[str, Any],
+                     shared_pages: Optional[List[int]]) -> None:
+        """``adopt``'s page copies and binds into the pool."""
         shared = [int(p) for p in (shared_pages or ())]
         if shared:
             self.pool.ref(shared)
@@ -932,17 +1005,6 @@ class DecodeEngine:
             # prefix in front before anything reads through it
             self.cache["block_tables"][slot] = torch.as_tensor(
                 self._bt[slot], device=self.device)
-        self.slots[slot] = req
-        self.next_token[slot] = int(next_token)
-        self._slot_len[slot] = int(state["length"])
-        # speculation starts optimistic; the draft cache rebuilds lazily
-        # from the committed stream on the first verify iteration
-        self._spec_ema[slot] = 1.0
-        self._spec_k[slot] = max(self.ecfg.spec_len, 1)
-        if self._draft is not None:
-            self._draft.reset_slot(slot)
-        req.decode_instance = self.name
-        return slot
 
     def insert(self, req: Request, state: Dict[str, Any], first_token: int,
                shared_pages: Optional[List[int]] = None) -> int:
@@ -955,12 +1017,18 @@ class DecodeEngine:
 
     def extract_slot(self, slot: int
                      ) -> Tuple[Request, Dict[str, Any], int]:
-        """Pull an active slot's paged state out (only its pages)."""
+        """Pull an active slot's state out: its pages only, or on dense
+        rows its row."""
         req = self.slots[slot]
         assert req is not None, f"slot {slot} empty"
-        state = KC.extract_paged_state(
-            self.cache, slot, self.ecfg.block_size,
-            table_row=self._bt[slot], length=int(self._slot_len[slot]))
+        if self.paged:
+            state = KC.extract_paged_state(
+                self.cache, slot, self.ecfg.block_size,
+                table_row=self._bt[slot], length=int(self._slot_len[slot]))
+        else:
+            state = KC.extract_request_state(self.cache, slot)
+            state["length"] = torch.tensor(int(self._slot_len[slot]),
+                                           dtype=torch.int32)
         self._release_blocks(slot)
         tok = int(self.next_token[slot])
         self.slots[slot] = None
@@ -995,7 +1063,9 @@ class DecodeEngine:
         BEFORE the step writes into them, write through exclusive ones.
         Returns the freshly allocated blocks per slot,
         ``{slot: [(table index, block)]}``: the speculative step rolls back
-        those no committed token reached."""
+        those no committed token reached.  Dense rows have no pages: {}."""
+        if not self.paged:
+            return {}
         fresh: List[int] = []
         fresh_by: Dict[int, List[Tuple[int, int]]] = {}
         cow_src: List[int] = []
@@ -1055,7 +1125,7 @@ class DecodeEngine:
         bsz = self.ecfg.max_batch
         if hidden_in:
             shape = (bsz, 1, self.cfg.d_model)
-            dtype = self.params["embed"].dtype
+            dtype = self.params["out_norm"].dtype
         else:
             shape, dtype = (bsz, 1), torch.long
         return self._step_for("decode", 1, shape, dtype, hidden_in=hidden_in,

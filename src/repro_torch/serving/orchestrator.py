@@ -260,7 +260,7 @@ class Orchestrator(BackendBase):
         self.bound_bytes_saved = 0.0   # hand-off bytes the binds skipped
         if self.prefix_sharing:
             for m in self.decode_members():
-                if m.pipe is None:
+                if m.pipe is None and m.decode.paged:
                     m.decode.attach_store(self.store)
         self.controller = (MigrationController(ocfg.controller,
                                                self._migration_cost)
@@ -484,9 +484,10 @@ class Orchestrator(BackendBase):
 
     def _sharing_target(self, tgt) -> bool:
         """Does ``tgt`` bind store pages by reference?  Only full-stack
-        engines whose pool the shared store holds."""
+        paged engines whose pool the shared store holds (span pipelines
+        and dense rows take the copy path)."""
         return (self.prefix_sharing and isinstance(tgt, DecodeEngine)
-                and tgt._store is self.store)
+                and tgt.paged and tgt._store is self.store)
 
     def _bind_shared(self, st: Dict, tgt: DecodeEngine,
                      keys: List[bytes]) -> tuple:
@@ -963,7 +964,7 @@ class Orchestrator(BackendBase):
             m.prefill = self._new_prefill(name, hw)
         else:
             m.decode = self._new_decode(name, hw)
-            if self.prefix_sharing:
+            if self.prefix_sharing and m.decode.paged:
                 m.decode.attach_store(self.store)
         jit_s = (self.autoscaler.cfg.jit_compile_s
                  if self.autoscaler is not None else 2.0)
@@ -1186,7 +1187,7 @@ class Orchestrator(BackendBase):
             member.prefill.queue.clear()
             member.prefill = None
             member.decode = self._new_decode(member.name)
-            if self.prefix_sharing:
+            if self.prefix_sharing and member.decode.paged:
                 member.decode.attach_store(self.store)
         else:
             # decode -> prefill: evacuate resident KV to decode peers first
@@ -1284,7 +1285,8 @@ class Orchestrator(BackendBase):
             s["store_registered_blocks"] = \
                 self.store.stats.registered_blocks
             s["store_demotions"] = self.store.stats.demotions
-            s["hbm_pages_peak"] = sum(e.pool.peak_used for e in engines)
+            s["hbm_pages_peak"] = sum(e.pool.peak_used for e in engines
+                                      if e.paged)
         else:
             # per-instance caches; an int8-KV stack's engines hold none
             stores = [m.prefill.store for m in self.prefill_members()

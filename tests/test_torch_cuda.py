@@ -771,7 +771,8 @@ def test_cuda_int8_graphs_launch_only_int8_page_kernels(mode, monkeypatch):
     int8 = {"paged_decode_partials_int8", "paged_verify_partials_int8"}
     for key, step in de.compiled.steps.items():
         if key[0] == "draft":
-            assert not step.launches      # dense cache: plain attention
+            # the draft's dense bf16/f32 cache: kernel B5, one per layer
+            assert step.launches == {"split_kv_decode_partials": 4}
             continue
         assert step.graph is not None and set(step.launches) <= int8
         want = ("paged_verify_partials_int8" if key[0] == "verify"
@@ -811,6 +812,151 @@ def test_cuda_replays_count_their_launches():
     assert counts[True, 1] == one
     assert counts[True, 7] == {k: 7 * n for k, n in one.items()}
     assert counts[False, 7] == counts[True, 7]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_split_kv_decode_head_slices_ragged_vs_plain(dtype):
+    """B5 reading a contiguous range of a wider cache's kv heads in place
+    (Fig. 4's branches: hot [:kv - n], cold [kv - n:]) over a cache whose
+    length is no multiple of block_k (the last block ragged, no padded
+    copy), against its plain version on the same slices.  Partials in
+    f32 from the same inputs on both sides: 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    q, k, v, valid = decode_case(19, 3, 16, 8, 128, 1000)
+    q, k, v = (torch.as_tensor(x).cuda().to(dt) for x in (q, k, v))
+    valid = torch.as_tensor(valid).cuda()
+    for lo, hi in ((0, 8), (0, 7), (7, 8), (0, 5), (5, 8)):
+        qs = q[:, 2 * lo:2 * hi]
+        ks, vs = k[:, :, lo:hi], v[:, :, lo:hi]
+        ops.reset_launches()
+        got = split_kv_decode_partials(qs, ks, vs, valid, block_k=512)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["split_kv_decode_partials"] == 1
+        assert got[0].shape == (3, 2, 2 * (hi - lo), 128)
+        want = ref.split_kv_decode_partials_plain(qs, ks, vs, valid,
+                                                  block_k=512)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def _dense_decode_inputs(cfg, params, dev):
+    """A dense f32 cache of 4 rows prefilled with 120 tokens on the CPU
+    (B2's plain version), the rows then at positions 120-299 (the slots
+    between never written), and layer 0's decode inputs, on ``dev``."""
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(23)
+    cpu = T._tree_map(lambda a: a.cpu(), params)
+    cache = T.init_cache(cfg, 4, 300, device="cpu")
+    T.apply(cfg, cpu, torch.as_tensor(rng.integers(0, 256, (4, 120))),
+            cache=cache, mode="prefill")
+    pos = torch.as_tensor([[120], [177], [240], [299]], dtype=torch.int32)
+    st = T._tree_map(lambda a: a[0].to(dev), cache["groups"][0])
+    x = torch.as_tensor(rng.normal(size=(4, 1, cfg.d_model)),
+                        dtype=torch.float32)
+    p = T._tree_map(lambda a: a[0].to(dev), cpu["groups"][0]["attn"])
+    return p, x.to(dev), pos.to(dev), st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_off", [0, 1, 3])
+def test_cuda_dense_decode_and_head_offload_vs_plain(n_off):
+    """``attention_apply``'s dense decode branch on the card: B5 (one
+    launch; with ``head_offload`` n > 0 the two Fig. 4 branches, two
+    launches, each over its kv heads in place) against the same call's
+    plain route on the CPU (B5's plain version); a soft-capped stack takes
+    plain ``attend`` (no launch; fixed by the config) unless offloaded,
+    as JAX's branches ignore the cap.  f32 attention outputs through the
+    same projections: 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import Family, ModelConfig
+    base = ModelConfig(name="dense-card", family=Family.DENSE, n_layers=2,
+                       d_model=256, n_heads=8, n_kv_heads=4, head_dim=64,
+                       d_ff=256, vocab_size=256)
+    params = T.init(base, seed=3, device="cuda")
+    for cap in (None, 30.0):
+        cfg = dataclasses.replace(base, logit_soft_cap=cap)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            p, x, pos, st = _dense_decode_inputs(cfg, params, dev)
+            ops.reset_launches()
+            y, _ = L.attention_apply(cfg, p, x, positions=pos, state=st,
+                                     mode="decode", window=None,
+                                     head_offload=n_off)
+            outs[dev] = (y, dict(ops.LAUNCHES))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(outs["cuda"][0].cpu(), outs["cpu"][0],
+                                   atol=1e-4, rtol=1e-4)
+        want = 2 if n_off else (1 if cap is None else 0)
+        assert outs["cuda"][1]["split_kv_decode_partials"] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense-float32", "dense-bfloat16",
+                                  "int8w-bfloat16"])
+def test_cuda_dense_rows_and_int8_weights_replay_equal_eager(mode,
+                                                            monkeypatch):
+    """Dense rows (``max_len`` 250, no multiple of the 16-token block) and
+    int8 weights on the card: every replayed decode step equals the eager
+    one bit for bit, and the streams and launch counts are equal; dense
+    rows launch B2 and B5 and no page kernel, the quantized (paged) stack
+    B1 and B2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    from repro_torch.models import quant as Q
+    from repro_torch.serving import engine as E
+    kind, dtype = mode.split("-")
+    cfg, params, ecfg = _small_stack()
+    params = cast_params(params, getattr(torch, dtype))
+    if kind == "dense":
+        ecfg = dataclasses.replace(ecfg, max_len=250)
+    else:
+        params = Q.quantize_weights(params)
+    orig = E.CompiledStep.__call__
+    runs = []
+    for graphs in (False, True):
+        ecfg_g = dataclasses.replace(ecfg, cuda_graphs=graphs)
+        pe = E.PrefillEngine(cfg, params, ecfg_g)
+        de = E.DecodeEngine(cfg, params, ecfg_g)
+        assert de.paged is (kind != "dense")
+        reqs = _span_requests(3)
+        outs = []
+
+        def record(step, x):
+            out = orig(step, x)
+            outs.append(out.clone())
+            return out
+
+        monkeypatch.setattr(E.CompiledStep, "__call__", record)
+        ops.reset_launches()
+        for r, (st, lg) in zip(reqs, pe.run_batch(reqs, chunk_tokens=32)):
+            de.insert(r, st, int(torch.argmax(lg)))
+        while de.active:
+            de.step()
+        torch.cuda.synchronize()
+        monkeypatch.setattr(E.CompiledStep, "__call__", orig)
+        runs.append((outs, [r.generated for r in reqs], dict(ops.LAUNCHES)))
+        assert (de.compiled.report()["graphs_captured"] > 0) is graphs
+    (eager, e_streams, e_launch), (graph, g_streams, g_launch) = runs
+    assert len(graph) == len(eager) > 0
+    assert max(float((g.float() - e.float()).abs().max())
+               for g, e in zip(graph, eager)) == 0.0
+    assert g_streams == e_streams and g_launch == e_launch
+    assert g_launch["flash_prefill"] > 0
+    if kind == "dense":
+        assert g_launch["split_kv_decode_partials"] > 0
+        for name in ("paged_decode_partials", "paged_prefix_partials",
+                     "paged_verify_partials"):
+            assert g_launch[name] == 0
+    else:
+        assert g_launch["paged_decode_partials"] > 0
 
 
 @pytest.mark.cuda
