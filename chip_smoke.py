@@ -36,6 +36,14 @@ Phases (any failure exits non-zero and prints no result line):
    the key walk (from a copy of B4 built with every row count on it) and
    B3's tensor-core body, are timed on the same verify inputs at 5, 20 and 80
    query rows per kv head (llama-13b, granite-8b and llama3-405b heads).
+   B1 and B2 again at recurrentgemma-9b's local attention (16 query heads
+   on one kv head of 256, a 2048-token window), on lines of their own, in
+   f32 and bf16: B1 on a ring of 128 pages of 16 per row, three of 8 rows
+   wrapped past position 2048 (their positions out of order across
+   shuffled pages) and one empty slot, at one partial per page, per 3
+   pages and at the serving split; B2 at 1 x 2048 and 4 x 512 tokens
+   (timed) and 1 x 3000 (checked: the window cuts); yardsticks gather +
+   SDPA under the window mask and causal SDPA.
 3. Serve llama-13b at full width and depth in bf16 (random weights from a
    seed), 8 requests of a shared-prefix workload, five times: through
    ``Server`` over the port's ``Orchestrator`` (chunked prefill) plain,
@@ -143,7 +151,26 @@ Phases (any failure exits non-zero and prints no result line):
    held to the teacher-forced rule, but those the int8 run decodes over
    its quantized cache: its first tokens are held to it, and the others
    are reported against two references of other GEMM shapes
-   (``check_streams`` says why).
+   (``check_streams`` says why).  Last, the RG-LRU hybrid: (n)
+   recurrentgemma-9b at full width and depth in bf16 (38 layers: 26
+   RG-LRU, 12 local attention; random weights from seed 0; ``max_len``
+   4096, so each local layer's 2048-slot ring is 128 pages of 16) through
+   ``Server`` over one prefill and one decode member, 8 synthetic
+   prompts of 1,286-2,995 tokens arriving at once (two past the window,
+   one crossing position 2048 while decoding), 512-token chunks, 32
+   tokens out, replayed and eagerly: every request completes, B1 and B2
+   launch and B3, B4 and B5 do not, the two runs' streams and launches
+   are equal, the pools are restored, every token is within
+   TOKEN_GAP_TOL of the monolithic bf16 forward's best (its logits
+   unembedded at the scored positions only: 256,000 entries each); it
+   prints the decode clocks, the compiled step's device span, prefill
+   tok/s, peak memory and one profiled iteration's device ms by family
+   (GEMMs, the RG-LRU's elementwise work, B1, the rest); (o) two 2-stage
+   decode pipelines over [(0, 19), (19, 38)]: after the third decode
+   iteration a forced 4-layer span move (host ms; weight bytes, views;
+   ring-page and recurrent-state bytes), then, with two residents, a
+   KV_HEADS rebalance; every token within the gap, the streams reported
+   against (n)'s.
 4. Print the ``kernels`` JSON line, then the result line.
 
 The script imports nothing of the JAX package and needs no network.
@@ -278,6 +305,45 @@ def verify_case(torch, gen, dev, dtype, *, b, s, h, kv, d, bs, nb, lengths,
     pos_q = (torch.as_tensor([n or 0 for n in lengths], dtype=torch.int32,
                              device=dev)[:, None]
              + torch.arange(s, dtype=torch.int32, device=dev))
+    return q, k_pages, v_pages, pos_pages, tables, pos_q
+
+
+def ring_case(torch, gen, dev, dtype, *, h, kv, d, bs, nb, lengths):
+    """One decode step of rows served over a windowed ring of nb * bs
+    slots (recurrentgemma-9b's local attention): row r has written
+    ``lengths[r]`` tokens, position p in slot p % (nb * bs), so a row past
+    the ring's length holds its last nb * bs positions out of order
+    across its pages (wrapped); its pages sit at shuffled physical ids.
+    The query is at position length - 1.  A length of None is an empty
+    slot (an all-dead table).  The scratch page and unassigned pages hold
+    poison positions."""
+    b = len(lengths)
+    plen = nb * bs
+    n_phys = 1 + b * nb
+    k_pages = torch.randn((n_phys, bs, kv, d), generator=gen, device=dev
+                          ).to(dtype)
+    v_pages = torch.randn((n_phys, bs, kv, d), generator=gen, device=dev
+                          ).to(dtype)
+    pos_pages = torch.randint(0, 2 * plen, (n_phys, bs), generator=gen,
+                              device=dev, dtype=torch.int32)   # poison
+    tables = torch.full((b, nb), -1, dtype=torch.int32, device=dev)
+    phys = (torch.randperm(n_phys - 1, generator=gen, device=dev) + 1
+            ).to(torch.int32)
+    nxt = 0
+    for row, n in enumerate(lengths):
+        if n is None:
+            continue
+        for j in range(min(-(-n // bs), nb)):
+            tables[row, j] = phys[nxt]
+            slot = torch.arange(j * bs, (j + 1) * bs, device=dev)
+            # the last position written to each slot (-1: never)
+            p = slot + plen * ((n - 1 - slot) // plen)
+            pos_pages[int(phys[nxt])] = torch.where(
+                slot < n, p, -1).to(torch.int32)
+            nxt += 1
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+    pos_q = torch.as_tensor([(n or 1) - 1 for n in lengths],
+                            dtype=torch.int32, device=dev)
     return q, k_pages, v_pages, pos_pages, tables, pos_q
 
 
@@ -678,6 +744,7 @@ def kernel_phase(torch):
         f"last block ragged): max |err| vs plain {err_d:.2e}; "
         f"{warm_ms:.4f} ms back to back on one copy (L2-warm)")
     del kd, vd, copies
+    timing.update(hybrid_kernels(torch, results))
     names = ("B1", "B1-int8", "B2", "B3", "B4", "B4-int8", "B5")
     errs = {kname: max(v["err"] for (kk, _, _), v in results.items()
                        if kk == kname) for kname in names}
@@ -916,6 +983,114 @@ def serving_timings(torch, results, label, tag):
     return timing
 
 
+# recurrentgemma-9b's local attention: 16 query heads on one kv head of
+# 256, a 2048-token window, the ring of 128 pages of 16 per row; 8 decode
+# rows, three of them wrapped past position 2048, one empty slot
+HYBRID_RING = dict(h=16, kv=1, d=256, bs=16, nb=128)
+HYBRID_LENGTHS = [3000, 2600, 2049, 2045, 1500, 1286, 700, None]
+HYBRID_WINDOW = 2048
+
+
+def hybrid_kernels(torch, results):
+    """B1 and B2 at recurrentgemma-9b's serving shapes, in f32 and bf16:
+    B1 on the ring-wrapped table (``ring_case``) at one partial per page,
+    per 3 pages and at the serving split; B2 at 1 x 2048 and 4 x 512
+    tokens (a fresh wave and a chunked one) and, checked only, at 1 x 3000
+    (the window cuts).  Errors go into ``results`` under the label
+    "recurrentgemma-9b"; returns the bf16 timings under "B1
+    recurrentgemma-9b", "B2 recurrentgemma-9b (1, 2048)" and "(4, 512)":
+    the kernel, its plain version, a library yardstick (gather + SDPA
+    under the window mask; SDPA, causal) and the bound's bytes and flops
+    (B1: the in-window live pages, from ``needed_page_bytes``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.split_kv_decode import (decode_pages_per_split,
+                                                     paged_decode_partials)
+
+    dev = torch.device("cuda")
+    label, win = "recurrentgemma-9b", HYBRID_WINDOW
+    h, kv, d = HYBRID_RING["h"], HYBRID_RING["kv"], HYBRID_RING["d"]
+    timing, args = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[-1]
+        g = torch.Generator(device=dev).manual_seed(9)
+        a1 = ring_case(torch, g, dev, dtype, lengths=HYBRID_LENGTHS,
+                       **HYBRID_RING)
+        pps = decode_pages_per_split(a1[0], kv, HYBRID_RING["nb"])
+        err = 0.0
+        for split in (1, 3, pps):
+            err = max(err, check_close(
+                torch, f"B1 {label} {tname} pages_per_split {split}",
+                paged_decode_partials(*a1, window=win,
+                                      pages_per_split=split),
+                ref.paged_decode_partials_plain(*a1, window=win,
+                                                pages_per_split=split),
+                TOL_F32))
+        results[("B1", label, tname)] = dict(err=err)
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16_OUT
+        err2 = 0.0
+        for b2, s2 in ((1, 2048), (4, 512), (1, 3000)):
+            q2, k2, v2 = (torch.randn((b2, s2, n, d), generator=g,
+                                      device=dev).to(dtype)
+                          for n in (h, kv, kv))
+            err2 = max(err2, check_close(
+                torch, f"B2 {label} ({b2}, {s2}) {tname}",
+                ops.flash_attention(q2, k2, v2, window=win),
+                ref.flash_prefill_plain(q2, k2, v2, window=win), tol))
+            if dtype == torch.bfloat16 and s2 <= 2048:
+                args[(b2, s2)] = (q2, k2, v2)
+        results[("B2", label, tname)] = dict(err=err2)
+        if dtype == torch.bfloat16:
+            args["B1"] = (a1, pps)
+        say(f"kernels vs plain [{label} ring, 16/1 heads of 256, window "
+            f"{win}, {tname}]: max |err| B1 {err:.2e} (rows of "
+            f"{HYBRID_LENGTHS} tokens), B2 {err2:.2e}")
+
+    (q, kp, vp, pp, tb, pq), pps = args["B1"]
+    b, nb, bs = q.shape[0], tb.shape[1], kp.shape[1]
+    pairs = visible_pairs(torch, pp, tb, pq, win)
+
+    def lib_decode():
+        safe = tb.clamp_min(0).long()
+        kl = kp[safe].reshape(b, nb * bs, kv, d)
+        vl = vp[safe].reshape(b, nb * bs, kv, d)
+        pk = torch.where((tb >= 0)[:, :, None], pp[safe], -1
+                         ).reshape(b, 1, 1, -1)
+        pqq = pq[:, None, None, None]
+        mask = (pk >= 0) & (pk <= pqq) & (pk > pqq - win)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kl.transpose(1, 2), vl.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    timing[f"B1 {label}"] = dict(
+        ms=time_ms(torch, lambda: paged_decode_partials(
+            q, kp, vp, pp, tb, pq, window=win, pages_per_split=pps), 200),
+        plain_ms=time_ms(torch, lambda: ref.paged_decode_partials_plain(
+            q, kp, vp, pp, tb, pq, window=win, pages_per_split=pps), 10),
+        library_ms=time_ms(torch, lib_decode, 50),
+        bytes=nbytes(q, tb, pq) + needed_page_bytes(torch, kp, pp, tb,
+                                                    pq[:, None], win)
+        + b * -(-nb // pps) * h * (d + 2) * 4,
+        flops=4 * d * h * pairs, dtype="bfloat16", pages_per_split=pps)
+    for b2, s2 in ((1, 2048), (4, 512)):
+        q2, k2, v2 = args[(b2, s2)]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q2, k2, v2))
+        keys = min(s2, win)
+        timing[f"B2 {label} ({b2}, {s2})"] = dict(
+            ms=time_ms(torch, lambda: flash_prefill(q2, k2, v2, window=win),
+                       50),
+            plain_ms=time_ms(torch, lambda: ref.flash_prefill_plain(
+                q2, k2, v2, window=win), 5),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 50),
+            bytes=nbytes(q2, k2, v2) + nbytes(q2),
+            flops=4 * d * h * b2 * (keys * (keys + 1) // 2
+                                    + (s2 - keys) * keys),
+            dtype="bfloat16")
+    return timing
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: serving llama-13b through Server
 # ---------------------------------------------------------------------------
@@ -928,10 +1103,10 @@ def device_us(evt) -> float:
 
 def device_kernels(entries):
     """The device entries of a profile's ``key_averages()``: its kernels
-    and copies, without ``MoeRanges``' annotation, whose device time
-    repeats its kernels'."""
+    and copies, without ``FnRanges``' annotations, whose device time
+    repeats their kernels'."""
     return [e for e in entries if str(e.device_type).endswith("CUDA")
-            and e.key != "moe_apply"]
+            and e.key not in RANGED]
 
 
 class StepEvents:
@@ -1278,6 +1453,27 @@ def int8_forward_logits(torch, cfg, params, prompt, generated,
     return torch.cat(lgs, dim=0)
 
 
+def forced_logits(torch, cfg, params, toks, start):
+    """The port's monolithic forward over ``toks`` (1, S), teacher-forced:
+    f32 logits of positions ``start``.. .  Where the full (S, vocab)
+    logits would pass 2^28 entries (recurrentgemma-9b: 256,000 x 3,000),
+    the stack runs to its residual stream and only the scored positions
+    are normed and unembedded, as ``T.apply`` does them."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import quant as Q
+    from repro_torch.models import transformer as T
+
+    if toks.shape[1] * cfg.vocab_size <= 2 ** 28:
+        logits, _, _ = T.apply(cfg, params, toks, mode="train")
+        return logits[0, start:].float()
+    x, _, _ = T.apply(cfg, params, toks, mode="train", hidden_out=True)
+    dtype = params["out_norm"].dtype
+    x = L.rms_norm(x[0, start:], params["out_norm"], cfg.rms_eps)
+    unembed = Q.dequant(params["embed"], dtype).t() \
+        if cfg.tie_embeddings else Q.dequant(params["unembed"], dtype)
+    return (x @ unembed).float()
+
+
 def token_gaps(torch, lg, tokens):
     """How far below its row's best logit each chosen token's logit is."""
     got = lg.gather(1, torch.as_tensor(tokens, device=lg.device)[:, None])
@@ -1330,8 +1526,7 @@ def check_streams(torch, cfg, params, label, reqs, launches, needed,
     for r in reqs:
         stream = list(map(int, r.prompt)) + r.generated
         toks = torch.as_tensor(stream[:-1], device="cuda")[None]
-        logits, _, _ = T.apply(cfg, params, toks, mode="train")
-        lg = logits[0, r.prompt_len - 1:].float()
+        lg = forced_logits(torch, cfg, params, toks, r.prompt_len - 1)
         if cfg.kv_quant:
             bf16_top = lg.argmax(dim=1)
             lg = int8_forward_logits(torch, cfg, params, r.prompt,
@@ -1474,15 +1669,19 @@ def self_draft_run(torch, card, cfg, params):
 def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
               needed, forbidden, profile, bf16_streams=None, graphs=True,
               score=True, max_len=1024, decode_kernel=("B1",
-                                                        "paged_decode_kernel")):
+                                                        "paged_decode_kernel"),
+              requests=None):
     """One run through ``Server`` (decode forwards replayed from CUDA
     graphs, or with ``graphs`` off run eagerly over the same static
     buffers); returns its launches, streams and decode figures.
     ``score``: as ``check_streams``'.  ``max_len`` 1000 (no multiple of
     the 16-token block) serves on dense rows; ``decode_kernel`` (name,
     symbol) is the attention kernel whose share of a profiled decode
-    iteration is printed.  A chunked paged run profiles one chunk-resume
-    wave (B3's); dense rows resume without B3, so none."""
+    iteration is printed.  A chunked run whose resumes read published
+    pages (B3) profiles one chunk-resume wave; dense rows and ring or
+    recurrent stacks resume over the dense wave cache, without B3, so
+    none.  ``requests`` (default ``served_requests``) makes the run's
+    request list."""
     from repro_torch.kernels import ops
     from repro_torch.serving.api import Server
     from repro_torch.serving.engine import EngineConfig
@@ -1494,8 +1693,7 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
                         cuda_graphs=graphs)
     orch = Orchestrator(cfg, params, OrchestratorConfig(
         n_prefill=1, n_decode=1, engine=ecfg, chunk_tokens=chunk_tokens))
-    dense = not orch.decode_units()[0].paged
-    reqs = served_requests(cfg)
+    reqs = (requests or served_requests)(cfg)
 
     # wall-clock per phase (synchronized), wrapped around the engines
     clocks = {"prefill_s": 0.0, "decode_s": 0.0, "span_ms": 0.0,
@@ -1513,7 +1711,7 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
     # with chunked prefill, waves run under torch.profiler (and are left
     # out of the prefill clock) until one of them resumes a prompt over
     # its published pages (B3 launches in it)
-    profile_wave = profile and chunk_tokens is not None and not dense
+    profile_wave = profile and chunk_tokens is not None and pe._paged_inc
 
     def timed_waves(*a, **kw):
         gen = waves(*a, **kw)
@@ -1784,7 +1982,11 @@ def timed_action(torch, orch, kind, src, dst, amount):
 
 
 def migration_run(torch, card, cfg, params, plain_streams, *, label,
-                  n_prefill, decode_split, force):
+                  n_prefill, decode_split, force, max_len=1024,
+                  chunk_tokens=256, requests=None,
+                  needed=("paged_decode_partials", "flash_prefill",
+                          "paged_prefix_partials"),
+                  forbidden=("paged_verify_partials",)):
     """One ``Server`` run over a migrating fleet; ``force(orch)`` applies
     the forced actions once the run is under way.  Returns launches."""
     from repro_torch.kernels import ops
@@ -1793,11 +1995,11 @@ def migration_run(torch, card, cfg, params, plain_streams, *, label,
     from repro_torch.serving.orchestrator import (Orchestrator,
                                                   OrchestratorConfig)
 
-    ecfg = EngineConfig(max_len=1024, max_batch=8, block_size=16)
+    ecfg = EngineConfig(max_len=max_len, max_batch=8, block_size=16)
     orch = Orchestrator(cfg, params, OrchestratorConfig(
         n_prefill=n_prefill, n_decode=2, decode_split=decode_split,
-        migration=True, chunk_tokens=256, engine=ecfg))
-    reqs = served_requests(cfg)
+        migration=True, chunk_tokens=chunk_tokens, engine=ecfg))
+    reqs = (requests or served_requests)(cfg)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1816,9 +2018,8 @@ def migration_run(torch, card, cfg, params, plain_streams, *, label,
     check_pools_restored(orch)
     check_views(torch, label, params,
                 [e for p in orch.decode_pipes for e in p.engines])
-    check_streams(torch, cfg, params, label, reqs, launches,
-                  ("paged_decode_partials", "flash_prefill",
-                   "paged_prefix_partials"), ("paged_verify_partials",))
+    check_streams(torch, cfg, params, label, reqs, launches, needed,
+                  forbidden)
     say_streams_vs_plain(label, reqs, plain_streams)
     s = orch.summary()
     decoded = {m.name: m.decode.tokens_decoded for m in orch.decode_members()}
@@ -1882,6 +2083,40 @@ def force_span_moves(torch, card, label):
     return force
 
 
+def force_move_then_rebalance(torch, card, label):
+    """(o): after the third decode iteration, once a pipeline holds a
+    request, move 4 layers from its first stage to its second; then, once
+    two requests are decode-resident, move every resident onto one
+    pipeline and rebalance slots to the other (KV_HEADS)."""
+    from repro_torch.core.migration import MigrationKind
+
+    def force(orch, srv):
+        pipes = orch.decode_pipes
+        run_until(orch, srv, lambda: orch.metrics.decode_iters >= 3
+                  and any(p.active for p in pipes),
+                  "three decode iterations with a resident")
+        pipe = max(pipes, key=lambda p: p.active)
+        forced_span_move(torch, card, label, orch, pipe.engines[0].name,
+                         pipe.engines[1].name, 4)
+        run_until(orch, srv, lambda: sum(p.active for p in pipes) >= 2,
+                  "two decode residents")
+        heavy, light = sorted(pipes, key=lambda p: -p.active)
+        for slot, r in enumerate(light.slots):
+            if r is not None:
+                heavy.adopt(*light.extract_slot(slot))
+        before = (heavy.active, light.active)
+        ok, ms, cost = timed_action(torch, orch, MigrationKind.KV_HEADS,
+                                    heavy.lead.name, light.lead.name, 1)
+        if not ok or light.active == 0:
+            fail(f"[{label}] the KV_HEADS rebalance was refused")
+        say(f"[{label}] KV_HEADS rebalance {heavy.name} -> {light.name}: "
+            f"residents {before} -> {(heavy.active, light.active)} in "
+            f"{ms:.1f} ms host wall clock (synchronised), billed "
+            f"{cost * 1e3:.3f} ms [{card}]")
+        return 2
+    return force
+
+
 def forced_span_move(torch, card, label, orch, src, dst, n_layers) -> None:
     """Force a span move of ``n_layers`` layers ``src`` -> ``dst`` and print
     its host ms, the bytes it accounts and its billed cost."""
@@ -1892,10 +2127,24 @@ def forced_span_move(torch, card, label, orch, src, dst, n_layers) -> None:
     if not ok:
         fail(f"[{label}] the span move {src} -> {dst} was refused")
     rec = orch.span_move_log[-1]
+    cfg = orch.cfg
+    split = ""
+    if cfg.uses_recurrent_state:
+        # each moved RG-LRU layer carries every resident's h (f32) and
+        # conv history (bf16); the rest of kv_bytes is ring pages
+        kinds = cfg.blocks()
+        n_rec = sum(kinds[l].value == "rglru" for l, _ in rec["schedule"])
+        residents = orch._by_name[src].pipe.active
+        conv_b = orch.params["out_norm"].element_size()
+        rec_b = n_rec * residents * cfg.d_model * (
+            4 + conv_b * (cfg.rglru_conv_width - 1))
+        split = (f" ({rec_b} of recurrent state: {n_rec} RG-LRU layers x "
+                 f"{residents} residents; {rec['kv_bytes'] - rec_b} of ring "
+                 f"pages)")
     say(f"[{label}] span move {src} -> {dst}: {rec['layers']} "
         f"layers in {ms:.1f} ms host wall clock (synchronised), "
         f"weight_bytes {rec['weight_bytes']} (views: re-sliced, not "
-        f"copied), kv_bytes {rec['kv_bytes']}, billed "
+        f"copied), kv_bytes {rec['kv_bytes']}{split}, billed "
         f"{cost * 1e3:.3f} ms (Eq. 4/11, H100 data sheet) [{card}]")
 
 
@@ -2388,69 +2637,100 @@ class RouterLoad:
             f"[{card}]")
 
 
-class MoeRanges:
-    """While active, each ``moe_apply`` call made under the profiler runs
-    inside a ``record_function("moe_apply")`` range, so an eager profile
-    can tell the experts' and the dispatch's kernels from the rest; with
-    the profiler off the call goes straight through."""
+# the layer functions ``FnRanges`` may wrap in a profiler range
+RANGED = ("moe_apply", "rglru_apply")
 
-    def __init__(self, torch):
+
+class FnRanges:
+    """While active, each call of ``models.layers.<fname>`` made under the
+    profiler runs inside a ``record_function(fname)`` range, so an eager
+    profile can tell that function's kernels from the rest; with the
+    profiler off the call goes straight through."""
+
+    def __init__(self, torch, fname):
         from repro_torch.models import layers as L
-        self.torch, self.L = torch, L
+        assert fname in RANGED
+        self.torch, self.L, self.fname = torch, L, fname
 
     def __enter__(self):
-        orig = self.orig = self.L.moe_apply
+        orig = self.orig = getattr(self.L, self.fname)
         rf = self.torch.profiler.record_function
         profiling = self.torch.autograd._profiler_enabled
+        fname = self.fname
 
-        def moe_apply(*a, **kw):
+        def ranged(*a, **kw):
             if not profiling():
                 return orig(*a, **kw)
-            with rf("moe_apply"):
+            with rf(fname):
                 return orig(*a, **kw)
 
-        self.L.moe_apply = moe_apply
+        setattr(self.L, fname, ranged)
         return self
 
     def __exit__(self, *exc):
-        self.L.moe_apply = self.orig
+        setattr(self.L, self.fname, self.orig)
+
+
+def _inside(op, fname) -> bool:
+    while op is not None:
+        if op.name == fname:
+            return True
+        op = getattr(op, "cpu_parent", None)
+    return False
 
 
 def kernel_family(name: str, op) -> str:
-    """The family of a kernel ``name`` launched by profiler event ``op``."""
+    """The MoE family of a kernel ``name`` launched by profiler event
+    ``op``."""
     if any(sym in name for sym in ATTENTION_SYMBOLS):
         return "attention kernels"
-    inside, e = False, op
-    while e is not None:
-        if e.name == "moe_apply":
-            inside = True
-            break
-        e = getattr(e, "cpu_parent", None)
-    if not inside:
+    if not _inside(op, "moe_apply"):
         return "the rest"
     return MOE_FAMILIES[0] if op.name == "aten::bmm" else MOE_FAMILIES[1]
 
 
-def eager_families(prof):
+HYBRID_FAMILIES = ("GEMMs", "the RG-LRU's elementwise work", "B1",
+                   "the rest")
+GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul")
+GEMM_SYMBOLS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def hybrid_family(name: str, op) -> str:
+    """The hybrid family of a kernel ``name`` launched by profiler event
+    ``op`` (None: by its name alone): B1, a GEMM (any matrix product, the
+    RG-LRU's own included), the RG-LRU's other (elementwise) kernels, or
+    the rest."""
+    if "paged_decode_kernel" in name:
+        return "B1"
+    if op is None:
+        return ("GEMMs" if any(t in name.lower() for t in GEMM_SYMBOLS)
+                else "the rest")
+    if op.name in GEMM_OPS:
+        return "GEMMs"
+    return HYBRID_FAMILIES[1] if _inside(op, "rglru_apply") else "the rest"
+
+
+def eager_families(prof, classify):
     """{kernel name: {family: device us}} of an eager profile, each kernel
-    by the op that launched it (``MoeRanges`` on)."""
+    by the op that launched it (``FnRanges`` on)."""
     out = {}
     for e in prof.events():
         for k in getattr(e, "kernels", None) or ():
-            fam = kernel_family(k.name, e)
+            fam = classify(k.name, e)
             d = out.setdefault(k.name, {})
             d[fam] = d.get(fam, 0.0) + k.duration
     return out
 
 
-def say_moe_families(label, card, replayed, eager) -> None:
+def say_families(label, card, replayed, eager, families=MOE_FAMILIES,
+                 classify=kernel_family) -> None:
     """Device ms by family of one profiled decode iteration: the eager
     one exactly (each kernel by its launching op), the replayed one with
     each kernel name split as its launches split in the eager iteration
     (a graph replays the same kernels; its launches have no op)."""
     if replayed is None or eager is None:
         fail(f"[{label}] no profiled decode iteration")
-    fams = eager_families(eager)
+    fams = eager_families(eager, classify)
     for name, prof in (("eager", eager), ("replayed", replayed)):
         kern = device_kernels(prof.key_averages())
         busy = sum(device_us(e) for e in kern) / 1e3
@@ -2459,13 +2739,13 @@ def say_moe_families(label, card, replayed, eager) -> None:
                 f"measured (the profiler recorded no device time or no "
                 f"kernel-to-op links)")
             continue
-        ms = dict.fromkeys(MOE_FAMILIES, 0.0)
+        ms = dict.fromkeys(families, 0.0)
         unseen = 0.0
         for e in kern:
             split = fams.get(e.key)
             us = device_us(e)
             if not split:
-                fam = kernel_family(e.key, None)
+                fam = classify(e.key, None)
                 ms[fam] += us / 1e3
                 unseen += us / 1e3
                 continue
@@ -2561,7 +2841,7 @@ def moe_phase(torch, card):
              bf16_pages + ("paged_prefix_partials",
                            "paged_verify_partials_int8"))]
     for label, rcfg, mode, chunk, graphs, needed, forbidden in runs:
-        with RouterLoad(torch) as rl, MoeRanges(torch):
+        with RouterLoad(torch) as rl, FnRanges(torch, "moe_apply"):
             stats[label] = serve_run(
                 torch, card, rcfg, params, label=label, speculation=mode,
                 chunk_tokens=chunk, needed=needed, forbidden=forbidden,
@@ -2589,8 +2869,8 @@ def moe_phase(torch, card):
         f"memory {a['peak_gib']:.2f} vs {b['peak_gib']:.2f} GiB; streams "
         f"{len(a['streams'])}/{len(b['streams'])} equal, launch counts "
         f"equal [{card}]")
-    say_moe_families("moe-plain", card, a["decode_profile"],
-                     b["decode_profile"])
+    say_families("moe-plain", card, a["decode_profile"],
+                 b["decode_profile"])
     for st in stats.values():
         st.pop("decode_profile", None)
     out["moe-migrate-i"] = migration_run(
@@ -2641,6 +2921,112 @@ def moe_phase(torch, card):
     gc.collect()
     torch.cuda.empty_cache()
     say(f"MoE phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The RG-LRU hybrid: recurrentgemma-9b served (n) and migrated (o)
+# ---------------------------------------------------------------------------
+
+# recurrentgemma-9b's engine: 4096-token page space, so its local layers'
+# 2048-slot rings are 128 pages of 16 per row
+HYBRID_MAX_LEN = 4096
+HYBRID_CHUNK = 512
+HYBRID_KERNELS = ("paged_decode_partials", "flash_prefill")
+HYBRID_FORBIDDEN = ("paged_prefix_partials", "paged_verify_partials",
+                    "split_kv_decode_partials", "paged_decode_partials_int8",
+                    "paged_verify_partials_int8")
+
+
+def hybrid_requests(cfg):
+    """The 8 requests of runs (n) and (o): synthetic prompts of 1,200-3,000
+    tokens from ``serving/workload.py`` (seed 74: 1,286-2,995 tokens), no
+    shared prefix (the hybrid has no store), 32 tokens out each, all
+    arriving at once (a burst: the prefill batches every prompt's chunks
+    together, so their decodes overlap).  Checks that two prompts pass
+    the 2,048-token window (the prefill tail-slices the ring), one
+    crosses position 2,048 while decoding (the ring wraps in decode) and
+    two stay below it."""
+    from repro_torch.serving.workload import WorkloadConfig, generate
+
+    reqs = generate(WorkloadConfig(
+        kind="synthetic", rps=1000.0, n_requests=8,
+        vocab_size=cfg.vocab_size, max_new_tokens=32, prefix_share=0.0,
+        seed=74, prompt_len_lo=1200, prompt_len_hi=3000))
+    for r in reqs:
+        r.max_new_tokens = 32
+        r.arrival = 0.0
+    n = [r.prompt_len for r in reqs]
+    w = cfg.local_window
+    if not (sum(x > w for x in n) >= 2 and sum(x < w - 31 for x in n) >= 2
+            and any(w - 31 <= x <= w for x in n)):
+        fail(f"the hybrid's prompts {n} do not cover the ring's cases")
+    return reqs
+
+
+def hybrid_phase(torch, card):
+    """(n) recurrentgemma-9b at full width and depth in bf16 (random
+    weights from seed 0) through ``Server`` over one prefill and one
+    decode member, 512-token chunks, replayed and eagerly: B1 and B2 must
+    launch and B3, B4 and B5 must not, the streams and launches of the two
+    runs must be equal, every token within TOKEN_GAP_TOL of the
+    monolithic bf16 forward's best; prints one profiled iteration's device
+    ms by family.  (o) two 2-stage decode pipelines over [(0, 19), (19,
+    38)] with forced 4-layer span moves and a KV_HEADS rebalance after the
+    third decode iteration.  Returns {run: launches}."""
+    from repro_torch.configs import get
+    from repro_torch.core.layer_migration import layer_param_bytes
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg = get("recurrentgemma-9b")
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    kinds = cfg.blocks()
+    say(f"{describe(cfg)}: {kinds.count(kinds[0])} RG-LRU and "
+        f"{len(kinds) - kinds.count(kinds[0])} local-attention layers "
+        f"(window {cfg.local_window}); init in bf16 (seed 0): "
+        f"{time.perf_counter() - t0:.1f} s, weights "
+        f"{layer_param_bytes(params) / 2**30:.2f} GiB [{card}]")
+    out, runs = {}, {}
+    with FnRanges(torch, "rglru_apply"):
+        for graphs, label in ((True, "hybrid"), (False, "hybrid-eager")):
+            runs[label] = serve_run(
+                torch, card, cfg, params, label=label, speculation="off",
+                chunk_tokens=HYBRID_CHUNK, needed=HYBRID_KERNELS,
+                forbidden=HYBRID_FORBIDDEN, profile=True, graphs=graphs,
+                max_len=HYBRID_MAX_LEN, requests=hybrid_requests)
+            out[label] = runs[label]["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
+    a, b = runs["hybrid"], runs["hybrid-eager"]
+    if a["streams"] != b["streams"] or a["launches"] != b["launches"]:
+        fail(f"[hybrid] replayed streams or launches differ from the eager "
+             f"run's: {a['launches']} vs {b['launches']}")
+    say(f"[hybrid] CUDA graphs vs eager: decode {a['steady_ms']:.2f} vs "
+        f"{b['steady_ms']:.2f} ms per iteration without capture "
+        f"({a['iter_ms']:.2f} ms with it; compiled steps' device span "
+        f"{a['span_ms']:.2f} vs {b['span_ms']:.2f} ms), prefill "
+        f"{a['prefill_tps']:.1f} vs {b['prefill_tps']:.1f} tok/s, peak "
+        f"memory {a['peak_gib']:.2f} vs {b['peak_gib']:.2f} GiB; streams "
+        f"{len(a['streams'])}/{len(b['streams'])} equal, launch counts "
+        f"equal [{card}]")
+    say_families("hybrid", card, a["decode_profile"], b["decode_profile"],
+                 HYBRID_FAMILIES, hybrid_family)
+    for st in runs.values():
+        st.pop("decode_profile", None)
+    out["hybrid-migrate-o"] = migration_run(
+        torch, card, cfg, params, a["streams"], label="hybrid-migrate-o",
+        n_prefill=1, decode_split=2,
+        force=force_move_then_rebalance(torch, card, "hybrid-migrate-o"),
+        max_len=HYBRID_MAX_LEN, chunk_tokens=HYBRID_CHUNK,
+        requests=hybrid_requests, needed=HYBRID_KERNELS,
+        forbidden=HYBRID_FORBIDDEN)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"hybrid phase (n)-(o): {time.perf_counter() - t0:.1f} s [{card}]")
     return out
 
 
@@ -2721,6 +3107,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     cli_phase(card)
     per_run.update(moe_phase(torch, card))
+    per_run.update(hybrid_phase(torch, card))
     launches = {k: sum(run[k] for run in per_run.values())
                 for k in _lib.LAUNCHES}
 

@@ -21,7 +21,17 @@ Fig. 4's head offload (``head_offload``) splits a dense decode step's
 attention on the kv-head axis into a hot and a cold branch, each its own
 exact softmax (``_decode_head_offload``).
 
-Not ported yet (later slices): cross-attention and the recurrent blocks.
+Windowed attention keeps a ring cache of ``min(max_len, window)`` slots:
+a key at position p lives in slot ``p % cache_len``, and a prefill longer
+than the ring writes only its last ``cache_len`` keys, as JAX does.
+
+The RG-LRU block (Griffin / RecurrentGemma, ``rglru_apply``) carries a
+slot-dense recurrent state ``{"h": (B, d) f32, "conv": (B, W-1, d)}``,
+updated in place like the caches; prefill runs its recurrence as a
+log-depth scan over the time axis (``rglru_scan``).
+
+Not ported yet (later slices): cross-attention (ROADMAP A6.4) and the
+xLSTM blocks (A6.3).
 """
 from __future__ import annotations
 
@@ -241,7 +251,9 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     (n_pages, bs, KV, D) — updated IN PLACE:
 
     * fresh dense prefill: ``ops.flash_attention`` (kernel B2), then the
-      keys are written at their positions;
+      keys are written at slot ``position % cache_len``; a ring shorter
+      than the sequence takes only its last ``cache_len`` keys (JAX's
+      tail slice);
     * paged incremental prefill (``prefix_aware``, chunk resume / store
       hit): ``ops.paged_prefill_attention`` reads the prefix pages (kernel
       B3) and the suffix (kernel B2) BEFORE the suffix is written into its
@@ -328,10 +340,6 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             slot_pos[wblk, off] = positions.to(slot_pos.dtype)
         elif mode == "prefill":
             cache_len = cache_k.shape[1]
-            if s > cache_len:
-                raise NotImplementedError(
-                    "prefill longer than the cache (ring wrap) is not "
-                    "ported: windowed stacks come with a later slice")
             if prefix_aware:
                 # chained (layer-span) resume over a dense per-row cache:
                 # plain attend over [cache ; in-context keys], as JAX
@@ -344,11 +352,19 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             else:
                 o = ops.flash_attention(q, k, v, window=window, scale=scale,
                                         soft_cap=cap)
+            # a ring shorter than the sequence keeps its last cache_len
+            # keys (tail-sliced, so no two writes share a slot), as JAX
+            pos_w = positions
+            if s > cache_len:
+                cut = slice(s - cache_len, None)
+                k_w, v_w, pos_w = k_w[:, cut], v_w[:, cut], positions[:, cut]
+                if quant:
+                    ks_w, vs_w = ks_w[:, cut], vs_w[:, cut]
             rows = torch.arange(b, device=x.device)[:, None]
-            write_pos = (positions % cache_len).long()
+            write_pos = (pos_w % cache_len).long()
             cache_k[rows, write_pos] = k_w
             cache_v[rows, write_pos] = v_w
-            slot_pos[rows, write_pos] = positions.to(slot_pos.dtype)
+            slot_pos[rows, write_pos] = pos_w.to(slot_pos.dtype)
             if quant:
                 k_sc[rows, write_pos] = ks_w
                 v_sc[rows, write_pos] = vs_w
@@ -555,3 +571,97 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                        torch.zeros((), dtype=x.dtype, device=dev))
     y = (rows * gate_vals.reshape(n, 1).to(x.dtype)).reshape(t, k, d).sum(1)
     return y.reshape(b, s, d), router_load
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU block (RecurrentGemma / Griffin recurrent block)
+# ---------------------------------------------------------------------------
+
+def init_rglru(cfg: ModelConfig, gen: Optional[torch.Generator], dtype,
+               device, out: Optional[Params] = None) -> Params:
+    """JAX's ``init_rglru``: five (d, d) projections, the (W, d) conv taps
+    at scale 0.1, and ``a_param`` (d,) = 2.0 in f32 whatever ``dtype``."""
+    d = cfg.d_model
+    o = out or {}
+    p = {"w_x": dense_init(gen, (d, d), dtype, device, out=o.get("w_x")),
+         "w_y": dense_init(gen, (d, d), dtype, device, out=o.get("w_y")),
+         "conv_w": dense_init(gen, (cfg.rglru_conv_width, d), dtype, device,
+                              scale=0.1, out=o.get("conv_w")),
+         "w_a": dense_init(gen, (d, d), dtype, device, out=o.get("w_a")),
+         "w_i": dense_init(gen, (d, d), dtype, device, out=o.get("w_i"))}
+    a = o.get("a_param")
+    p["a_param"] = (a.fill_(2.0) if a is not None else torch.full(
+        (d,), 2.0, dtype=torch.float32, device=device))
+    p["w_out"] = dense_init(gen, (d, d), dtype, device, out=o.get("w_out"))
+    return p
+
+
+def rglru_scan(a: torch.Tensor, bx: torch.Tensor,
+               h0: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + bx_t over time axis 1, from h0 (B, d).
+
+    The recurrence's affine maps compose associatively, (a1, b1) then
+    (a2, b2) = (a1 a2, a2 b1 + b2), so the inclusive scan takes
+    ceil(log2 S) elementwise passes over (B, S, d) (Hillis-Steele), never a
+    loop over S: JAX's ``lax.associative_scan`` with the same combine, in
+    another association order (f32 results agree to a few ulps)."""
+    s = a.shape[1]
+    off = 1
+    while off < s:
+        a_prev, b_prev = a[:, :-off], bx[:, :-off]
+        bx = torch.cat([bx[:, :off], a[:, off:] * b_prev + bx[:, off:]], 1)
+        a = torch.cat([a[:, :off], a[:, off:] * a_prev], 1)
+        off *= 2
+    return a * h0[:, None, :] + bx
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), with no threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def rglru_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                state: Optional[State], mode: str
+                ) -> Tuple[torch.Tensor, Optional[State]]:
+    """The RG-LRU block, as JAX's ``rglru_apply``.  state: {"h": (B, d)
+    f32, "conv": (B, W-1, d)} or None (stateless, zero history).
+
+    gate = gelu_tanh(x w_y); u = x w_x through a causal temporal conv of
+    width W over [conv history ; u] (taps summed in JAX's order); gates in
+    f32: r, i = sigmoid(x w_a), sigmoid(x w_i), log a = -8 r
+    softplus(a_param), beta = sqrt(max(1 - a^2, 1e-6)); h_t = a_t h_{t-1}
+    + beta i conv_t in f32 (one step for S == 1, ``rglru_scan`` otherwise);
+    y = (h in x's dtype * gate) w_out.
+
+    The new ``h`` (the last step's) and conv history (the last W-1 inputs)
+    are written into the caller's state tensors in place (``copy_``), so a
+    CUDA graph that captures the step replays the update."""
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
+    gate = F.gelu((x2 @ p["w_y"]).reshape(b, s, d), approximate="tanh")
+    u = (x2 @ p["w_x"]).reshape(b, s, d)
+    w = cfg.rglru_conv_width
+    hist = state["conv"] if state is not None else \
+        torch.zeros((b, w - 1, d), dtype=u.dtype, device=u.device)
+    u_pad = torch.cat([hist, u], dim=1)     # a new tensor, not a view
+    conv_w = p["conv_w"]
+    conv = u_pad[:, 0:s] * conv_w[0]
+    for i in range(1, w):
+        conv = conv + u_pad[:, i:i + s] * conv_w[i]
+    r = torch.sigmoid((x2 @ p["w_a"]).reshape(b, s, d).float())
+    i_g = torch.sigmoid((x2 @ p["w_i"]).reshape(b, s, d).float())
+    log_a = -8.0 * r * _softplus(p["a_param"].float())
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    bx = beta * (i_g * conv.float())
+    h0 = state["h"].float() if state is not None else \
+        torch.zeros((b, d), dtype=torch.float32, device=x.device)
+    h = a * h0[:, None, :] + bx if s == 1 else rglru_scan(a, bx, h0)
+    y = (h.to(x.dtype) * gate).reshape(b * s, d) @ p["w_out"]
+    new_state = None
+    if state is not None:
+        state["h"].copy_(h[:, -1])
+        if w > 1:
+            state["conv"].copy_(u_pad[:, -(w - 1):])
+        new_state = state
+    return y.reshape(b, s, d), new_state

@@ -26,36 +26,40 @@ leaf becomes ``{"q", "s"}``); ``apply`` dequantizes each layer's leaves
 inside the layer loop and the embedding and unembedding where it reads
 them, as JAX does, so nothing else sees a quantized leaf.
 
-This slice runs attention-only stacks (global or sliding-window attention
+The port runs attention stacks (global, sliding-window or local attention
 with a gated MLP or a top-k MoE), with bf16/f32 or int8 KV caches
 (``kv_quant``: int8 ``k``/``v`` leaves plus f32 ``k_scale``/``v_scale``
-leaves); recurrent blocks and cross-attention raise
-``NotImplementedError`` (ROADMAP A6).
+leaves), and the hybrid stacks of RG-LRU blocks and local attention
+(RecurrentGemma: each RG-LRU layer's state ``{"h": (B, d) f32, "conv":
+(B, W-1, d)}``, and the embedding scaled by sqrt(d_model) as JAX scales
+the hybrid family's); the xLSTM blocks and cross-attention raise
+``NotImplementedError`` (ROADMAP A6.3, A6.4).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from .. import device as D
 from . import layers as L
 from . import quant as Q
-from .config import BlockKind, ModelConfig
+from .config import BlockKind, Family, ModelConfig
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
 
 _ATTN_KINDS = (BlockKind.ATTENTION, BlockKind.LOCAL_ATTENTION)
+_PORTED_KINDS = _ATTN_KINDS + (BlockKind.RGLRU,)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run."""
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
     missing = []
-    if any(k not in _ATTN_KINDS for k in cfg.blocks()):
-        missing.append("recurrent blocks (RG-LRU, mLSTM, sLSTM)")
+    if any(k not in _PORTED_KINDS for k in cfg.blocks()):
+        missing.append("xLSTM blocks (mLSTM, sLSTM; ROADMAP A6.3)")
     if cfg.cross_attention:
-        missing.append("cross-attention")
+        missing.append("cross-attention (ROADMAP A6.4)")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet "
@@ -85,8 +89,9 @@ def _layer(tree, r: int):
 # Init
 # ---------------------------------------------------------------------------
 
-def _init_block(cfg: ModelConfig, gen: Optional[torch.Generator], dtype,
-                device, out: Optional[Params] = None) -> Params:
+def _init_block(cfg: ModelConfig, kind: BlockKind,
+                gen: Optional[torch.Generator], dtype, device,
+                out: Optional[Params] = None) -> Params:
     """One layer's weights; with ``out`` (its views into the stacked
     group) every leaf is drawn and cast straight into its slot."""
     o = out or {}
@@ -95,12 +100,17 @@ def _init_block(cfg: ModelConfig, gen: Optional[torch.Generator], dtype,
         return o[key].zero_() if key in o else torch.zeros(
             cfg.d_model, dtype=dtype, device=device)
 
-    p: Params = {"norm1": zeros("norm1"),
-                 "attn": L.init_attention(cfg, gen, dtype, device,
-                                          out=o.get("attn"))}
+    p: Params = {"norm1": zeros("norm1")}
+    if kind == BlockKind.RGLRU:
+        p["rec"] = L.init_rglru(cfg, gen, dtype, device, out=o.get("rec"))
+    else:
+        p["attn"] = L.init_attention(cfg, gen, dtype, device,
+                                     out=o.get("attn"))
     if cfg.d_ff > 0:
         p["norm2"] = zeros("norm2")
-        init_ffn = L.init_moe if cfg.n_experts > 0 else L.init_mlp
+        # JAX's RG-LRU block takes a gated MLP whatever n_experts
+        init_ffn = L.init_moe if (cfg.n_experts > 0
+                                  and kind != BlockKind.RGLRU) else L.init_mlp
         p["ffn"] = init_ffn(cfg, gen, dtype, device, out=o.get("ffn"))
     return p
 
@@ -124,19 +134,19 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
         params["unembed"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                          dtype, dev, scale=0.02)
     groups = []
-    for _ in pat:
+    for kind in pat:
         if not n_rep:
             groups.append({})
             continue
-        shapes = _init_block(cfg, None, dtype, torch.device("meta"))
+        shapes = _init_block(cfg, kind, None, dtype, torch.device("meta"))
         stacked = _tree_map(lambda a: torch.empty(
             (n_rep,) + tuple(a.shape), dtype=a.dtype, device=dev), shapes)
         for r in range(n_rep):
-            _init_block(cfg, gen, dtype, dev, out=_layer(stacked, r))
+            _init_block(cfg, kind, gen, dtype, dev, out=_layer(stacked, r))
         groups.append(stacked)
     params["groups"] = tuple(groups)
-    params["rem"] = tuple(_init_block(cfg, gen, dtype, dev)
-                          for _ in range(rem))
+    params["rem"] = tuple(_init_block(cfg, pat[i], gen, dtype, dev)
+                          for i in range(rem))
     return params
 
 
@@ -145,13 +155,22 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 def _cache_len(cfg: ModelConfig, kind: BlockKind, max_len: int) -> int:
+    """An attention layer's cache length: its window's ring when the
+    window is shorter than ``max_len``."""
     window = (cfg.local_window if kind == BlockKind.LOCAL_ATTENTION
               else cfg.sliding_window)
     return min(max_len, window) if window else max_len
 
 
-def _block_state(cfg: ModelConfig, kind: BlockKind, lead: Tuple[int, ...],
-                 length: int, dtype, dev) -> Dict[str, torch.Tensor]:
+def attn_cache_lens(cfg: ModelConfig, max_len: int) -> List[int]:
+    """The attention cache lengths of the stack's block kinds (JAX's
+    ``_attn_cache_lens``); empty for a stack without attention."""
+    return [_cache_len(cfg, kind, max_len) for kind in set(cfg.blocks())
+            if kind in _ATTN_KINDS]
+
+
+def _attn_state(cfg: ModelConfig, lead: Tuple[int, ...], length: int,
+                dtype, dev) -> Dict[str, torch.Tensor]:
     """One attention cache: (lead..., length, KV, D) keys/values of
     ``dtype`` (int8 with ``kv_quant``, plus (lead..., length, KV) f32
     scales) and (lead..., length) positions, -1 = empty."""
@@ -171,21 +190,41 @@ def _block_state(cfg: ModelConfig, kind: BlockKind, lead: Tuple[int, ...],
     return st
 
 
+def _rec_state(cfg: ModelConfig, lead: Tuple[int, ...], dtype,
+               dev) -> Dict[str, torch.Tensor]:
+    """One RG-LRU layer's state, as JAX's ``_block_state``: ``h``
+    (lead..., d) in f32 and the conv history (lead..., W-1, d) in the
+    model dtype, zero."""
+    return {"h": torch.zeros(lead + (cfg.d_model,), dtype=torch.float32,
+                             device=dev),
+            "conv": torch.zeros(lead + (cfg.rglru_conv_width - 1,
+                                        cfg.d_model), dtype=dtype,
+                                device=dev)}
+
+
+def _block_state(cfg: ModelConfig, kind: BlockKind, lead: Tuple[int, ...],
+                 max_len: int, dtype, dev) -> Dict[str, torch.Tensor]:
+    """A dense layer state with leading dims ``lead`` (.., batch)."""
+    if kind == BlockKind.RGLRU:
+        return _rec_state(cfg, lead, dtype, dev)
+    return _attn_state(cfg, lead, _cache_len(cfg, kind, max_len), dtype,
+                       dev)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device: D.DeviceLike = None) -> Cache:
-    """Blank dense serving cache: per layer (B, L, KV, D) keys/values and
-    (B, L) positions (-1 = empty), with ``kv_quant`` int8 keys/values and
-    (B, L, KV) f32 scales, stacked per group."""
+    """Blank dense serving cache: per attention layer (B, L, KV, D)
+    keys/values and (B, L) positions (-1 = empty), L = ``max_len`` or the
+    window's ring, with ``kv_quant`` int8 keys/values and (B, L, KV) f32
+    scales; per RG-LRU layer its zero state; stacked per group."""
     check_supported(cfg)
     dev = D.resolve(device)
     pat, n_rep, rem = _group_shapes(cfg)
     return {
         "lengths": torch.zeros(batch, dtype=torch.int32, device=dev),
-        "groups": tuple(_block_state(cfg, kind, (n_rep, batch),
-                                     _cache_len(cfg, kind, max_len), dtype,
-                                     dev) for kind in pat),
-        "rem": tuple(_block_state(cfg, pat[i], (batch,),
-                                  _cache_len(cfg, pat[i], max_len), dtype,
+        "groups": tuple(_block_state(cfg, kind, (n_rep, batch), max_len,
+                                     dtype, dev) for kind in pat),
+        "rem": tuple(_block_state(cfg, pat[i], (batch,), max_len, dtype,
                                   dev) for i in range(rem)),
     }
 
@@ -194,27 +233,27 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      block_size: int, dtype=torch.float32,
                      device: D.DeviceLike = None) -> Cache:
     """Blank serving cache in the paged block-pool layout: attention caches
-    as long as the page space become pools (1 + batch * nb pages of
-    ``block_size``; page 0 is the reserved scratch page), all block tables
-    empty (-1).  Shorter (windowed) caches stay per-row.  With
-    ``kv_quant`` the K/V pools are int8 and the scale pools (.., n_pages,
-    block_size, KV) f32, all zero."""
+    as long as the page space (the longest attention cache: a window's
+    ring when every attention layer is windowed) become pools (1 + batch
+    * nb pages of ``block_size``; page 0 is the reserved scratch page),
+    all block tables empty (-1).  Shorter rings and recurrent states stay
+    per-row (slot-dense).  With ``kv_quant`` the K/V pools are int8 and
+    the scale pools (.., n_pages, block_size, KV) f32, all zero."""
     check_supported(cfg)
     dev = D.resolve(device)
     pat, n_rep, rem = _group_shapes(cfg)
-    plen = max(_cache_len(cfg, kind, max_len) for kind in pat)
-    if plen % block_size:
+    plen = max(attn_cache_lens(cfg, max_len), default=0)
+    if not plen or plen % block_size:
         raise ValueError(f"stack not pageable at block_size {block_size} "
                          f"(page length {plen})")
     nb = plen // block_size
     n_phys = 1 + batch * nb
 
     def build(kind: BlockKind, lead: Tuple[int, ...]):
-        clen = _cache_len(cfg, kind, max_len)
-        if clen == plen:
-            return _block_state(cfg, kind, lead + (n_phys,), block_size,
-                                dtype, dev)
-        return _block_state(cfg, kind, lead + (batch,), clen, dtype, dev)
+        if kind in _ATTN_KINDS and _cache_len(cfg, kind, max_len) == plen:
+            return _attn_state(cfg, lead + (n_phys,), block_size, dtype,
+                               dev)
+        return _block_state(cfg, kind, lead + (batch,), max_len, dtype, dev)
 
     return {
         "lengths": torch.zeros(batch, dtype=torch.int32, device=dev),
@@ -238,20 +277,23 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
     (JAX returns zeros there, which add nothing).  The layer's int8 leaves
     are dequantized to x's dtype first (a no-op for unquantized weights)."""
     p = Q.dequant_tree(p, x.dtype)
-    window = (cfg.local_window if kind == BlockKind.LOCAL_ATTENTION
-              else cfg.sliding_window)
     h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
-    y, _ = L.attention_apply(cfg, p["attn"], h, positions=positions,
-                             state=state, mode=mode, window=window,
-                             prefix_aware=prefix_aware,
-                             block_tables=block_tables,
-                             paged_kernel=paged_kernel,
-                             head_offload=head_offload)
+    if kind == BlockKind.RGLRU:
+        y, _ = L.rglru_apply(cfg, p["rec"], h, state=state, mode=mode)
+    else:
+        window = (cfg.local_window if kind == BlockKind.LOCAL_ATTENTION
+                  else cfg.sliding_window)
+        y, _ = L.attention_apply(cfg, p["attn"], h, positions=positions,
+                                 state=state, mode=mode, window=window,
+                                 prefix_aware=prefix_aware,
+                                 block_tables=block_tables,
+                                 paged_kernel=paged_kernel,
+                                 head_offload=head_offload)
     x = x + y
     load = None
     if cfg.d_ff > 0:
         h2 = L.rms_norm(x, p["norm2"], cfg.rms_eps)
-        if cfg.n_experts > 0:
+        if cfg.n_experts > 0 and kind != BlockKind.RGLRU:
             y2, load = L.moe_apply(cfg, p["ffn"], h2, impl=moe_impl,
                                    capacity_factor=moe_cf)
         else:
@@ -342,6 +384,11 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         x = Q.dequant({"q": emb["q"][tokens], "s": emb["s"]}, dtype)
     else:
         x = emb[tokens]
+    if not hidden_in and cfg.family == Family.HYBRID:
+        # RecurrentGemma scales the embedding by sqrt(d_model) rounded to
+        # the model dtype, as JAX does for the hybrid family (a host
+        # scalar: a captured step copies nothing from the host)
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
 
     loads = []
 

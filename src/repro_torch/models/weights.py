@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .. import device as D
-from .config import ModelConfig
+from .config import BlockKind, ModelConfig
 from .quant import is_quantized
 from .transformer import _group_shapes, check_supported
 
@@ -50,29 +50,39 @@ def tree_from_numpy(tree: Any, device: D.DeviceLike = None, dtype=None):
     return conv(tree)
 
 
+# Leaves JAX keeps in f32 whatever the model dtype: the MoE router
+# (``init_moe``) and the RG-LRU's recurrence parameter (``init_rglru``).
+F32_LEAVES = ("router", "a_param")
+
+
 def cast_params(tree: Any, dtype=None):
-    """A parameter tree with every floating leaf in ``dtype`` but the MoE
-    router, which stays f32 as JAX keeps it (``init_moe``), and int8
-    leaves, which keep their values and f32 scales; ``dtype`` None returns
-    ``tree`` as it is."""
+    """A parameter tree with every floating leaf in ``dtype`` but the
+    ``F32_LEAVES`` (the MoE router and the RG-LRU's ``a_param``), which
+    stay f32 as JAX keeps them, and int8 leaves, which keep their values
+    and f32 scales; ``dtype`` None returns ``tree`` as it is."""
     if dtype is None or is_quantized(tree):
         return tree
     if isinstance(tree, dict):
-        return {k: v if k == "router" else cast_params(v, dtype)
+        return {k: v if k in F32_LEAVES else cast_params(v, dtype)
                 for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(cast_params(v, dtype) for v in tree)
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-def _expected_block(cfg: ModelConfig):
+def _expected_block(cfg: ModelConfig, kind: BlockKind):
     d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
-    blk = {"norm1": (d,), "attn": {"wq": (d, h, hd), "wk": (d, kv, hd),
-                                   "wv": (d, kv, hd), "wo": (h, hd, d)}}
+    if kind == BlockKind.RGLRU:
+        blk = {"norm1": (d,), "rec": {
+            "w_x": (d, d), "w_y": (d, d), "conv_w": (cfg.rglru_conv_width, d),
+            "w_a": (d, d), "w_i": (d, d), "a_param": (d,), "w_out": (d, d)}}
+    else:
+        blk = {"norm1": (d,), "attn": {"wq": (d, h, hd), "wk": (d, kv, hd),
+                                       "wv": (d, kv, hd), "wo": (h, hd, d)}}
     if f > 0:
         blk["norm2"] = (d,)
-        e = cfg.n_experts
+        e = cfg.n_experts if kind != BlockKind.RGLRU else 0
         blk["ffn"] = ({"router": (d, e), "w_gate": (e, d, f),
                        "w_up": (e, d, f), "w_down": (e, f, d)} if e > 0 else
                       {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)})
@@ -106,8 +116,8 @@ def params_from_jax(cfg: ModelConfig, tree: Any,
     """The port's parameters from JAX ``transformer.init`` output passed
     through numpy (e.g. ``jax.tree.map(np.asarray, params)``).  The stacked
     group layout (``transformer._group_shapes``) is kept as is.  ``dtype``
-    casts every floating leaf but the MoE router, which stays f32 as JAX
-    keeps it."""
+    casts every floating leaf but ``F32_LEAVES``, which stay f32 as JAX
+    keeps them."""
     check_supported(cfg)
     pat, n_rep, rem = _group_shapes(cfg)
     top = {"embed": (cfg.vocab_size, cfg.d_model),
@@ -125,10 +135,11 @@ def params_from_jax(cfg: ModelConfig, tree: Any,
                          f"{len(tree['rem'])} remainder layers; expected "
                          f"{len(pat)} / {rem}")
     for g in range(len(pat)):
-        _check(tree["groups"][g], _expected_block(cfg), (n_rep,),
+        _check(tree["groups"][g], _expected_block(cfg, pat[g]), (n_rep,),
                f"groups[{g}]")
     for i in range(rem):
-        _check(tree["rem"][i], _expected_block(cfg), (), f"rem[{i}]")
+        _check(tree["rem"][i], _expected_block(cfg, pat[i]), (),
+               f"rem[{i}]")
     out = cast_params(tree_from_numpy(tree, device), dtype)
     out["groups"] = tuple(out["groups"])
     out["rem"] = tuple(out["rem"])

@@ -33,14 +33,24 @@ Both mirror the JAX package's ``serving/engine.py`` and report
 either hosts a contiguous span of the stack (its weights views of the
 full parameters): the stages of a ``serving/span.py`` pipeline, which
 chains the residual stream through them (``apply(hidden_in,
-hidden_out)``) and re-slices them live (``rebase_span``).  This slice
-serves global-attention stacks (a gated MLP or a top-k MoE after each
-attention; MoE through ``T.apply``'s default no-drop sorted dispatch, as
-JAX serves it), with bf16/f32 or int8 KV caches (``kv_quant``: int8 pages
-plus f32 scale pages, read by the int8 variants of kernels B1 and B4),
-and with int8 weights (``models/quant.py``); other stacks raise
+hidden_out)``) and re-slices them live (``rebase_span``).  The engines
+serve attention stacks (a gated MLP or a top-k MoE after each attention;
+MoE through ``T.apply``'s default no-drop sorted dispatch, as JAX serves
+it), with bf16/f32 or int8 KV caches (``kv_quant``: int8 pages plus f32
+scale pages, read by the int8 variants of kernels B1 and B4), with int8
+weights (``models/quant.py``), and hybrid stacks of RG-LRU blocks and
+local attention; what the port does not run yet raises
 ``NotImplementedError``.  As in the JAX package, an int8 stack has no
 prefix store and cannot resume a prompt chunk by chunk.
+
+Windowed and recurrent stacks.  The page space is the longest attention
+cache: a window's ring when every attention layer is windowed, whose
+pages B1 reads in place whatever order a wrap left their positions in.
+Recurrent states (RG-LRU ``h`` and ``conv``) ride slot-dense beside the
+pages through every hand-off, swap and span move.  As in JAX, such a
+stack has no prefix store, pads no suffix or row (a recurrent state would
+integrate the pad), resumes a chunked prompt over the dense wave cache
+(plain attention over [ring ; chunk]) and never speculates.
 
 Dense rows.  When the page space (``max_len``) is not a multiple of
 ``block_size``, both engines serve on dense rows instead, as JAX's engines
@@ -113,25 +123,19 @@ def _pow2_ceil(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def serving_page_len(cfg: ModelConfig, max_len: int) -> Optional[int]:
-    """The page space: the longest attention cache at this cache size."""
-    lens = [T._cache_len(cfg, kind, max_len) for kind in set(cfg.blocks())]
-    return max(lens) if lens else None
-
-
 def check_servable(cfg: ModelConfig, ecfg: EngineConfig) -> Optional[int]:
-    """The page length of a global-attention stack (bf16/f32 or int8 KV)
-    served on the paged runtime, or None when its page space is not a
-    multiple of ``block_size``: then it is served on dense rows, as JAX's
-    ``_paged_page_len`` decides.  Every other stack raises
-    ``NotImplementedError``."""
+    """The page length of a stack served on the paged runtime, or None
+    when it is served on dense rows, as JAX's ``_paged_page_len`` decides:
+    its page space (the longest attention cache: a window's ring when
+    every attention layer is windowed) is not a multiple of
+    ``block_size``, or it holds no attention KV (a span of recurrent
+    layers only).  Attention caches that long are pages; rings shorter
+    than the page space and recurrent states stay slot-dense.  What the
+    port does not run yet raises ``NotImplementedError``
+    (``transformer.check_supported``)."""
     T.check_supported(cfg)
-    plen = serving_page_len(cfg, ecfg.max_len)
-    if not KC.global_attention(cfg) or plen is None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves global-attention stacks; "
-            "windowed and other stacks come with a later slice (ROADMAP A6)")
-    return None if plen % ecfg.block_size else plen
+    plen = max(T.attn_cache_lens(cfg, ecfg.max_len), default=None)
+    return None if plen is None or plen % ecfg.block_size else plen
 
 
 StepKey = Tuple[str, int, bool, bool, bool]
@@ -155,11 +159,13 @@ class CompiledStep:
     The output is a static tensor, valid until the next call.
 
     Capture first runs the forward on a side stream, as PyTorch asks,
-    then restores the lengths it advanced; its page writes sit where the
-    replay writes again.  ``_lib.LAUNCHES`` counts on the host, so the
-    launches of the warm-up and the capture are taken back, and each
-    replay adds those the capture recorded.  A forward that cannot be
-    captured raises; nothing runs it eagerly instead.
+    then restores the lengths it advanced and the recurrent states it
+    integrated (``h``, ``conv``: a step over them is not idempotent); its
+    page writes sit where the replay writes again.  ``_lib.LAUNCHES``
+    counts on the host, so the launches of the warm-up and the capture
+    are taken back, and each replay adds those the capture recorded.  A
+    forward that cannot be captured raises; nothing runs it eagerly
+    instead.
 
     JAX shares executables across engines (an ``lru_cache`` keyed on the
     config).  A graph is bound to the addresses of one engine's tensors,
@@ -187,16 +193,25 @@ class CompiledStep:
         self.cache["lengths"].copy_(new["lengths"])
         return out
 
+    def _state_leaves(self) -> List[torch.Tensor]:
+        """The cache's slot-dense recurrent states: every leaf but the
+        attention KV (``KC.PAGED_KEYS``, written at fixed slots)."""
+        return [a for part in (tuple(self.cache["groups"])
+                               + tuple(self.cache["rem"]))
+                for k, a in part.items() if k not in KC.PAGED_KEYS]
+
     def _capture(self, pool) -> None:
         t0 = time.perf_counter()
         counts = dict(_lib.LAUNCHES)
-        lengths = self.cache["lengths"].clone()
+        saved = [(a, a.clone()) for a in [self.cache["lengths"]]
+                 + self._state_leaves()]
         side = torch.cuda.Stream(self.x.device)
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             self._run()
         torch.cuda.current_stream().wait_stream(side)
-        self.cache["lengths"].copy_(lengths)
+        for a, before in saved:
+            a.copy_(before)
         warm = dict(_lib.LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool):
@@ -415,8 +430,19 @@ class PrefillEngine:
         self.n_prefilled = 0
         # leading-block hash -> cached tokens (prefix-aware routing signal)
         self._leading: Dict[bytes, int] = {}
-        # padded writes must never wrap the cache (linear: the page space)
-        self._pad_cap = serving_page_len(cfg, ecfg.max_len)
+        # hit waves (store hits and chunk resumes) run over a paged wave
+        # cache only where every attention cache is linear over the page
+        # space (JAX's ``_paged_inc``); windowed and recurrent stacks
+        # resume over the dense wave cache
+        self._paged_inc = (self._page_len is not None
+                           and KC.prefix_cacheable(cfg))
+        # recurrent states would integrate pad tokens: only stacks without
+        # them pad suffixes and rows to power-of-two buckets
+        self._pad = not cfg.uses_recurrent_state
+        # padded writes must never wrap the SHORTEST attention ring past
+        # live in-window keys
+        self._pad_cap = min(T.attn_cache_lens(cfg, ecfg.max_len),
+                            default=ecfg.max_len)
         # (rows, padded suffix, hit) of every wave forward run: JAX's
         # jit-shape log, the keys of prefill forwards (compile_report)
         self.prefill_shapes: Set[Tuple[int, int, bool]] = set()
@@ -504,7 +530,10 @@ class PrefillEngine:
 
     def _bucket_len(self, slen: int, matched: int) -> int:
         """Pad a suffix length to its power-of-two bucket, capped at the
-        row's remaining cache capacity."""
+        row's remaining capacity in the shortest attention cache; a stack
+        with recurrent state takes the exact length."""
+        if not self._pad:
+            return slen
         padded = min(_pow2_ceil(slen), self._pad_cap - matched)
         return padded if padded >= slen else slen
 
@@ -605,15 +634,16 @@ class PrefillEngine:
                     seen_leads.add(lead)
                 chosen.append(i)
             chosen = chosen[: max(self.ecfg.max_batch, 1)]
-            n_rows = min(_pow2_ceil(len(chosen)), max(self.ecfg.max_batch, 1))
+            n_rows = (min(_pow2_ceil(len(chosen)), max(self.ecfg.max_batch, 1))
+                      if self._pad else len(chosen))
             chain = [self] + self._followers
             bounds = [e.layer_span for e in chain]
             matched_of: Dict[int, int] = {}
             tables = None
             # hit waves of a single-span paged engine run paged (kernel B3
-            # reads the prefix in place); a chain and dense rows resume over
-            # dense caches
-            use_paged = hit and len(chain) == 1 and nb_slot > 0
+            # reads the prefix in place); a chain, dense rows and stacks
+            # with rings or recurrent state resume over dense caches
+            use_paged = hit and len(chain) == 1 and self._paged_inc
             if use_paged:
                 cache = T.init_paged_cache(self.cfg, n_rows,
                                            self.ecfg.max_len, bs,
@@ -849,12 +879,17 @@ class DecodeEngine:
                      if self.paged else None)
         self._slot_blocks: List[List[int]] = \
             [[] for _ in range(ecfg.max_batch)]
-        # speculation needs rollback-safe KV (full attention, no window,
-        # no recurrent or cross state), which every stack check_servable
-        # admits, on a full-stack engine: span pipelines decode plain, as
-        # in JAX
+        # speculation needs rollback-safe KV, as JAX's gate: attention
+        # state (a recurrent state integrates every token and cannot
+        # rewind) with no sliding window (a ring at window capacity would
+        # lose live in-window keys when several tokens land in one pass),
+        # on a full-stack engine: span pipelines decode plain
         self._spec_ok = (ecfg.speculation != "off"
-                         and self.layer_span == (0, self.cfg.n_layers))
+                         and self.layer_span == (0, self.cfg.n_layers)
+                         and self.scfg.uses_kv_cache
+                         and not self.scfg.uses_recurrent_state
+                         and self.scfg.sliding_window is None
+                         and not self.scfg.cross_attention)
 
     def rebase_span(self, layer_span: Tuple[int, int]) -> None:
         """Re-slice this stage to another contiguous span (a layer move).

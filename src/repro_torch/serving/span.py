@@ -20,11 +20,14 @@ stack.
   back, and ``move_span`` executes a live ``MigrationKind.LAYER`` action
   between adjacent stages.
 
-The port of the JAX package's ``serving/span.py``.  The port serves
-global-attention stacks only, so every stage pages at the full page
-space and states cross stage boundaries as they are.  An int8-KV stack
-is served as JAX serves it: its stages hold int8 pools, and a prompt
-longer than ``chunk_tokens`` raises ``ValueError`` (no resume).
+The port of the JAX package's ``serving/span.py``.  States cross stage
+boundaries in JAX's canonical form: a leaf is paged iff its cache length
+equals the full stack's page space.  A stage whose own page space is
+smaller (a span of ring layers only) pages internally at its window and
+de-pages on exit (``_canon_state``); a span of recurrent layers only
+serves on dense rows.  An int8-KV stack is served as JAX serves it: its
+stages hold int8 pools, and a prompt longer than ``chunk_tokens`` raises
+``ValueError`` (no resume).
 """
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ from .. import device as D
 from ..core import layer_migration as LM
 from ..models import kvcache as KC
 from ..models.config import ModelConfig
-from .engine import DecodeEngine, EngineConfig, PrefillEngine
+from .engine import (DecodeEngine, EngineConfig, PrefillEngine,
+                     check_servable)
 from .request import Phase, Request
 
 
@@ -138,6 +142,9 @@ class DecodePipeline:
         if [tuple(e.layer_span) for e in self.engines] != \
                 [tuple(b) for b in bounds]:
             raise ValueError("engines do not host the given bounds")
+        # the wire contract: leaves are paged iff their cache length equals
+        # the full stack's page space (None: wire states are dense)
+        self._wire_plen = check_servable(cfg, ecfg)
 
     # -- lead-delegated views --------------------------------------------
     @property
@@ -165,6 +172,15 @@ class DecodePipeline:
         return self.lead.kv_tokens
 
     # -- wire-format edges -----------------------------------------------
+    def _canon_state(self, e: DecodeEngine, st: Dict[str, Any]
+                     ) -> Dict[str, Any]:
+        """De-page a stage's state when its own page space differs from
+        the wire's (a ring-only span pages internally at its window)."""
+        if "n_blocks" in st and e.page_len != self._wire_plen:
+            st = KC.paged_state_to_dense(st, self.ecfg.block_size,
+                                         e.page_len)
+        return st
+
     def adopt(self, req: Request, state: Dict[str, Any],
               next_token: int, slot: Optional[int] = None) -> int:
         """Migration receive path: split the wire state at this pipeline's
@@ -197,7 +213,7 @@ class DecodePipeline:
         parts, req, tok = [], None, 0
         for e in self.engines:
             req, st, tok = e.extract_slot(slot)
-            parts.append(st)
+            parts.append(self._canon_state(e, st))
         return req, LM.merge_state_spans(self.cfg, parts, self.bounds), tok
 
     def drain(self) -> List[Tuple[Request, Dict[str, Any], int]]:
@@ -272,7 +288,7 @@ class DecodePipeline:
             parts, req, tok = [], None, 0
             for e in (lo, hi):
                 req, st, tok = e.extract_slot(s)
-                parts.append(st)
+                parts.append(self._canon_state(e, st))
             snap.append((s, req, tok,
                          LM.merge_state_spans(self.cfg, parts, old_pair)))
 

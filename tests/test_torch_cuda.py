@@ -959,6 +959,184 @@ def test_cuda_dense_rows_and_int8_weights_replay_equal_eager(mode,
         assert g_launch["paged_decode_partials"] > 0
 
 
+# ---------------------------------------------------------------------------
+# The RG-LRU hybrid: ring pages, the hybrid's attention shapes, graphs
+# ---------------------------------------------------------------------------
+
+def ring_case(seed, lengths, h, kv, d, bs, nb):
+    """One decode step of rows served over a windowed ring of nb * bs
+    slots: row r has written ``lengths[r]`` tokens, position p in slot
+    p % (nb * bs), so a row past the ring's length holds its last nb * bs
+    positions out of position order across its pages, which sit at
+    shuffled physical ids.  The query is at position length - 1; a length
+    of None is an empty slot (an all-dead table).  The scratch page and
+    unassigned pages hold poison positions."""
+    rng = np.random.default_rng(seed)
+    b, plen = len(lengths), nb * bs
+    n_phys = 1 + b * nb
+    k_pages = rng.normal(size=(n_phys, bs, kv, d)).astype(np.float32)
+    v_pages = rng.normal(size=(n_phys, bs, kv, d)).astype(np.float32)
+    pos_pages = rng.integers(0, 2 * plen, (n_phys, bs)).astype(np.int32)
+    tables = np.full((b, nb), -1, np.int32)
+    phys = rng.permutation(n_phys - 1) + 1
+    nxt = 0
+    for row, n in enumerate(lengths):
+        if n is None:
+            continue
+        for j in range(min(-(-n // bs), nb)):
+            tables[row, j] = phys[nxt]
+            slot = np.arange(j * bs, (j + 1) * bs)
+            p = slot + plen * ((n - 1 - slot) // plen)
+            pos_pages[phys[nxt]] = np.where(slot < n, p, -1)
+            nxt += 1
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    pos_q = np.asarray([(n or 1) - 1 for n in lengths], np.int32)
+    return dict(q=q, k_pages=k_pages, v_pages=v_pages, pos_pages=pos_pages,
+                block_tables=tables, pos_q=pos_q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_hybrid_attention_kernels_vs_plain(dtype):
+    """B1 and B2 at recurrentgemma-9b's attention shapes (16 query heads
+    on one kv head of 256, a 2048-token window): B1 on a ring of 128
+    pages of 16 wrapped past position 2048 in three rows, with an empty
+    slot, at one partial per page, per 3 pages and at the serving split;
+    B2 over 2304 tokens (the window cuts) and 2 x 512 against its plain
+    version.  Tolerances as ``test_cuda_kernel_vs_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dt = getattr(torch, dtype)
+    c = ring_case(21, [3000, 2600, 2049, 2045, 900, None], 16, 1, 256, 16,
+                  128)
+    a = tuple(torch.as_tensor(c[k]).cuda().to(dt) if c[k].dtype ==
+              np.float32 else torch.as_tensor(c[k]).cuda() for k in KEYS)
+    for pps in (1, 3, decode_pages_per_split(a[0], 1, 128)):
+        got = paged_decode_partials(*a, window=2048, pages_per_split=pps)
+        want = ref.paged_decode_partials_plain(*a, window=2048,
+                                               pages_per_split=pps)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    rng = np.random.default_rng(22)
+    for b, s in ((1, 2304), (2, 512)):
+        q, k, v = (torch.as_tensor(rng.normal(size=(b, s, n, 256)).astype(
+            np.float32)).cuda().to(dt) for n in (16, 1, 1))
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v, window=2048),
+            ref.flash_prefill_plain(q, k, v, window=2048), atol=tol,
+            rtol=tol)
+
+
+def _hybrid_stack(dtype):
+    """A 5-layer RG-LRU hybrid (one (RGLRU, RGLRU, LOCAL) group plus two
+    RG-LRU layers) at 16/1 heads of 64 with a 32-token window, on the
+    card in ``dtype``, and an engine config whose ring is 2 pages of 16."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import EngineConfig
+    cfg = dataclasses.replace(get("recurrentgemma-9b"), name="rg5-card",
+                              n_layers=5, d_model=128, n_heads=16,
+                              n_kv_heads=1, head_dim=64, d_ff=256,
+                              vocab_size=256, local_window=32)
+    return (cfg, T.init(cfg, seed=0, dtype=getattr(torch, dtype),
+                        device="cuda"),
+            EngineConfig(max_len=256, max_batch=4, block_size=16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_hybrid_served_replay_equals_eager(dtype, monkeypatch):
+    """The hybrid prefilled in 32-token chunks over prompts longer than its
+    window and decoded over the paged ring (B1) with ``h``/``conv``
+    updated in place, with CUDA graphs on and off: every replayed step
+    equals the eager one bit for bit, the streams and launches are equal,
+    B1 and B2 launch and B3, B4 and B5 do not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    from repro_torch.serving import engine as E
+    cfg, params, ecfg = _hybrid_stack(dtype)
+    orig = E.CompiledStep.__call__
+    runs = []
+    for graphs in (False, True):
+        ecfg_g = dataclasses.replace(ecfg, cuda_graphs=graphs)
+        pe = E.PrefillEngine(cfg, params, ecfg_g)
+        de = E.DecodeEngine(cfg, params, ecfg_g)
+        assert de.paged and de.page_len == 32
+        reqs = _span_requests(3)
+        outs = []
+
+        def record(step, x):
+            out = orig(step, x)
+            outs.append(out.clone())
+            return out
+
+        monkeypatch.setattr(E.CompiledStep, "__call__", record)
+        ops.reset_launches()
+        for r, (st, lg) in zip(reqs, pe.run_batch(reqs, chunk_tokens=32)):
+            de.insert(r, st, int(torch.argmax(lg)))
+        while de.active:
+            de.step()
+        torch.cuda.synchronize()
+        monkeypatch.setattr(E.CompiledStep, "__call__", orig)
+        runs.append((outs, [r.generated for r in reqs], dict(ops.LAUNCHES)))
+        assert (de.compiled.report()["graphs_captured"] > 0) is graphs
+    (eager, e_streams, e_launch), (graph, g_streams, g_launch) = runs
+    assert len(graph) == len(eager) > 0
+    assert max(float((g.float() - e.float()).abs().max())
+               for g, e in zip(graph, eager)) == 0.0
+    assert g_streams == e_streams and g_launch == e_launch
+    assert g_launch["flash_prefill"] > 0
+    assert g_launch["paged_decode_partials"] > 0
+    for name in ("paged_prefix_partials", "paged_verify_partials",
+                 "split_kv_decode_partials"):
+        assert g_launch[name] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rglru_decode_step_in_a_graph_equals_eager(dtype):
+    """The RG-LRU decode step (S = 1) captured in a CUDA graph over static
+    input and state tensors and replayed over five steps: its outputs and
+    the ``h``/``conv`` it writes in place equal the eager step's bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.models import layers as L
+    cfg, _, _ = _hybrid_stack("float32")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p = L.init_rglru(cfg, gen, dt, "cuda")
+    b, d, w = 4, cfg.d_model, cfg.rglru_conv_width
+    h0 = torch.randn((b, d), generator=gen, device="cuda")
+    c0 = torch.randn((b, w - 1, d), generator=gen, device="cuda").to(dt)
+    xs = [torch.randn((b, 1, d), generator=gen, device="cuda").to(dt)
+          for _ in range(5)]
+    eager = {"h": h0.clone(), "conv": c0.clone()}
+    static = {"h": h0.clone(), "conv": c0.clone()}
+    x = xs[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        L.rglru_apply(cfg, p, x, state=static, mode="decode")
+    torch.cuda.current_stream().wait_stream(side)
+    static["h"].copy_(h0)
+    static["conv"].copy_(c0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, _ = L.rglru_apply(cfg, p, x, state=static, mode="decode")
+    for xt in xs:
+        want, _ = L.rglru_apply(cfg, p, xt, state=eager, mode="decode")
+        x.copy_(xt)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+        assert torch.equal(static["h"], eager["h"])
+        assert torch.equal(static["conv"], eager["conv"])
+
+
 @pytest.mark.cuda
 def test_cuda_uncapturable_forward_raises(monkeypatch):
     """A forward that cannot be captured (a host copy inside it) raises

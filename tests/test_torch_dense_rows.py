@@ -30,6 +30,7 @@ from repro.serving.engine import DecodeEngine as JDecode
 from repro.serving.engine import EngineConfig as JEngineConfig
 from repro.serving.engine import PrefillEngine as JPrefill
 from repro.serving.request import Request as JRequest
+from repro_torch import configs as port_configs
 from repro_torch.core.kvstore import GlobalKVStore
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache as KC
@@ -181,9 +182,14 @@ def test_dense_rows_are_chosen_and_other_stacks_still_raise(tp):
     assert tuple(de.cache["groups"][0]["k"].shape) == (4, 3, 100, 2, 16)
     with pytest.raises(ValueError, match="page sharing"):
         de.attach_store(GlobalKVStore(block_size=8))
-    swa = dataclasses.replace(PTINY, sliding_window=16)
+    # a 16-token sliding window pages at its ring (16 % 8 == 0), as JAX's
+    # _paged_page_len; the xLSTM stack is still a later slice
+    swa = DecodeEngine(dataclasses.replace(PTINY, sliding_window=16), tp,
+                       ECFG, device="cpu")
+    assert swa.paged and swa.page_len == 16
     with pytest.raises(NotImplementedError, match="later slice"):
-        DecodeEngine(swa, tp, ECFG, device="cpu")
+        DecodeEngine(port_configs.get("xlstm-350m").smoke(), tp, ECFG,
+                     device="cpu")
 
 
 @pytest.mark.parametrize("chunk", [None, 10])

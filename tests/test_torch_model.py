@@ -169,13 +169,16 @@ def test_params_from_jax_checks_the_tree(tiny_params):
 
 
 def test_unported_stacks_raise_not_implemented():
-    """Recurrent, SSM and audio stacks are a later slice (ROADMAP A6); the
-    MoE stacks are served."""
-    for name in ("recurrentgemma-9b", "xlstm-350m",
-                 "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="A6: a later slice"):
-            T.check_supported(port_config(name).smoke())
-    for name in ("llama-13b", "granite-moe-3b-a800m", "grok-1-314b"):
+    """The SSM and audio stacks are a later slice (ROADMAP A6.3, A6.4); the
+    MoE stacks and the RG-LRU hybrid are served."""
+    for name, item in (("xlstm-350m", "A6.3"),
+                       ("seamless-m4t-large-v2", "A6.4")):
+        for cfg in (port_config(name), port_config(name).smoke()):
+            with pytest.raises(NotImplementedError,
+                               match=f"{item}.*A6: a later slice"):
+                T.check_supported(cfg)
+    for name in ("llama-13b", "granite-moe-3b-a800m", "grok-1-314b",
+                 "recurrentgemma-9b"):
         T.check_supported(port_config(name))
         T.check_supported(port_config(name).smoke())
 

@@ -22,6 +22,7 @@ from conftest import TINY, TINY_ECFG, assert_pools_restored
 from repro.core.kvstore import GlobalKVStore as JStore
 from repro.serving.engine import PrefillEngine as JPrefill
 from repro.serving.request import Request as JRequest
+from repro_torch import configs as port_configs
 from repro_torch.core import analytical as A
 from repro_torch.core.kvstore import GlobalKVStore
 from repro_torch.models import kvcache as KC
@@ -177,12 +178,13 @@ def test_cow_fork_before_a_shared_page_is_written(tiny_params, port_params,
 
 
 def test_unservable_stacks_raise_not_implemented(port_params):
-    """Windowed stacks are a later slice.  int8 KV serves, but, as in JAX,
-    cannot resume a prompt: one longer than ``chunk_tokens`` raises
-    ``ValueError`` before any prefill work."""
-    swa = dataclasses.replace(PTINY, sliding_window=16)
+    """The xLSTM stack is a later slice (windowed stacks are served since
+    the hybrid slice).  int8 KV serves, but, as in JAX, cannot resume a
+    prompt: one longer than ``chunk_tokens`` raises ``ValueError`` before
+    any prefill work."""
     with pytest.raises(NotImplementedError, match="later slice"):
-        DecodeEngine(swa, port_params, ECFG, device="cpu")
+        DecodeEngine(port_configs.get("xlstm-350m").smoke(), port_params,
+                     ECFG, device="cpu")
     pe = PrefillEngine(dataclasses.replace(PTINY, kv_quant=True),
                        port_params,
                        dataclasses.replace(ECFG, speculation="ngram"),

@@ -348,15 +348,47 @@ MIXED_ECFG = EngineConfig(max_len=64, max_batch=2, block_size=8)
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
-def test_mixed_arch_span_pipeline_token_exact(kind):
-    """JAX serves a ring-only stage (paged at its own window, de-paged at
-    the wire); the port serves global-attention stacks only and refuses
-    the mixed stack's pipelines, as its engines do (ROADMAP A6)."""
-    from repro_torch.models import transformer as T
-    params = T.init(MIXED, seed=0, device="cpu")
-    cls = PrefillPipeline if kind == "prefill" else DecodePipeline
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cls(MIXED, params, MIXED_ECFG, [(0, 3), (3, 4)], device="cpu")
+def test_mixed_arch_span_pipeline_token_exact(kind, model_zoo,
+                                              greedy_reference):
+    """JAX's mixed-stack case: a ring-only stage (a lone 16-token window,
+    paged at its own window) de-pages at the wire, and the tokens still
+    equal the monolith's across a live span move of the decode pipeline
+    (``kind`` "decode"), or of the prefill pipeline between waves
+    (``kind`` "prefill")."""
+    from repro.models.config import BlockKind as JBlockKind
+    from repro.models.config import Family as JFamily
+    from repro.models.config import ModelConfig as JModelConfig
+    jmixed = JModelConfig(name="mix-span", family=JFamily.DENSE, n_layers=4,
+                          d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
+                          vocab_size=64, local_window=16,
+                          block_pattern=(JBlockKind.ATTENTION,
+                                         JBlockKind.LOCAL_ATTENTION))
+    jp = model_zoo(jmixed)
+    params = params_from_jax(MIXED, jax.tree.map(np.asarray, jp),
+                             device="cpu")
+    bounds = [(0, 3), (3, 4)]            # stage 1 hosts a lone ring layer
+    pp = PrefillPipeline(MIXED, params, MIXED_ECFG, bounds, device="cpu")
+    dp = DecodePipeline(MIXED, params, MIXED_ECFG, bounds, device="cpu")
+    assert [e.page_len for e in dp.engines] == [64, 16]
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, arrival=0.0, max_new_tokens=8,
+                    prompt=rng.integers(0, 64, int(n), dtype=np.int32))
+            for i, n in enumerate(rng.integers(10, 30, 2))]
+    if kind == "prefill":
+        assert pp.move_span(0, 1, 1) == 1
+        assert pp.bounds == [(0, 2), (2, 4)]
+    for r, (st, lg) in zip(reqs, pp.run_batch(reqs, chunk_tokens=8)):
+        dp.insert(r, st, int(torch.argmax(lg)))
+    for _ in range(3):
+        dp.step()
+    if kind == "decode":
+        assert dp.move_span(0, 1, 1)["layers"] == 1
+        assert dp.bounds == [(0, 2), (2, 4)]
+    while dp.active:
+        dp.step()
+    for r in reqs:
+        assert r.generated == greedy_reference(jmixed, jp, r.prompt,
+                                               r.max_new_tokens), r.rid
 
 
 # ---------------------------------------------------------------------------
