@@ -43,7 +43,12 @@ Phases (any failure exits non-zero and prints no result line):
    shuffled pages) and one empty slot, at one partial per page, per 3
    pages and at the serving split; B2 at 1 x 2048 and 4 x 512 tokens
    (timed) and 1 x 3000 (checked: the window cuts); yardsticks gather +
-   SDPA under the window mask and causal SDPA.
+   SDPA under the window mask and causal SDPA.  B1, B2 and B5 again at
+   seamless-m4t-large-v2's serving shapes in f32 (16/16 heads of 64): B1
+   over 8 rows of 128-page tables as long as the served requests midway
+   through decode, B2 on a fresh 1 x 512 chunk, B5 over 8 rows x 512
+   cached frames, every one valid (the cross decode), timed over six
+   cycled copies of the cross K/V so that it reads them from memory.
 3. Serve llama-13b at full width and depth in bf16 (random weights from a
    seed), 8 requests of a shared-prefix workload, five times: through
    ``Server`` over the port's ``Orchestrator`` (chunked prefill) plain,
@@ -170,7 +175,34 @@ Phases (any failure exits non-zero and prints no result line):
    iteration a forced 4-layer span move (host ms; weight bytes, views;
    ring-page and recurrent-state bytes), then, with two residents, a
    KV_HEADS rebalance; every token within the gap, the streams reported
-   against (n)'s.
+   against (n)'s.  Then the last two registry configs, in f32 (random
+   weights from seed 0): (p) xlstm-350m at full width and depth (24
+   layers: 18 mLSTM, 6 sLSTM; no attention, so both engines serve dense
+   rows) through ``Server``, the 8 requests of the llama-13b runs
+   arriving at once, 256-token chunks, replayed and eagerly: no kernel
+   launches (JAX runs these blocks in XLA), the two runs' streams and
+   launches are equal, every token within TOKEN_GAP_TOL of the monolithic
+   f32 forward's best;
+   it prints the decode clocks, the compiled step's device span, prefill
+   tok/s, peak memory and one profiled iteration's device ms by family
+   (GEMMs, the xLSTM's elementwise and recurrence work, the rest); (q)
+   two 2-stage decode pipelines over [(0, 12), (12, 24)] with one forced
+   4-layer span move (three mLSTM, one sLSTM: host ms, weight bytes,
+   state bytes per resident), its streams equal to (p)'s; (r)
+   seamless-m4t-large-v2 at full width and depth (24 layers, 512 frames
+   per request) through the engines, since the orchestrator carries no
+   frames: 8 prompts of 600-1,500 tokens, each prefilled with its own
+   random frames by ``PrefillEngine.run_batch([req], frames,
+   chunk_tokens=512)`` and inserted into one paged ``DecodeEngine``
+   (``max_len`` 2048), 32 tokens out, replayed and eagerly: B1, B2 and
+   B5 (the cross attention's decode over the cached frames) launch and
+   B3, B4 do not, streams and launches equal, every token within the gap
+   of the monolithic forward given the same frames; it prints the
+   clocks, the cross K/V bytes per request and one profiled iteration by
+   family (GEMMs, B1, B5, the rest); (s) a
+   2-stage ``PrefillPipeline`` and ``DecodePipeline`` over the same
+   bounds with one forced 4-layer span move (its bytes, cross K/V
+   included), its streams equal to (r)'s.
 4. Print the ``kernels`` JSON line, then the result line.
 
 The script imports nothing of the JAX package and needs no network.
@@ -409,6 +441,20 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
             return busy / 1e3 / iters
     fail(f"the profiler recorded no device time in three traces of the "
          f"call at chip_smoke.py:{fn.__code__.co_firstlineno}")
+
+
+def cycled(copies, fn):
+    """A call of ``fn(*copy)`` on the next of ``copies`` in turn.  A timed
+    kernel then reads its inputs from memory, as a serving step does (other
+    layers' weights and caches run between two of its calls); called back
+    to back on one copy that fits the card's 50 MB L2, it would read them
+    from there."""
+    turn = [0]
+
+    def call():
+        turn[0] += 1
+        return fn(*copies[turn[0] % len(copies)])
+    return call
 
 
 def max_err(torch, got, want) -> float:
@@ -720,22 +766,14 @@ def kernel_phase(torch):
     # copies of the cache, 492 MB, ten times the card's 50 MB L2; back to
     # back on one copy, much of it is served from L2
     copies = [(kd, vd)] + [(kd.clone(), vd.clone()) for _ in range(2)]
-    nxt = iter(range(1 << 30))
-
-    def cold(fn):
-        def call():
-            k_, v_ = copies[next(nxt) % len(copies)]
-            return fn(k_, v_)
-        return call
-
     timing["B5 dense rows (8 x 1000 keys)"] = dict(
-        b5_timing(torch, qd, kd, vd, validd, 200, fn=cold(
-            lambda k_, v_: split_kv_decode_partials(qd, k_, v_, validd,
-                                                    block_k=512))),
+        b5_timing(torch, qd, kd, vd, validd, 200, fn=cycled(
+            copies, lambda k_, v_: split_kv_decode_partials(
+                qd, k_, v_, validd, block_k=512))),
         plain_ms=time_ms(torch, lambda: ref.split_kv_decode_partials_plain(
             qd, kd, vd, validd, block_k=512), 20),
-        library_ms=time_ms(torch, cold(
-            lambda k_, v_: F.scaled_dot_product_attention(
+        library_ms=time_ms(torch, cycled(
+            copies, lambda k_, v_: F.scaled_dot_product_attention(
                 qd[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
                 attn_mask=validd[:, None, None, :])), 50))
     warm_ms = time_ms(torch, lambda: split_kv_decode_partials(
@@ -745,6 +783,7 @@ def kernel_phase(torch):
         f"{warm_ms:.4f} ms back to back on one copy (L2-warm)")
     del kd, vd, copies
     timing.update(hybrid_kernels(torch, results))
+    timing.update(seamless_kernels(torch, results))
     names = ("B1", "B1-int8", "B2", "B3", "B4", "B4-int8", "B5")
     errs = {kname: max(v["err"] for (kk, _, _), v in results.items()
                        if kk == kname) for kname in names}
@@ -1088,6 +1127,136 @@ def hybrid_kernels(torch, results):
             flops=4 * d * h * b2 * (keys * (keys + 1) // 2
                                     + (s2 - keys) * keys),
             dtype="bfloat16")
+    return timing
+
+
+# seamless-m4t-large-v2's cross K/V are timed over this many copies (33.6
+# MB each at 8 rows x 512 frames in f32, 201 MB together)
+SEAMLESS_COPIES = 6
+
+
+def seamless_kernels(torch, results):
+    """B1, B2 and B5 at the shapes runs (r)-(s) give them: seamless-m4t-
+    large-v2 in f32, 16/16 heads of 64, against their plain versions at
+    TOL_F32.  B1 over 8 rows of 128-page tables (``SEAMLESS_MAX_LEN``,
+    block 16), each row as long as one served request 16 tokens into its
+    decode (``seamless_requests``), at one partial per page, per 3 pages
+    and at the serving split; B2 on a fresh 1 x 512 chunk; B5 over 8 rows
+    x 512 cached frames, every frame valid, block_k 512 (the cross
+    decode).  Errors go into ``results`` under the label
+    "seamless-m4t-large-v2"; returns the timings under "B1 seamless",
+    "B2 seamless (1, 512)" and "B5 seamless cross": the kernel, its plain
+    version, a library yardstick (gather + SDPA under the position mask;
+    SDPA, causal; SDPA over every frame) and the bound's bytes and f32
+    flops.  B5 and its SDPA run over ``SEAMLESS_COPIES`` cycled copies of
+    the cross K/V (``cycled``)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.split_kv_decode import (decode_pages_per_split,
+                                                     paged_decode_partials,
+                                                     split_kv_decode_partials)
+
+    cfg = get("seamless-m4t-large-v2")
+    dev, f32 = torch.device("cuda"), torch.float32
+    label, cap = "seamless-m4t-large-v2", cfg.logit_soft_cap
+    h, kv, d, bs = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16
+    nb = SEAMLESS_MAX_LEN // bs
+    lengths = [r.prompt_len + 16 for r in seamless_requests(cfg)]
+    g = torch.Generator(device=dev).manual_seed(12)
+    timing = {}
+
+    # -- B1: the self-attention decode over the rows' pages
+    q, kp, vp, pp, tb, pq = paged_case(torch, g, dev, f32, b=len(lengths),
+                                       h=h, kv=kv, d=d, bs=bs, nb=nb,
+                                       lengths=lengths)
+    pps = decode_pages_per_split(q, kv, nb)
+    err1 = max(check_close(
+        torch, f"B1 {label} float32 pages_per_split {split}",
+        paged_decode_partials(q, kp, vp, pp, tb, pq, soft_cap=cap,
+                              pages_per_split=split),
+        ref.paged_decode_partials_plain(q, kp, vp, pp, tb, pq, soft_cap=cap,
+                                        pages_per_split=split), TOL_F32)
+        for split in (1, 3, pps))
+    results[("B1", label, "float32")] = dict(err=err1)
+    b = q.shape[0]
+    n_live = torch.unique(tb[tb >= 0]).numel()
+
+    def lib_decode():
+        safe = tb.clamp_min(0).long()
+        kl = kp[safe].reshape(b, nb * bs, kv, d)
+        vl = vp[safe].reshape(b, nb * bs, kv, d)
+        pk = torch.where((tb >= 0)[:, :, None], pp[safe], -1
+                         ).reshape(b, 1, 1, -1)
+        mask = (pk >= 0) & (pk <= pq[:, None, None, None])
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kl.transpose(1, 2), vl.transpose(1, 2),
+            attn_mask=mask, enable_gqa=h != kv)
+
+    timing["B1 seamless"] = dict(
+        ms=time_ms(torch, lambda: paged_decode_partials(
+            q, kp, vp, pp, tb, pq, soft_cap=cap, pages_per_split=pps), 200),
+        plain_ms=time_ms(torch, lambda: ref.paged_decode_partials_plain(
+            q, kp, vp, pp, tb, pq, soft_cap=cap, pages_per_split=pps), 10),
+        library_ms=time_ms(torch, lib_decode, 50),
+        bytes=nbytes(q, tb, pq) + n_live * (2 * bs * kv * d * 4 + bs * 4)
+        + b * -(-nb // pps) * h * (d + 2) * 4,
+        flops=4 * d * h * visible_pairs(torch, pp, tb, pq, None),
+        dtype="float32", pages_per_split=pps)
+    del kp, vp, pp
+
+    # -- B2: a fresh prefill's first chunk
+    q2, k2, v2 = (torch.randn((1, SEAMLESS_CHUNK, n, d), generator=g,
+                              device=dev) for n in (h, kv, kv))
+    err2 = check_close(torch, f"B2 {label} (1, {SEAMLESS_CHUNK}) float32",
+                       flash_prefill(q2, k2, v2, soft_cap=cap),
+                       ref.flash_prefill_plain(q2, k2, v2, soft_cap=cap),
+                       TOL_F32)
+    results[("B2", label, "float32")] = dict(err=err2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q2, k2, v2))
+    s2 = SEAMLESS_CHUNK
+    timing[f"B2 seamless (1, {s2})"] = dict(
+        ms=time_ms(torch, lambda: flash_prefill(q2, k2, v2, soft_cap=cap),
+                   50),
+        plain_ms=time_ms(torch, lambda: ref.flash_prefill_plain(
+            q2, k2, v2, soft_cap=cap), 10),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=h != kv), 50),
+        bytes=nbytes(q2, k2, v2) + nbytes(q2),
+        flops=4 * d * h * s2 * (s2 + 1) // 2, dtype="float32")
+
+    # -- B5: the cross decode over every cached frame
+    q5 = torch.randn((len(lengths), h, d), generator=g, device=dev)
+    copies = [tuple(torch.randn((len(lengths), cfg.n_frames, kv, d),
+                                generator=g, device=dev) for _ in range(2))
+              for _ in range(SEAMLESS_COPIES)]
+    k5, v5 = copies[0]
+    every = torch.ones(k5.shape[:2], dtype=torch.bool, device=dev)
+    err5 = check_close(
+        torch, f"B5 {label} cross float32",
+        split_kv_decode_partials(q5, k5, v5, every, block_k=512),
+        ref.split_kv_decode_partials_plain(q5, k5, v5, every, block_k=512),
+        TOL_F32)
+    results[("B5", label, "float32")] = dict(err=err5)
+    timing["B5 seamless cross"] = dict(
+        b5_timing(torch, q5, k5, v5, every, 200, fn=cycled(
+            copies, lambda k_, v_: split_kv_decode_partials(
+                q5, k_, v_, every, block_k=512))),
+        plain_ms=time_ms(torch, lambda: ref.split_kv_decode_partials_plain(
+            q5, k5, v5, every, block_k=512), 20),
+        library_ms=time_ms(torch, cycled(
+            copies, lambda k_, v_: F.scaled_dot_product_attention(
+                q5[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
+                enable_gqa=h != kv)), 50),
+        dtype="float32")
+    warm_ms = time_ms(torch, lambda: split_kv_decode_partials(
+        q5, k5, v5, every, block_k=512), 200)
+    say(f"kernels vs plain [{label}, {h}/{kv} heads of {d}, float32]: max "
+        f"|err| B1 {err1:.2e} ({b} rows of {min(lengths)}-{max(lengths)} "
+        f"tokens on {nb}-page tables, serving split {pps}), B2 {err2:.2e} "
+        f"(1 x {s2}), B5 {err5:.2e} ({b} x {cfg.n_frames} frames, every "
+        f"one valid; {warm_ms:.4f} ms back to back on one copy, L2-warm)")
     return timing
 
 
@@ -1453,25 +1622,38 @@ def int8_forward_logits(torch, cfg, params, prompt, generated,
     return torch.cat(lgs, dim=0)
 
 
-def forced_logits(torch, cfg, params, toks, start):
-    """The port's monolithic forward over ``toks`` (1, S), teacher-forced:
-    f32 logits of positions ``start``.. .  Where the full (S, vocab)
-    logits would pass 2^28 entries (recurrentgemma-9b: 256,000 x 3,000),
-    the stack runs to its residual stream and only the scored positions
-    are normed and unembedded, as ``T.apply`` does them."""
+def forced_logits(torch, cfg, params, reqs, frames=None):
+    """The port's monolithic forward over each request's stream (its
+    prompt and every generated token but the last), teacher-forced, in one
+    batch right-padded to the longest (and a cross-attention stack's
+    ``frames``, one row per request): {rid: f32 logits of positions
+    prompt_len - 1 ..}.  Each row is causal, so the pad after a stream
+    reaches none of its scored positions.  Where the full logits would pass
+    2^28 entries (recurrentgemma-9b: 256,000 x 3,000), the stack runs to
+    its residual stream and only the scored positions are normed and
+    unembedded, as ``T.apply`` does them."""
     from repro_torch.models import layers as L
     from repro_torch.models import quant as Q
     from repro_torch.models import transformer as T
 
-    if toks.shape[1] * cfg.vocab_size <= 2 ** 28:
-        logits, _, _ = T.apply(cfg, params, toks, mode="train")
-        return logits[0, start:].float()
-    x, _, _ = T.apply(cfg, params, toks, mode="train", hidden_out=True)
+    streams = [list(map(int, r.prompt)) + r.generated[:-1] for r in reqs]
+    toks = torch.zeros((len(reqs), max(map(len, streams))), dtype=torch.long,
+                       device="cuda")
+    for row, st in enumerate(streams):
+        toks[row, :len(st)] = torch.as_tensor(st, device="cuda")
+    rows = [(r.rid, row, r.prompt_len - 1, len(st))
+            for row, (r, st) in enumerate(zip(reqs, streams))]
+    if toks.numel() * cfg.vocab_size <= 2 ** 28:
+        logits, _, _ = T.apply(cfg, params, toks, frames=frames,
+                               mode="train")
+        return {rid: logits[row, a:z].float() for rid, row, a, z in rows}
+    x, _, _ = T.apply(cfg, params, toks, frames=frames, mode="train",
+                      hidden_out=True)
     dtype = params["out_norm"].dtype
-    x = L.rms_norm(x[0, start:], params["out_norm"], cfg.rms_eps)
     unembed = Q.dequant(params["embed"], dtype).t() \
         if cfg.tie_embeddings else Q.dequant(params["unembed"], dtype)
-    return (x @ unembed).float()
+    return {rid: (L.rms_norm(x[row, a:z], params["out_norm"], cfg.rms_eps)
+                  @ unembed).float() for rid, row, a, z in rows}
 
 
 def token_gaps(torch, lg, tokens):
@@ -1481,7 +1663,8 @@ def token_gaps(torch, lg, tokens):
 
 
 def check_streams(torch, cfg, params, label, reqs, launches, needed,
-                  forbidden=(), bf16_streams=None, score=True):
+                  forbidden=(), bf16_streams=None, score=True,
+                  frames_of=None, same_as=None):
     """Every request got its full budget, the kernels in ``needed`` ran and
     those in ``forbidden`` did not, and — teacher-forced through the port's
     own forward (the plain monolithic one; for an int8-KV stack
@@ -1503,7 +1686,10 @@ def check_streams(torch, cfg, params, label, reqs, launches, needed,
     (one multi-token decode step; one token a step, as serving decodes),
     and how far the two references differ from each other.  With
     ``score`` off (a bf16 MoE stack, PERF.md §7) every gap is reported and
-    none fails the run."""
+    none fails the run.  ``frames_of`` maps a request id to its frames
+    (a cross-attention stack's reference attends to them too).  With
+    ``same_as`` (rid -> the tokens of a run scored this way) every stream
+    must equal its own there, and is not scored again."""
     from repro_torch.models import transformer as T
 
     for r in reqs:
@@ -1518,15 +1704,28 @@ def check_streams(torch, cfg, params, label, reqs, launches, needed,
         if launches[name] != 0:
             fail(f"[{label}] kernel {name} was launched {launches[name]} "
                  f"times; this path must not run it")
+    if same_as is not None:
+        differ = [r.rid for r in reqs if r.generated != same_as[r.rid]]
+        if differ:
+            fail(f"[{label}] streams of requests {differ} differ from the "
+                 f"scored run's")
+        say(f"[{label}] every stream equals the scored run's "
+            f"({len(reqs)}/{len(reqs)}), so every token is within "
+            f"{TOKEN_GAP_TOL} of its step's best as there")
+        return
     moe_int8 = cfg.kv_quant and cfg.n_experts > 0
     worst = 0.0
     spread = []
     agree = total = same = scored = over = 0
     multi, step_gaps, ref_diff, ref_argmax = [], [], [], 0
+    # a stack without attention (xLSTM) steps its recurrence token by token
+    # from Python: one batched forward of every stream instead of one each
+    batched = (forced_logits(torch, cfg, params, reqs)
+               if not cfg.uses_kv_cache else None)
     for r in reqs:
-        stream = list(map(int, r.prompt)) + r.generated
-        toks = torch.as_tensor(stream[:-1], device="cuda")[None]
-        lg = forced_logits(torch, cfg, params, toks, r.prompt_len - 1)
+        lg = batched[r.rid] if batched is not None else forced_logits(
+            torch, cfg, params, [r],
+            frames=frames_of[r.rid] if frames_of else None)[r.rid]
         if cfg.kv_quant:
             bf16_top = lg.argmax(dim=1)
             lg = int8_forward_logits(torch, cfg, params, r.prompt,
@@ -1670,18 +1869,19 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
               needed, forbidden, profile, bf16_streams=None, graphs=True,
               score=True, max_len=1024, decode_kernel=("B1",
                                                         "paged_decode_kernel"),
-              requests=None):
+              requests=None, same_as=None):
     """One run through ``Server`` (decode forwards replayed from CUDA
     graphs, or with ``graphs`` off run eagerly over the same static
     buffers); returns its launches, streams and decode figures.
     ``score``: as ``check_streams``'.  ``max_len`` 1000 (no multiple of
     the 16-token block) serves on dense rows; ``decode_kernel`` (name,
     symbol) is the attention kernel whose share of a profiled decode
-    iteration is printed.  A chunked run whose resumes read published
-    pages (B3) profiles one chunk-resume wave; dense rows and ring or
-    recurrent stacks resume over the dense wave cache, without B3, so
-    none.  ``requests`` (default ``served_requests``) makes the run's
-    request list."""
+    iteration is printed (None: none, for the xLSTM).  A chunked run
+    whose resumes read published pages (B3) profiles one chunk-resume
+    wave; dense rows and ring or recurrent stacks resume over the dense
+    wave cache, without B3, so none.  ``requests`` (default
+    ``served_requests``) makes the run's request list.  ``same_as``: as
+    ``check_streams``'."""
     from repro_torch.kernels import ops
     from repro_torch.serving.api import Server
     from repro_torch.serving.engine import EngineConfig
@@ -1791,7 +1991,7 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
                                  or summary["spec_proposed"] <= 0):
         fail(f"[{label}] no speculative iteration scored a proposal")
     check_streams(torch, cfg, params, label, reqs, launches, needed,
-                  forbidden, bf16_streams, score)
+                  forbidden, bf16_streams, score, same_as=same_as)
     prefill_tokens = sum(m.tokens_prefilled for m in orch.prefill_members()) \
         - clocks["profiled_tokens"]
     say(f"[{label}] served {len(reqs)} requests: prompts "
@@ -1838,16 +2038,19 @@ def serve_run(torch, card, cfg, params, *, label, speculation, chunk_tokens,
                 f"the profiler on; compiled step's device span "
                 f"{prof['step_ms']:.2f} ms by CUDA events, profiler on): "
                 f"device busy ")
-        # B1 (bf16 or int8 pools), or B5 on dense rows, by its symbol
-        kname, ksym = decode_kernel
-        b1 = [e for e in kern if ksym in e.key]
-        b1_ms = sum(device_us(e) for e in b1) / 1e3
+        # B1 (bf16 or int8 pools), or B5 on dense rows, by its symbol;
+        # none for a stack whose decode runs no attention kernel
+        share = ""
+        if decode_kernel is not None:
+            kname, ksym = decode_kernel
+            b1 = [e for e in kern if ksym in e.key]
+            b1_ms = sum(device_us(e) for e in b1) / 1e3
+            share = (f"{kname} {b1_ms:.3f} ms x{sum(e.count for e in b1)} "
+                     f"= {b1_ms / max(busy, 1e-9):.1%} of the busy time; ")
         if busy > 0:
             say(head + f"{busy:.2f} ms in {sum(e.count for e in kern)} "
                 f"kernels = {busy / steady_ms:.0%} of a timed iteration "
-                f"without capture; {kname} {b1_ms:.3f} ms "
-                f"x{sum(e.count for e in b1)} = "
-                f"{b1_ms / busy:.1%} of the busy time; top: "
+                f"without capture; {share}top: "
                 + "; ".join(f"{e.key[:72]} {device_us(e) / 1e3:.2f} ms "
                             f"x{e.count}" for e in top))
         else:
@@ -1986,9 +2189,11 @@ def migration_run(torch, card, cfg, params, plain_streams, *, label,
                   chunk_tokens=256, requests=None,
                   needed=("paged_decode_partials", "flash_prefill",
                           "paged_prefix_partials"),
-                  forbidden=("paged_verify_partials",)):
+                  forbidden=("paged_verify_partials",), exact=False):
     """One ``Server`` run over a migrating fleet; ``force(orch)`` applies
-    the forced actions once the run is under way.  Returns launches."""
+    the forced actions once the run is under way.  ``exact``: every
+    stream must equal ``plain_streams`` (then it is not scored again).
+    Returns launches."""
     from repro_torch.kernels import ops
     from repro_torch.serving.api import Server
     from repro_torch.serving.engine import EngineConfig
@@ -2019,7 +2224,7 @@ def migration_run(torch, card, cfg, params, plain_streams, *, label,
     check_views(torch, label, params,
                 [e for p in orch.decode_pipes for e in p.engines])
     check_streams(torch, cfg, params, label, reqs, launches, needed,
-                  forbidden)
+                  forbidden, same_as=plain_streams if exact else None)
     say_streams_vs_plain(label, reqs, plain_streams)
     s = orch.summary()
     decoded = {m.name: m.decode.tokens_decoded for m in orch.decode_members()}
@@ -2129,12 +2334,21 @@ def forced_span_move(torch, card, label, orch, src, dst, n_layers) -> None:
     rec = orch.span_move_log[-1]
     cfg = orch.cfg
     split = ""
-    if cfg.uses_recurrent_state:
+    kinds = cfg.blocks()
+    moved = [kinds[l].value for l, _ in rec["schedule"]]
+    residents = orch._by_name[src].pipe.active
+    if "mlstm" in moved or "slstm" in moved:
+        # each moved xLSTM layer carries every resident's f32 state:
+        # mLSTM C (H, D, D), n (H, D), m (H); sLSTM c, n, m, h (d)
+        h, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+        per = {"mlstm": 4 * (h * hd * hd + h * hd + h), "slstm": 16 * d}
+        split = (" (" + ", ".join(
+            f"{moved.count(k)} {k} layers x {residents} residents x "
+            f"{per[k]} B" for k in per if k in moved) + ")")
+    elif cfg.uses_recurrent_state:
         # each moved RG-LRU layer carries every resident's h (f32) and
         # conv history (bf16); the rest of kv_bytes is ring pages
-        kinds = cfg.blocks()
-        n_rec = sum(kinds[l].value == "rglru" for l, _ in rec["schedule"])
-        residents = orch._by_name[src].pipe.active
+        n_rec = moved.count("rglru")
         conv_b = orch.params["out_norm"].element_size()
         rec_b = n_rec * residents * cfg.d_model * (
             4 + conv_b * (cfg.rglru_conv_width - 1))
@@ -2638,7 +2852,7 @@ class RouterLoad:
 
 
 # the layer functions ``FnRanges`` may wrap in a profiler range
-RANGED = ("moe_apply", "rglru_apply")
+RANGED = ("moe_apply", "rglru_apply", "mlstm_apply", "slstm_apply")
 
 
 class FnRanges:
@@ -3031,6 +3245,361 @@ def hybrid_phase(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# The xLSTM stack and cross attention: the last two registry configs
+# ---------------------------------------------------------------------------
+
+# every kernel counter: the xLSTM runs must launch none of them
+ALL_KERNELS = ("paged_decode_partials", "paged_decode_partials_int8",
+               "flash_prefill", "paged_prefix_partials",
+               "paged_verify_partials", "paged_verify_partials_int8",
+               "split_kv_decode_partials")
+XLSTM_CHUNK = 256
+XLSTM_FAMILIES = ("GEMMs", "the xLSTM's elementwise and recurrence work",
+                  "the rest")
+
+
+def xlstm_family(name: str, op) -> str:
+    """The xLSTM family of a kernel ``name`` launched by profiler event
+    ``op`` (None: by its name alone): a GEMM (every matrix product, the
+    mLSTM's C q included), the mLSTM/sLSTM's other (elementwise and
+    recurrence) kernels, or the rest."""
+    if op is None:
+        return ("GEMMs" if any(t in name.lower() for t in GEMM_SYMBOLS)
+                else "the rest")
+    if op.name in GEMM_OPS:
+        return "GEMMs"
+    return (XLSTM_FAMILIES[1] if _inside(op, "mlstm_apply")
+            or _inside(op, "slstm_apply") else "the rest")
+
+
+def xlstm_requests(cfg):
+    """``served_requests`` (prompts of 189-606 tokens, 32 out), all
+    arriving at once, as the hybrid's: the prefill batches the prompts'
+    chunks together (the per-token recurrence then steps 8 rows at a
+    time), and their decodes overlap."""
+    reqs = served_requests(cfg)
+    for r in reqs:
+        r.arrival = 0.0
+    return reqs
+
+
+def xlstm_phase(torch, card):
+    """(p) xlstm-350m at full width and depth in f32 (random weights from
+    seed 0) through ``Server`` over one prefill and one decode member on
+    dense rows, 256-token chunks, replayed and eagerly: no kernel may
+    launch (JAX runs these blocks in XLA), the streams and launches of the
+    two runs must be equal, every token within TOKEN_GAP_TOL of the
+    monolithic f32 forward's best; prints one profiled iteration's device
+    ms by family.  (q) two 2-stage decode pipelines over [(0, 12), (12,
+    24)] with one forced 4-layer span move (three mLSTM, one sLSTM); the
+    streams must equal (p)'s.  Returns {run: launches}."""
+    from repro_torch.configs import get
+    from repro_torch.core.layer_migration import layer_param_bytes
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg = get("xlstm-350m")
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init(cfg, seed=0, dtype=torch.float32)
+    torch.cuda.synchronize()
+    kinds = cfg.blocks()
+    n_m = kinds.count(kinds[0])
+    n_params = layer_param_bytes(params) // 4
+    say(f"{describe(cfg)}: {n_m} mLSTM and {len(kinds) - n_m} sLSTM layers, "
+        f"no FFN; init in f32 (seed 0): {time.perf_counter() - t0:.1f} s, "
+        f"{n_params / 1e9:.3f} B parameters in the tree "
+        f"({layer_param_bytes(params) / 2**30:.2f} GiB; param_count() "
+        f"takes the mLSTM's inner width as 2 d_model, the block's is heads "
+        f"x head_dim = d_model) [{card}]")
+    out, runs = {}, {}
+    with FnRanges(torch, "mlstm_apply"), FnRanges(torch, "slstm_apply"):
+        for graphs, label in ((True, "xlstm"), (False, "xlstm-eager")):
+            # the eager run must equal the scored replayed run token for
+            # token, so its reference (the recurrence stepped from Python
+            # over every prompt) is not run twice
+            runs[label] = serve_run(
+                torch, card, cfg, params, label=label, speculation="off",
+                chunk_tokens=XLSTM_CHUNK, needed=(), forbidden=ALL_KERNELS,
+                profile=True, graphs=graphs, decode_kernel=None,
+                requests=xlstm_requests,
+                same_as=None if graphs else runs["xlstm"]["streams"])
+            out[label] = runs[label]["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
+    a, b = runs["xlstm"], runs["xlstm-eager"]
+    if a["streams"] != b["streams"] or a["launches"] != b["launches"]:
+        fail(f"[xlstm] replayed streams or launches differ from the eager "
+             f"run's: {a['launches']} vs {b['launches']}")
+    say(f"[xlstm] CUDA graphs vs eager: decode {a['steady_ms']:.2f} vs "
+        f"{b['steady_ms']:.2f} ms per iteration without capture "
+        f"({a['iter_ms']:.2f} ms with it; compiled steps' device span "
+        f"{a['span_ms']:.2f} vs {b['span_ms']:.2f} ms), prefill "
+        f"{a['prefill_tps']:.1f} vs {b['prefill_tps']:.1f} tok/s, peak "
+        f"memory {a['peak_gib']:.2f} vs {b['peak_gib']:.2f} GiB; streams "
+        f"{len(a['streams'])}/{len(b['streams'])} equal, launch counts "
+        f"equal (no kernel) [{card}]")
+    say_families("xlstm", card, a["decode_profile"], b["decode_profile"],
+                 XLSTM_FAMILIES, xlstm_family)
+    for st in runs.values():
+        st.pop("decode_profile", None)
+    out["xlstm-migrate-q"] = migration_run(
+        torch, card, cfg, params, a["streams"], label="xlstm-migrate-q",
+        n_prefill=1, decode_split=2,
+        force=force_one_span_move(torch, card, "xlstm-migrate-q", 4),
+        chunk_tokens=XLSTM_CHUNK, requests=xlstm_requests, needed=(),
+        forbidden=ALL_KERNELS, exact=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"xlstm phase (p)-(q): {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
+SEAMLESS_MAX_LEN = 2048
+SEAMLESS_CHUNK = 512
+SEAMLESS_KERNELS = ("paged_decode_partials", "flash_prefill",
+                    "split_kv_decode_partials")
+SEAMLESS_FORBIDDEN = ("paged_prefix_partials", "paged_verify_partials",
+                      "paged_decode_partials_int8",
+                      "paged_verify_partials_int8")
+SEAMLESS_FAMILIES = ("GEMMs", "B1 (self attention)", "B5 (cross attention)",
+                     "the rest")
+
+
+def seamless_family(name: str, op) -> str:
+    """The seamless family of a kernel ``name`` (op None: by its name
+    alone): B1, B5, a GEMM, or the rest."""
+    if "paged_decode_kernel" in name:
+        return SEAMLESS_FAMILIES[1]
+    if "split_decode_kernel" in name:
+        return SEAMLESS_FAMILIES[2]
+    if op is None:
+        return ("GEMMs" if any(t in name.lower() for t in GEMM_SYMBOLS)
+                else "the rest")
+    return "GEMMs" if op.name in GEMM_OPS else "the rest"
+
+
+def seamless_requests(cfg):
+    """The 8 requests of runs (r) and (s): synthetic prompts of 600-1,500
+    tokens from ``serving/workload.py`` (seed 23), no shared prefix, 32
+    tokens out each; every prompt is longer than one 512-token chunk, so
+    every prefill resumes."""
+    from repro_torch.serving.workload import WorkloadConfig, generate
+
+    reqs = generate(WorkloadConfig(
+        kind="synthetic", rps=1000.0, n_requests=8,
+        vocab_size=cfg.vocab_size, max_new_tokens=32, prefix_share=0.0,
+        seed=23, prompt_len_lo=600, prompt_len_hi=1500))
+    for r in reqs:
+        r.max_new_tokens = 32
+        r.arrival = 0.0
+    if min(r.prompt_len for r in reqs) <= SEAMLESS_CHUNK:
+        fail(f"seamless prompts {[r.prompt_len for r in reqs]}: one fits "
+             f"a chunk")
+    return reqs
+
+
+def seamless_frames(torch, cfg, rid):
+    """Request ``rid``'s encoder frames (1, n_frames, d_model), f32 from
+    seed 100 + rid: the registry's stub for the speech encoder."""
+    g = torch.Generator(device="cuda").manual_seed(100 + rid)
+    return torch.randn((1, cfg.n_frames, cfg.d_model), generator=g,
+                       device="cuda")
+
+
+def seamless_run(torch, card, cfg, params, *, label, graphs,
+                 bounds=None, move=None, profile=True, same_as=None):
+    """One engine-level run of the 8 requests, each prefilled with its own
+    frames by ``PrefillEngine.run_batch([req], frames, chunk_tokens=512)``
+    (or a ``PrefillPipeline`` over ``bounds``) and inserted into one paged
+    ``DecodeEngine`` (or a ``DecodePipeline`` over ``bounds``), decoded to
+    the end (replayed, or with ``graphs`` off eagerly).  ``move`` = (src,
+    dst, n): a live span move after the third decode iteration.  B1, B2
+    and B5 must launch and B3, B4 must not; every token is held to the
+    teacher-forced rule with the request's frames (or, with ``same_as``,
+    must equal a scored run's).  Returns launches, streams and clocks."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import (DecodeEngine, EngineConfig,
+                                            PrefillEngine)
+    from repro_torch.serving.span import DecodePipeline, PrefillPipeline
+
+    ecfg = EngineConfig(max_len=SEAMLESS_MAX_LEN, max_batch=8,
+                        block_size=16, cuda_graphs=graphs)
+    if bounds:
+        pe = PrefillPipeline(cfg, params, ecfg, bounds)
+        de = DecodePipeline(cfg, params, ecfg, bounds)
+        engines = de.engines
+    else:
+        pe, de = PrefillEngine(cfg, params, ecfg), \
+            DecodeEngine(cfg, params, ecfg)
+        engines = [de]
+    reqs = seamless_requests(cfg)
+    frames = {r.rid: seamless_frames(torch, cfg, r.rid) for r in reqs}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    if profile:
+        with torch.profiler.profile(activities=acts):
+            torch.ones(1, device="cuda").sum()   # start the tracer untimed
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cross_b = None
+    for r in reqs:
+        st, lg = pe.run_batch([r], frames=frames[r.rid],
+                              chunk_tokens=SEAMLESS_CHUNK)[0]
+        if cross_b is None:
+            cross_b = sum(a.numel() * a.element_size()
+                          for g in tuple(st["groups"]) + tuple(st["rem"])
+                          for a in g["cross"].values())
+        de.insert(r, st, int(torch.argmax(lg)))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prompt_tokens = sum(r.prompt_len for r in reqs)
+    prof, rec, move_ms, residents = {}, None, 0.0, 0
+    decode_s = span_ms = 0.0
+    iters = timed = tokens = 0
+
+    def capture_s():
+        return sum(e.compiled.capture_s for e in engines)
+
+    while de.active:
+        if move is not None and iters == 3 and rec is None:
+            residents = de.active
+            t = time.perf_counter()
+            rec = de.move_span(*move)
+            torch.cuda.synchronize()
+            move_ms = (time.perf_counter() - t) * 1e3
+            if rec is None:
+                fail(f"[{label}] the span move {move} was refused")
+        before = sum(len(r.generated) for r in reqs)
+        if profile and iters == PROFILE_ITER - 1:
+            t = time.perf_counter()
+            with torch.profiler.profile(activities=acts) as p, \
+                    StepEvents(torch) as ev:
+                de.step()
+                torch.cuda.synchronize()
+            prof.update(profile=p, wall_ms=(time.perf_counter() - t) * 1e3,
+                        step_ms=ev.ms(), rows=de.active)
+            iters += 1
+            continue
+        cap = capture_s()
+        t = time.perf_counter()
+        with StepEvents(torch) as ev:
+            de.step()
+            torch.cuda.synchronize()
+        decode_s += time.perf_counter() - t - (capture_s() - cap)
+        span_ms += ev.ms()
+        tokens += sum(len(r.generated) for r in reqs) - before
+        iters += 1
+        timed += 1
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for e in engines:
+        if e.active:
+            fail(f"[{label}] {e.name}: live slots after the run")
+        try:
+            e.pool.check(holders=[])
+        except AssertionError as exc:
+            fail(f"[{label}] {e.name}: pool invariant: {exc}")
+    check_streams(torch, cfg, params, label, reqs, launches,
+                  SEAMLESS_KERNELS, SEAMLESS_FORBIDDEN, frames_of=frames,
+                  same_as=same_as)
+    steady_ms = decode_s / max(timed, 1) * 1e3
+    say(f"[{label}] engine-level run{' over ' + str(bounds) if bounds else ''}"
+        f": {len(reqs)} requests of {min(r.prompt_len for r in reqs)}-"
+        f"{max(r.prompt_len for r in reqs)} tokens, each with its own "
+        f"frames (1, {cfg.n_frames}, {cfg.d_model}); prefill "
+        f"{prompt_tokens} tokens in {prefill_s:.3f} s = "
+        f"{prompt_tokens / max(prefill_s, 1e-9):.1f} tok/s (one request "
+        f"per call, {SEAMLESS_CHUNK}-token chunks); decode {tokens} tokens "
+        f"over {timed} timed iterations, {steady_ms:.2f} ms each without "
+        f"the {capture_s():.3f} s of graph warm-up and capture (compiled "
+        f"steps' device span {span_ms / max(timed, 1):.2f} ms by CUDA "
+        f"events); cross K/V per request {cross_b} B; peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    if rec is not None:
+        say(f"[{label}] span move stage {move[0]} -> {move[1]}: "
+            f"{rec['layers']} layers in {move_ms:.1f} ms host wall clock "
+            f"(synchronised), weight_bytes {rec['weight_bytes']} (views: "
+            f"re-sliced, not copied), kv_bytes {rec['kv_bytes']} (pages "
+            f"and cross K/V of {residents} residents; the cross K/V alone "
+            f"{rec['layers'] * cross_b // cfg.n_layers} B per resident) "
+            f"[{card}]")
+    if "profile" in prof:
+        kern = device_kernels(prof["profile"].key_averages())
+        busy = sum(device_us(e) for e in kern) / 1e3
+        say(f"[{label}] decode iteration {PROFILE_ITER} "
+            f"({'replayed' if graphs else 'eager'}) under torch.profiler "
+            f"({prof['rows']} rows; wall {prof['wall_ms']:.1f} ms; compiled "
+            f"step's device span {prof['step_ms']:.2f} ms): device busy "
+            + (f"{busy:.2f} ms in {sum(e.count for e in kern)} kernels"
+               if busy > 0 else "not measured (no device time recorded)")
+            + f" [{card}]")
+    say_graphs(label, card, engines)
+    say(f"[{label}] serving-path launches: {json.dumps(launches)}")
+    del pe, de, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches,
+            "streams": {r.rid: list(r.generated) for r in reqs},
+            "steady_ms": steady_ms, "span_ms": span_ms / max(timed, 1),
+            "prefill_tps": prompt_tokens / max(prefill_s, 1e-9),
+            "peak_gib": peak / 2**30, "decode_profile": prof.get("profile")}
+
+
+def seamless_phase(torch, card):
+    """(r) seamless-m4t-large-v2 at full width and depth in f32 (random
+    weights from seed 0, each request's frames from its seed) through
+    the engines (the orchestrator carries no frames), replayed and
+    eagerly: B1, B2 and B5 must launch and B3, B4 must not, the two runs'
+    streams and launches must be equal; prints one profiled iteration's
+    device ms by family.  (s) a 2-stage ``PrefillPipeline`` and
+    ``DecodePipeline`` over [(0, 12), (12, 24)] with one forced 4-layer
+    span move; its streams must equal (r)'s.  (``seamless_kernels`` holds
+    B1, B2 and B5 at these runs' shapes against their plain versions.)
+    Returns {run: launches}."""
+    from repro_torch.configs import get
+    from repro_torch.core.layer_migration import layer_param_bytes
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg = get("seamless-m4t-large-v2")
+    params = T.init(cfg, seed=0, dtype=torch.float32)
+    torch.cuda.synchronize()
+    say(f"{describe(cfg)}: cross attention over {cfg.n_frames} frames per "
+        f"layer; init in f32 (seed 0): {time.perf_counter() - t0:.1f} s, "
+        f"weights {layer_param_bytes(params) / 2**30:.2f} GiB [{card}]")
+    out, runs = {}, {}
+    for graphs, label in ((True, "seamless"), (False, "seamless-eager")):
+        runs[label] = seamless_run(
+            torch, card, cfg, params, label=label, graphs=graphs,
+            same_as=None if graphs else runs["seamless"]["streams"])
+        out[label] = runs[label]["launches"]
+    a, b = runs["seamless"], runs["seamless-eager"]
+    if a["streams"] != b["streams"] or a["launches"] != b["launches"]:
+        fail(f"[seamless] replayed streams or launches differ from the "
+             f"eager run's: {a['launches']} vs {b['launches']}")
+    say(f"[seamless] CUDA graphs vs eager: decode {a['steady_ms']:.2f} vs "
+        f"{b['steady_ms']:.2f} ms per iteration without capture (compiled "
+        f"steps' device span {a['span_ms']:.2f} vs {b['span_ms']:.2f} ms), "
+        f"prefill {a['prefill_tps']:.1f} vs {b['prefill_tps']:.1f} tok/s, "
+        f"peak memory {a['peak_gib']:.2f} vs {b['peak_gib']:.2f} GiB; "
+        f"streams {len(a['streams'])}/{len(b['streams'])} equal, launch "
+        f"counts equal [{card}]")
+    say_families("seamless", card, a["decode_profile"], b["decode_profile"],
+                 SEAMLESS_FAMILIES, seamless_family)
+    out["seamless-pipeline-s"] = seamless_run(
+        torch, card, cfg, params, label="seamless-pipeline-s", graphs=True,
+        bounds=[(0, 12), (12, 24)], move=(0, 1, 4), profile=False,
+        same_as=a["streams"])["launches"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"seamless phase (r)-(s): {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = [
     # (timing key, launch counter, source, TPU kernel it replaces)
@@ -3108,6 +3677,8 @@ def main() -> None:
     cli_phase(card)
     per_run.update(moe_phase(torch, card))
     per_run.update(hybrid_phase(torch, card))
+    per_run.update(xlstm_phase(torch, card))
+    per_run.update(seamless_phase(torch, card))
     launches = {k: sum(run[k] for run in per_run.values())
                 for k in _lib.LAUNCHES}
 

@@ -22,7 +22,7 @@ import torch
 
 from ..models import layers as L
 from ..models import transformer as T
-from ..models.config import BlockKind, ModelConfig
+from ..models.config import BlockKind, Family, ModelConfig
 from .analytical import HardwareProfile, layer_migration_time
 
 
@@ -274,18 +274,23 @@ class PartitionedExecutor:
     def forward(self, tokens: torch.Tensor,
                 states: Optional[List[Dict[str, Any]]] = None,
                 mode: str = "train",
+                frames: Optional[torch.Tensor] = None,
                 lengths: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Optional[List[Dict[str, Any]]],
                            Dict[str, float]]:
         """Returns (logits, states, per-instance FLOP shares).  ``states``
         (per-layer dense caches, e.g. ``unstack_cache`` of a
-        ``T.init_cache``) are written in place and returned."""
+        ``T.init_cache``) are written in place and returned.  ``frames``
+        are a cross-attention stack's encoder output; the hybrid family's
+        embedding is scaled by sqrt(d_model), as JAX's executor does."""
         cfg = self.cfg
         b, s = tokens.shape
         ar = torch.arange(s, dtype=torch.int32, device=tokens.device)
         positions = (lengths.to(torch.int32)[:, None] + ar[None, :]
                      if lengths is not None else ar[None, :].expand(b, s))
         x = self.embed[tokens]
+        if cfg.family == Family.HYBRID:
+            x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
         shares: Dict[str, float] = {}
         per_layer_flops = 2.0 * cfg.active_param_count() \
             / max(cfg.n_layers, 1) * b * s
@@ -293,7 +298,8 @@ class PartitionedExecutor:
             x, _ = T._apply_block(
                 cfg, kind, lp, x, positions=positions,
                 state=states[i] if states is not None else None, mode=mode,
-                prefix_aware=False, block_tables=None, paged_kernel=False)
+                prefix_aware=False, block_tables=None, paged_kernel=False,
+                frames=frames)
             inst = self.assignment[i]
             shares[inst] = shares.get(inst, 0.0) + per_layer_flops
         x = L.rms_norm(x, self.out_norm, cfg.rms_eps)

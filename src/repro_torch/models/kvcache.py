@@ -24,9 +24,13 @@
   hand-off payload (the store and the orchestrator bill it).
 
 Layouts are the JAX ones leaf for leaf, so wire states convert through
-numpy in both directions.  Unlike JAX, functions that write a cache write
-it in place (and return it); functions that produce a state return tensors
-that own their memory, never views into a pool.
+numpy in both directions.  A cross-attention layer's ``"cross": {"k",
+"v"}`` cache is a nested dict that stays slot-dense and whole, as JAX
+keeps it: every helper indexes, copies and writes it per row beside the
+recurrent states, and the store's per-block payloads carry it as it is.
+Unlike JAX, functions that write a cache write it in place (and return
+it); functions that produce a state return tensors that own their
+memory, never views into a pool.
 """
 from __future__ import annotations
 
@@ -81,6 +85,22 @@ def _is_page_leaf(key: str, a: Any, seq_axis: int, n: int,
             and a.shape[seq_axis + 1] == block_size)
 
 
+def _tmap(fn, a):
+    """``fn`` on a leaf, or on every leaf of a nested dict (a cross
+    cache)."""
+    return {k: _tmap(fn, v) for k, v in a.items()} \
+        if isinstance(a, dict) else fn(a)
+
+
+def _put(dst, src, index) -> None:
+    """``dst[index] = src`` leaf by leaf (nested dicts too), in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _put(dst[k], src[k], index)
+    else:
+        dst[index] = src.to(dst.device)
+
+
 def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -100,8 +120,8 @@ def _nbytes(tree) -> int:
 def extract_request_state(cache: Cache, row: int) -> RequestState:
     """Copy of batch row ``row``'s state; groups keep their repeat dim."""
     groups, rem = _map_groups(
-        lambda g, ax: {k: a[_idx(ax, row)].clone() for k, a in g.items()},
-        cache)
+        lambda g, ax: {k: _tmap(lambda x: x[_idx(ax, row)].clone(), a)
+                       for k, a in g.items()}, cache)
     return {"length": cache["lengths"][row].clone(), "groups": groups,
             "rem": rem}
 
@@ -110,23 +130,25 @@ def insert_request_state(cache: Cache, row: int,
                          st: RequestState) -> Cache:
     """Write ``st`` into batch row ``row`` (in place)."""
     cache["lengths"][row] = int(st["length"])
-    for c, s in zip(cache["groups"], st["groups"]):
-        for k in c:
-            c[k][:, row] = s[k]
-    for c, s in zip(cache["rem"], st["rem"]):
-        for k in c:
-            c[k][row] = s[k]
+    for cs, ss, ax in ((cache["groups"], st["groups"], 1),
+                       (cache["rem"], st["rem"], 0)):
+        for c, s in zip(cs, ss):
+            _put(c, s, _idx(ax, row))
     return cache
 
 
 def blank_request_state(cache: Cache) -> RequestState:
     """An empty request state of the cache's structure: positions -1,
-    everything else zero, length 0."""
+    everything else zero, length 0 — as JAX's.  Zero is not an xLSTM
+    row's fresh state (its stabilizer ``m`` starts at -1e30,
+    ``transformer._xlstm_state``): prefill never starts from a blanked
+    row, it prefills into a fresh ``T.init_cache``."""
     st = extract_request_state(cache, 0)
 
     def reset(g, ax):
-        return {k: (a.fill_(-1) if a.dtype == torch.int32 and a.ndim >= 1
-                    else a.zero_()) for k, a in g.items()}
+        return {k: _tmap(lambda a: (a.fill_(-1) if a.dtype == torch.int32
+                                    and a.ndim >= 1 else a.zero_()), a)
+                for k, a in g.items()}
 
     groups, rem = _map_groups(reset, st)
     return {"length": torch.zeros((), dtype=torch.int32), "groups": groups,
@@ -243,7 +265,7 @@ def dense_to_paged(cache: Cache, block_size: int) -> Cache:
                                      device=a.device)
                 out[k] = torch.cat([scratch, pages], dim=ax)
             else:
-                out[k] = a.clone()
+                out[k] = _tmap(torch.clone, a)
         return out
 
     groups, rem = _map_groups(conv, cache)
@@ -274,7 +296,7 @@ def paged_to_dense(pcache: Cache, block_size: int) -> Cache:
                 out[k] = got.reshape(got.shape[:ax] + (batch, plen)
                                      + got.shape[ax + 3:])
             else:
-                out[k] = a.clone()
+                out[k] = _tmap(torch.clone, a)
         return out
 
     groups, rem = _map_groups(conv, pcache)
@@ -293,7 +315,7 @@ def gather_pages(pcache: Cache, idx: torch.Tensor, slot: int, length, *,
     def conv(g, ax):
         return {k: (a[_idx(ax, idx)] if _is_pool_leaf(k, a, ax, batch,
                                                      block_size)
-                    else a[_idx(ax, slot)].clone())
+                    else _tmap(lambda x: x[_idx(ax, slot)].clone(), a))
                 for k, a in g.items()}
 
     groups, rem = _map_groups(conv, pcache)
@@ -316,7 +338,7 @@ def scatter_pages(pcache: Cache, st: RequestState, idx: torch.Tensor,
             for k, a in c.items():
                 at = idx if _is_pool_leaf(k, a, ax, batch, block_size) \
                     else slot
-                a[_idx(ax, at)] = s[k].to(a.device)
+                _put(a, s[k], _idx(ax, at))
     tables[slot] = -1
     tables[slot, :idx.numel()] = idx.to(tables.dtype)
     pcache["lengths"][slot] = int(st["length"])

@@ -1,4 +1,5 @@
-"""Neural-net blocks of the port: attention, the gated MLP and top-k MoE.
+"""Neural-net blocks of the port: attention, the gated MLP, top-k MoE and
+the recurrent blocks.
 
 Plain functions on tensors, the same conventions as the JAX package's
 ``models/layers.py``:
@@ -30,8 +31,15 @@ slot-dense recurrent state ``{"h": (B, d) f32, "conv": (B, W-1, d)}``,
 updated in place like the caches; prefill runs its recurrence as a
 log-depth scan over the time axis (``rglru_scan``).
 
-Not ported yet (later slices): cross-attention (ROADMAP A6.4) and the
-xLSTM blocks (A6.3).
+Cross attention (seamless-m4t's text decoder, ``_cross_attention``)
+attends from the self attention's normed input over precomputed encoder
+frames; its projections ride in a slot-dense cross cache ``{"k", "v"}``
+(B, n_frames, KV, D) that prefill writes and decode reads.
+
+The xLSTM blocks (``mlstm_apply``, ``slstm_apply``) run their exponential
+gating recurrence in f32 one step at a time, as JAX's ``lax.scan`` does,
+and write their slot-dense state (mLSTM ``C``, ``n``, ``m``; sLSTM ``c``,
+``n``, ``m``, ``h``; all f32) in place.
 """
 from __future__ import annotations
 
@@ -242,8 +250,12 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                     block_tables: Optional[torch.Tensor] = None,
                     paged_kernel: bool = False,
                     head_offload: int = 0,
+                    frames: Optional[torch.Tensor] = None,
+                    cross_p: Optional[Params] = None,
+                    cross_state: Optional[State] = None,
                     ) -> Tuple[torch.Tensor, Optional[State]]:
-    """Self attention.  Returns (y, new_state).
+    """Self attention, plus cross attention over ``frames`` when
+    ``cross_p`` is given (``_cross_attention``).  Returns (y, new_state).
 
     ``state`` None: the stateless (train) forward, plain ``attend``.
     Otherwise ``state`` = {"k", "v", "pos"} is either a dense per-row cache
@@ -437,9 +449,88 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         if quant:
             new_state.update(k_scale=k_sc, v_scale=v_sc)
 
-    wo = p["wo"]
-    y = (o.reshape(b * s, -1) @ wo.reshape(-1, wo.shape[-1])).reshape(b, s, -1)
+    y = _out_proj(o, p["wo"])
+    if cross_p is not None:
+        y = y + _cross_attention(cfg, cross_p, x, frames=frames,
+                                 state=cross_state, mode=mode, scale=scale)
     return y, new_state
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, Dh) x (H, Dh, d) -> (B, S, d)."""
+    b, s = o.shape[:2]
+    return (o.reshape(b * s, -1) @ wo.reshape(-1, wo.shape[-1])).reshape(
+        b, s, -1)
+
+
+_EVERY_FRAME: Dict[Tuple[Tuple[int, int], torch.device], torch.Tensor] = {}
+
+
+def _every_frame(shape, device) -> torch.Tensor:
+    """The all-true (B, n_frames) key mask of a cross decode, made once
+    per shape and device and shared by every layer and step.  One made
+    while a CUDA graph is being captured is not kept: its fill runs only
+    when the graph replays."""
+    key = (tuple(shape), torch.device(device))
+    mask = _EVERY_FRAME.get(key)
+    if mask is None:
+        mask = torch.ones(shape, dtype=torch.bool, device=device)
+        if not (mask.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _EVERY_FRAME[key] = mask
+    return mask
+
+
+def _cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                     frames: Optional[torch.Tensor],
+                     state: Optional[State], mode: str,
+                     scale: float) -> torch.Tensor:
+    """Cross attention of the normed stream ``x`` (the ``norm1`` output
+    self attention reads; the block's ``cross_norm`` is not read, as in
+    JAX) over the encoder frames, as JAX's ``attention_apply``: no
+    position, no mask, no soft cap, the self attention's ``scale``.
+
+    ``state`` = {"k", "v"} (B, n_frames, KV, D) is the slot-dense cross
+    cache.  Decode reads it as it is (no frames needed); every other mode
+    projects ``frames`` (B, n_frames, d_model) and, with a state, writes
+    the projections into it in place, cast to its dtype.  Frames of a
+    narrower float type are widened to x's dtype, as JAX's einsum
+    promotes them; frames that would widen the stream (f32 frames on a
+    bf16 stack) raise ``ValueError``, where JAX's layer scan refuses the
+    f32 carry.  A one-token decode step attends through
+    ``ops.decode_attention`` (kernel B5 on a CUDA tensor, every frame
+    valid; its plain version on the CPU), where JAX computes in XLA; a
+    prefill's S x n_frames attention is plain ``masked_attention``, as
+    JAX's.  Returns the output projected by the cross ``wo``, (B, S, d)."""
+    b, s, _ = x.shape
+    if state is not None and mode == "decode":
+        ck, cv = state["k"], state["v"]
+    else:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: cross attention needs frames "
+                             f"(B, n_frames, d_model) in mode {mode!r}")
+        if frames.shape[0] != b:
+            raise ValueError(f"frames batch {frames.shape[0]} does not "
+                             f"match the batch of {b} rows")
+        if torch.promote_types(frames.dtype, x.dtype) != x.dtype:
+            raise ValueError(f"{cfg.name}: {frames.dtype} frames on a "
+                             f"{x.dtype} stack would widen its stream "
+                             f"(JAX refuses them too); pass frames in "
+                             f"{x.dtype}")
+        fr = frames.to(device=x.device, dtype=x.dtype)
+        ck, cv = _proj_in(fr, p["wk"]), _proj_in(fr, p["wv"])
+        if state is not None:
+            state["k"].copy_(ck)
+            state["v"].copy_(cv)
+    cq = _proj_in(x, p["wq"])
+    if mode == "decode" and s == 1:
+        co = ops.decode_attention(cq[:, 0], ck, cv,
+                                  _every_frame(ck.shape[:2], x.device),
+                                  scale=scale)[:, None]
+    else:
+        every = torch.ones((1, 1, 1, 1, ck.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        co = masked_attention(cq, ck, cv, every, scale)
+    return _out_proj(co, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -665,3 +756,160 @@ def rglru_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             state["conv"].copy_(u_pad[:, -(w - 1):])
         new_state = state
     return y.reshape(b, s, d), new_state
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks: mLSTM (matrix memory) and sLSTM (scalar memory)
+# ---------------------------------------------------------------------------
+
+def init_mlstm(cfg: ModelConfig, gen: Optional[torch.Generator], dtype,
+               device, out: Optional[Params] = None) -> Params:
+    """JAX's ``init_mlstm``, inner = H * Dh: the up projection (d, inner),
+    q/k/v (inner, H, Dh), the input and forget gates ``w_if`` (inner, 2H),
+    the output gate ``w_o`` (inner, inner) and the down projection
+    (inner, d), each at ``dense_init``'s fan-in scale."""
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    inner = h * hd
+    o = out or {}
+    shapes = (("w_up", (d, inner)), ("wq", (inner, h, hd)),
+              ("wk", (inner, h, hd)), ("wv", (inner, h, hd)),
+              ("w_if", (inner, 2 * h)), ("w_o", (inner, inner)),
+              ("w_down", (inner, d)))
+    return {k: dense_init(gen, shape, dtype, device, out=o.get(k))
+            for k, shape in shapes}
+
+
+def _xlstm_carry(state: Optional[State], keys, shapes, dev):
+    """The recurrence's f32 carry: the state's leaves (f32 already: the
+    same tensors, updated in place by the caller's ``copy_``), or zeros
+    with the stabilizer ``m`` at -1e30 when there is no state."""
+    if state is not None:
+        return [state[k].float() for k in keys]
+    return [torch.full(shape, -1e30 if k == "m" else 0.0,
+                       dtype=torch.float32, device=dev)
+            for k, shape in zip(keys, shapes)]
+
+
+def _write_state(state: Optional[State], keys, values) -> Optional[State]:
+    if state is None:
+        return None
+    for k, val in zip(keys, values):
+        if val is not state[k]:
+            state[k].copy_(val)
+    return state
+
+
+def mlstm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                state: Optional[State], mode: str
+                ) -> Tuple[torch.Tensor, Optional[State]]:
+    """Matrix-memory LSTM with exponential gating, as JAX's
+    ``mlstm_apply``.  state: {"C": (B, H, D, D), "n": (B, H, D), "m":
+    (B, H)}, all f32, or None (train: zero memory, ``m`` = -1e30).
+
+    u = x w_up; q, k (divided by sqrt(D) in the model dtype) and v from u;
+    the gates u w_if in the model dtype, cast to f32: log i = the first
+    H, log f = log_sigmoid of the last H; ogate = sigmoid(u w_o) in the
+    model dtype.  The recurrence runs in f32, one step at a time as JAX's
+    ``lax.scan`` does: m_t = max(log f + m, log i), f' = exp(log f + m -
+    m_t), i' = exp(log i - m_t), C = f' C + i' v k^T, n = f' n + i' k,
+    y_t = C q / max(|n . q|, exp(-m_t)).  m depends on the gates alone,
+    so its recurrence runs first and f', i' and exp(-m) of every step are
+    computed at once (elementwise: the same values), leaving ~14 small
+    kernels per step in the memory loop.  y is cast to x's dtype before
+    the output gate and the down projection.
+
+    The last step's C, n and m are written into the caller's state tensors
+    in place (``copy_``), so a CUDA graph that captures the step replays
+    the update; without a state nothing is written."""
+    b, s, d = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    u = (x.reshape(b * s, d) @ p["w_up"]).reshape(b, s, -1)
+    q = (_proj_in(u, p["wq"]) / math.sqrt(hd)).float()
+    k = (_proj_in(u, p["wk"]) / math.sqrt(hd)).float()
+    v = _proj_in(u, p["wv"]).float()
+    u2 = u.reshape(b * s, -1)
+    gates = (u2 @ p["w_if"]).reshape(b, s, 2 * h).float()
+    log_i = gates[..., :h]
+    log_f = F.logsigmoid(gates[..., h:])
+    ogate = torch.sigmoid(u2 @ p["w_o"]).reshape(b, s, -1)
+    keys = ("C", "n", "m")
+    c_mem, n_mem, m = _xlstm_carry(state, keys, ((b, h, hd, hd), (b, h, hd),
+                                                 (b, h)), x.device)
+    # the stabilizer depends on the gates alone: its recurrence first,
+    # then every step's scales at once (elementwise over time, so the
+    # same values as computed step by step)
+    m_prev, m_cur = [], []
+    for t in range(s):
+        m_prev.append(m)
+        m = torch.maximum(log_f[:, t] + m, log_i[:, t])
+        m_cur.append(m)
+    m_prev, m_cur = (torch.stack(ms, dim=1) if s > 1 else ms[0][:, None]
+                     for ms in (m_prev, m_cur))                 # (B, S, H)
+    f_eff = torch.exp(log_f + m_prev - m_cur)
+    i_eff = torch.exp(log_i - m_cur)
+    floor = torch.exp(-m_cur)
+    ik = i_eff[..., None] * k
+    ys = []
+    for t in range(s):
+        qt, kt, vt = q[:, t], k[:, t], v[:, t]              # (B, H, D)
+        ft, it = f_eff[:, t], i_eff[:, t]                   # (B, H)
+        c_mem = (ft[..., None, None] * c_mem
+                 + it[..., None, None] * (vt[..., :, None]
+                                          * kt[..., None, :]))
+        n_mem = ft[..., None] * n_mem + ik[:, t]
+        denom = torch.maximum((n_mem * qt).sum(-1).abs(), floor[:, t])
+        ys.append((c_mem @ qt[..., None])[..., 0] / denom[..., None])
+    y = torch.stack(ys, dim=1).reshape(b, s, h * hd).to(x.dtype)
+    y = ((y * ogate.to(x.dtype)).reshape(b * s, -1) @ p["w_down"])
+    return y.reshape(b, s, d), _write_state(state, keys, (c_mem, n_mem, m))
+
+
+def init_slstm(cfg: ModelConfig, gen: Optional[torch.Generator], dtype,
+               device, out: Optional[Params] = None) -> Params:
+    """JAX's ``init_slstm``: the input pre-activations ``w_gates`` (d, 4d)
+    (z, i, f, o), the recurrent mix ``r_gates`` (d, 4d) at scale 0.1 and
+    the output projection ``w_out`` (d, d)."""
+    d = cfg.d_model
+    o = out or {}
+    return {"w_gates": dense_init(gen, (d, 4 * d), dtype, device,
+                                  out=o.get("w_gates")),
+            "r_gates": dense_init(gen, (d, 4 * d), dtype, device, scale=0.1,
+                                  out=o.get("r_gates")),
+            "w_out": dense_init(gen, (d, d), dtype, device,
+                                out=o.get("w_out"))}
+
+
+def slstm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                state: Optional[State], mode: str
+                ) -> Tuple[torch.Tensor, Optional[State]]:
+    """Scalar-memory LSTM with exponential gating and hidden recurrent
+    mixing, as JAX's ``slstm_apply``.  state: {"c", "n", "m", "h"}, each
+    (B, d) f32, or None (zeros, ``m`` = -1e30).
+
+    The input pre-activations x w_gates are cast to f32; each step adds
+    h r_gates (``r_gates`` in f32) and splits into z, i, f, o: z = tanh,
+    o = sigmoid, log f = log_sigmoid; m_t = max(log f + m, i), f' =
+    exp(log f + m - m_t), i' = exp(i - m_t), c = f' c + i' z, n = f' n +
+    i', h = o c / max(n, 1).  The h sequence, cast to x's dtype, goes
+    through ``w_out``.  The last step's state is written in place."""
+    b, s, d = x.shape
+    pre_x = (x.reshape(b * s, d) @ p["w_gates"]).reshape(b, s, 4 * d).float()
+    r_w = p["r_gates"].float()
+    keys = ("c", "n", "m", "h")
+    c, n, m, h = _xlstm_carry(state, keys, ((b, d),) * 4, x.device)
+    ys = []
+    for t in range(s):
+        z, li, lf_raw, o = (pre_x[:, t] + h @ r_w).split(d, dim=-1)
+        z = torch.tanh(z)
+        o = torch.sigmoid(o)
+        lf = F.logsigmoid(lf_raw)
+        m_new = torch.maximum(lf + m, li)
+        f_eff = torch.exp(lf + m - m_new)
+        i_eff = torch.exp(li - m_new)
+        c = f_eff * c + i_eff * z
+        n = f_eff * n + i_eff
+        h = o * c / torch.clamp(n, min=1.0)
+        m = m_new
+        ys.append(h)
+    y = torch.stack(ys, dim=1).to(x.dtype).reshape(b * s, d) @ p["w_out"]
+    return y.reshape(b, s, d), _write_state(state, keys, (c, n, m, h))

@@ -32,8 +32,13 @@ with a gated MLP or a top-k MoE), with bf16/f32 or int8 KV caches
 leaves), and the hybrid stacks of RG-LRU blocks and local attention
 (RecurrentGemma: each RG-LRU layer's state ``{"h": (B, d) f32, "conv":
 (B, W-1, d)}``, and the embedding scaled by sqrt(d_model) as JAX scales
-the hybrid family's); the xLSTM blocks and cross-attention raise
-``NotImplementedError`` (ROADMAP A6.3, A6.4).
+the hybrid family's), the xLSTM stacks (mLSTM and sLSTM blocks with no
+FFN; states ``{"C", "n", "m"}`` and ``{"c", "n", "m", "h"}``, all f32,
+the stabilizer ``m`` starting at -1e30) and attention with cross
+attention over encoder frames (seamless-m4t: ``frames`` (B, n_frames,
+d_model) to ``apply``; each attention layer's state carries a slot-dense
+``"cross": {"k", "v"}`` (B, n_frames, KV, D) in the model dtype, int8 KV
+or not): every block kind of the JAX package.
 """
 from __future__ import annotations
 
@@ -50,20 +55,19 @@ Params = Dict[str, Any]
 Cache = Dict[str, Any]
 
 _ATTN_KINDS = (BlockKind.ATTENTION, BlockKind.LOCAL_ATTENTION)
-_PORTED_KINDS = _ATTN_KINDS + (BlockKind.RGLRU,)
+_XLSTM_KINDS = (BlockKind.MLSTM, BlockKind.SLSTM)
+_PORTED_KINDS = _ATTN_KINDS + (BlockKind.RGLRU,) + _XLSTM_KINDS
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    missing = []
-    if any(k not in _PORTED_KINDS for k in cfg.blocks()):
-        missing.append("xLSTM blocks (mLSTM, sLSTM; ROADMAP A6.3)")
-    if cfg.cross_attention:
-        missing.append("cross-attention (ROADMAP A6.4)")
+    """Raise ``NotImplementedError`` for a block kind the port does not
+    run; every kind of the JAX package (and so every registry config) is
+    ported."""
+    missing = sorted({k.value for k in cfg.blocks()
+                      if k not in _PORTED_KINDS})
     if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet "
-            "(ROADMAP A6: a later slice of the port)")
+        raise NotImplementedError(f"{cfg.name}: block kinds {missing} are "
+                                  "not ported")
 
 
 def _group_shapes(cfg: ModelConfig):
@@ -101,11 +105,23 @@ def _init_block(cfg: ModelConfig, kind: BlockKind,
             cfg.d_model, dtype=dtype, device=device)
 
     p: Params = {"norm1": zeros("norm1")}
+    if kind in _XLSTM_KINDS:
+        # an xLSTM block carries its own up/down projections: no FFN, as
+        # JAX's, whatever d_ff
+        init_rec = L.init_mlstm if kind == BlockKind.MLSTM else L.init_slstm
+        p["rec"] = init_rec(cfg, gen, dtype, device, out=o.get("rec"))
+        return p
     if kind == BlockKind.RGLRU:
         p["rec"] = L.init_rglru(cfg, gen, dtype, device, out=o.get("rec"))
     else:
         p["attn"] = L.init_attention(cfg, gen, dtype, device,
                                      out=o.get("attn"))
+        if cfg.cross_attention:
+            # JAX initialises cross_norm and never reads it; kept so the
+            # trees match leaf for leaf
+            p["cross"] = L.init_attention(cfg, gen, dtype, device,
+                                          out=o.get("cross"))
+            p["cross_norm"] = zeros("cross_norm")
     if cfg.d_ff > 0:
         p["norm2"] = zeros("norm2")
         # JAX's RG-LRU block takes a gated MLP whatever n_experts
@@ -173,7 +189,8 @@ def _attn_state(cfg: ModelConfig, lead: Tuple[int, ...], length: int,
                 dtype, dev) -> Dict[str, torch.Tensor]:
     """One attention cache: (lead..., length, KV, D) keys/values of
     ``dtype`` (int8 with ``kv_quant``, plus (lead..., length, KV) f32
-    scales) and (lead..., length) positions, -1 = empty."""
+    scales) and (lead..., length) positions, -1 = empty.  The cross cache
+    is ``_cross_state``'s."""
     shape = lead + (length,)
     kv_dtype = torch.int8 if cfg.kv_quant else dtype
     st = {
@@ -188,6 +205,33 @@ def _attn_state(cfg: ModelConfig, lead: Tuple[int, ...], length: int,
             st[key] = torch.zeros(shape + (cfg.n_kv_heads,),
                                   dtype=torch.float32, device=dev)
     return st
+
+
+def _cross_state(cfg: ModelConfig, lead: Tuple[int, ...], dtype,
+                 dev) -> Dict[str, torch.Tensor]:
+    """A cross-attention layer's slot-dense cache, as JAX's: keys and
+    values (lead..., n_frames, KV, D) in the model dtype (never int8),
+    zero."""
+    shape = lead + (cfg.n_frames, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _xlstm_state(cfg: ModelConfig, kind: BlockKind, lead: Tuple[int, ...],
+                 dev) -> Dict[str, torch.Tensor]:
+    """An xLSTM layer's state, as JAX's ``_block_state``, all f32 whatever
+    the model dtype: mLSTM ``C`` (lead..., H, D, D), ``n`` (lead..., H,
+    D), ``m`` (lead..., H); sLSTM ``c``, ``n``, ``m``, ``h`` (lead...,
+    d).  Zeros, but the stabilizer ``m`` = -1e30: a fresh row's first
+    step must see no memory (a zero ``m`` would change the scale of
+    ``exp(-m)`` and of the sLSTM's ``max(n, 1)``)."""
+    h, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+    shapes = ({"C": (h, hd, hd), "n": (h, hd), "m": (h,)}
+              if kind == BlockKind.MLSTM else
+              {"c": (d,), "n": (d,), "m": (d,), "h": (d,)})
+    return {k: torch.full(lead + shape, -1e30 if k == "m" else 0.0,
+                          dtype=torch.float32, device=dev)
+            for k, shape in shapes.items()}
 
 
 def _rec_state(cfg: ModelConfig, lead: Tuple[int, ...], dtype,
@@ -207,8 +251,12 @@ def _block_state(cfg: ModelConfig, kind: BlockKind, lead: Tuple[int, ...],
     """A dense layer state with leading dims ``lead`` (.., batch)."""
     if kind == BlockKind.RGLRU:
         return _rec_state(cfg, lead, dtype, dev)
-    return _attn_state(cfg, lead, _cache_len(cfg, kind, max_len), dtype,
-                       dev)
+    if kind in _XLSTM_KINDS:
+        return _xlstm_state(cfg, kind, lead, dev)
+    st = _attn_state(cfg, lead, _cache_len(cfg, kind, max_len), dtype, dev)
+    if cfg.cross_attention:
+        st["cross"] = _cross_state(cfg, lead, dtype, dev)
+    return st
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -216,7 +264,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Blank dense serving cache: per attention layer (B, L, KV, D)
     keys/values and (B, L) positions (-1 = empty), L = ``max_len`` or the
     window's ring, with ``kv_quant`` int8 keys/values and (B, L, KV) f32
-    scales; per RG-LRU layer its zero state; stacked per group."""
+    scales, and with cross attention its (B, n_frames, KV, D) cross cache;
+    per recurrent layer its blank state; stacked per group."""
     check_supported(cfg)
     dev = D.resolve(device)
     pat, n_rep, rem = _group_shapes(cfg)
@@ -236,9 +285,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
     as long as the page space (the longest attention cache: a window's
     ring when every attention layer is windowed) become pools (1 + batch
     * nb pages of ``block_size``; page 0 is the reserved scratch page),
-    all block tables empty (-1).  Shorter rings and recurrent states stay
-    per-row (slot-dense).  With ``kv_quant`` the K/V pools are int8 and
-    the scale pools (.., n_pages, block_size, KV) f32, all zero."""
+    all block tables empty (-1).  Shorter rings, recurrent states and
+    cross caches stay per-row (slot-dense).  With ``kv_quant`` the K/V
+    pools are int8 and the scale pools (.., n_pages, block_size, KV) f32,
+    all zero."""
     check_supported(cfg)
     dev = D.resolve(device)
     pat, n_rep, rem = _group_shapes(cfg)
@@ -251,8 +301,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     def build(kind: BlockKind, lead: Tuple[int, ...]):
         if kind in _ATTN_KINDS and _cache_len(cfg, kind, max_len) == plen:
-            return _attn_state(cfg, lead + (n_phys,), block_size, dtype,
-                               dev)
+            st = _attn_state(cfg, lead + (n_phys,), block_size, dtype, dev)
+            if cfg.cross_attention:
+                st["cross"] = _cross_state(cfg, lead + (batch,), dtype, dev)
+            return st
         return _block_state(cfg, kind, lead + (batch,), max_len, dtype, dev)
 
     return {
@@ -271,13 +323,21 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
                  x: torch.Tensor, *, positions, state, mode,
                  prefix_aware: bool, block_tables, paged_kernel: bool,
-                 moe_impl: str = "sorted", moe_cf=None, head_offload: int = 0
+                 moe_impl: str = "sorted", moe_cf=None, head_offload: int = 0,
+                 frames: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Returns (x, router_load); the load is None for a gated-MLP block
-    (JAX returns zeros there, which add nothing).  The layer's int8 leaves
-    are dequantized to x's dtype first (a no-op for unquantized weights)."""
+    """Returns (x, router_load); the load is None for a block without
+    experts (JAX returns zeros there, which add nothing).  The layer's
+    int8 leaves are dequantized to x's dtype first (a no-op for
+    unquantized weights).  An xLSTM block returns x + its output, with no
+    FFN, as JAX's."""
     p = Q.dequant_tree(p, x.dtype)
     h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
+    if kind in _XLSTM_KINDS:
+        rec_apply = L.mlstm_apply if kind == BlockKind.MLSTM \
+            else L.slstm_apply
+        y, _ = rec_apply(cfg, p["rec"], h, state=state, mode=mode)
+        return x + y, None
     if kind == BlockKind.RGLRU:
         y, _ = L.rglru_apply(cfg, p["rec"], h, state=state, mode=mode)
     else:
@@ -288,7 +348,11 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
                                  prefix_aware=prefix_aware,
                                  block_tables=block_tables,
                                  paged_kernel=paged_kernel,
-                                 head_offload=head_offload)
+                                 head_offload=head_offload, frames=frames,
+                                 cross_p=p.get("cross"),
+                                 cross_state=(state.get("cross")
+                                              if state is not None
+                                              else None))
     x = x + y
     load = None
     if cfg.d_ff > 0:
@@ -305,6 +369,7 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
 @torch.no_grad()
 def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
           cache: Optional[Cache] = None,
+          frames: Optional[torch.Tensor] = None,
           mode: str = "train",
           moe_impl: str = "sorted",
           moe_cf=None,
@@ -338,6 +403,11 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     int8 cache and outside decode, as in JAX; a paged cache, or n outside
     0..n_kv_heads, raises ``ValueError`` before any work.
     ``mode="train"`` without a cache is the plain stateless forward.
+
+    A cross-attention stack takes ``frames`` (B, n_frames, d_model), the
+    encoder output every attention layer attends to, in every mode but
+    decode, which reads the cross K/V its prefill wrote into the cache
+    (``layers._cross_attention``).
 
     Partial-stack (layer-span) execution, as in JAX: ``hidden_in=True``
     takes ``tokens`` as the (B, S, d_model) residual stream of the
@@ -397,7 +467,8 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                              mode=mode, prefix_aware=prefix_aware,
                              block_tables=block_tables,
                              paged_kernel=paged_kernel, moe_impl=moe_impl,
-                             moe_cf=moe_cf, head_offload=head_offload)
+                             moe_cf=moe_cf, head_offload=head_offload,
+                             frames=frames)
         if rl is not None:
             loads.append(rl)
         return x
@@ -434,25 +505,29 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 # Convenience entry points, as JAX's ----------------------------------------
 
 def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  frames: Optional[torch.Tensor] = None,
                   moe_impl: str = "sorted", moe_cf=None):
     """The stateless forward: (logits (B, S, V), aux)."""
-    logits, _, aux = apply(cfg, params, tokens, mode="train",
+    logits, _, aux = apply(cfg, params, tokens, frames=frames, mode="train",
                            moe_impl=moe_impl, moe_cf=moe_cf)
     return logits, aux
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            cache: Cache, moe_impl: str = "sorted",
-            prefix_aware: bool = False):
+            cache: Cache, frames: Optional[torch.Tensor] = None,
+            moe_impl: str = "sorted", prefix_aware: bool = False):
     """Prefill ``tokens`` into ``cache``: (last-token logits (B, V), cache,
     aux)."""
-    return apply(cfg, params, tokens, cache=cache, mode="prefill",
-                 moe_impl=moe_impl, logits_slice="last",
+    return apply(cfg, params, tokens, cache=cache, frames=frames,
+                 mode="prefill", moe_impl=moe_impl, logits_slice="last",
                  prefix_aware=prefix_aware)
 
 
 def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
-                cache: Cache, moe_impl: str = "sorted"):
-    """One decode step of ``token`` (B, 1): (logits (B, V), cache, aux)."""
-    return apply(cfg, params, token, cache=cache, mode="decode",
-                 moe_impl=moe_impl, logits_slice="last")
+                cache: Cache, frames: Optional[torch.Tensor] = None,
+                moe_impl: str = "sorted"):
+    """One decode step of ``token`` (B, 1): (logits (B, V), cache, aux).
+    ``frames`` is taken for JAX's signature; decode reads the cross K/V
+    from the cache."""
+    return apply(cfg, params, token, cache=cache, frames=frames,
+                 mode="decode", moe_impl=moe_impl, logits_slice="last")

@@ -73,13 +73,26 @@ def cast_params(tree: Any, dtype=None):
 def _expected_block(cfg: ModelConfig, kind: BlockKind):
     d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
+    inner = h * hd
+    if kind == BlockKind.MLSTM:           # no FFN: JAX's xLSTM blocks
+        return {"norm1": (d,), "rec": {
+            "w_up": (d, inner), "wq": (inner, h, hd), "wk": (inner, h, hd),
+            "wv": (inner, h, hd), "w_if": (inner, 2 * h),
+            "w_o": (inner, inner), "w_down": (inner, d)}}
+    if kind == BlockKind.SLSTM:
+        return {"norm1": (d,), "rec": {"w_gates": (d, 4 * d),
+                                       "r_gates": (d, 4 * d),
+                                       "w_out": (d, d)}}
     if kind == BlockKind.RGLRU:
         blk = {"norm1": (d,), "rec": {
             "w_x": (d, d), "w_y": (d, d), "conv_w": (cfg.rglru_conv_width, d),
             "w_a": (d, d), "w_i": (d, d), "a_param": (d,), "w_out": (d, d)}}
     else:
-        blk = {"norm1": (d,), "attn": {"wq": (d, h, hd), "wk": (d, kv, hd),
-                                       "wv": (d, kv, hd), "wo": (h, hd, d)}}
+        attn = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
+                "wo": (h, hd, d)}
+        blk = {"norm1": (d,), "attn": attn}
+        if cfg.cross_attention:
+            blk.update(cross=dict(attn), cross_norm=(d,))
     if f > 0:
         blk["norm2"] = (d,)
         e = cfg.n_experts if kind != BlockKind.RGLRU else 0

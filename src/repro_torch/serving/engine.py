@@ -38,19 +38,32 @@ serve attention stacks (a gated MLP or a top-k MoE after each attention;
 MoE through ``T.apply``'s default no-drop sorted dispatch, as JAX serves
 it), with bf16/f32 or int8 KV caches (``kv_quant``: int8 pages plus f32
 scale pages, read by the int8 variants of kernels B1 and B4), with int8
-weights (``models/quant.py``), and hybrid stacks of RG-LRU blocks and
-local attention; what the port does not run yet raises
-``NotImplementedError``.  As in the JAX package, an int8 stack has no
-prefix store and cannot resume a prompt chunk by chunk.
+weights (``models/quant.py``), hybrid stacks of RG-LRU blocks and local
+attention, the xLSTM stacks, and attention with cross attention over
+encoder frames.  As in the JAX package, an int8 stack has no prefix
+store and cannot resume a prompt chunk by chunk.
 
 Windowed and recurrent stacks.  The page space is the longest attention
 cache: a window's ring when every attention layer is windowed, whose
 pages B1 reads in place whatever order a wrap left their positions in.
-Recurrent states (RG-LRU ``h`` and ``conv``) ride slot-dense beside the
-pages through every hand-off, swap and span move.  As in JAX, such a
-stack has no prefix store, pads no suffix or row (a recurrent state would
-integrate the pad), resumes a chunked prompt over the dense wave cache
-(plain attention over [ring ; chunk]) and never speculates.
+Recurrent states (RG-LRU ``h`` and ``conv``; the xLSTM's ``C``, ``n``,
+``m``, and ``c``, ``h``) ride slot-dense beside the pages through every
+hand-off, swap and span move; a stack with no attention at all (xLSTM)
+serves on dense rows.  As in JAX, such a stack has no prefix store, pads
+no suffix or row (a recurrent state would integrate the pad), resumes a
+chunked prompt over the dense wave cache (plain attention over [ring ;
+chunk]) and never speculates.
+
+Cross attention (seamless-m4t).  The prefill calls take ``frames`` (B,
+n_frames, d_model), the encoder output of the wave's requests in the
+wave's row order, as JAX's engines do: a frames batch must match the
+wave (``run(req, frames)`` with one request is the plain use), padded
+rows get zero frames, and nothing maps frames to requests.  Each
+attention layer's cross K/V ride slot-dense in the states beside the
+pages; a chunk resumes over the dense wave cache (JAX's ``_paged_inc``
+is off for cross attention, so kernel B3 never runs), and decode reads
+the cached cross K/V through kernel B5.  The orchestrator carries no
+frames and refuses such a stack (``serving/orchestrator.py``).
 
 Dense rows.  When the page space (``max_len``) is not a multiple of
 ``block_size``, both engines serve on dense rows instead, as JAX's engines
@@ -128,11 +141,10 @@ def check_servable(cfg: ModelConfig, ecfg: EngineConfig) -> Optional[int]:
     when it is served on dense rows, as JAX's ``_paged_page_len`` decides:
     its page space (the longest attention cache: a window's ring when
     every attention layer is windowed) is not a multiple of
-    ``block_size``, or it holds no attention KV (a span of recurrent
-    layers only).  Attention caches that long are pages; rings shorter
-    than the page space and recurrent states stay slot-dense.  What the
-    port does not run yet raises ``NotImplementedError``
-    (``transformer.check_supported``)."""
+    ``block_size``, or it holds no attention KV (a stack or span of
+    recurrent layers only).  Attention caches that long are pages; rings
+    shorter than the page space, recurrent states and cross caches stay
+    slot-dense."""
     T.check_supported(cfg)
     plen = max(T.attn_cache_lens(cfg, ecfg.max_len), default=None)
     return None if plen is None or plen % ecfg.block_size else plen
@@ -160,12 +172,13 @@ class CompiledStep:
 
     Capture first runs the forward on a side stream, as PyTorch asks,
     then restores the lengths it advanced and the recurrent states it
-    integrated (``h``, ``conv``: a step over them is not idempotent); its
-    page writes sit where the replay writes again.  ``_lib.LAUNCHES``
-    counts on the host, so the launches of the warm-up and the capture
-    are taken back, and each replay adds those the capture recorded.  A
-    forward that cannot be captured raises; nothing runs it eagerly
-    instead.
+    integrated (RG-LRU ``h``, ``conv``; xLSTM ``C``, ``n``, ``m``, ``c``,
+    ``h``: a step over them is not idempotent); its page writes sit where
+    the replay writes again, and decode never writes the cross K/V.
+    ``_lib.LAUNCHES`` counts on the host, so the launches of the warm-up
+    and the capture are taken back, and each replay adds those the
+    capture recorded.  A forward that cannot be captured raises; nothing
+    runs it eagerly instead.
 
     JAX shares executables across engines (an ``lru_cache`` keyed on the
     config).  A graph is bound to the addresses of one engine's tensors,
@@ -195,10 +208,12 @@ class CompiledStep:
 
     def _state_leaves(self) -> List[torch.Tensor]:
         """The cache's slot-dense recurrent states: every leaf but the
-        attention KV (``KC.PAGED_KEYS``, written at fixed slots)."""
+        attention KV (``KC.PAGED_KEYS``, written at fixed slots) and the
+        cross caches (nested dicts decode only reads)."""
         return [a for part in (tuple(self.cache["groups"])
                                + tuple(self.cache["rem"]))
-                for k, a in part.items() if k not in KC.PAGED_KEYS]
+                for k, a in part.items()
+                if k not in KC.PAGED_KEYS and torch.is_tensor(a)]
 
     def _capture(self, pool) -> None:
         t0 = time.perf_counter()
@@ -432,10 +447,12 @@ class PrefillEngine:
         self._leading: Dict[bytes, int] = {}
         # hit waves (store hits and chunk resumes) run over a paged wave
         # cache only where every attention cache is linear over the page
-        # space (JAX's ``_paged_inc``); windowed and recurrent stacks
-        # resume over the dense wave cache
+        # space and no cross K/V ride along (JAX's ``_paged_inc``);
+        # windowed, recurrent and cross-attention stacks resume over the
+        # dense wave cache
         self._paged_inc = (self._page_len is not None
-                           and KC.prefix_cacheable(cfg))
+                           and KC.prefix_cacheable(cfg)
+                           and not cfg.cross_attention)
         # recurrent states would integrate pad tokens: only stacks without
         # them pad suffixes and rows to power-of-two buckets
         self._pad = not cfg.uses_recurrent_state
@@ -563,6 +580,7 @@ class PrefillEngine:
 
     # -- prefill -----------------------------------------------------------
     def prefill_waves(self, reqs: List[Request],
+                      frames: Optional[torch.Tensor] = None,
                       chunk_tokens: Optional[int] = None):
         """Generator of the prefill wave loop: one forward per ``next()``.
         Same wave semantics as the JAX engine: bucket by (padded suffix
@@ -581,7 +599,14 @@ class PrefillEngine:
         stream flows through each span in turn over dense per-span wave
         caches, chunk resumes included (plain ``attend`` over the cached
         prefix, as in JAX), and the per-span states merge back into the
-        full-stack wire format."""
+        full-stack wire format.
+
+        ``frames`` (B, n_frames, d_model), a cross-attention stack's
+        encoder output, goes to every wave's forward as it is, as JAX's
+        engine passes it: its batch must match the wave's rows, and when
+        it does and the wave pads rows, the padded rows get zero frames;
+        a batch that does not match leaves the rows unpadded and fails at
+        the cross attention's shape check."""
         if self.layer_span[0] != 0:
             raise ValueError("mid-stack span engines run only as "
                              "PrefillPipeline followers")
@@ -594,9 +619,10 @@ class PrefillEngine:
                     f"by chunk (JAX asserts 'int8 cache + prefix store not "
                     f"combined'); requests {long} have prompts longer than "
                     f"chunk_tokens={chunk}")
-        return self._waves(reqs, chunk)
+        return self._waves(reqs, chunk, frames)
 
-    def _waves(self, reqs: List[Request], chunk: Optional[int]):
+    def _waves(self, reqs: List[Request], chunk: Optional[int],
+               frames: Optional[torch.Tensor]):
         for req in reqs:
             req.advance(Phase.PREFILL)
         bs = self.ecfg.block_size
@@ -634,8 +660,15 @@ class PrefillEngine:
                     seen_leads.add(lead)
                 chosen.append(i)
             chosen = chosen[: max(self.ecfg.max_batch, 1)]
-            n_rows = (min(_pow2_ceil(len(chosen)), max(self.ecfg.max_batch, 1))
-                      if self._pad else len(chosen))
+            n_rows = len(chosen)
+            wave_frames = frames
+            if self._pad and (frames is None or frames.shape[0] == n_rows):
+                padded = min(_pow2_ceil(n_rows), max(self.ecfg.max_batch, 1))
+                if frames is not None and padded > n_rows:
+                    # padded rows attend over zero frames
+                    wave_frames = torch.cat([frames, frames.new_zeros(
+                        (padded - n_rows,) + tuple(frames.shape[1:]))])
+                n_rows = padded
             chain = [self] + self._followers
             bounds = [e.layer_span for e in chain]
             matched_of: Dict[int, int] = {}
@@ -719,9 +752,9 @@ class PrefillEngine:
                 # stage k takes the previous span's residual stream and,
                 # except the last, hands one on
                 x, caches[k], _ = T.apply(
-                    e.scfg, e.sparams, x, cache=caches[k], mode="prefill",
-                    prefix_aware=hit, logits_slice="last",
-                    logits_at=logits_at, hidden_in=k > 0,
+                    e.scfg, e.sparams, x, cache=caches[k],
+                    frames=wave_frames, mode="prefill", prefix_aware=hit,
+                    logits_slice="last", logits_at=logits_at, hidden_in=k > 0,
                     hidden_out=k < len(chain) - 1)
             logits = x
             done_wave: List[Tuple[int, Dict[str, Any], torch.Tensor]] = []
@@ -763,22 +796,27 @@ class PrefillEngine:
                    "tokens": wave_tokens, "done": done_wave}
 
     def run_batch(self, reqs: List[Request],
+                  frames: Optional[torch.Tensor] = None,
                   chunk_tokens: Optional[int] = None
                   ) -> List[Tuple[Dict[str, Any], torch.Tensor]]:
         """Prefill several requests (drains ``prefill_waves``).  Returns
         ``[(paged request_state, last_logits_row)]`` aligned with
         ``reqs``."""
         out: List[Any] = [None] * len(reqs)
-        for wave in self.prefill_waves(reqs, chunk_tokens=chunk_tokens):
+        for wave in self.prefill_waves(reqs, frames=frames,
+                                       chunk_tokens=chunk_tokens):
             for i, st, lg in wave["done"]:
                 out[i] = (st, lg)
         return out
 
-    def run(self, req: Request) -> Tuple[Dict[str, Any], torch.Tensor]:
-        """Prefill one request.  Returns (request_state, last_logits)."""
-        return self.run_batch([req])[0]
+    def run(self, req: Request, frames: Optional[torch.Tensor] = None
+            ) -> Tuple[Dict[str, Any], torch.Tensor]:
+        """Prefill one request (``frames`` (1, n_frames, d_model) for a
+        cross-attention stack).  Returns (request_state, last_logits)."""
+        return self.run_batch([req], frames=frames)[0]
 
     def run_queued(self, max_reqs: int,
+                   frames: Optional[torch.Tensor] = None,
                    chunk_tokens: Optional[int] = None
                    ) -> List[Tuple[Request, Dict[str, Any], torch.Tensor]]:
         """Prefill up to ``max_reqs`` from the head of the routed queue."""
@@ -786,7 +824,8 @@ class PrefillEngine:
         if n <= 0:
             return []
         batch = [self.queue.popleft() for _ in range(n)]
-        results = self.run_batch(batch, chunk_tokens=chunk_tokens)
+        results = self.run_batch(batch, frames=frames,
+                                 chunk_tokens=chunk_tokens)
         return [(r, st, lg) for r, (st, lg) in zip(batch, results)]
 
 

@@ -197,11 +197,23 @@ class Orchestrator(BackendBase):
     ``device`` (default the CUDA card) is where every engine runs; the
     parameters must already live there.  ``draft=(cfg, params)`` is the
     draft model handed to every decode engine when
-    ``engine.speculation == "draft"``."""
+    ``engine.speculation == "draft"``.
+
+    A cross-attention stack (seamless-m4t) needs each request's encoder
+    frames at prefill, and the orchestrator, like JAX's, carries none
+    (``Request`` has no frames): it raises ``ValueError`` before any
+    work.  Such a stack is served through the engines,
+    ``PrefillEngine.run(req, frames)`` then ``DecodeEngine.insert``."""
 
     def __init__(self, cfg: ModelConfig, params,
                  ocfg: OrchestratorConfig = OrchestratorConfig(),
                  device: D.DeviceLike = None, draft=None):
+        if cfg.cross_attention:
+            raise ValueError(
+                f"{cfg.name}: cross attention needs per-request encoder "
+                "frames at prefill, and the orchestrator carries none; "
+                "serve it through the engines (PrefillEngine.run(req, "
+                "frames), then DecodeEngine.insert)")
         if ocfg.n_prefill < 1 or ocfg.n_decode < 1:
             raise ValueError("fleet needs >=1 prefill and >=1 decode "
                              f"instance, got {ocfg.n_prefill}p/"

@@ -25,9 +25,10 @@ boundaries in JAX's canonical form: a leaf is paged iff its cache length
 equals the full stack's page space.  A stage whose own page space is
 smaller (a span of ring layers only) pages internally at its window and
 de-pages on exit (``_canon_state``); a span of recurrent layers only
-serves on dense rows.  An int8-KV stack is served as JAX serves it: its
-stages hold int8 pools, and a prompt longer than ``chunk_tokens`` raises
-``ValueError`` (no resume).
+serves on dense rows, as does every stage of an xLSTM stack; cross
+caches ride slot-dense with their layers.  An int8-KV stack is served as
+JAX serves it: its stages hold int8 pools, and a prompt longer than
+``chunk_tokens`` raises ``ValueError`` (no resume).
 """
 from __future__ import annotations
 
@@ -86,16 +87,19 @@ class PrefillPipeline:
     def lead(self) -> PrefillEngine:
         return self.engines[0]
 
-    def prefill_waves(self, reqs, chunk_tokens=None):
+    def prefill_waves(self, reqs, frames=None, chunk_tokens=None):
         """Wave generator over the chained stages (``PrefillEngine``'s):
-        each wave's residual stream flows through every span in turn."""
-        return self.lead.prefill_waves(reqs, chunk_tokens=chunk_tokens)
+        each wave's residual stream (and ``frames``, a cross-attention
+        stack's encoder output) flows through every span in turn."""
+        return self.lead.prefill_waves(reqs, frames=frames,
+                                       chunk_tokens=chunk_tokens)
 
-    def run_batch(self, reqs, chunk_tokens=None):
-        return self.lead.run_batch(reqs, chunk_tokens=chunk_tokens)
+    def run_batch(self, reqs, frames=None, chunk_tokens=None):
+        return self.lead.run_batch(reqs, frames=frames,
+                                   chunk_tokens=chunk_tokens)
 
-    def run(self, req: Request):
-        return self.lead.run(req)
+    def run(self, req: Request, frames=None):
+        return self.lead.run(req, frames=frames)
 
     def move_span(self, src: int, dst: int, n: int) -> Optional[int]:
         """Shift ``n`` boundary layers from stage ``src`` to the adjacent

@@ -1138,6 +1138,156 @@ def test_cuda_rglru_decode_step_in_a_graph_equals_eager(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_b5_cross_decode_vs_plain(dtype):
+    """B5 at the cross-attention decode shapes: seamless' 8 rows x 512
+    frames (one full 512-key block) at 16/16 heads of 64, and a GQA case
+    of 3 rows x 12 frames at 4/2 heads of 16, every frame valid, against
+    its plain version (partials in f32 from the same inputs: 1e-4), and
+    the combined output of ``ops.decode_attention`` against plain
+    masked attention over all frames (one output rounding in bf16:
+    2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.models import layers as L
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for b, f, h, kv, d in ((8, 512, 16, 16, 64), (3, 12, 4, 2, 16)):
+        q = torch.randn((b, h, d), generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn((b, f, kv, d), generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        every = torch.ones((b, f), dtype=torch.bool, device="cuda")
+        ops.reset_launches()
+        got = split_kv_decode_partials(q, k, v, every, block_k=512)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["split_kv_decode_partials"] == 1
+        want = ref.split_kv_decode_partials_plain(q, k, v, every,
+                                                  block_k=512)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        out = ops.decode_attention(q, k, v, every, scale=d ** -0.5)
+        plain = L.masked_attention(q[:, None], k, v, torch.ones(
+            (1, 1, 1, 1, f), dtype=torch.bool, device="cuda"), d ** -0.5)
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(out.float(), plain[:, 0].float(),
+                                   atol=tol, rtol=tol)
+
+
+def _last_two_stacks(arch):
+    """The registry's smoke size of ``arch`` on the card in f32 and an
+    engine config of 16-token blocks; seamless' frames per request."""
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import EngineConfig
+    cfg = get(arch).smoke()
+    return (cfg, T.init(cfg, seed=0, device="cuda"),
+            EngineConfig(max_len=256, max_batch=4, block_size=16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-350m", "seamless-m4t-large-v2"])
+def test_cuda_last_two_stacks_replay_equal_eager(arch, monkeypatch):
+    """xlstm-350m and seamless-m4t-large-v2 at smoke size, prefilled in
+    32-token chunks (seamless with each request's own frames) and decoded
+    with CUDA graphs on and off: every replayed step equals the eager one
+    bit for bit (the xLSTM's C/n/m/c/h restored after the capture's
+    warm-up), the streams and launches are equal; the xLSTM launches no
+    kernel, seamless B1, B2 and B5 (cross decode) and never B3 or B4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    from repro_torch.serving import engine as E
+    cfg, params, ecfg = _last_two_stacks(arch)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    orig = E.CompiledStep.__call__
+    runs = []
+    for graphs in (False, True):
+        ecfg_g = dataclasses.replace(ecfg, cuda_graphs=graphs)
+        pe = E.PrefillEngine(cfg, params, ecfg_g)
+        de = E.DecodeEngine(cfg, params, ecfg_g)
+        assert de.paged == cfg.cross_attention
+        reqs = _span_requests(3)
+        gen.manual_seed(5)
+        frames = [torch.randn((1, cfg.n_frames, cfg.d_model), generator=gen,
+                              device="cuda") if cfg.cross_attention else None
+                  for _ in reqs]
+        outs = []
+
+        def record(step, x):
+            out = orig(step, x)
+            outs.append(out.clone())
+            return out
+
+        monkeypatch.setattr(E.CompiledStep, "__call__", record)
+        ops.reset_launches()
+        for r, f in zip(reqs, frames):
+            st, lg = pe.run_batch([r], frames=f, chunk_tokens=32)[0]
+            de.insert(r, st, int(torch.argmax(lg)))
+        while de.active:
+            de.step()
+        torch.cuda.synchronize()
+        monkeypatch.setattr(E.CompiledStep, "__call__", orig)
+        runs.append((outs, [r.generated for r in reqs], dict(ops.LAUNCHES)))
+        assert (de.compiled.report()["graphs_captured"] > 0) is graphs
+    (eager, e_streams, e_launch), (graph, g_streams, g_launch) = runs
+    assert len(graph) == len(eager) > 0
+    assert all(torch.equal(g, e) for g, e in zip(graph, eager))
+    assert g_streams == e_streams and g_launch == e_launch
+    used = ({"paged_decode_partials", "flash_prefill",
+             "split_kv_decode_partials"} if cfg.cross_attention else set())
+    for name, n in g_launch.items():
+        assert (n > 0) == (name in used), (name, n)
+
+
+@pytest.mark.cuda
+def test_cuda_smoke_phases_of_the_last_two_stacks(monkeypatch):
+    """``chip_smoke.py``'s runs (p)-(s) at 24 layers of narrow width: the
+    xLSTM through ``Server`` replayed and eagerly and over two 2-stage
+    pipelines with a span move; seamless through the engines replayed and
+    eagerly and over a 2-stage prefill and decode pipeline with a span
+    move; before them B1, B2 and B5 at the seamless runs' shapes against
+    their plain versions (``seamless_kernels``).  Each phase fails (exits)
+    on any of its checks: kernels against their plain versions, launches,
+    equal streams, the teacher-forced gap, pools."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    import sys
+    from pathlib import Path
+    import repro_torch.configs as registry
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as CS
+    real = registry.get
+    narrow = {"xlstm-350m": dict(d_model=128, n_heads=2, n_kv_heads=2,
+                                 head_dim=64, vocab_size=512),
+              "seamless-m4t-large-v2": dict(d_model=128, n_heads=4,
+                                            n_kv_heads=4, head_dim=32,
+                                            d_ff=256, vocab_size=512,
+                                            n_frames=64)}
+    monkeypatch.setattr(registry, "get", lambda name: dataclasses.replace(
+        real(name), **narrow[name]))
+    served = CS.served_requests
+
+    def short(cfg):          # prompts of 40-100 tokens, chunked at 32
+        reqs = served(cfg)
+        for r in reqs:
+            r.prompt = r.prompt[:40 + 8 * r.rid]
+        return reqs
+
+    monkeypatch.setattr(CS, "served_requests", short)
+    monkeypatch.setattr(CS, "XLSTM_CHUNK", 32)
+    launches = CS.xlstm_phase(torch, "card test")
+    assert all(n == 0 for run in launches.values() for n in run.values())
+    results = {}
+    timing = CS.seamless_kernels(torch, results)
+    assert sorted(k for k, _, _ in results) == ["B1", "B2", "B5"]
+    assert all(r["err"] <= CS.TOL_F32 for r in results.values())
+    assert all(t["ms"] > 0 and t["library_ms"] > 0 for t in timing.values())
+    runs = CS.seamless_phase(torch, "card test")
+    assert all(run["split_kv_decode_partials"] > 0 for run in runs.values())
+
+
+@pytest.mark.cuda
 def test_cuda_uncapturable_forward_raises(monkeypatch):
     """A forward that cannot be captured (a host copy inside it) raises
     on a graph engine; nothing runs it eagerly instead.  The same

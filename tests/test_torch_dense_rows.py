@@ -183,13 +183,16 @@ def test_dense_rows_are_chosen_and_other_stacks_still_raise(tp):
     with pytest.raises(ValueError, match="page sharing"):
         de.attach_store(GlobalKVStore(block_size=8))
     # a 16-token sliding window pages at its ring (16 % 8 == 0), as JAX's
-    # _paged_page_len; the xLSTM stack is still a later slice
+    # _paged_page_len; the xLSTM stack, which holds no attention, serves
+    # on dense rows at any max_len (its states are rows)
     swa = DecodeEngine(dataclasses.replace(PTINY, sliding_window=16), tp,
                        ECFG, device="cpu")
     assert swa.paged and swa.page_len == 16
-    with pytest.raises(NotImplementedError, match="later slice"):
-        DecodeEngine(port_configs.get("xlstm-350m").smoke(), tp, ECFG,
-                     device="cpu")
+    xl = DecodeEngine(port_configs.get("xlstm-350m").smoke(), tp,
+                      dataclasses.replace(ECFG, max_len=96), device="cpu")
+    assert not xl.paged and xl.pool is None
+    assert "block_tables" not in xl.cache
+    assert tuple(xl.cache["groups"][0]["C"].shape) == (1, 3, 4, 64, 64)
 
 
 @pytest.mark.parametrize("chunk", [None, 10])

@@ -169,18 +169,26 @@ def test_params_from_jax_checks_the_tree(tiny_params):
 
 
 def test_unported_stacks_raise_not_implemented():
-    """The SSM and audio stacks are a later slice (ROADMAP A6.3, A6.4); the
-    MoE stacks and the RG-LRU hybrid are served."""
-    for name, item in (("xlstm-350m", "A6.3"),
-                       ("seamless-m4t-large-v2", "A6.4")):
-        for cfg in (port_config(name), port_config(name).smoke()):
-            with pytest.raises(NotImplementedError,
-                               match=f"{item}.*A6: a later slice"):
-                T.check_supported(cfg)
-    for name in ("llama-13b", "granite-moe-3b-a800m", "grok-1-314b",
-                 "recurrentgemma-9b"):
+    """Every block kind is ported since the xLSTM and cross-attention
+    slice (ROADMAP A6.3, A6.4): ``check_supported`` passes all twelve
+    registry configs and their smoke sizes, and the smoke caches of the
+    two last stacks hold their new states (xLSTM ``C``/``n``/``m`` f32 with
+    ``m`` at -1e30; seamless' slot-dense ``cross`` K/V)."""
+    from repro_torch import configs as registry
+    names = registry.names()
+    assert len(names) == 12
+    for name in names:
         T.check_supported(port_config(name))
         T.check_supported(port_config(name).smoke())
+    xl = T.init_cache(port_config("xlstm-350m").smoke(), 2, 16,
+                      device="cpu")
+    assert set(xl["groups"][0]) == {"C", "n", "m"}
+    assert set(xl["groups"][3]) == {"c", "n", "m", "h"}
+    assert float(xl["groups"][0]["m"].max()) < -1e29
+    sm = port_config("seamless-m4t-large-v2").smoke()
+    cross = T.init_cache(sm, 2, 16, device="cpu")["groups"][0]["cross"]
+    assert tuple(cross["k"].shape) == (sm.n_layers, 2, sm.n_frames,
+                                       sm.n_kv_heads, sm.head_dim)
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,7 @@ from repro_torch.models.config import Family, ModelConfig
 from repro_torch.models.weights import params_from_jax, tree_from_numpy
 from repro_torch.serving.api import Server
 from repro_torch.serving.engine import (DecodeEngine, EngineConfig,
-                                        PrefillEngine)
+                                        PrefillEngine, check_servable)
 from repro_torch.serving.fairshare import FairShareScheduler, SchedulerConfig
 from repro_torch.serving.orchestrator import Orchestrator, OrchestratorConfig
 from repro_torch.serving.request import Outcome, Request
@@ -178,13 +178,18 @@ def test_cow_fork_before_a_shared_page_is_written(tiny_params, port_params,
 
 
 def test_unservable_stacks_raise_not_implemented(port_params):
-    """The xLSTM stack is a later slice (windowed stacks are served since
-    the hybrid slice).  int8 KV serves, but, as in JAX, cannot resume a
-    prompt: one longer than ``chunk_tokens`` raises ``ValueError`` before
-    any prefill work."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        DecodeEngine(port_configs.get("xlstm-350m").smoke(), port_params,
-                     ECFG, device="cpu")
+    """Every stack is servable since the xLSTM and cross-attention slice:
+    the xLSTM's decode engine is built on dense rows (it holds no
+    attention KV to page), and seamless' check reports its page space
+    (cross K/V ride slot-dense beside the pages).  int8 KV serves, but,
+    as in JAX, cannot resume a prompt: one longer than ``chunk_tokens``
+    raises ``ValueError`` before any prefill work."""
+    xl = DecodeEngine(port_configs.get("xlstm-350m").smoke(), port_params,
+                      ECFG, device="cpu")
+    assert not xl.paged and xl.pool is None
+    assert "block_tables" not in xl.cache
+    sm = port_configs.get("seamless-m4t-large-v2").smoke()
+    assert check_servable(sm, ECFG) == ECFG.max_len
     pe = PrefillEngine(dataclasses.replace(PTINY, kv_quant=True),
                        port_params,
                        dataclasses.replace(ECFG, speculation="ngram"),
