@@ -202,7 +202,23 @@ Phases (any failure exits non-zero and prints no result line):
    family (GEMMs, B1, B5, the rest); (s) a
    2-stage ``PrefillPipeline`` and ``DecodePipeline`` over the same
    bounds with one forced 4-layer span move (its bytes, cross K/V
-   included), its streams equal to (r)'s.
+   included), its streams equal to (r)'s.  Last, training, in bf16 from
+   seed 0 on ``SyntheticTokens`` (seed 0) through ``make_train_step``
+   and AdamW, every launch counter zeroed before the steps and read after
+   (no kernel may launch: JAX trains outside any Pallas kernel): (t)
+   llama-13b at full width, depth cut to 8 layers (the whole model's
+   weights, grads and f32 moments would need ~156 GB), 20 steps of 4 x
+   1,024 tokens without remat (lr 1e-3, warmup 2, total 20); every loss
+   and grad norm finite, the mean loss of the last five steps below that
+   of the first five; then one step in two microbatches from the same
+   parameters (loss and grad norm within MB_TOL_REL of the full batch's),
+   a bit-exact ``save``/``restore`` round trip of the trained tree, and
+   the trained weights served through ``PrefillEngine`` then
+   ``DecodeEngine`` on the 8 requests (B1 and B2 must launch, every token
+   within TOKEN_GAP_TOL); (u) granite-moe-3b-a800m at full size (router
+   f32) with remat and no-drop sorted dispatch, 10 steps of 2 x 512
+   tokens, its ``lb_loss`` finite every step.  Each prints ms per step
+   (and AdamW's device ms of it), tokens/s, peak memory and the losses.
 4. Print the ``kernels`` JSON line, then the result line.
 
 The script imports nothing of the JAX package and needs no network.
@@ -211,6 +227,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -3600,6 +3617,259 @@ def seamless_phase(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# Training: (t) llama-13b at full width, 8 layers; (u) granite-moe at full
+# size; then the trained llama-13b weights served
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 8
+# The microbatch agreement: one step in two microbatches against the same
+# parameters' full batch, both bf16.  The two runs may round the bf16
+# forward in other GEMM shapes, and they hold the gradients in bf16 (one
+# batch) or f32 (two, accumulated): on the H100 the loss agreed exactly
+# and the grad norm to 6.8e-6 (PERF.md §6).
+MB_TOL_REL = 1e-3
+
+
+def tree_numel(tree) -> int:
+    from repro_torch.training.tree import named_leaves
+    return sum(a.numel() for _, a in named_leaves(tree))
+
+
+def train_steps(torch, card, cfg, params, *, label, batches, remat,
+                opt_cfg):
+    """Runs ``len(batches)`` AdamW steps of ``make_train_step`` on
+    ``params`` (updated in place) with every launch counter zeroed
+    before and read after: no B-kernel may launch (JAX trains outside
+    any Pallas kernel).  Checks that every loss, grad norm (and MoE
+    ``lb_loss``) is finite and that the mean loss of the last five steps
+    is below that of the first five; prints ms per step (host clock
+    around synchronised steps; the first step apart) and the AdamW
+    update's share of it (CUDA events around ``apply_updates``),
+    tokens/s and peak memory.  Returns (optimizer state, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import make_train_step
+
+    state = O.init_state(params)
+    step = make_train_step(cfg, opt_cfg, remat=remat)
+    update, events = O.apply_updates, []
+
+    def timed_update(*a):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = update(*a)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rows, secs = [], []
+    O.apply_updates = timed_update
+    for toks in batches:
+        t = time.perf_counter()
+        params, state, m = step(params, state, {"tokens": toks})
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        rows.append(m)
+    O.apply_updates = update
+    adamw_ms = sum(a.elapsed_time(b) for a, b in events[1:]) / max(
+        len(events) - 1, 1)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for i, m in enumerate(rows, 1):
+        if not all(map(math.isfinite, m.values())):
+            fail(f"[{label}] step {i}: non-finite metrics {m}")
+    if any(launches.values()):
+        fail(f"[{label}] kernels launched during training: {launches}")
+    losses = [m["loss"] for m in rows]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        fail(f"[{label}] the loss did not decrease: mean of the first five "
+             f"steps {first:.4f}, of the last five {last:.4f}")
+    tokens = batches[0].shape[0] * (batches[0].shape[1] - 1)
+    steady = sum(secs[1:]) / max(len(secs) - 1, 1)
+    lb = ("; lb_loss " + ", ".join(f"{m['lb_loss']:.4f}" for m in rows)
+          if "lb_loss" in rows[0] else "")
+    say(f"[{label}] {len(rows)} steps of {batches[0].shape[0]} x "
+        f"{batches[0].shape[1] - 1} tokens (remat {remat}): "
+        f"{steady * 1e3:.1f} ms per step after the first "
+        f"({secs[0] * 1e3:.1f} ms), AdamW {adamw_ms:.1f} ms of it (device), "
+        f"{tokens / steady:.1f} tokens/s, peak "
+        f"memory {peak / 2**30:.2f} GiB; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (mean of the first five {first:.4f}, of the last "
+        f"five {last:.4f}); grad norm {rows[0]['grad_norm']:.3f} -> "
+        f"{rows[-1]['grad_norm']:.3f}{lb}; no kernel launched [{card}]")
+    say(f"[{label}] losses: {', '.join(f'{x:.4f}' for x in losses)}")
+    return state, launches
+
+
+def train_batches(torch, cfg, batch, seq, n):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+
+    data = iter(SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)))
+    return [torch.as_tensor(next(data)["tokens"], device="cuda")
+            for _ in range(n)]
+
+
+def check_microbatches(torch, card, cfg, params, state, opt_cfg, toks):
+    """The same parameters' full-batch loss and grad norm
+    (``loss_and_grads``, no update) against one real step in two
+    microbatches: each within MB_TOL_REL.  The step updates ``params``."""
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import (loss_and_grads,
+                                                 make_train_step)
+
+    torch.cuda.reset_peak_memory_stats()
+    loss, _, grads = loss_and_grads(cfg, params, {"tokens": toks})
+    loss, gnorm = float(loss), float(O.global_norm(grads))
+    del grads
+    step = make_train_step(cfg, opt_cfg, num_microbatches=2)
+    _, _, m = step(params, state, {"tokens": toks})
+    got = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    rel = {"loss": abs(got["loss"] - loss) / abs(loss),
+           "grad_norm": abs(got["grad_norm"] - gnorm) / abs(gnorm)}
+    say(f"[llama-13b-train] one step in 2 microbatches against the full "
+        f"batch from the same parameters: loss {got['loss']:.6f} vs "
+        f"{loss:.6f} (rel {rel['loss']:.2e}), grad norm "
+        f"{got['grad_norm']:.5f} vs {gnorm:.5f} (rel "
+        f"{rel['grad_norm']:.2e}); tolerance {MB_TOL_REL}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    if max(rel.values()) > MB_TOL_REL:
+        fail(f"[llama-13b-train] microbatched step disagrees: {rel}")
+
+
+def check_checkpoint(torch, card, params) -> None:
+    """``save`` then ``restore`` of the trained tree: every leaf bit for
+    bit.  Written under the checkout's ``build/`` (ignored by git)."""
+    import tempfile
+    from repro_torch.training import checkpoint as C
+    from repro_torch.training.tree import named_leaves
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        C.save(d, params, step=21, meta={"arch": "llama-13b"})
+        size = os.path.getsize(os.path.join(d, "ckpt_21.npz"))
+        t1 = time.perf_counter()
+        back, step = C.restore(d, params)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    bad = [n for (n, a), (_, b) in zip(named_leaves(params),
+                                       named_leaves(back))
+           if a.dtype != b.dtype or not torch.equal(
+               a.view(torch.uint8), b.view(torch.uint8))]
+    if bad or step != 21:
+        fail(f"[llama-13b-train] checkpoint round trip differs at {bad}")
+    say(f"[llama-13b-train] checkpoint round trip bit for bit: "
+        f"{size / 2**30:.2f} GiB, save {t1 - t0:.1f} s, restore "
+        f"{t2 - t1:.1f} s [{card}]")
+
+
+def serve_trained(torch, card, cfg, params):
+    """The trained weights through ``PrefillEngine`` then ``DecodeEngine``
+    (as ``examples/quickstart.py`` serves), the 8 served requests: every
+    token within the teacher-forced rule, B1 and B2 launched, B3-B5
+    not.  Returns the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import (DecodeEngine, EngineConfig,
+                                            PrefillEngine)
+
+    label = "llama-13b-trained-served"
+    ecfg = EngineConfig(max_len=1024, max_batch=8, block_size=16)
+    pe = PrefillEngine(cfg, params, ecfg)
+    de = DecodeEngine(cfg, params, ecfg)
+    reqs = served_requests(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        st, lg = pe.run(r)
+        de.insert(r, st, int(torch.argmax(lg)))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    while de.active:
+        de.step()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_streams(torch, cfg, params, label, reqs, launches,
+                  ("paged_decode_partials", "flash_prefill"),
+                  forbidden=("paged_prefix_partials", "paged_verify_partials",
+                             "split_kv_decode_partials"))
+    prompt_tokens = sum(r.prompt_len for r in reqs)
+    capture_s = de.compiled.capture_s
+    steady_ms = (decode_s - capture_s) / de.decode_iters * 1e3
+    say(f"[{label}] {len(reqs)} requests: prefill {prompt_tokens} tokens at "
+        f"{prompt_tokens / prefill_s:.1f} tok/s (one request per forward); "
+        f"decode {de.tokens_decoded} tokens over {de.decode_iters} "
+        f"iterations, {steady_ms:.2f} ms each without the {capture_s:.3f} s "
+        f"of graph capture; "
+        f"peak memory {peak / 2**30:.2f} GiB; launches "
+        f"{json.dumps(launches)} [{card}]")
+    del pe, de
+    return launches
+
+
+def training_phase(torch, card):
+    """(t) llama-13b at full width (5120 wide, 40/40 heads of 128, d_ff
+    13,824, vocab 32,000), depth cut to TRAIN_LAYERS: bf16 weights from
+    seed 0, ``SyntheticTokens(seed=0)`` at 4 x 1,024, AdamW (lr 1e-3,
+    warmup 2, total 20), 20 steps without remat; then the microbatch
+    agreement, a checkpoint round trip and the trained weights served.
+    (u) granite-moe-3b-a800m at full size, bf16 with its f32 router,
+    remat, no-drop sorted dispatch, 2 x 512, 10 steps.  Returns {run:
+    launches}."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+
+    t0 = time.perf_counter()
+    out = {}
+    cfg = dataclasses.replace(get("llama-13b"), n_layers=TRAIN_LAYERS)
+    params = T.init(cfg, seed=0, dtype=torch.bfloat16)
+    say(f"[llama-13b-train] {describe(cfg)}: {tree_numel(params):,} "
+        f"parameters in the tree, bf16 from seed 0 [{card}]")
+    opt_cfg = O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    batches = train_batches(torch, cfg, 4, 1024, 21)
+    state, out["llama-13b-train"] = train_steps(
+        torch, card, cfg, params, label="llama-13b-train",
+        batches=batches[:20], remat=False, opt_cfg=opt_cfg)
+    check_microbatches(torch, card, cfg, params, state, opt_cfg, batches[20])
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_checkpoint(torch, card, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["llama-13b-trained-served"] = serve_trained(torch, card, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get("granite-moe-3b-a800m")
+    params = T.init(cfg, seed=0, dtype=torch.bfloat16)
+    say(f"[granite-moe-train] {describe(cfg)}: {tree_numel(params):,} "
+        f"parameters in the tree, bf16 (router f32) from seed 0 [{card}]")
+    _, out["granite-moe-train"] = train_steps(
+        torch, card, cfg, params, label="granite-moe-train",
+        batches=train_batches(torch, cfg, 2, 512, 10), remat=True,
+        opt_cfg=O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"training phase (t)-(u): {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = [
     # (timing key, launch counter, source, TPU kernel it replaces)
@@ -3679,6 +3949,7 @@ def main() -> None:
     per_run.update(hybrid_phase(torch, card))
     per_run.update(xlstm_phase(torch, card))
     per_run.update(seamless_phase(torch, card))
+    per_run.update(training_phase(torch, card))
     launches = {k: sum(run[k] for run in per_run.values())
                 for k in _lib.LAUNCHES}
 

@@ -1,2 +1,3 @@
 """Command-line front ends of the port
-(``python -m repro_torch.launch.serve``)."""
+(``python -m repro_torch.launch.serve``, ``python -m
+repro_torch.launch.train``)."""

@@ -17,7 +17,7 @@ Public API
     pcache             = init_paged_cache(cfg, batch, max_len, block_size,
                                           dtype, device)
     logits, cache, aux = apply(cfg, params, tokens, cache=..., mode=...)
-    logits, aux        = forward_train(cfg, params, tokens)
+    logits, aux        = forward_train(cfg, params, tokens, remat=...)
     logits, cache, aux = prefill(cfg, params, tokens, cache)
     logits, cache, aux = decode_step(cfg, params, token, cache)
 
@@ -42,9 +42,11 @@ or not): every block kind of the JAX package.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from .. import device as D
 from . import layers as L
@@ -87,6 +89,17 @@ def _tree_map(fn, tree):
 def _layer(tree, r: int):
     """Layer ``r``'s views into a stacked group tree."""
     return _tree_map(lambda a: a[r], tree)
+
+
+def _unstack(tree, n: int) -> List[Any]:
+    """The ``n`` layers' views into a stacked group tree (of dicts), from
+    one ``unbind`` per leaf: a backward then stacks each leaf's gradient
+    once from its layers', where indexing layer by layer (``_layer``)
+    would add a zero-filled full-size gradient per layer."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][r] for k in tree} for r in range(n)]
+    return list(tree.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -366,7 +379,20 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
     return x, load
 
 
-@torch.no_grad()
+def _graph_in_train_only(fn):
+    """Prefill and decode never build an autograd graph, whatever the
+    caller's grad mode and whether the leaves require grad: CUDA-graph
+    capture (``serving/engine.py`` ``CompiledStep``) and the span views
+    rely on it.  Train mode follows the caller's grad mode."""
+    @functools.wraps(fn)
+    def wrapped(*args, mode: str = "train", **kw):
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and mode == "train"):
+            return fn(*args, mode=mode, **kw)
+    return wrapped
+
+
+@_graph_in_train_only
 def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
           cache: Optional[Cache] = None,
           frames: Optional[torch.Tensor] = None,
@@ -380,6 +406,7 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
           hidden_in: bool = False,
           hidden_out: bool = False,
           head_offload: int = 0,
+          remat: bool = False,
           ) -> Tuple[torch.Tensor, Optional[Cache], Dict[str, Any]]:
     """Run the stack.
 
@@ -402,7 +429,14 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     (``layers._decode_head_offload``: kernel B5 per branch); ignored on an
     int8 cache and outside decode, as in JAX; a paged cache, or n outside
     0..n_kv_heads, raises ``ValueError`` before any work.
-    ``mode="train"`` without a cache is the plain stateless forward.
+    ``mode="train"`` without a cache is the plain stateless forward; it
+    builds an autograd graph when the caller has grad enabled (prefill and
+    decode never do).  ``remat`` (train mode with grad, as JAX's
+    ``jax.checkpoint`` of the layer scan) runs each stacked layer's block
+    under ``torch.utils.checkpoint``, so the backward recomputes its
+    activations (the remainder layers ``rem`` are not rematerialized, as
+    in JAX); the recompute is exact (MoE's sorted dispatch is
+    deterministic).
 
     A cross-attention stack takes ``frames`` (B, n_frames, d_model), the
     encoder output every attention layer attends to, in every mode but
@@ -462,21 +496,25 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
     loads = []
 
-    def block(kind, p, st, x):
-        x, rl = _apply_block(cfg, kind, p, x, positions=positions, state=st,
-                             mode=mode, prefix_aware=prefix_aware,
-                             block_tables=block_tables,
-                             paged_kernel=paged_kernel, moe_impl=moe_impl,
-                             moe_cf=moe_cf, head_offload=head_offload,
-                             frames=frames)
+    def block(kind, p, st, x, ckpt=False):
+        run = functools.partial(
+            _apply_block, cfg, kind, positions=positions, state=st,
+            mode=mode, prefix_aware=prefix_aware, block_tables=block_tables,
+            paged_kernel=paged_kernel, moe_impl=moe_impl, moe_cf=moe_cf,
+            head_offload=head_offload, frames=frames)
+        x, rl = (torch.utils.checkpoint.checkpoint(run, p, x,
+                                                   use_reentrant=False)
+                 if ckpt else run(p, x))
         if rl is not None:
             loads.append(rl)
         return x
 
+    ckpt = remat and mode == "train" and torch.is_grad_enabled()
+    layers = [_unstack(gp, n_rep) for gp in params["groups"]]
     for r in range(n_rep):
         for g, kind in enumerate(pat):
             st = _layer(cache["groups"][g], r) if cache is not None else None
-            x = block(kind, _layer(params["groups"][g], r), st, x)
+            x = block(kind, layers[g][r], st, x, ckpt)
     for i in range(rem):
         st = cache["rem"][i] if cache is not None else None
         x = block(pat[i], params["rem"][i], st, x)
@@ -506,10 +544,12 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
 def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                   frames: Optional[torch.Tensor] = None,
-                  moe_impl: str = "sorted", moe_cf=None):
-    """The stateless forward: (logits (B, S, V), aux)."""
+                  moe_impl: str = "sorted", moe_cf=None,
+                  remat: bool = False):
+    """The stateless forward: (logits (B, S, V), aux); differentiable
+    under the caller's grad mode (``training/train_step.py``)."""
     logits, _, aux = apply(cfg, params, tokens, frames=frames, mode="train",
-                           moe_impl=moe_impl, moe_cf=moe_cf)
+                           moe_impl=moe_impl, moe_cf=moe_cf, remat=remat)
     return logits, aux
 
 

@@ -1287,6 +1287,131 @@ def test_cuda_smoke_phases_of_the_last_two_stacks(monkeypatch):
     assert all(run["split_kv_decode_partials"] > 0 for run in runs.values())
 
 
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+def _clone_tree(tree, device):
+    from repro_torch.training.tree import map_named
+    return map_named(lambda _, a: a.to(device, copy=True), tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,remat", [("llama-13b", False),
+                                        ("llama-13b", True),
+                                        ("granite-moe-3b-a800m", True)])
+def test_cuda_train_step_matches_cpu(arch, remat):
+    """One train step of the arch's smoke size in f32 on the card against
+    the same step on the CPU, from the same weights and tokens: the loss
+    within 1e-5 relative and every gradient leaf within 2e-4 of its
+    largest |CPU gradient| (f32 sums in another order, the bound the CPU
+    tests hold the port to against JAX); the AdamW update of the same
+    gradients within 1e-6 relative; the step's loss, grad norm and lr
+    within 1e-5 relative.  No leaf requires grad after the step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import (loss_and_grads,
+                                                 make_train_step)
+    from repro_torch.training.tree import named_leaves
+    cfg = get(arch).smoke()
+    base = T.init(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 33)).astype(np.int32))
+    ocfg = O.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    devs = ("cpu", "cuda")
+    got = {d: loss_and_grads(cfg, _clone_tree(base, d),
+                             {"tokens": toks.to(d)}, remat=remat)
+           for d in devs}
+    assert float(got["cuda"][0]) == pytest.approx(float(got["cpu"][0]),
+                                                  rel=1e-5)
+    grads = {d: named_leaves(got[d][2]) for d in devs}
+    for (name, a), (_, b) in zip(grads["cpu"], grads["cuda"]):
+        tol = 2e-4 * max(float(a.abs().max()), 1e-12)
+        assert float((b.cpu() - a).abs().max()) <= tol, name
+    cpu_grads = got["cpu"][2]
+    upd = {}
+    for d in devs:
+        p = _clone_tree(base, d)
+        O.apply_updates(ocfg, p, _clone_tree(cpu_grads, d), O.init_state(p))
+        upd[d] = named_leaves(p)
+    for (name, a), (_, b) in zip(upd["cpu"], upd["cuda"]):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-6, atol=1e-7,
+                                   msg=name)
+    step = make_train_step(cfg, ocfg, remat=remat)
+    metrics = {}
+    for d in devs:
+        p = _clone_tree(base, d)
+        p, _, metrics[d] = step(p, O.init_state(p), {"tokens": toks.to(d)})
+        assert not any(a.requires_grad for _, a in named_leaves(p))
+    for k in ("loss", "grad_norm", "lr"):
+        assert float(metrics["cuda"][k]) == pytest.approx(
+            float(metrics["cpu"][k]), rel=1e-5), k
+
+
+@pytest.mark.cuda
+def test_cuda_graphs_replay_weights_a_train_step_updated(monkeypatch):
+    """A decode engine captures its graphs, one train step then updates
+    the weights in place, and the same graphs replay (none is captured
+    again) equal to an eager engine's steps on the updated weights, bit
+    for bit: the graphs read the weights where the step wrote them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    from repro_torch.serving import engine as E
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.tree import named_leaves
+    cfg, params, ecfg = _small_stack()
+    pe = E.PrefillEngine(cfg, params, ecfg)
+    graph = E.DecodeEngine(cfg, params, ecfg)
+
+    def serve(de, record=None):
+        reqs = _span_requests(2)
+        for r in reqs:
+            st, lg = pe.run(r)
+            de.insert(r, st, int(torch.argmax(lg)))
+        while de.active:
+            de.step()
+        torch.cuda.synchronize()
+        return [r.generated for r in reqs]
+
+    before = serve(graph)
+    captured = graph.compiled.report()["graphs_captured"]
+    assert captured > 0
+    old = {n: a.clone() for n, a in named_leaves(params)}
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 65)).astype(np.int32)).cuda()
+    step = make_train_step(cfg, O.AdamWConfig(lr=1e-2, warmup_steps=1,
+                                              total_steps=4))
+    assert step(params, O.init_state(params), {"tokens": toks})[0] is params
+    assert all(not torch.equal(a, old[n]) for n, a in named_leaves(params)
+               if a.dim() >= 2)
+    assert not any(a.requires_grad for _, a in named_leaves(params))
+    orig = E.CompiledStep.__call__
+    runs = []
+    for de in (graph, E.DecodeEngine(cfg, params,
+                                     dataclasses.replace(ecfg,
+                                                         cuda_graphs=False))):
+        outs = []
+
+        def record(st, x):
+            out = orig(st, x)
+            outs.append(out.clone())
+            return out
+
+        monkeypatch.setattr(E.CompiledStep, "__call__", record)
+        runs.append((serve(de), outs))
+        monkeypatch.setattr(E.CompiledStep, "__call__", orig)
+    assert graph.compiled.report()["graphs_captured"] == captured
+    (g_streams, g_outs), (e_streams, e_outs) = runs
+    assert len(g_outs) == len(e_outs) > 0
+    assert all(torch.equal(g, e) for g, e in zip(g_outs, e_outs))
+    assert g_streams == e_streams != before
+
+
 @pytest.mark.cuda
 def test_cuda_uncapturable_forward_raises(monkeypatch):
     """A forward that cannot be captured (a host copy inside it) raises

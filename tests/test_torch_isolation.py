@@ -1,7 +1,7 @@
-"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and the
-card-only tests import neither JAX nor anything of the JAX package, and
-the port's entry points run on the card unless the caller asks for the
-CPU."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py``, the
+card-only tests and the port's examples import neither JAX nor anything
+of the JAX package, and the port's entry points run on the card unless
+the caller asks for the CPU."""
 import ast
 from pathlib import Path
 
@@ -15,7 +15,9 @@ from repro_torch.serving.orchestrator import Orchestrator, OrchestratorConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+       ROOT / "examples" / "torch_train_lm.py",
+       ROOT / "examples" / "torch_quickstart.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 CFG = ModelConfig(name="iso", family=Family.DENSE, n_layers=1, d_model=32,
                   n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64)
