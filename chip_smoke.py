@@ -131,11 +131,25 @@ Phases (any failure exits non-zero and prints no result line):
    plain through ``Server`` (replayed; tokens scored against the
    quantized forward) and over two 2-stage pipelines with a forced
    4-layer span move (its accounted bytes printed, streams against the
-   plain int8 run's).  Finally, with the weights freed,
+   plain int8 run's).  Then (v) ``Orchestrator.run`` (the batch drive)
+   on the plain run's configuration and requests: its streams must equal
+   the ``Server`` run's bit for bit, B1, B2 and B3 launch; and (w) the
+   multi-device runtime on a one-rank NCCL group and a 1 x 1 mesh:
+   ``sharded_decode_attention`` at llama-13b's 40 heads of 128 over one
+   row of 32,768 bf16 keys (B5 once, then the all_gather) against its
+   plain version within TOL_SHARDED, timed beside its bound, plain and
+   SDPA; granite-moe-3b-a800m's ``moe_apply(impl="local_sorted")`` on one
+   shard equal to ``sorted`` bit for bit; ``build_pipeline_decode`` on
+   llama-13b (one stage of 40 layers, 8 rows, a 1,024-slot dense cache),
+   8 steps, each token within TOKEN_GAP_TOL of ``T.decode_step``'s best
+   and B5 launched 40 times a step.  Finally, with the weights freed,
    (g) the serving CLI as two subprocesses, the live fleet over
    llama-13b (``--requests 8 --max-new 16 --max-len 1024 --autoscale
    --profiles h100_sxm``) and the simulator (``--backend sim --smoke``),
-   each of which must exit 0 with every request completed.  Then the MoE
+   each of which must exit 0 with every request completed, and (v)
+   ``examples/torch_serve_disaggregated.py`` as two subprocesses, plain
+   and ``--speculation ngram``, each exiting 0 after its own
+   token-for-token check against a single-engine rollout.  Then the MoE
    stacks, in f32 (random weights from seed 0; a probe first prints how
    far bf16 rounding, amplified through the routing, moves granite-moe's
    logits, past what the teacher-forced rule can tell from a fault):
@@ -250,6 +264,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # separate them: 2e-2.
 TOL_F32 = 1e-4
 TOL_BF16_OUT = 2e-2
+
+# Run (w)'s sharded attention: one row of 32,768 keys gives outputs of
+# about sqrt(e / L) ~ 0.01, so TOL_BF16_OUT would be twice a typical
+# value; 1e-3 (absolute, plus 1e-3 relative) still fails a kernel that
+# drops a key block, and rounding to bf16 at |o| < 0.1 moves o by < 4e-4.
+TOL_SHARDED = 1e-3
 
 # Teacher-forced check: a served token must lie within this many logits
 # of its step's best under the plain bf16 forward.  The paged kernels and
@@ -437,27 +457,50 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    """Device time of one call: the device time of every kernel (and copy)
-    the call runs, summed by torch.profiler over ``iters`` back-to-back
-    calls after a warm-up, per call.  Host dispatch is left out, so a
-    kernel and its yardsticks compare on the card's time alone."""
+def profile_ms(torch, fn, iters: int, warmup: int = 3,
+               bound_ms: float = None):
+    """Device time of one call, and of each kernel (and copy) in it, by
+    torch.profiler over ``iters`` back-to-back calls after a warm-up.
+    Host dispatch is left out, so a kernel and its yardsticks compare on
+    the card's time alone.  Returns (ms, {kernel name: ms}).
+
+    The profiler loses kernel events on the H100 machine: later in a
+    process a trace comes back a few launches short (95 of 100, 15 of 20)
+    however long it is, so its sum over ``iters`` reads low (B5 at
+    32,768 keys read 0.18 ms a call of 0.24).  So each kernel's time is
+    its mean over the launches the trace kept times its launches per call
+    (its count over ``iters``, rounded up); with nothing lost, that is the
+    trace's sum over ``iters``.  A reading under the caller's
+    ``bound_ms`` fails the run."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    where = f"chip_smoke.py:{fn.__code__.co_firstlineno}"
     for _ in range(3):   # a trace now and then comes back without device time
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        busy = sum(device_us(e) for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA"))
-        if busy > 0:
-            return busy / 1e3 / iters
-    fail(f"the profiler recorded no device time in three traces of the "
-         f"call at chip_smoke.py:{fn.__code__.co_firstlineno}")
+        per = {e.key: device_us(e) / e.count * -(-e.count // iters) / 1e3
+               for e in device_kernels(prof.key_averages()) if e.count}
+        ms = sum(per.values())
+        if ms > 0:
+            break
+    else:
+        fail(f"the profiler recorded no device time in three traces of the "
+             f"call at {where}")
+    if bound_ms is not None and ms < bound_ms:
+        fail(f"the call at {where} reads {ms:.4f} ms, under its bound "
+             f"{bound_ms:.4f} ms")
+    return ms, per
+
+
+def time_ms(torch, fn, iters: int, warmup: int = 3,
+            bound_ms: float = None) -> float:
+    """``profile_ms``'s time of one call."""
+    return profile_ms(torch, fn, iters, warmup, bound_ms)[0]
 
 
 def cycled(copies, fn):
@@ -1422,6 +1465,9 @@ def serving_phase(torch, card: str):
     launches.update(frontdoor_phase(torch, card, cfg, params,
                                     stats["plain"]["streams"]))
     launches.update(dense_phase(torch, card, cfg, params, stats["plain"]))
+    launches["orchestrator-run"] = orchestrator_run(
+        torch, card, cfg, params, stats["plain"]["streams"])
+    launches.update(multidevice_phase(torch, card, cfg, params))
     for q8, base in (("int8", "plain"), ("int8-ngram", "ngram")):
         a, b = stats[q8], stats[base]
         say(f"[{q8} vs {base}] decode {a['iter_ms']:.1f} vs "
@@ -2817,6 +2863,259 @@ def cli_phase(card) -> None:
             + f" [{card}]")
 
 
+EXAMPLE_RUNS = [[], ["--speculation", "ngram"]]
+EXAMPLE_OK = ("streamed outputs (incl. the mid-run submission) "
+              "token-identical to the single-engine reference")
+
+
+def examples_phase(card) -> None:
+    """(v): ``examples/torch_serve_disaggregated.py`` as subprocesses,
+    plain and with n-gram speculation (gemma-7b's smoke size in f32, 3
+    prefill / 1 decode members, a migration, a mid-run submission); each
+    must exit 0 after its own token-for-token check against a
+    single-engine rollout."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    script = ROOT / "examples" / "torch_serve_disaggregated.py"
+    for argv in EXAMPLE_RUNS:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, str(script), *argv], cwd=ROOT,
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        what = " ".join(["torch_serve_disaggregated.py", *argv])
+        if p.returncode != 0:
+            fail(f"[example] {what} exited {p.returncode}: "
+                 f"{p.stderr[-2000:]}")
+        if EXAMPLE_OK not in p.stdout:
+            fail(f"[example] {what}: no token-for-token check in its "
+                 f"output: {p.stdout[-1000:]}")
+        keep = [ln for ln in p.stdout.splitlines()
+                if ln.startswith(("arch=", "served ", "TTFT", "speculation="))]
+        say(f"[example] {what}: exit 0 in {wall:.1f} s; "
+            + " | ".join(keep) + f"; {EXAMPLE_OK} [{card}]")
+
+
+def orchestrator_run(torch, card, cfg, params, plain_streams):
+    """(v): ``Orchestrator.run`` (the batch drive: each request submitted
+    at its arrival, then drained) on the plain run's configuration and
+    the same 8 requests; its streams must equal the ``Server`` run's bit
+    for bit, and B1, B2 and B3 launch.  Returns its launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.orchestrator import (Orchestrator,
+                                                  OrchestratorConfig)
+
+    ecfg = EngineConfig(max_len=1024, max_batch=8, block_size=16,
+                        speculation="off", spec_len=4)
+    orch = Orchestrator(cfg, params, OrchestratorConfig(
+        n_prefill=1, n_decode=1, engine=ecfg, chunk_tokens=256))
+    reqs = served_requests(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    summary = orch.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    streams = {r.rid: list(r.generated) for r in reqs}
+    if streams != plain_streams:
+        diff = [rid for rid in streams if streams[rid] != plain_streams[rid]]
+        fail(f"[orchestrator-run] streams differ from the Server run's for "
+             f"requests {diff}")
+    missing = [k for k in ("paged_decode_partials", "flash_prefill",
+                           "paged_prefix_partials") if not launches[k]]
+    if missing:
+        fail(f"[orchestrator-run] kernels {missing} never launched")
+    check_pools_restored(orch)
+    say(f"[orchestrator-run] Orchestrator.run: {summary['n_requests']} "
+        f"requests, {sum(len(v) for v in streams.values())} tokens in "
+        f"{wall:.2f} s wall, {summary['events']} events; streams equal to "
+        f"the Server run's 8/8 bit for bit; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})} [{card}]")
+    del orch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# (w): context-parallel decode attention at llama-13b's heads, one row of
+# 32,768 keys; the pipeline's decode steps and cache
+SHARDED_KEYS = 32768
+PIPE_ROWS, PIPE_PROMPT, PIPE_CACHE, PIPE_STEPS = 8, 256, 1024, 8
+
+
+def multidevice_phase(torch, card, cfg, params):
+    """(w): the multi-device runtime on a one-rank NCCL group and a 1 x 1
+    mesh at full width.  ``sharded_decode_attention`` at llama-13b's 40
+    heads of 128 over one row of 32,768 bf16 keys (B5, then the gather)
+    against its plain version (``partial_attention`` and the combine on
+    the card) within TOL_SHARDED, timed beside its bound; granite-moe-3b-a800m's
+    ``moe_apply(impl="local_sorted")`` on one shard (one layer's experts
+    at full width, f32) equal to ``sorted`` bit for bit, with and without
+    a capacity factor; ``build_pipeline_decode`` on llama-13b (40 layers,
+    one stage, 8 rows prefilled with 256 tokens into a 1,024-slot dense
+    cache), every decoded token within TOKEN_GAP_TOL of ``T.decode_step``'s
+    best on the same tokens, B5 counted.  Returns {run label:
+    launches}."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.core import attention_offload as AO
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.split_kv_decode import split_kv_decode_partials
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.pipeline_decode import build_pipeline_decode
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    launches = {}
+    M.init_process_group("cuda")
+    try:
+        mesh = M.make_host_mesh()
+        say(f"[multi] one-rank {dist.get_backend()} group, mesh "
+            f"{M.axis_sizes(mesh)} [{card}]")
+        # -- sharded decode attention
+        gen = torch.Generator(device="cuda").manual_seed(25)
+        h, d = cfg.n_heads, cfg.head_dim
+        q = torch.randn((1, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn((1, SHARDED_KEYS, h, d), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        valid = torch.ones((1, SHARDED_KEYS), dtype=torch.bool,
+                           device="cuda")
+
+        def plain():
+            return AO.combine_partials(
+                *[[x] for x in AO.partial_attention(q, k, v, valid)]
+            ).to(q.dtype)
+
+        ops.reset_launches()
+        got = AO.sharded_decode_attention(mesh, q, k, v, valid)
+        torch.cuda.synchronize()
+        launches["(w) sharded attention"] = dict(ops.LAUNCHES)
+        if ops.LAUNCHES["split_kv_decode_partials"] != 1:
+            fail(f"[multi] sharded attention launched B5 "
+                 f"{ops.LAUNCHES['split_kv_decode_partials']} times, not 1")
+        err = check_close(torch, "[multi] sharded_decode_attention", got,
+                          plain(), TOL_SHARDED)
+
+        def sharded():
+            return AO.sharded_decode_attention(mesh, q, k, v, valid)
+
+        moved = nbytes(q, k, v, valid, got)
+        bound = 1e3 * max(moved / HBM_BYTES_PER_S,
+                          4 * h * d * SHARDED_KEYS / PEAK_FLOPS["bfloat16"])
+        # one timer, torch.profiler, each reading held to the bound; B5's
+        # share of the call and the rest (block merge, all_gather,
+        # combine) are read off the call's own trace
+        ms, per = profile_ms(torch, sharded, 20, bound_ms=bound)
+        b5_in_call = sum(t for key, t in per.items()
+                         if "split_decode_kernel" in key)
+        if not b5_in_call:
+            fail(f"[multi] no B5 kernel in the sharded call's trace: "
+                 f"{sorted(per)}")
+        b5_ms = time_ms(torch, lambda: split_kv_decode_partials(
+            q, k, v, valid), 20, bound_ms=bound)
+        plain_ms = time_ms(torch, plain, 5, bound_ms=bound)
+        sdpa_ms = time_ms(torch, lambda: torch.nn.functional
+                          .scaled_dot_product_attention(
+                              q[:, :, None], k.transpose(1, 2),
+                              v.transpose(1, 2)), 20, bound_ms=bound)
+        say(f"[multi] sharded_decode_attention (1 x {SHARDED_KEYS} keys, "
+            f"{h} heads of {d}, bf16, {moved / 1e6:.1f} MB): "
+            f"{ms:.4f} ms of device time per call (B5 {b5_in_call:.4f} ms "
+            f"and the merge, all_gather and combine "
+            f"{ms - b5_in_call:.4f} ms of it, {len(per)} kernels); B5 alone "
+            f"{b5_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {sdpa_ms:.4f} "
+            f"ms, all by torch.profiler; bound {bound:.4f} ms (bytes); max "
+            f"|got - plain| {err:.3e} (tolerance {TOL_SHARDED}); B5 "
+            f"launches 1 [{card}]")
+        del q, k, v, valid, got
+        torch.cuda.empty_cache()
+
+        # -- per-shard MoE dispatch
+        mcfg = get("granite-moe-3b-a800m")
+        mgen = torch.Generator(device="cuda").manual_seed(26)
+        p = L.init_moe(mcfg, mgen, torch.float32, torch.device("cuda"))
+        x = torch.randn((4, 512, mcfg.d_model), generator=mgen,
+                        device="cuda")
+        for cf in (None, 1.25):
+            want = L.moe_apply(mcfg, p, x, impl="sorted", capacity_factor=cf)
+            ops.reset_launches()
+            got = L.moe_apply(mcfg, p, x, impl="local_sorted",
+                              capacity_factor=cf, mesh=mesh)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"[multi] local_sorted (cf {cf}) differs from sorted")
+            say(f"[multi] granite-moe-3b-a800m moe_apply(local_sorted, cf "
+                f"{cf}) on one shard of 4 x 512 tokens: y and router_load "
+                f"equal to sorted bit for bit (load max "
+                f"{float(got[1].max()):.4f}) [{card}]")
+        del p, x, got, want
+        torch.cuda.empty_cache()
+
+        # -- pipeline decode
+        fn, per_stage, n_pad = build_pipeline_decode(cfg, mesh, PIPE_ROWS)
+        if (per_stage, n_pad) != (cfg.n_layers, 0):
+            fail(f"[multi] one stage: (per_stage, n_pad) = "
+                 f"{(per_stage, n_pad)}")
+        pgen = torch.Generator(device="cuda").manual_seed(27)
+        toks = torch.randint(0, cfg.vocab_size, (PIPE_ROWS, PIPE_PROMPT),
+                             generator=pgen, device="cuda", dtype=torch.int32)
+        cache = T.init_cache(cfg, PIPE_ROWS, PIPE_CACHE, dtype=torch.bfloat16)
+        lg, cache, _ = T.prefill(cfg, params, toks, cache)
+        ref_cache = {"lengths": cache["lengths"].clone(),
+                     "groups": tuple({k: a.clone() for k, a in g.items()}
+                                     for g in cache["groups"]),
+                     "rem": ()}
+        tok = lg.argmax(-1).to(torch.int32)[:, None]
+        pipe_launch = {k: 0 for k in ops.LAUNCHES}
+        worst, pipe_s, ref_s = 0.0, 0.0, 0.0
+        for _ in range(PIPE_STEPS):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t = time.perf_counter()
+            lg_p, cache = fn(params, tok, cache)
+            torch.cuda.synchronize()
+            pipe_s += time.perf_counter() - t
+            for k_, n in ops.LAUNCHES.items():
+                pipe_launch[k_] += n
+            t = time.perf_counter()
+            lg_r, ref_cache, _ = T.decode_step(cfg, params, tok, ref_cache)
+            torch.cuda.synchronize()
+            ref_s += time.perf_counter() - t
+            tok = lg_p.argmax(-1).to(torch.int32)[:, None]
+            lg_r = lg_r.float()
+            gap = (lg_r.max(-1).values - lg_r.gather(
+                1, tok.long()).squeeze(1)).max()
+            worst = max(worst, float(gap))
+        launches["(w) pipeline decode"] = pipe_launch
+        if worst > TOKEN_GAP_TOL:
+            fail(f"[multi] pipeline decode: a token {worst:.4f} below "
+                 f"T.decode_step's best (tolerance {TOKEN_GAP_TOL})")
+        want_b5 = PIPE_STEPS * cfg.n_layers
+        if pipe_launch["split_kv_decode_partials"] != want_b5:
+            fail(f"[multi] pipeline decode launched B5 "
+                 f"{pipe_launch['split_kv_decode_partials']} times, not "
+                 f"{want_b5}")
+        say(f"[multi] build_pipeline_decode: llama-13b, 1 stage of "
+            f"{per_stage} layers, {PIPE_ROWS} rows after a {PIPE_PROMPT}-"
+            f"token prefill into a {PIPE_CACHE}-slot dense cache, "
+            f"{PIPE_STEPS} steps: {pipe_s / PIPE_STEPS * 1e3:.1f} ms per "
+            f"step (T.decode_step {ref_s / PIPE_STEPS * 1e3:.1f} ms); every "
+            f"token within {worst:.4f} of T.decode_step's best (tolerance "
+            f"{TOKEN_GAP_TOL}); B5 launches {want_b5} [{card}]")
+        del cache, ref_cache
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"multi-device runtime (w): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # MoE stacks: granite-moe-3b-a800m at full size, grok-1-314b at 2 layers
 # ---------------------------------------------------------------------------
@@ -3931,6 +4230,11 @@ def main() -> None:
         t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
                          >= t["flops"] / PEAK_FLOPS[t["dtype"]]
                          else "operations")
+        for k in ("ms", "plain_ms", "library_ms"):
+            if t.get(k) is not None and t[k] < t["bound_ms"]:
+                fail(f"{key}: {k} {t[k]:.4f} is under the bound "
+                     f"{t['bound_ms']:.4f} ms: the timer or the byte count "
+                     f"is wrong")
         split = (f" (pages_per_split {t['pages_per_split']})"
                  if "pages_per_split" in t else "")
         times = ", ".join(f"{name} {t[k]:.4f} ms" for k, name in (
@@ -3945,6 +4249,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     cli_phase(card)
+    examples_phase(card)
     per_run.update(moe_phase(torch, card))
     per_run.update(hybrid_phase(torch, card))
     per_run.update(xlstm_phase(torch, card))

@@ -11,9 +11,11 @@ and the exact softmax over the union is
 ``split_kv_attention`` runs an N-way partition of one decode query's KV
 as a loop over partitions: along the sequence (context-parallel decode)
 or along the heads (Fig. 4's hot and cold devices, each branch its own
-exact softmax).  ``reference_attention`` is the one-softmax form the
-tests hold both against.  (JAX's ``sharded_decode_attention`` shards the
-sequence over a device mesh: ROADMAP A9.)
+exact softmax).  ``sharded_decode_attention`` runs the sequence partition
+across the ranks of a device mesh: each rank computes its shard's
+partial and one ``all_gather`` of (H·D + 2H) floats per row brings every
+rank the others'.  ``reference_attention`` is the one-softmax form the
+tests hold them against.
 
 The combine is plain torch (it is plain XLA in the JAX package, not a
 Pallas kernel): the page-fused kernels emit one partial per page and
@@ -27,6 +29,7 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 def partial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -116,6 +119,48 @@ def split_kv_attention(q: torch.Tensor, k_parts: Sequence[torch.Tensor],
             h0 += hj
         return torch.cat(outs, dim=1)
     raise ValueError(axis)
+
+
+def sharded_decode_attention(mesh, q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, kv_valid: torch.Tensor, *,
+                             seq_axis: str = "data",
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention with the KV sequence sharded over the mesh axis
+    ``seq_axis`` (JAX's ``shard_map`` of the same name, as explicit
+    collectives).  Every rank calls it with its own shard: q (B, H, D)
+    whole on every rank; k, v (B, L_j, KV, D) and kv_valid (B, L_j) bool,
+    this rank's slice of the sequence (rank order along ``seq_axis`` is
+    sequence order).  Returns the whole (B, H, D) in q's dtype on every
+    rank.
+
+    Each rank computes its partial (o, l, m): on a CUDA tensor kernel B5's
+    per-block partials (``split_kv_decode_partials``, GQA-native, read in
+    place) merged over the blocks, on a CPU tensor the plain
+    ``partial_attention`` (K/V heads must equal q's there, as JAX's).  One
+    ``all_gather`` over the axis's process group then carries B·(H·D + 2H)
+    floats per rank, independent of L (the paper's "only l and O are
+    exchanged", Eq. 8-10), and ``combine_partials`` takes them in rank
+    order.  A shard with no valid key contributes nothing."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cuda":
+        from ..kernels.ref import merge_partials_plain
+        from ..kernels.split_kv_decode import split_kv_decode_partials
+        parts = split_kv_decode_partials(q, k, v, kv_valid.bool(),
+                                         scale=scale)
+        o, l, m = (x.squeeze(1) for x in merge_partials_plain(
+            parts, group=parts[1].shape[1]))
+    else:
+        o, l, m = partial_attention(q, k, v, kv_valid.bool(), scale)
+    group = mesh.get_group(seq_axis)
+    n = dist.get_world_size(group)
+    d = o.shape[-1]
+    mine = torch.cat([o, l[..., None], m[..., None]], dim=-1).contiguous()
+    parts = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(parts, mine, group=group)
+    stats = torch.stack(parts)                       # (J, B, H, D + 2)
+    return combine_stacked((stats[..., :d], stats[..., d],
+                            stats[..., d + 1])).to(q.dtype)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,3 +1,5 @@
-"""Command-line front ends of the port
-(``python -m repro_torch.launch.serve``, ``python -m
-repro_torch.launch.train``)."""
+"""The port's launch layer: command-line front ends (``python -m
+repro_torch.launch.serve``, ``python -m repro_torch.launch.train``), the
+process groups and device meshes (``mesh``), the assigned input shapes
+(``specs``), the sharding policy (``sharding``) and pipeline-parallel
+decode (``pipeline_decode``)."""

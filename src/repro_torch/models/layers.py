@@ -47,6 +47,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed
 import torch.nn.functional as F
 
 from ..kernels import ops
@@ -584,6 +585,7 @@ MOE_IMPLS = ("dense", "sorted", "local_sorted")
 def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
               impl: str = "sorted",
               capacity_factor: Optional[float] = None,
+              mesh=None,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k MoE, as JAX's ``moe_apply``.  Returns (y, router_load), the
     load being each expert's share of the T * k (token, expert) pairs.
@@ -597,8 +599,15 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     ``capacity_factor=None`` is no-drop (cap = T, what serving runs); a
     float bounds cap at ceil(T * k / E * cf), and pairs ranked past it
     within their expert, in the stable sorted order, are dropped.
-    impl="local_sorted" (JAX: the sorted dispatch per data shard under
-    ``shard_map``) needs a device mesh and raises.
+    impl="local_sorted": the sorted dispatch per data shard (JAX's
+    ``shard_map`` over the mesh's "pod"/"data" axes, as explicit
+    collectives).  Every rank of ``mesh`` (a ``DeviceMesh``) calls it with
+    its own batch shard ``x`` and the whole ``p``; the argsort and gathers
+    stay on the rank, with the capacity of its T_local rows
+    (ceil(T_local * k / E * cf)), and ``router_load`` is the mean of the
+    shards' loads (``all_reduce`` over the data axes, divided by their
+    size).  With no mesh, or a mesh without a data axis, it is "sorted",
+    as JAX falls back.
 
     Static shapes and no host read-back, so the step can be captured in a
     CUDA graph.  No scatter-add: the buffer is gathered from the sorted
@@ -606,9 +615,19 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     inverse permutation and summed over k in one fixed-order reduction,
     so the output does not vary from run to run."""
     if impl == "local_sorted":
-        raise NotImplementedError(
-            "moe_apply(impl='local_sorted') shards the dispatch over a "
-            "device mesh: not ported yet (ROADMAP A9, multi-device)")
+        from ..launch.mesh import data_axes
+        dp = data_axes(mesh) if mesh is not None else ()
+        if not dp:
+            impl = "sorted"
+        else:
+            y, load = moe_apply(cfg, p, x, impl="sorted",
+                                capacity_factor=capacity_factor)
+            n = 1
+            for a in dp:
+                group = mesh.get_group(a)
+                torch.distributed.all_reduce(load, group=group)
+                n *= torch.distributed.get_world_size(group)
+            return y, load / n
     if impl not in MOE_IMPLS:
         raise ValueError(f"unknown MoE impl {impl!r}")
     b, s, d = x.shape

@@ -35,6 +35,10 @@ def _quant_leaf(x: torch.Tensor, stacked: bool):
     min_rank = 3 if stacked else 2      # matrices only; norm vectors stay
     if x.dim() < min_rank or not x.is_floating_point():
         return x
+    if x.is_meta:                       # shapes only (``launch/specs.py``)
+        return {"q": torch.empty(x.shape, dtype=torch.int8, device=x.device),
+                "s": torch.empty(x.shape[:1] if stacked else (),
+                                 dtype=torch.float32, device=x.device)}
     if not stacked:
         s = x.float().abs().amax().clamp_min(1e-8) / 127.0
         return {"q": _quant(x, s), "s": s}

@@ -147,12 +147,14 @@ def _init_block(cfg: ModelConfig, kind: BlockKind,
 def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
          device: D.DeviceLike = None) -> Params:
     """Random weights drawn from ``seed`` on ``device`` (default the CUDA
-    card), with the scales of the JAX ``init`` (the MoE router in f32).
+    card), with the scales of the JAX ``init`` (the MoE router in f32);
+    on ``meta`` only the tree's shapes and dtypes.
     Stacked groups are allocated at once and filled leaf by leaf, so the
     peak beyond the weights is one leaf's f32 draw."""
     check_supported(cfg)
     dev = D.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     pat, n_rep, rem = _group_shapes(cfg)
     params: Params = {
         "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype, dev,
@@ -170,8 +172,10 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
         shapes = _init_block(cfg, kind, None, dtype, torch.device("meta"))
         stacked = _tree_map(lambda a: torch.empty(
             (n_rep,) + tuple(a.shape), dtype=a.dtype, device=dev), shapes)
-        for r in range(n_rep):
-            _init_block(cfg, kind, gen, dtype, dev, out=_layer(stacked, r))
+        if dev.type != "meta":
+            for r in range(n_rep):
+                _init_block(cfg, kind, gen, dtype, dev,
+                            out=_layer(stacked, r))
         groups.append(stacked)
     params["groups"] = tuple(groups)
     params["rem"] = tuple(_init_block(cfg, pat[i], gen, dtype, dev)

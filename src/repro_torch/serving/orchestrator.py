@@ -64,7 +64,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Deque, Dict, List, Optional, Set
+from typing import Deque, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -1045,6 +1045,22 @@ class Orchestrator(BackendBase):
         self.retired.append(m)
         self._record_fleet()
         return True
+
+    # -- public drive ------------------------------------------------------
+    def run(self, reqs: Sequence[Request],
+            max_events: int = 1_000_000) -> dict:
+        """Batch drive over the streaming surface: each request is
+        submitted at its workload arrival stamp (the virtual arrival
+        time), then the loop drains, event for event what
+        ``api.Server.run`` does.  Raises ``RuntimeError`` naming any
+        request left without an outcome; returns ``summary()``."""
+        for r in sorted(reqs, key=lambda r: r.arrival):
+            self.submit(r, at=r.arrival)
+        self.drain(max_events=max_events)
+        lost = [r.rid for r in reqs if r.outcome is None]
+        if lost:
+            raise RuntimeError(f"orchestrator lost requests {lost}")
+        return self.summary()
 
     # -- Algorithm 1: control cycle --------------------------------------
     def _device_loads(self) -> List[DeviceLoad]:

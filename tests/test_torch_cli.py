@@ -8,7 +8,9 @@ when asked, and without a card and without ``--device cpu`` it raises.
 Tolerances: printed output exactly; summaries and pipeline times within
 1e-9 relative (NaN equal to NaN), as in ``test_torch_frontdoor.py``.
 """
+import runpy
 import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -118,3 +120,47 @@ def test_cli_needs_a_card_unless_cpu_is_asked(backend, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--backend", backend, "--smoke"])
+
+
+# ---------------------------------------------------------------------------
+# The ported examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+
+
+def _example(name):
+    """An example script's namespace, loaded without running it."""
+    return runpy.run_path(str(EXAMPLES / name), run_name="example")
+
+
+def test_simulate_cluster_example_prints_what_jax_prints(capsys):
+    """``examples/torch_simulate_cluster.py`` prints, line for line, what
+    ``examples/simulate_cluster.py`` prints (its four workload runs)."""
+    _example("simulate_cluster.py")["main"]()
+    want = capsys.readouterr().out
+    _example("torch_simulate_cluster.py")["main"]()
+    got = capsys.readouterr().out
+    assert got == want
+    assert got.count("banaserve") == 4
+
+
+@pytest.mark.parametrize("speculation", ["off", "ngram"])
+def test_serve_disaggregated_example_on_the_cpu(speculation, capsys):
+    """``examples/torch_serve_disaggregated.py --device cpu`` runs to its
+    end: the mid-run submission, at least one applied migration and every
+    stream token-identical to a single-engine rollout (its own asserts)."""
+    _example("torch_serve_disaggregated.py")["main"](
+        ["--device", "cpu", "--speculation", speculation])
+    out = capsys.readouterr().out
+    assert "submitted request 999 mid-run" in out
+    assert "all 15 streamed outputs (incl. the mid-run submission) " \
+        "token-identical to the single-engine reference" in out
+    if speculation == "ngram":
+        assert "speculation=ngram: tokens/decode-iter=" in out
+
+
+def test_serve_disaggregated_example_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _example("torch_serve_disaggregated.py")["main"]([])

@@ -1413,6 +1413,51 @@ def test_cuda_graphs_replay_weights_a_train_step_updated(monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 4e-3)])
+def test_cuda_sharded_decode_attention_on_b5_vs_plain(dtype, tol):
+    """``sharded_decode_attention`` on a one-rank NCCL group and a 1 x 1
+    mesh runs B5 (one launch: its per-block partials, merged, then the
+    gather) and equals its plain version (``partial_attention`` and the
+    combine, on the CPU) on the same inputs: a GQA case with a ragged last
+    key block, one row attending nothing.  The outputs' spread is ~0.04,
+    so bf16 is held to 4e-3 (about one bf16 step), not 2e-2, which a
+    kernel that dropped a key block could pass."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import torch.distributed as dist
+    from repro_torch.core import attention_offload as AO
+    from repro_torch.launch import mesh as M
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(7)
+    b, length, h, kv, d = 3, 1300, 8, 2, 128
+    q = torch.from_numpy(rng.normal(size=(b, h, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(b, length, kv, d)).astype(
+        np.float32)) for _ in range(2))
+    valid = torch.from_numpy(np.arange(length)[None] < np.array(
+        [[1300], [777], [0]]))
+    q, k, v = (x.to(dt) for x in (q, k, v))
+    g = h // kv
+    o, l, m = AO.partial_attention(q, k.repeat_interleave(g, 2),
+                                   v.repeat_interleave(g, 2), valid)
+    want = AO.combine_partials([o], [l], [m]).to(dt)
+    M.init_process_group("cuda")
+    try:
+        mesh = M.make_host_mesh()
+        ops.reset_launches()
+        got = AO.sharded_decode_attention(
+            mesh, q.cuda(), k.cuda(), v.cuda(), valid.cuda())
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["split_kv_decode_partials"] == 1
+    finally:
+        dist.destroy_process_group()
+    assert got.dtype == dt and got.shape == (b, h, d)
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol,
+                               rtol=tol)
+    assert not got[2].any()
+
+
+@pytest.mark.cuda
 def test_cuda_uncapturable_forward_raises(monkeypatch):
     """A forward that cannot be captured (a host copy inside it) raises
     on a graph engine; nothing runs it eagerly instead.  The same

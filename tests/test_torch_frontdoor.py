@@ -446,3 +446,59 @@ def test_ported_paths_match_oracle(sides, name):
     got, _ = both(sides, path_run, name)
     assert got.srv.summary()["n_requests"] == 6
     assert_pools_restored(got.srv.backend)
+
+
+# ---------------------------------------------------------------------------
+# (g) the batch drive: Orchestrator.run
+# ---------------------------------------------------------------------------
+
+def batch_run(S, name, drive):
+    """One ``PATHS`` fleet with the clock's event log on, driven by
+    ``Orchestrator.run`` (``drive="orch"``) or ``Server.run``."""
+    kw = dict(PATHS[name])
+    spec = kw.pop("speculation", "off")
+    engine = S.ECfg(max_len=ECFG.max_len, max_batch=ECFG.max_batch,
+                    block_size=ECFG.block_size, speculation=spec)
+    orch = S.orch(n_prefill=2, n_decode=2, engine=engine, trace_events=True,
+                  **kw)
+    reqs = workload(S, n=6, seed=29, max_new=8)
+    summary = (orch.run(reqs) if drive == "orch"
+               else S.api.Server(orch).run(reqs))
+    return SimpleNamespace(
+        orch=orch, summary=summary, trace=list(orch.clock.trace),
+        streams={r.rid: (r.outcome.value, list(r.generated)) for r in reqs})
+
+
+@pytest.mark.parametrize("name", ["plain", "chunked", "ngram",
+                                  "decode_split2"])
+def test_orchestrator_run_matches_oracle_and_server(sides, name):
+    """``Orchestrator.run`` equals the oracle's ``run`` event for event
+    (kinds exactly, virtual times within REL) with the same streams and
+    ``summary()``, and equals the port's own ``Server.run`` on the same
+    requests exactly."""
+    j, p = sides
+    want = batch_run(j, name, "orch")
+    got = batch_run(p, name, "orch")
+    assert got.streams == want.streams
+    assert len(got.streams) == 6 and all(
+        o == "completed" for o, _ in got.streams.values())
+    assert [k for _, k in got.trace] == [k for _, k in want.trace]
+    assert_same([t for t, _ in got.trace], [t for t, _ in want.trace],
+                "trace")
+    assert_same(got.summary, want.summary)
+    served = batch_run(p, name, "server")
+    assert served.trace == got.trace and served.streams == got.streams
+    assert repr(served.summary) == repr(got.summary)   # NaN equal to NaN
+    assert_pools_restored(got.orch)
+
+
+def test_orchestrator_run_names_lost_requests(sides):
+    """A request left without an outcome after the drain raises
+    ``RuntimeError`` naming it, on both sides (the drain is stubbed out
+    so that nothing is served)."""
+    for S in sides:
+        orch = S.orch(n_prefill=1, n_decode=1)
+        reqs = workload(S, n=3, seed=5)
+        orch.drain = lambda max_events: []
+        with pytest.raises(RuntimeError, match=r"lost requests \[0, 1, 2\]"):
+            orch.run(reqs)

@@ -17,7 +17,9 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
        ROOT / "examples" / "torch_train_lm.py",
-       ROOT / "examples" / "torch_quickstart.py"]
+       ROOT / "examples" / "torch_quickstart.py",
+       ROOT / "examples" / "torch_serve_disaggregated.py",
+       ROOT / "examples" / "torch_simulate_cluster.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 CFG = ModelConfig(name="iso", family=Family.DENSE, n_layers=1, d_model=32,
                   n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=64)
@@ -36,7 +38,9 @@ def _imported_modules(path: Path):
 def test_sources_are_found():
     names = {p.name for p in SOURCES}
     assert {"chip_smoke.py", "layers.py", "orchestrator.py",
-            "split_kv_decode.py", "flash_prefill.py"} <= names
+            "split_kv_decode.py", "flash_prefill.py", "mesh.py",
+            "sharding.py", "pipeline_decode.py",
+            "torch_serve_disaggregated.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(

@@ -144,15 +144,22 @@ def test_moe_router_load_is_a_distribution():
         assert abs(float(load.sum()) - 1.0) < 1e-6
 
 
-def test_moe_impls_that_need_a_mesh_raise():
-    """``local_sorted`` shards the dispatch over a device mesh (ROADMAP
-    A9); nothing reroutes it to ``sorted``.  An unknown impl is refused."""
+def test_local_sorted_without_a_mesh_is_sorted():
+    """``local_sorted`` with no mesh is the ``sorted`` dispatch, as JAX
+    falls back when no data axis is in scope: ``y`` and ``router_load``
+    bit for bit, with and without a capacity factor.  (Over a mesh it is
+    held to JAX's in ``test_torch_multidevice.py``.)  An unknown impl is
+    still refused."""
     _, pc, p, x = _moe_case(port_configs.get("grok-1-314b").activation)
     tp = {key: torch.as_tensor(a) for key, a in p.items()}
-    with pytest.raises(NotImplementedError, match="A9"):
-        L.moe_apply(pc, tp, torch.as_tensor(x), impl="local_sorted")
+    xt = torch.as_tensor(x)
+    for cf in (None, 1.25):
+        want = L.moe_apply(pc, tp, xt, impl="sorted", capacity_factor=cf)
+        got = L.moe_apply(pc, tp, xt, impl="local_sorted",
+                          capacity_factor=cf, mesh=None)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(ValueError, match="impl"):
-        L.moe_apply(pc, tp, torch.as_tensor(x), impl="megablocks")
+        L.moe_apply(pc, tp, xt, impl="megablocks")
 
 
 # ---------------------------------------------------------------------------
