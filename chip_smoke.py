@@ -142,7 +142,25 @@ Phases (any failure exits non-zero and prints no result line):
    shard equal to ``sorted`` bit for bit; ``build_pipeline_decode`` on
    llama-13b (one stage of 40 layers, 8 rows, a 1,024-slot dense cache),
    8 steps, each token within TOKEN_GAP_TOL of ``T.decode_step``'s best
-   and B5 launched 40 times a step.  Finally, with the weights freed,
+   and B5 launched 40 times a step; and (x1) shared pages across span
+   stages: a 2-stage ``DecodePipeline`` over [(0, 20), (20, 40)], two
+   requests of one served prompt, the second bound to the first's full
+   prompt pages on both stages (``slot_pages`` into ``shared_pages``;
+   ``pages_shared`` printed per stage), then after 8 iterations a live
+   4-layer span move, both streams through ``check_streams``, every
+   stage's pool whole again, B1 and B2 launched.  With the weights freed,
+   (x2) the dry run on this machine's torch: ``dryrun.run_one`` for
+   llama3-405b decode_32k and granite-moe-3b-a800m train_4k on 16 x 16
+   fake ranks (host only), each roofline printed; and (x3) its one-rank
+   figures against the card: llama-13b at full size in bf16, a decode
+   step of 8 rows over a 4,096-slot dense cache (B5 on every layer) and
+   a fresh 1 x 4,096 prefill (B2), the dry run on a one-rank fake group,
+   then the same ``steps.build`` step on values over a one-rank NCCL
+   group and a 1 x 1 mesh: the dry run's resident bytes within 1 % of
+   the ``memory_allocated`` delta, its flops equal to
+   ``FlopCounterMode``'s, the kernel on every layer, the plain serving
+   step (CUDA events) not under the roofline's largest term; the peaks
+   and the measured-to-bound ratio printed.  Then, still without weights,
    (g) the serving CLI as two subprocesses, the live fleet over
    llama-13b (``--requests 8 --max-new 16 --max-len 1024 --autoscale
    --profiles h100_sxm``) and the simulator (``--backend sim --smoke``),
@@ -1468,6 +1486,9 @@ def serving_phase(torch, card: str):
     launches["orchestrator-run"] = orchestrator_run(
         torch, card, cfg, params, stats["plain"]["streams"])
     launches.update(multidevice_phase(torch, card, cfg, params))
+    t0 = time.perf_counter()
+    launches["x-shared"] = shared_span_run(torch, card, cfg, params)
+    say(f"shared span pages (x1): {time.perf_counter() - t0:.1f} s")
     for q8, base in (("int8", "plain"), ("int8-ngram", "ngram")):
         a, b = stats[q8], stats[base]
         say(f"[{q8} vs {base}] decode {a['iter_ms']:.1f} vs "
@@ -3117,6 +3138,288 @@ def multidevice_phase(torch, card, cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# (x) Shared pages across span stages; the dry run's tables on the host and
+# its one-rank figures against the card
+# ---------------------------------------------------------------------------
+
+SHARED_BOUNDS = [(0, 20), (20, 40)]
+SHARED_STEPS = 8           # decode iterations before the live span move
+SHARED_MOVE = 4            # layers the move shifts from stage 0 to stage 1
+DRYRUN_HOST = (("llama3-405b", "decode_32k"),
+               ("granite-moe-3b-a800m", "train_4k"))
+# the one-rank check: llama-13b at full size in bf16 on a 1 x 1 mesh
+ONE_RANK_SHAPES = (("decode_4k", 4096, 8, "decode"),
+                   ("prefill_4k", 4096, 1, "prefill"))
+ONE_RANK_KERNEL = {"decode": "split_kv_decode_partials",
+                   "prefill": "flash_prefill"}
+RESIDENT_TOL_REL = 0.01
+ONE_RANK_ITERS = 5
+
+
+def shared_span_run(torch, card, cfg, params):
+    """(x1): a 2-stage ``DecodePipeline`` over SHARED_BOUNDS; two requests
+    with the same served prompt, the second bound to the first's full
+    prompt pages on both stages (``slot_pages`` into ``shared_pages``),
+    SHARED_STEPS iterations, a live SHARED_MOVE-layer ``move_span``, then
+    decoded to the end: both streams pass ``check_streams``, every stage's
+    pool is whole again, B1 and B2 launch.  Returns the run's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import kvcache as KC
+    from repro_torch.serving.engine import EngineConfig, PrefillEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.span import DecodePipeline
+
+    label = "x-shared"
+    ecfg = EngineConfig(max_len=1024, max_batch=8, block_size=16)
+    prompt = max(served_requests(cfg), key=lambda r: r.prompt_len).prompt
+    reqs = [Request(rid=i, arrival=0.0, prompt=prompt.copy(),
+                    max_new_tokens=32) for i in range(2)]
+    pe = PrefillEngine(cfg, params, ecfg)
+    dp = DecodePipeline(cfg, params, ecfg, SHARED_BOUNDS)
+    n_share = (reqs[0].prompt_len - 1) // ecfg.block_size   # own page kept
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    st, lg = pe.run(reqs[0])
+    s0 = dp.insert(reqs[0], st, int(torch.argmax(lg)))
+    pages = dp.slot_pages(s0)[:n_share]
+    st, lg = pe.run(reqs[1])
+    s1 = dp.insert(reqs[1], KC.split_paged_state(st, n_share,
+                                                 ecfg.block_size),
+                   int(torch.argmax(lg)), shared_pages=pages)
+    del st, lg
+    shared = [e.pages_shared for e in dp.engines]
+    if shared != [n_share] * len(SHARED_BOUNDS) or \
+            dp.slot_pages(s1)[:n_share] != pages:
+        fail(f"[{label}] pages shared per stage {shared}, want {n_share} "
+             f"each, bound by reference")
+    for _ in range(SHARED_STEPS):
+        dp.step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    moved = dp.move_span(0, 1, SHARED_MOVE)
+    torch.cuda.synchronize()
+    move_ms = (time.perf_counter() - t1) * 1e3
+    want_bounds = [(0, 20 - SHARED_MOVE), (20 - SHARED_MOVE, 40)]
+    if moved is None or moved["layers"] != SHARED_MOVE or \
+            [tuple(b) for b in dp.bounds] != want_bounds:
+        fail(f"[{label}] span move gave {moved and moved['layers']} layers, "
+             f"bounds {dp.bounds}")
+    while dp.active:
+        dp.step()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for e in dp.engines:
+        try:
+            e.pool.check(holders=[])
+        except AssertionError as exc:
+            fail(f"[{label}] {e.name}: pool invariant after the move: {exc}")
+        if e.active or len(e._free) != ecfg.max_batch * e._nb_slot:
+            fail(f"[{label}] {e.name}: pool not restored")
+    check_streams(torch, cfg, params, label, reqs, launches,
+                  ("paged_decode_partials", "flash_prefill"),
+                  ("paged_verify_partials",))
+    same = reqs[0].generated == reqs[1].generated
+    say(f"[{label}] DecodePipeline {SHARED_BOUNDS}: 2 requests of one "
+        f"{reqs[0].prompt_len}-token prompt, the second bound to the "
+        f"first's {n_share} full pages on every stage (pages_shared per "
+        f"stage {shared}); after {SHARED_STEPS} iterations a live "
+        f"{SHARED_MOVE}-layer span move to {dp.bounds} in {move_ms:.1f} ms "
+        f"({moved['kv_bytes'] / 2**20:.1f} MiB of KV re-adopted unshared); "
+        f"every stage's pool restored; the two streams "
+        f"{'equal' if same else 'differ'}; {run_s:.2f} s; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})} [{card}]")
+    del pe, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dryrun_host_run(torch, card) -> None:
+    """(x2): ``dryrun.run_one`` on this machine's torch for DRYRUN_HOST on
+    the 16 x 16 mesh of 256 fake ranks (host only, no card), each
+    roofline printed.  Fails unless every combination is OK."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun as DR
+
+    try:
+        for arch, shape in DRYRUN_HOST:
+            rec = DR.run_one(arch, shape, "single",
+                             out_dir=str(ROOT / "build" / "dryrun"),
+                             verbose=False)
+            if not rec["ok"]:
+                fail(f"[x-dryrun] {arch} {shape}: {rec['error']}")
+            ro = rec["roofline"]
+            say(f"[x-dryrun] {arch} {shape} on 16 x 16 fake ranks (torch "
+                f"{torch.__version__}, host only): flops/chip "
+                f"{rec['flops']:.4g}, collective bytes/chip "
+                f"{rec['collective_bytes']:.4g} "
+                f"{json.dumps(rec['collective_counts'])}, resident "
+                f"{rec['resident_bytes_per_chip'] / 2**30:.2f} GiB, peak "
+                f"{rec['peak_bytes_per_chip'] / 2**30:.2f} GiB, fits_hbm "
+                f"{rec['fits_hbm']}; roofline on the H100's rates: compute "
+                f"{ro['t_compute_s'] * 1e3:.3f} ms, memory "
+                f"{ro['t_memory_s'] * 1e3:.3f} ms, collective "
+                f"{ro['t_collective_s'] * 1e3:.3f} ms ({ro['bottleneck']}), "
+                f"useful flop ratio {ro['useful_flop_ratio']:.3f}; "
+                f"{rec['run_s']:.1f} s on the host")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def one_rank_check(torch, card):
+    """(x3): the dry run's one-rank figures against the card.  llama-13b
+    at full size in bf16; ONE_RANK_SHAPES (a decode step of 8 rows over a
+    4,096-slot dense cache: B5 on every layer; a fresh prefill of 1 x
+    4,096 tokens: B2).  The dry run first, on a one-rank fake group (meta
+    shards); then the same ``steps.build`` step on values over a one-rank
+    NCCL group and a 1 x 1 mesh.  Fails unless the dry run's resident
+    bytes are within RESIDENT_TOL_REL of the ``memory_allocated`` delta,
+    its flops equal ``FlopCounterMode``'s on the real step, the step
+    launched its kernel on every layer, and the plain serving step (the
+    same tensors, CUDA events over ONE_RANK_ITERS calls) is not under the
+    roofline's largest term.  Prints the peaks side by side and the
+    measured-to-bound ratio.  Returns {run label: launches}."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cost_analysis as C
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import specs as S
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.training.tree import named_leaves
+
+    cfg = get("llama-13b")
+    shapes = [S.ShapeSpec(*a) for a in ONE_RANK_SHAPES]
+    t0 = time.perf_counter()
+    DR.fake_group(1)
+    try:
+        host = M.make_host_mesh()
+        dry = {sh.name: DR.figures(cfg, sh, host)[0] for sh in shapes}
+        bytes_model = {sh.name: DR.analytical_bytes_per_chip(cfg, sh, 1,
+                                                             host)
+                       for sh in shapes}
+    finally:
+        dist.destroy_process_group()
+    dry_s = time.perf_counter() - t0
+    launches = {}
+    M.init_process_group("cuda")
+    try:
+        mesh = M.make_host_mesh()
+        gc.collect()
+        torch.cuda.empty_cache()
+        m0 = torch.cuda.memory_allocated()
+        params = T.init(cfg, seed=0, dtype=torch.bfloat16)
+        pvals = dict(named_leaves(params))
+        gen = torch.Generator(device="cuda").manual_seed(26)
+        for sh in shapes:
+            label = f"x-one-rank-{sh.kind}"
+            b, s = sh.global_batch, sh.seq_len
+            cache = T.init_cache(cfg, b, s, dtype=torch.bfloat16)
+            toks = torch.randint(0, cfg.vocab_size,
+                                 (b, 1 if sh.kind == "decode" else s),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            vals = {**pvals, **dict(named_leaves(cache)), "": toks}
+            st = steps.build(cfg, sh, mesh, torch.bfloat16,
+                             materialize=lambda n, leaf: vals[n])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            with torch.no_grad(), implicit_replication(), C.EvenViews(), \
+                    FlopCounterMode(display=False) as fc:
+                out = st.fn(*st.args)
+            torch.cuda.synchronize()
+            launches[label] = dict(ops.LAUNCHES)
+            resident = torch.cuda.memory_allocated() - m0
+            peak = torch.cuda.max_memory_allocated() - m0
+            del out, st
+            fig = dry[sh.name]
+            kernel = ONE_RANK_KERNEL[sh.kind]
+            if launches[label][kernel] != cfg.n_layers:
+                fail(f"[{label}] {kernel} launched "
+                     f"{launches[label][kernel]} times, not {cfg.n_layers}")
+            err = abs(resident - fig.resident_bytes) / fig.resident_bytes
+            if err > RESIDENT_TOL_REL:
+                fail(f"[{label}] dry-run resident {fig.resident_bytes:.6g} B "
+                     f"against the allocation's {resident:.6g} B: off by "
+                     f"{err:.4f} (tolerance {RESIDENT_TOL_REL})")
+            if fc.get_total_flops() != fig.flops:
+                fail(f"[{label}] dry-run flops {fig.flops:.6g} against "
+                     f"FlopCounterMode's {fc.get_total_flops():.6g}")
+            roof = C.Roofline("llama-13b", sh.name, "1x1", 1, fig.flops,
+                              bytes_model[sh.name],
+                              sum(fig.collective_bytes.values()),
+                              DR.model_flops(cfg, sh), fig.peak_bytes)
+            bound_ms = 1e3 * max(roof.t_compute, roof.t_memory,
+                                 roof.t_collective)
+
+            def step():
+                with torch.no_grad():
+                    return T.apply(cfg, params, toks, cache=cache,
+                                   mode=sh.kind, logits_slice="last")[0]
+            step()
+            ms = time_events(torch, step, ONE_RANK_ITERS)
+            if ms < bound_ms:
+                fail(f"[{label}] step {ms:.3f} ms under the roofline's "
+                     f"{bound_ms:.3f} ms")
+            say(f"[{label}] llama-13b bf16, {b} x {s} "
+                f"({'one token over a dense cache' if sh.kind == 'decode' else 'fresh prefill'}), "
+                f"1 x 1 mesh on a one-rank {dist.get_backend()} group: "
+                f"resident {resident / 2**30:.3f} GiB allocated vs the dry "
+                f"run's {fig.resident_bytes / 2**30:.3f} GiB (off {err:.5f}); "
+                f"flops {fig.flops:.6g} = FlopCounterMode's; {kernel} "
+                f"{launches[label][kernel]} launches; peak "
+                f"{peak / 2**30:.3f} GiB allocated vs the dry run's "
+                f"{fig.peak_bytes / 2**30:.3f} GiB; serving step "
+                f"{ms:.3f} ms (CUDA events, {ONE_RANK_ITERS} calls) vs the "
+                f"roofline's {bound_ms:.3f} ms ({roof.bottleneck}; compute "
+                f"{roof.t_compute * 1e3:.3f}, memory "
+                f"{roof.t_memory * 1e3:.3f} ms): {ms / bound_ms:.3f}x the "
+                f"bound [{card}]")
+            del cache, toks, vals
+            gc.collect()
+        del params, pvals
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"one-rank check (x3): {time.perf_counter() - t0:.1f} s, the dry "
+        f"runs {dry_s:.1f} s of it")
+    return launches
+
+
+def time_events(torch, fn, iters: int) -> float:
+    """Mean device ms of ``fn()`` over ``iters`` calls, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def dryrun_phase(torch, card):
+    """(x2) and (x3), after the serving phase has freed its weights.
+    Returns {run label: launches}."""
+    t0 = time.perf_counter()
+    dryrun_host_run(torch, card)
+    launches = one_rank_check(torch, card)
+    say(f"dry-run phase (x2, x3): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # MoE stacks: granite-moe-3b-a800m at full size, grok-1-314b at 2 layers
 # ---------------------------------------------------------------------------
 
@@ -4248,6 +4551,7 @@ def main() -> None:
     per_run = serving_phase(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
+    per_run.update(dryrun_phase(torch, card))
     cli_phase(card)
     examples_phase(card)
     per_run.update(moe_phase(torch, card))

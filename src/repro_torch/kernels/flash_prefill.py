@@ -14,8 +14,11 @@ Both kernels share the tile walk of ``csrc/attn_tile.cuh``: 4 warps of
 16-row MMA tiles per block, key tiles in a cp.async ring, bf16 products on
 the tensor cores.  They take head_dims that are multiples of 8 up to 256.
 
-On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
-runs the plain version from ``ref``.  Nothing else falls back.
+Each wrapper calls a custom operator (``custom_ops``:
+``repro_torch::flash_prefill``, ``flash_prefill_partials``,
+``paged_prefix_partials``): on a CUDA tensor it launches the kernel, on a
+CPU tensor it runs the plain version from ``ref``, on ``meta`` it gives
+shapes only.  Nothing else falls back.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Optional
 import torch
 
 from . import _lib
+from .custom_ops import causal_pairs, define, placement_rules
 from .ref import Partials, flash_prefill_plain, paged_prefix_partials_plain
 
 FLASH = "flash_prefill"
@@ -48,10 +52,12 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     seq_offset..seq_offset+S-1 of the key axis.  Returns (B, S, H, D) in
     q's dtype, or with ``return_partials`` the unnormalized o (B, S, H, D)
     and l/m (B, S, H), all f32."""
-    if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, window=window, scale=scale,
-                                   soft_cap=soft_cap, seq_offset=seq_offset,
-                                   return_partials=return_partials)
+    op = _FLASH_PARTIALS if return_partials else _FLASH
+    return op(q, k, v, window, scale, soft_cap, int(seq_offset))
+
+
+def _flash_cuda(q, k, v, window, scale, soft_cap, seq_offset,
+                return_partials):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dev = _lib.check_cuda(FLASH, q, k, v)
     code = _lib.dtype_code(FLASH, q, k, v)
@@ -79,6 +85,53 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (o, l, m) if return_partials else o
 
 
+def _flash_flops(q, k, v, window, scale, soft_cap, seq_offset, **_):
+    b, s, h, d = q
+    return 4 * b * h * d * causal_pairs(s, k[1], seq_offset, window)
+
+
+def _flash_rules(q, k, v, *scalars, partials: bool):
+    """Rows along the batch, heads along the heads (q's and the kv heads
+    alike), for o and, with ``partials``, l and m."""
+    n = 3 if partials else 1
+    tail = (None,) * len(scalars)
+    return placement_rules((q, k, v) + scalars, [
+        ((0,) * n, (0, 0, 0) + tail),
+        ((2,) * n, (2, 2, 2) + tail)])
+
+
+_FLASH_SCHEMA = ("(Tensor q, Tensor k, Tensor v, int? window, float? scale, "
+                 "float? soft_cap, int seq_offset) -> {}")
+_FLASH = define(
+    FLASH, _FLASH_SCHEMA.format("Tensor"),
+    lambda q, k, v, w, sc, cap, off: _flash_cuda(q, k, v, w, sc, cap, off,
+                                                 False),
+    lambda q, k, v, w, sc, cap, off: flash_prefill_plain(
+        q, k, v, window=w, scale=sc, soft_cap=cap, seq_offset=off),
+    lambda q, k, v, w, sc, cap, off: torch.empty_like(q),
+    _flash_flops,
+    lambda *a: _flash_rules(*a, partials=False))
+
+
+def _flash_partials_fake(q, k, v, *_):
+    b, s, h, d = q.shape
+    return (q.new_empty((b, s, h, d), dtype=torch.float32),
+            q.new_empty((b, s, h), dtype=torch.float32),
+            q.new_empty((b, s, h), dtype=torch.float32))
+
+
+_FLASH_PARTIALS = define(
+    "flash_prefill_partials",
+    _FLASH_SCHEMA.format("(Tensor, Tensor, Tensor)"),
+    lambda q, k, v, w, sc, cap, off: _flash_cuda(q, k, v, w, sc, cap, off,
+                                                 True),
+    lambda q, k, v, w, sc, cap, off: tuple(flash_prefill_plain(
+        q, k, v, window=w, scale=sc, soft_cap=cap, seq_offset=off,
+        return_partials=True)),
+    _flash_partials_fake, _flash_flops,
+    lambda *a: _flash_rules(*a, partials=True))
+
+
 def paged_prefix_partials(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, pos_pages: torch.Tensor,
                           block_tables: torch.Tensor,
@@ -97,11 +150,12 @@ def paged_prefix_partials(q: torch.Tensor, k_pages: torch.Tensor,
     if pps < 1:
         raise ValueError(f"{PREFIX}: pages_per_split must be >= 1, "
                          f"got {pages_per_split}")
-    if q.device.type == "cpu":
-        return paged_prefix_partials_plain(
-            q, k_pages, v_pages, pos_pages, block_tables, positions,
-            window=window, scale=scale, soft_cap=soft_cap,
-            pages_per_split=pps)
+    return _PREFIX(q, k_pages, v_pages, pos_pages, block_tables, positions,
+                   window, scale, soft_cap, pps)
+
+
+def _prefix_cuda(q, k_pages, v_pages, pos_pages, block_tables, positions,
+                 window, scale, soft_cap, pps):
     q, block_tables, positions = (q.contiguous(), block_tables.contiguous(),
                                   positions.contiguous())
     dev = _lib.check_cuda(PREFIX, q, k_pages, v_pages, pos_pages,
@@ -125,6 +179,53 @@ def paged_prefix_partials(q: torch.Tensor, k_pages: torch.Tensor,
                                     block_tables, positions, o, l, m)),
                     b, s, h, kv, d, bs, nb, pps, scale, win, cap, code)
     return o, l, m
+
+
+def page_partials_fake(q, k_pages, block_tables, pps):
+    """Shapes of a page kernel's partials: q (B, S, H, D), one partial per
+    split of ``pps`` page slots."""
+    b, s, h, d = q.shape
+    nb = block_tables.shape[1]
+    ns = -(-nb // min(pps, max(nb, 1)))
+    return (q.new_empty((b, ns, s, h, d), dtype=torch.float32),
+            q.new_empty((b, ns, s, h), dtype=torch.float32),
+            q.new_empty((b, ns, s, h), dtype=torch.float32))
+
+
+def page_flops(q, k_pages, block_tables) -> int:
+    """4 * D per (query head, page slot) pair: every slot of the table."""
+    b, s, h, d = q
+    return 4 * b * s * h * d * block_tables[1] * k_pages[1]
+
+
+def page_rules(q, k_pages, v_pages, pos_pages, block_tables, pos_q, *rest,
+               head_dim: int, out_head_dim: int, n_scales: int = 0):
+    """A page kernel's strategies: rows along the batch (the pools stay
+    whole: any row may read any page), heads along the heads (q's heads
+    and the pools' kv heads alike)."""
+    scales = rest[:n_scales]
+    tail = (None,) * (len(rest) - n_scales)
+    args = (q, k_pages, v_pages, pos_pages, block_tables, pos_q) + rest
+    return placement_rules(args, [
+        ((0, 0, 0), (0, None, None, None, 0, 0) + (None,) * n_scales + tail),
+        ((out_head_dim,) * 3, (head_dim, 2, 2, None, None, None)
+         + (2,) * len(scales) + tail)])
+
+
+_PREFIX = define(
+    PREFIX,
+    "(Tensor q, Tensor k_pages, Tensor v_pages, Tensor pos_pages, "
+    "Tensor block_tables, Tensor positions, int? window, float? scale, "
+    "float? soft_cap, int pages_per_split) -> (Tensor, Tensor, Tensor)",
+    _prefix_cuda,
+    lambda q, kp, vp, pp, bt, pos, w, sc, cap, pps: tuple(
+        paged_prefix_partials_plain(q, kp, vp, pp, bt, pos, window=w,
+                                    scale=sc, soft_cap=cap,
+                                    pages_per_split=pps)),
+    lambda q, kp, vp, pp, bt, pos, w, sc, cap, pps: page_partials_fake(
+        q, kp, bt, pps),
+    lambda q, kp, vp, pp, bt, pos, *_, **__: page_flops(q, kp, bt),
+    lambda *a: page_rules(*a, head_dim=2, out_head_dim=3))
 
 
 @functools.lru_cache(maxsize=None)

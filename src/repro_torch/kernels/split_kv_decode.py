@@ -32,10 +32,12 @@ head)), which launch the int8 variants and count under
 ``<name>_int8``.  All return (o, l, m) partials; the exact softmax is
 ``core.attention_offload.combine_stacked`` over the partition axis
 (``ops.decode_attention``, ``ops.paged_decode_attention``,
-``ops.paged_verify_attention``).  On a CUDA tensor each wrapper launches
-its hand-written kernel (whose source says what bounds it on the H100);
-on a CPU tensor it runs the plain version from ``ref``.  Nothing else
-falls back.
+``ops.paged_verify_attention``).  Each wrapper calls a custom operator
+(``custom_ops``: ``repro_torch::paged_decode_partials``,
+``paged_verify_partials``, ``split_kv_decode_partials``): on a CUDA
+tensor it launches the hand-written kernel (whose source says what bounds
+it on the H100), on a CPU tensor it runs the plain version from ``ref``,
+on ``meta`` it gives shapes only.  Nothing else falls back.
 """
 from __future__ import annotations
 
@@ -45,7 +47,9 @@ from typing import Optional
 import torch
 
 from . import _lib
-from .flash_prefill import prefix_rows_per_block, sm_count, split_rule
+from .custom_ops import define, placement_rules, shards_on
+from .flash_prefill import (page_flops, page_partials_fake, page_rules,
+                            prefix_rows_per_block, sm_count, split_rule)
 from .ref import (Partials, paged_decode_partials_plain,
                   paged_verify_partials_plain,
                   split_kv_decode_partials_plain)
@@ -175,12 +179,13 @@ def paged_decode_partials(q: torch.Tensor, k_pages: torch.Tensor,
     if pps < 1:
         raise ValueError(f"{NAME}: pages_per_split must be >= 1, "
                          f"got {pages_per_split}")
-    if q.device.type == "cpu":
-        return paged_decode_partials_plain(
-            q, k_pages, v_pages, pos_pages, block_tables, pos_q,
-            window=window, scale=scale, soft_cap=soft_cap,
-            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
-            pages_per_split=pps)
+    return _DECODE(q, k_pages, v_pages, pos_pages, block_tables, pos_q,
+                   k_scale_pages, v_scale_pages, window, scale, soft_cap,
+                   pps)
+
+
+def _decode_cuda(q, k_pages, v_pages, pos_pages, block_tables, pos_q,
+                 k_scale_pages, v_scale_pages, window, scale, soft_cap, pps):
     if q.dim() != 3 or pos_q.dim() != 1:
         raise ValueError(f"{NAME}: q must be (B, H, D) and pos_q (B,), got "
                          f"{tuple(q.shape)} and {tuple(pos_q.shape)}")
@@ -192,6 +197,34 @@ def paged_decode_partials(q: torch.Tensor, k_pages: torch.Tensor,
         pos_pages, block_tables, pos_q[:, None], window, scale, soft_cap,
         k_scale_pages, v_scale_pages, pages_per_split=pps)
     return o[:, :, 0], l[:, :, 0], m[:, :, 0]
+
+
+def _decode_fake(q, k_pages, v_pages, pos_pages, block_tables, *_):
+    o, l, m = page_partials_fake(q[:, None], k_pages, block_tables, _[-1])
+    return o[:, :, 0], l[:, :, 0], m[:, :, 0]
+
+
+_PAGE_SCHEMA = ("(Tensor q, Tensor k_pages, Tensor v_pages, "
+                "Tensor pos_pages, Tensor block_tables, Tensor pos_q, "
+                "Tensor? k_scale_pages, Tensor? v_scale_pages, int? window, "
+                "float? scale, float? soft_cap, int pages_per_split) -> "
+                "(Tensor, Tensor, Tensor)")
+
+
+def _plain(fn):
+    def run(q, kp, vp, pp, bt, pq, ks, vs, w, sc, cap, pps):
+        return tuple(fn(q, kp, vp, pp, bt, pq, window=w, scale=sc,
+                        soft_cap=cap, k_scale_pages=ks, v_scale_pages=vs,
+                        pages_per_split=pps))
+    return run
+
+
+_DECODE = define(
+    NAME, _PAGE_SCHEMA, _decode_cuda, _plain(paged_decode_partials_plain),
+    _decode_fake,
+    lambda q, kp, vp, pp, bt, *_, **__: page_flops(
+        (q[0], 1) + tuple(q[1:]), kp, bt),
+    lambda *a: page_rules(*a, head_dim=1, out_head_dim=2, n_scales=2))
 
 
 def paged_verify_partials(q: torch.Tensor, k_pages: torch.Tensor,
@@ -214,12 +247,13 @@ def paged_verify_partials(q: torch.Tensor, k_pages: torch.Tensor,
     if pps < 1:
         raise ValueError(f"{VERIFY}: pages_per_split must be >= 1, "
                          f"got {pages_per_split}")
-    if q.device.type == "cpu":
-        return paged_verify_partials_plain(
-            q, k_pages, v_pages, pos_pages, block_tables, pos_q,
-            window=window, scale=scale, soft_cap=soft_cap,
-            k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
-            pages_per_split=pps)
+    return _VERIFY(q, k_pages, v_pages, pos_pages, block_tables, pos_q,
+                   k_scale_pages, v_scale_pages, window, scale, soft_cap,
+                   pps)
+
+
+def _verify_cuda(q, k_pages, v_pages, pos_pages, block_tables, pos_q,
+                 k_scale_pages, v_scale_pages, window, scale, soft_cap, pps):
     if q.dim() != 4 or pos_q.dim() != 2:
         raise ValueError(f"{VERIFY}: q must be (B, S, H, D) and pos_q "
                          f"(B, S), got {tuple(q.shape)} and "
@@ -231,6 +265,13 @@ def paged_verify_partials(q: torch.Tensor, k_pages: torch.Tensor,
                               v_pages, pos_pages, block_tables, pos_q,
                               window, scale, soft_cap, k_scale_pages,
                               v_scale_pages, pages_per_split=pps)
+
+
+_VERIFY = define(
+    VERIFY, _PAGE_SCHEMA, _verify_cuda, _plain(paged_verify_partials_plain),
+    lambda q, kp, vp, pp, bt, *_: page_partials_fake(q, kp, bt, _[-1]),
+    lambda q, kp, vp, pp, bt, *_, **__: page_flops(q, kp, bt),
+    lambda *a: page_rules(*a, head_dim=2, out_head_dim=3, n_scales=2))
 
 
 def _kv_stride(k: torch.Tensor, v: torch.Tensor) -> Optional[int]:
@@ -260,9 +301,10 @@ def split_kv_decode_partials(q: torch.Tensor, k: torch.Tensor,
     keys, the last block ragged when bk does not divide L (its keys past
     L invalid).  Returns o (B, J, H, D), l/m (B, J, H), f32,
     J = ceil(L / bk)."""
-    if q.device.type == "cpu":
-        return split_kv_decode_partials_plain(q, k, v, valid,
-                                              block_k=block_k, scale=scale)
+    return _SPLIT(q, k, v, valid, int(block_k), scale)
+
+
+def _split_cuda(q, k, v, valid, block_k, scale):
     b, h, d = q.shape
     length, kv = k.shape[1], k.shape[2]
     kvs = _kv_stride(k, v)
@@ -296,3 +338,40 @@ def split_kv_decode_partials(q: torch.Tensor, k: torch.Tensor,
                     *map(_lib.ptr, (q, k, v, valid, o, l, m)),
                     b, h, kv, kvs, d, length, bk, scale, code)
     return o, l, m
+
+
+def _split_fake(q, k, v, valid, block_k, scale):
+    b, h, d = q.shape
+    nj = -(-k.shape[1] // min(block_k, k.shape[1]))
+    return (q.new_empty((b, nj, h, d), dtype=torch.float32),
+            q.new_empty((b, nj, h), dtype=torch.float32),
+            q.new_empty((b, nj, h), dtype=torch.float32))
+
+
+def _split_flops(q, k, v, valid, block_k, scale, **_):
+    """4 * D per (query head, key) pair: every key of the cache."""
+    b, h, d = q
+    return 4 * b * h * d * k[1]
+
+
+def _split_rules(q, k, v, valid, block_k, scale):
+    """Rows along the batch; heads along the heads (the validity mask
+    whole); and keys along the sequence when every shard holds whole key
+    blocks (its partials then split along the block axis), which is how
+    a sequence-sharded cache decodes without gathering it."""
+    rules = [((0, 0, 0), (0, 0, 0, 0, None, None)),
+             ((2, 2, 2), (1, 2, 2, None, None, None))]
+    length = k.shape[1]
+    if length % (block_k * shards_on(k, 1)) == 0 and length > block_k:
+        rules.append(((1, 1, 1), (None, 1, 1, 1, None, None)))
+    return placement_rules((q, k, v, valid, block_k, scale), rules)
+
+
+_SPLIT = define(
+    SPLIT,
+    "(Tensor q, Tensor k, Tensor v, Tensor valid, int block_k, "
+    "float? scale) -> (Tensor, Tensor, Tensor)",
+    _split_cuda,
+    lambda q, k, v, valid, bk, sc: tuple(split_kv_decode_partials_plain(
+        q, k, v, valid, block_k=bk, scale=sc)),
+    _split_fake, _split_flops, _split_rules)

@@ -76,6 +76,9 @@ class ShardingPolicy:
     mesh: Any
     cfg: ModelConfig
     seq_shard: bool = False        # long_500k: context parallelism
+    # replicate every weight (None: ``cfg.replicate_small()``); the dry
+    # run fixes it from the full-depth model when it cuts the depth
+    replicate: Optional[bool] = None
 
     @property
     def dp(self):
@@ -88,7 +91,8 @@ class ShardingPolicy:
 
     @property
     def replicate_all(self) -> bool:
-        return self.cfg.replicate_small()
+        return self.cfg.replicate_small() if self.replicate is None \
+            else self.replicate
 
     # -- parameters -----------------------------------------------------
     def param_spec(self, path: str, shape: Tuple[int, ...]) -> Spec:

@@ -71,7 +71,10 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Rotary embedding.  x: (B, S, H, D); positions: (B, S) int.  cos and
-    sin are cast to x's dtype before the product, as in JAX."""
+    sin are cast to x's dtype before the product, as in JAX.  ``freq`` is
+    a plain tensor; under a dry run's ``DTensor`` step
+    (``launch/dryrun.py``) ``implicit_replication()`` treats it, like every
+    other constant, as replicated."""
     half = x.shape[-1] // 2
     freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                    device=x.device) / half)
@@ -143,6 +146,20 @@ def masked_attention(q, k, v, mask, scale, soft_cap=None, k_scale=None,
     cap, the V scale the probabilities after the softmax — JAX's order."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
+    if _is_dtensor(q) and kvh != h:
+        # the dry run: a head split (H -> KV x G) has no view when KV does
+        # not divide over the mesh, forward or in the backward, so each kv
+        # head is repeated to its G query heads (the same products)
+        g = h // kvh
+
+        def rep(t):
+            return t[:, :, :, None].expand(
+                *t.shape[:3], g, *t.shape[3:]).reshape(
+                    t.shape[0], t.shape[1], h, *t.shape[3:])
+        k, v = rep(k), rep(v)
+        k_scale = rep(k_scale) if k_scale is not None else None
+        v_scale = rep(v_scale) if v_scale is not None else None
+        kvh = h
     qg = q.reshape(b, s, kvh, h // kvh, d)
     kc = k.to(q.dtype) if k.dtype == torch.int8 else k
     scores = torch.einsum("bsgqd,blgd->bgqsl", qg, kc) * scale
@@ -194,6 +211,113 @@ def attend(q, k, v, pos_q, pos_k, *, window: Optional[int], scale: float,
                                          window), scale, soft_cap, **kw)
             for i in range(0, s, ATTN_BLOCK_Q)]
     return torch.cat(outs, dim=1)
+
+
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
+def vocab_parallel(unembed: torch.Tensor) -> torch.Tensor:
+    """The (d, V) unembedding as the logits' product takes it: as it is,
+    or for a ``DTensor`` (the dry run) split along the vocabulary only,
+    d gathered (the FSDP gather), so the logits keep the rows' batch
+    split and the vocabulary's, and no rank sums whole logits."""
+    if not _is_dtensor(unembed):
+        return unembed
+    from torch.distributed.tensor import Replicate
+    want = [p if p.is_shard() and p.dim == 1 else Replicate()
+            for p in unembed.placements]
+    return unembed.redistribute(unembed.device_mesh, want)
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``: the embedding rows of (B, S) tokens.
+
+    On a ``DTensor`` table (the dry run, ``launch/dryrun.py``), split
+    along the vocabulary over "model" and maybe along d over the batch
+    axes (FSDP), the lookup is the vocabulary-parallel one: the tokens
+    keep their batch split, the table is gathered along d (the FSDP
+    gather), each rank reads the rows of its vocabulary slice (zeros for
+    the others) and the result is a partial sum over the vocabulary's
+    mesh dims.  ``DTensor``'s own gather would replicate the batch."""
+    if not _is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements)
+             if p.is_shard() and p.dim == 0]
+    t_pl = [Replicate() if i in vocab or not (p.is_shard() and p.dim == 0)
+            else p for i, p in enumerate(tokens.placements)]
+    w_pl = [p if i in vocab else Replicate()
+            for i, p in enumerate(table.placements)]
+    tok = tokens.redistribute(mesh, t_pl)
+    w = table.redistribute(mesh, w_pl)
+    w_l = w.to_local()
+    _, off = compute_local_shape_and_global_offset(w.shape, mesh, w_pl)
+    rows = tok.to_local().long() - off[0]
+    inside = (rows >= 0) & (rows < w_l.shape[0])
+    x_l = w_l[rows.clamp(0, max(w_l.shape[0] - 1, 0))] * \
+        inside[..., None].to(w_l.dtype)
+    out_pl = [Partial() if i in vocab else p for i, p in enumerate(t_pl)]
+    return DTensor.from_local(x_l, mesh, out_pl, run_check=False)
+
+
+def _write_rows(writes, positions: torch.Tensor) -> None:
+    """Write each ``(cache, values)`` pair of a dense per-row cache in
+    place: values (B, S, ...) land at slot ``positions % L`` of their row,
+    positions (B, S) consecutive per row (``lengths + arange(S)``), at most
+    L of them (a longer sequence is tail-sliced first).
+
+    On plain tensors this is one ``index_put_`` per cache.  On a
+    ``DTensor`` cache (the dry run, ``launch/dryrun.py``; its rows and
+    slots may be split over the mesh) each rank writes its own shard: slot
+    j of row b takes token (j - positions[b, 0]) mod L when that is below
+    S, a gather from the values, which are first placed like the cache's
+    rows and whole along the rest."""
+    b = positions.shape[0]
+    if not _is_dtensor(writes[0][0]):
+        rows = torch.arange(b, device=positions.device)[:, None]
+        write_pos = (positions % writes[0][0].shape[1]).long()
+        for cache, val in writes:
+            cache[rows, write_pos] = val
+        return
+    for cache, val in writes:
+        _write_shard(cache, val, positions)
+
+
+def _write_shard(cache, val, positions) -> None:
+    """``_write_rows`` for one ``DTensor`` cache (see there)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, place = cache.device_mesh, cache.placements
+    rows_like = [p if p.is_shard() and p.dim == 0 else Replicate()
+                 for p in place]
+    val_l = val.redistribute(mesh, rows_like).to_local()
+    start = positions[:, :1].redistribute(mesh, rows_like).to_local()
+    local = cache.to_local()
+    _, off = compute_local_shape_and_global_offset(cache.shape, mesh, place)
+    length, s = cache.shape[1], val_l.shape[1]
+    slots = torch.arange(local.shape[1], device=local.device) + off[1]
+    tok = (slots[None] - start.long()) % length              # (B_l, L_l)
+    hit = tok < s
+    idx = tok.clamp_max(s - 1)
+    idx = idx.reshape(idx.shape + (1,) * (local.dim() - 2)).expand(
+        idx.shape + tuple(local.shape[2:]))
+    new = val_l.to(local.dtype).gather(1, idx)
+    hit = hit.reshape(hit.shape + (1,) * (local.dim() - 2))
+    local.copy_(torch.where(hit, new, local))
+
+
+def _shard_block_k(cache: torch.Tensor, block_k: int = 512) -> int:
+    """B5's key block: 512 (``ops.decode_attention``'s), or on a
+    ``DTensor`` cache split along its keys, at most one shard's keys, so
+    every shard holds whole blocks and B5 splits along the sequence."""
+    if not _is_dtensor(cache):
+        return block_k
+    return min(block_k, cache.to_local().shape[1])
 
 
 def dense_valid(slot_pos: torch.Tensor, pos_q: torch.Tensor,
@@ -373,14 +497,11 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                 k_w, v_w, pos_w = k_w[:, cut], v_w[:, cut], positions[:, cut]
                 if quant:
                     ks_w, vs_w = ks_w[:, cut], vs_w[:, cut]
-            rows = torch.arange(b, device=x.device)[:, None]
-            write_pos = (pos_w % cache_len).long()
-            cache_k[rows, write_pos] = k_w
-            cache_v[rows, write_pos] = v_w
-            slot_pos[rows, write_pos] = pos_w.to(slot_pos.dtype)
+            writes = [(cache_k, k_w), (cache_v, v_w),
+                      (slot_pos, pos_w.to(slot_pos.dtype))]
             if quant:
-                k_sc[rows, write_pos] = ks_w
-                v_sc[rows, write_pos] = vs_w
+                writes += [(k_sc, ks_w), (v_sc, vs_w)]
+            _write_rows(writes, pos_w)
         elif paged:
             bs_pg = cache_k.shape[1]
             nb = block_tables.shape[1]
@@ -424,15 +545,11 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             # dense per-row cache (dense-row engines, the draft model):
             # ring write at positions % cache_len, then attention over the
             # row (B5 for one token of a bf16/f32 cache without a cap)
-            cache_len = cache_k.shape[1]
-            rows = torch.arange(b, device=x.device)[:, None]
-            write_pos = (positions % cache_len).long()
-            cache_k[rows, write_pos] = k_w
-            cache_v[rows, write_pos] = v_w
-            slot_pos[rows, write_pos] = positions.to(slot_pos.dtype)
+            writes = [(cache_k, k_w), (cache_v, v_w),
+                      (slot_pos, positions.to(slot_pos.dtype))]
             if quant:
-                k_sc[rows, write_pos] = ks_w
-                v_sc[rows, write_pos] = vs_w
+                writes += [(k_sc, ks_w), (v_sc, vs_w)]
+            _write_rows(writes, positions)
             if head_offload > 0 and not quant:
                 o = _decode_head_offload(cfg, q, cache_k, cache_v, positions,
                                          slot_pos, window, scale,
@@ -441,7 +558,7 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                 o = ops.decode_attention(
                     q[:, 0], cache_k, cache_v,
                     dense_valid(slot_pos, positions[:, 0], window),
-                    scale=scale)[:, None]
+                    scale=scale, block_k=_shard_block_k(cache_k))[:, None]
             else:
                 o = attend(q, cache_k, cache_v, positions, slot_pos,
                            window=window, scale=scale, soft_cap=cap,
@@ -630,6 +747,8 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
             return y, load / n
     if impl not in MOE_IMPLS:
         raise ValueError(f"unknown MoE impl {impl!r}")
+    if _is_dtensor(x):
+        return _moe_sharded(cfg, p, x, impl, capacity_factor)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
@@ -681,6 +800,38 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                        torch.zeros((), dtype=x.dtype, device=dev))
     y = (rows * gate_vals.reshape(n, 1).to(x.dtype)).reshape(t, k, d).sum(1)
     return y.reshape(b, s, d), router_load
+
+
+def _moe_sharded(cfg: ModelConfig, p: Params, x, impl: str,
+                 capacity_factor: Optional[float]):
+    """``moe_apply`` on ``DTensor``s (the dry run, ``launch/dryrun.py``):
+    every rank routes the whole batch (the router and ``x`` gathered) and
+    runs the dispatch on its local tensors, the experts' FFN on its slice
+    of their hidden dim (the weights keep their split of f and gather the
+    rest); the output is a partial sum over the mesh dims splitting f,
+    placed back as ``x`` is.  The dispatch's sorts, searches and scatters
+    then need no ``DTensor`` rule."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = x.device_mesh
+    whole = [Replicate()] * mesh.ndim
+
+    def keep(w, fdim):
+        want = [pl if pl.is_shard() and pl.dim == fdim else Replicate()
+                for pl in w.placements]
+        return w.redistribute(mesh, want)
+    w_gate, w_up, w_down = (keep(p["w_gate"], 2), keep(p["w_up"], 2),
+                            keep(p["w_down"], 1))
+    local = {"router": p["router"].redistribute(mesh, whole).to_local(),
+             "w_gate": w_gate.to_local(), "w_up": w_up.to_local(),
+             "w_down": w_down.to_local()}
+    y, load = moe_apply(cfg, local, x.redistribute(mesh, whole).to_local(),
+                        impl=impl, capacity_factor=capacity_factor)
+    y = DTensor.from_local(y, mesh, [Partial() if pl.is_shard() else
+                                     Replicate() for pl in w_gate.placements],
+                           run_check=False)
+    place = [pl if pl.is_shard() else Replicate() for pl in x.placements]
+    return (y.redistribute(mesh, place),
+            DTensor.from_local(load, mesh, whole, run_check=False))
 
 
 # ---------------------------------------------------------------------------

@@ -43,7 +43,7 @@ or not): every block kind of the JAX package.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -411,6 +411,7 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
           hidden_out: bool = False,
           head_offload: int = 0,
           remat: bool = False,
+          param_hook: Optional[Callable[[Params], Params]] = None,
           ) -> Tuple[torch.Tensor, Optional[Cache], Dict[str, Any]]:
     """Run the stack.
 
@@ -441,6 +442,11 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     activations (the remainder layers ``rem`` are not rematerialized, as
     in JAX); the recompute is exact (MoE's sorted dispatch is
     deterministic).
+
+    ``param_hook`` (JAX's) maps each layer's parameters (a stacked
+    layer's and each remainder layer's) before its block runs: the dry
+    run's steps (``launch/steps.py``) gather FSDP-split weights there, or
+    the int8 payloads alone, so such a gather moves int8 bytes.
 
     A cross-attention stack takes ``frames`` (B, n_frames, d_model), the
     encoder output every attention layer attends to, in every mode but
@@ -489,9 +495,10 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         x = tokens.to(dtype)
     elif Q.is_quantized(emb):
         # the rows a step reads, dequantized: JAX's values, row for row
-        x = Q.dequant({"q": emb["q"][tokens], "s": emb["s"]}, dtype)
+        x = Q.dequant({"q": L.embed_rows(emb["q"], tokens), "s": emb["s"]},
+                      dtype)
     else:
-        x = emb[tokens]
+        x = L.embed_rows(emb, tokens)
     if not hidden_in and cfg.family == Family.HYBRID:
         # RecurrentGemma scales the embedding by sqrt(d_model) rounded to
         # the model dtype, as JAX does for the hybrid family (a host
@@ -515,13 +522,14 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
     ckpt = remat and mode == "train" and torch.is_grad_enabled()
     layers = [_unstack(gp, n_rep) for gp in params["groups"]]
+    hook = param_hook if param_hook is not None else (lambda lp: lp)
     for r in range(n_rep):
         for g, kind in enumerate(pat):
             st = _layer(cache["groups"][g], r) if cache is not None else None
-            x = block(kind, layers[g][r], st, x, ckpt)
+            x = block(kind, hook(layers[g][r]), st, x, ckpt)
     for i in range(rem):
         st = cache["rem"][i] if cache is not None else None
-        x = block(pat[i], params["rem"][i], st, x)
+        x = block(pat[i], hook(params["rem"][i]), st, x)
 
     if hidden_out:
         logits = x                  # the residual stream for the next span
@@ -532,7 +540,7 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                 x[torch.arange(b, device=dev), logits_at.to(dev).long()]
         unembed = Q.dequant(params["embed"], dtype).t() \
             if cfg.tie_embeddings else Q.dequant(params["unembed"], dtype)
-        logits = x @ unembed
+        logits = x @ L.vocab_parallel(unembed)
 
     new_cache = None
     if cache is not None:
@@ -549,11 +557,12 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                   frames: Optional[torch.Tensor] = None,
                   moe_impl: str = "sorted", moe_cf=None,
-                  remat: bool = False):
+                  remat: bool = False, param_hook=None):
     """The stateless forward: (logits (B, S, V), aux); differentiable
     under the caller's grad mode (``training/train_step.py``)."""
     logits, _, aux = apply(cfg, params, tokens, frames=frames, mode="train",
-                           moe_impl=moe_impl, moe_cf=moe_cf, remat=remat)
+                           moe_impl=moe_impl, moe_cf=moe_cf, remat=remat,
+                           param_hook=param_hook)
     return logits, aux
 
 

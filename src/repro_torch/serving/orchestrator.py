@@ -169,6 +169,7 @@ class _Member:
         self.stage = 0
         self.rerolled = False          # role changed at least once
         self.tokens_prefilled = 0
+        self.tokens_decoded = 0
         self.fetch_latency_s = 0.0
         self.busy = False              # a prefill wave's event is in flight
         self._wavegen = None           # resumable prefill_waves generator
@@ -847,6 +848,8 @@ class Orchestrator(BackendBase):
         unit = self._unit_by_name(name)
         if unit is None:
             return []
+        m = self._unit_member(unit)
+        before_tok = unit.tokens_decoded
         snapshot = [(r, len(r.generated))
                     for r in unit.slots if r is not None]
         finished = [req for req, _slot in unit.step()]
@@ -862,6 +865,7 @@ class Orchestrator(BackendBase):
             req.t_done = req.t_tokens[-1] if req.t_tokens else now
             self._sched_done(req)
             self.metrics.record(req)
+        m.tokens_decoded += unit.tokens_decoded - before_tok
         if unit.active:
             self._kick_decode(unit)
         if finished:

@@ -87,6 +87,17 @@ class PrefillPipeline:
     def lead(self) -> PrefillEngine:
         return self.engines[0]
 
+    @property
+    def queue(self):
+        return self.lead.queue
+
+    def enqueue(self, req: Request) -> None:
+        self.lead.enqueue(req)
+        req.prefill_instance = self.name
+
+    def load_report(self):
+        return self.lead.load_report()
+
     def prefill_waves(self, reqs, frames=None, chunk_tokens=None):
         """Wave generator over the chained stages (``PrefillEngine``'s):
         each wave's residual stream (and ``frames``, a cross-attention
@@ -100,6 +111,10 @@ class PrefillPipeline:
 
     def run(self, req: Request, frames=None):
         return self.lead.run(req, frames=frames)
+
+    def run_queued(self, max_reqs: int, frames=None, chunk_tokens=None):
+        return self.lead.run_queued(max_reqs, frames=frames,
+                                    chunk_tokens=chunk_tokens)
 
     def move_span(self, src: int, dst: int, n: int) -> Optional[int]:
         """Shift ``n`` boundary layers from stage ``src`` to the adjacent
@@ -175,6 +190,13 @@ class DecodePipeline:
     def kv_tokens(self) -> int:
         return self.lead.kv_tokens
 
+    @property
+    def tokens_decoded(self) -> int:
+        return self.lead.tokens_decoded
+
+    def free_slot(self) -> Optional[int]:
+        return self.lead.free_slot()
+
     # -- wire-format edges -----------------------------------------------
     def _canon_state(self, e: DecodeEngine, st: Dict[str, Any]
                      ) -> Dict[str, Any]:
@@ -186,29 +208,56 @@ class DecodePipeline:
         return st
 
     def adopt(self, req: Request, state: Dict[str, Any],
-              next_token: int, slot: Optional[int] = None) -> int:
+              next_token: int, slot: Optional[int] = None,
+              shared_pages: Optional[Sequence[Tuple[int, ...]]] = None
+              ) -> int:
         """Migration receive path: split the wire state at this pipeline's
         boundaries and land each part on its stage, in the same slot on
-        every stage.  Pipelines bind no shared pages: the orchestrator's
-        store never registers their pools (a span move re-creates them),
-        so hand-offs into a pipeline copy."""
+        every stage.
+
+        ``shared_pages`` is the pipeline form of the zero-copy bind: one
+        tuple of physical pages per shared block, one page per stage (the
+        layout ``slot_pages`` reports), bound by reference on every stage;
+        each stage forks (COW) at its own divergence point, so a fork on
+        one stage never touches the others.  ``state`` must already be
+        head-split past the shared blocks, and every stage must be paged
+        at the wire's page length.  The orchestrator's store never
+        registers pipeline pools (a span move re-creates their pages), so
+        its hand-offs into a pipeline copy; this path serves sharing
+        between pipeline slots directly, and a live ``move_span`` gathers
+        the shared content and re-adopts it unshared."""
         if slot is None:
             slot = self.lead.free_slot()
         if slot is None:
             raise RuntimeError("decode pipeline full")
+        shared = list(shared_pages or ())
+        if shared and not all(e.paged and e.page_len == self._wire_plen
+                              for e in self.engines):
+            raise ValueError("shared-page binds need every stage paged at "
+                             "the wire's page length")
         parts = LM.split_state_spans(self.cfg, state, self.bounds)
-        for e, part in zip(self.engines, parts):
-            e.adopt(req, part, next_token, slot=slot)
+        for k, (e, part) in enumerate(zip(self.engines, parts)):
+            sp = [t[k] for t in shared] if shared else None
+            e.adopt(req, part, next_token, slot=slot, shared_pages=sp)
         req.decode_instance = self.name
         return slot
 
     def insert(self, req: Request, state: Dict[str, Any],
-               first_token: int) -> int:
+               first_token: int,
+               shared_pages: Optional[Sequence[Tuple[int, ...]]] = None
+               ) -> int:
         """KV transfer: place a prefilled request into a decode slot."""
-        slot = self.adopt(req, state, int(first_token))
+        slot = self.adopt(req, state, int(first_token),
+                          shared_pages=shared_pages)
         req.generated.append(int(first_token))
         req.advance(Phase.DECODE)
         return slot
+
+    def slot_pages(self, slot: int) -> List[Tuple[int, ...]]:
+        """The pages backing ``slot``, per block: element ``j`` holds
+        block ``j``'s physical page on every stage, the layout ``adopt``'s
+        ``shared_pages`` takes."""
+        return list(zip(*(e.slot_pages(slot) for e in self.engines)))
 
     def extract_slot(self, slot: int
                      ) -> Tuple[Request, Dict[str, Any], int]:

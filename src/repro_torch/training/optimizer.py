@@ -66,9 +66,12 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def _chunks(*ts: torch.Tensor) -> Iterator[tuple]:
     """Matching slices of same-shaped tensors along their first axis, at
-    most ``CHUNK_ELEMS`` elements each (views: writes reach the leaf)."""
+    most ``CHUNK_ELEMS`` elements each (views: writes reach the leaf).  A
+    ``DTensor`` leaf (the dry run) is worked whole: its rank holds only
+    its shard, and a slice across a split axis would gather it."""
     t = ts[0]
-    if t.dim() == 0 or t.numel() <= CHUNK_ELEMS:
+    if (t.dim() == 0 or t.numel() <= CHUNK_ELEMS
+            or type(t).__name__ == "DTensor"):
         yield ts
         return
     rows = max(1, CHUNK_ELEMS // (t.numel() // t.shape[0]))

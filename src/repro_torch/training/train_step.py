@@ -24,6 +24,7 @@ from .tree import map_named, named_leaves
 def lm_loss(cfg: ModelConfig, params, tokens: torch.Tensor,
             frames: Optional[torch.Tensor] = None, moe_impl: str = "sorted",
             moe_cf=None, lb_coef: float = 0.01, remat: bool = False,
+            param_hook=None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy over tokens[:, :-1] -> tokens[:, 1:], in
     f32 through logsumexp.  A MoE stack adds ``lb_coef`` times the
@@ -32,11 +33,10 @@ def lm_loss(cfg: ModelConfig, params, tokens: torch.Tensor,
     (loss, aux) with ``aux["nll"]`` and, for MoE, ``aux["lb_loss"]``."""
     logits, aux = T.forward_train(cfg, params, tokens[:, :-1], frames=frames,
                                   moe_impl=moe_impl, moe_cf=moe_cf,
-                                  remat=remat)
+                                  remat=remat, param_hook=param_hook)
     targets = tokens[:, 1:].long()
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None])[..., 0]
+    logz, gold = _logz(logits), _gold_logit(logits, targets)
     nll = (logz - gold).mean()
     loss = nll
     if cfg.n_experts > 0:
@@ -46,6 +46,64 @@ def lm_loss(cfg: ModelConfig, params, tokens: torch.Tensor,
         aux["lb_loss"] = lb
     aux["nll"] = nll
     return loss, aux
+
+
+def _logz(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the vocabulary; for ``DTensor`` logits (the dry run)
+    as max + log(sum(exp(x - max))), whose reductions ``DTensor`` splits
+    with the vocabulary (its logsumexp gathers the logits first)."""
+    if type(logits).__name__ != "DTensor":
+        return torch.logsumexp(logits, dim=-1)
+    m = _RowsWhole.apply(logits.amax(dim=-1, keepdim=True).detach())
+    total = _RowsWhole.apply(torch.exp(logits - m).sum(-1, keepdim=True))
+    return (m + torch.log(total))[..., 0]
+
+
+class _RowsWhole(torch.autograd.Function):
+    """A ``DTensor`` reduced over the vocabulary, made whole on every mesh
+    dim but those splitting its rows, forward and backward: left alone,
+    ``DTensor`` resolves such a sum by splitting the sequence, and its
+    gradient then meets the vocabulary-split logits, which it gathers."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _rows_placed(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows_placed(g)
+
+
+def _rows_placed(t):
+    from torch.distributed.tensor import Replicate
+    want = [p if p.is_shard() and p.dim == 0 else Replicate()
+            for p in t.placements]
+    return t.redistribute(t.device_mesh, want)
+
+
+def _gold_logit(logits: torch.Tensor, targets: torch.Tensor
+                ) -> torch.Tensor:
+    """Each target's logit: a gather, or for vocabulary-split ``DTensor``
+    logits (the dry run) a one-hot product summed over the vocabulary,
+    the vocabulary's ids split as the logits are (exact: one nonzero
+    term).  ``DTensor``'s gather over a split vocabulary masks only 2-D
+    outputs."""
+    if type(logits).__name__ != "DTensor":
+        return logits.gather(-1, targets[..., None])[..., 0]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    pl = [Shard(0) if p.is_shard() and p.dim == last else Replicate()
+          for p in logits.placements]
+    n, off = compute_local_shape_and_global_offset((logits.shape[-1],),
+                                                   mesh, pl)
+    ids = torch.arange(off[0], off[0] + n[0],
+                       device=logits.to_local().device)
+    vocab = DTensor.from_local(ids, mesh, pl, run_check=False,
+                               shape=(logits.shape[-1],), stride=(1,))
+    hit = (targets[..., None] == vocab).to(logits.dtype)
+    return _RowsWhole.apply((logits * hit).sum(-1))
 
 
 def _grad_one(cfg: ModelConfig, params, tokens, frames, **loss_kw
@@ -66,9 +124,11 @@ def _grad_one(cfg: ModelConfig, params, tokens, frames, **loss_kw
 
 def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, Any], *,
                    moe_impl: str = "sorted", moe_cf=None,
-                   remat: bool = False, num_microbatches: int = 1):
+                   remat: bool = False, num_microbatches: int = 1,
+                   param_hook=None):
     """(loss, aux, grads) of one batch, as JAX's step computes them before
-    the update.  grads is a tree like ``params``.
+    the update.  grads is a tree like ``params``.  ``param_hook`` is
+    ``T.apply``'s (the dry run gathers FSDP-split weights there).
 
     ``num_microbatches`` > 1 splits the batch (and its frames) into equal
     chunks, accumulates f32 gradients divided by the count, and returns
@@ -78,7 +138,8 @@ def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, Any], *,
     if any(a.dtype == torch.int8 for _, a in named_leaves(params)):
         # int8 weights (models/quant.py), refused as JAX refuses them
         raise ValueError("int8 weights are a serving-only optimization")
-    kw = dict(moe_impl=moe_impl, moe_cf=moe_cf, remat=remat)
+    kw = dict(moe_impl=moe_impl, moe_cf=moe_cf, remat=remat,
+              param_hook=param_hook)
     tokens, frames = batch["tokens"], batch.get("frames")
     mb = num_microbatches
     if mb <= 1:
@@ -88,12 +149,13 @@ def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, Any], *,
         if b % mb:
             raise ValueError(f"batch {b} does not split into {mb} "
                              "microbatches")
-        flat = [torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+        flat = [torch.zeros_like(a, dtype=torch.float32,
+                                 memory_format=torch.contiguous_format)
                 for _, a in named_leaves(params)]
         loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
         parts: Dict[str, List[torch.Tensor]] = {}
-        fr = frames.chunk(mb) if frames is not None else [None] * mb
-        for t, f in zip(tokens.chunk(mb), fr):
+        fr = _microbatches(frames, mb) if frames is not None else [None] * mb
+        for t, f in zip(_microbatches(tokens, mb), fr):
             loss_i, aux_i, g = _grad_one(cfg, params, t, f, **kw)
             for acc, x in zip(flat, g):
                 acc.add_(x.float() / mb)
@@ -106,9 +168,24 @@ def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, Any], *,
     return loss, aux, map_named(lambda n, _: by_name[n], params)
 
 
+def _microbatches(x: torch.Tensor, mb: int) -> List[torch.Tensor]:
+    """``x`` cut into ``mb`` equal chunks of rows.  A ``DTensor`` whose
+    rows are split over a mesh (the dry run, ``launch/steps.py``) is cut
+    per rank: microbatch i holds chunk i of every rank's own rows, so no
+    row moves between ranks (JAX's chunks are contiguous in the global
+    batch; the summed loss and gradients are the same sums)."""
+    if type(x).__name__ != "DTensor":
+        return list(x.chunk(mb))
+    from torch.distributed.tensor import DTensor
+    return [DTensor.from_local(c, x.device_mesh, x.placements,
+                               run_check=False)
+            for c in x.to_local().chunk(mb)]
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: opt.AdamWConfig,
                     moe_impl: str = "sorted", moe_cf=None,
-                    remat: bool = False, num_microbatches: int = 1):
+                    remat: bool = False, num_microbatches: int = 1,
+                    param_hook=None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics).
 
@@ -121,7 +198,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt.AdamWConfig,
     def step(params, opt_state, batch):
         loss, aux, grads = loss_and_grads(
             cfg, params, batch, moe_impl=moe_impl, moe_cf=moe_cf,
-            remat=remat, num_microbatches=num_microbatches)
+            remat=remat, num_microbatches=num_microbatches,
+            param_hook=param_hook)
         params, opt_state, om = opt.apply_updates(opt_cfg, params, grads,
                                                   opt_state)
         metrics = {"loss": loss, "nll": aux["nll"], **om}
