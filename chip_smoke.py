@@ -7,9 +7,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. Build the five CUDA kernel sources from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, in parallel; seven kernels: B1, B1-int8, B2, B3,
-   B4, B4-int8, B5) and print the card's name and power limit (with
+1. Build the seven CUDA kernel sources from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, in parallel; eleven kernels: B1, B1-int8, B2, B3,
+   B4, B4-int8, B5 and the xLSTM's four scans, the mLSTM's and sLSTM's
+   forward and backward) and print the card's name and power limit (with
    ``--ptxas``, each kernel's registers, shared memory and spills).
 2. Hold each kernel against its plain PyTorch version on the card: at the
    serving path's llama-13b shapes, at a GQA shape (granite-8b heads) and
@@ -49,6 +50,14 @@ Phases (any failure exits non-zero and prints no result line):
    through decode, B2 on a fresh 1 x 512 chunk, B5 over 8 rows x 512
    cached frames, every one valid (the cross decode), timed over six
    cycled copies of the cross K/V so that it reads them from memory.
+   The xLSTM's four scan kernels at xlstm-350m's widths in f32 (mLSTM 4
+   heads of 256, sLSTM d 1024) within TOL_SCAN_REL of the largest value
+   of their plain versions: the forward scans at 8 x 256 (a served chunk
+   wave), 1 x 1,024 and 8 x 1, from fresh and running carries, and a
+   recorded forward (its checkpoints) and the backward against autograd
+   through the plain forward at 2 x 256 and at training run (y)'s
+   2 x 1,024 (XLSTM_TRAIN_SHAPE); each timed with its plain version
+   and its time per step (the recurrence's floor: steps x one step).
 3. Serve llama-13b at full width and depth in bf16 (random weights from a
    seed), 8 requests of a shared-prefix workload, five times: through
    ``Server`` over the port's ``Orchestrator`` (chunked prefill) plain,
@@ -211,11 +220,10 @@ Phases (any failure exits non-zero and prints no result line):
    weights from seed 0): (p) xlstm-350m at full width and depth (24
    layers: 18 mLSTM, 6 sLSTM; no attention, so both engines serve dense
    rows) through ``Server``, the 8 requests of the llama-13b runs
-   arriving at once, 256-token chunks, replayed and eagerly: no kernel
-   launches (JAX runs these blocks in XLA), the two runs' streams and
-   launches are equal, every token within TOKEN_GAP_TOL of the monolithic
-   f32 forward's best;
-   it prints the decode clocks, the compiled step's device span, prefill
+   arriving at once, 256-token chunks, replayed and eagerly: the forward
+   scans launch (JAX's lax.scan loops) and no B-kernel, the two runs'
+   streams and launches are equal, every token within TOKEN_GAP_TOL of
+   the monolithic f32 forward's best; it prints the decode clocks, the compiled step's device span, prefill
    tok/s, peak memory and one profiled iteration's device ms by family
    (GEMMs, the xLSTM's elementwise and recurrence work, the rest); (q)
    two 2-stage decode pipelines over [(0, 12), (12, 24)] with one forced
@@ -237,7 +245,7 @@ Phases (any failure exits non-zero and prints no result line):
    included), its streams equal to (r)'s.  Last, training, in bf16 from
    seed 0 on ``SyntheticTokens`` (seed 0) through ``make_train_step``
    and AdamW, every launch counter zeroed before the steps and read after
-   (no kernel may launch: JAX trains outside any Pallas kernel): (t)
+   (no B-kernel may launch: JAX trains outside any Pallas kernel): (t)
    llama-13b at full width, depth cut to 8 layers (the whole model's
    weights, grads and f32 moments would need ~156 GB), 20 steps of 4 x
    1,024 tokens without remat (lr 1e-3, warmup 2, total 20); every loss
@@ -249,8 +257,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``DecodeEngine`` on the 8 requests (B1 and B2 must launch, every token
    within TOKEN_GAP_TOL); (u) granite-moe-3b-a800m at full size (router
    f32) with remat and no-drop sorted dispatch, 10 steps of 2 x 512
-   tokens, its ``lb_loss`` finite every step.  Each prints ms per step
-   (and AdamW's device ms of it), tokens/s, peak memory and the losses.
+   tokens, its ``lb_loss`` finite every step; (y) xlstm-350m at full size
+   in f32, 10 steps of 2 x 1,024 tokens, the four scan kernels launched
+   (and no other).  Each prints ms per step (and AdamW's device ms of it),
+   tokens/s, peak memory, the losses and the launches.
 4. Print the ``kernels`` JSON line, then the result line.
 
 The script imports nothing of the JAX package and needs no network.
@@ -862,11 +872,19 @@ def kernel_phase(torch):
     del kd, vd, copies
     timing.update(hybrid_kernels(torch, results))
     timing.update(seamless_kernels(torch, results))
-    names = ("B1", "B1-int8", "B2", "B3", "B4", "B4-int8", "B5")
-    errs = {kname: max(v["err"] for (kk, _, _), v in results.items()
-                       if kk == kname) for kname in names}
+    timing.update(xlstm_scan_kernels(torch, results))
+    errs = kernel_errs(results)
     errs["B5"] = max(errs["B5"], err_d)
     return timing, errs
+
+
+def kernel_errs(results) -> dict:
+    """The largest |kernel - plain| of each row of the kernels line, over
+    its cases in ``results`` ({(key, label, dtype): {"err": ...}})."""
+    names = ("B1", "B1-int8", "B2", "B3", "B4", "B4-int8", "B5")
+    names += tuple(SCAN_KEYS.values())
+    return {kname: max(v["err"] for (kk, _, _), v in results.items()
+                       if kk == kname) for kname in names}
 
 
 def verify_timing(torch, args, sc, pps, iters, fn=None):
@@ -1205,6 +1223,207 @@ def hybrid_kernels(torch, results):
             flops=4 * d * h * b2 * (keys * (keys + 1) // 2
                                     + (s2 - keys) * keys),
             dtype="bfloat16")
+    return timing
+
+
+# ---------------------------------------------------------------------------
+# The xLSTM scans: four kernels in place of JAX's two lax.scan loops
+# ---------------------------------------------------------------------------
+
+# Kernel vs plain tolerance of the scans, relative to the largest |value|
+# of each output (f32 on both sides): the kernels sum C q and n . q over
+# D = 256 and h r_w over d = 1024 in another order than the plain
+# version's GEMMs, and the backward carries that rounding back through 256
+# steps; 1e-4 is ~1000 f32 roundings of the largest value.
+TOL_SCAN_REL = 1e-4
+# xlstm-350m's recurrences: the mLSTM's 4 heads of 256, the sLSTM's d
+SCAN_H, SCAN_D, SCAN_DM = 4, 256, 1024
+# (y)'s batch and sequence, at which the kernel phase also checks the
+# recorded forwards and the backward scans
+XLSTM_TRAIN_SHAPE = (2, 1024)
+SCAN_KERNELS = ("mlstm_scan", "mlstm_scan_backward", "slstm_scan",
+                "slstm_scan_backward")
+# launch counter -> the key of the kernel's timing and error
+SCAN_KEYS = dict(zip(SCAN_KERNELS, ("mLSTM", "mLSTM-bwd", "sLSTM",
+                                    "sLSTM-bwd")))
+
+
+def check_rel(torch, what, got, want, tol=TOL_SCAN_REL) -> float:
+    """Every output within ``tol`` of the plain version's relative to its
+    largest |value|, and finite; returns the largest absolute error."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.shape != b.shape:
+            fail(f"{what}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+        if not torch.isfinite(a).all():
+            fail(f"{what}: non-finite kernel output")
+        err = float((a - b).abs().max())
+        scale = max(float(b.abs().max()), 1e-30)
+        if err > tol * scale:
+            fail(f"{what}: max |kernel - plain| = {err:.3e} > {tol} x "
+                 f"{scale:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def mlstm_case(torch, g, b, s, fresh=False):
+    """(q, k, v, log_i, log_f, C0, n0, m0) at xlstm-350m's heads, scaled
+    as ``mlstm_apply`` makes them (q, k over sqrt(D), forget gates near
+    1); carries fresh (zeros, m = -1e30) or as after some steps."""
+    import torch.nn.functional as F
+    dev = "cuda"
+    q, k = (torch.randn((b, s, SCAN_H, SCAN_D), generator=g, device=dev)
+            / SCAN_D ** 0.5 for _ in range(2))
+    v = torch.randn((b, s, SCAN_H, SCAN_D), generator=g, device=dev)
+    log_i = torch.randn((b, s, SCAN_H), generator=g, device=dev)
+    log_f = F.logsigmoid(torch.randn((b, s, SCAN_H), generator=g,
+                                     device=dev) + 3)
+    if fresh:
+        c0 = torch.zeros((b, SCAN_H, SCAN_D, SCAN_D), device=dev)
+        n0 = torch.zeros((b, SCAN_H, SCAN_D), device=dev)
+        m0 = torch.full((b, SCAN_H), -1e30, device=dev)
+    else:
+        c0 = torch.randn((b, SCAN_H, SCAN_D, SCAN_D), generator=g,
+                         device=dev) / SCAN_D
+        n0 = torch.randn((b, SCAN_H, SCAN_D), generator=g, device=dev)
+        m0 = torch.randn((b, SCAN_H), generator=g, device=dev)
+    return q, k, v, log_i, log_f, c0, n0, m0
+
+
+def slstm_case(torch, g, b, s, fresh=False):
+    """(pre_x, r_w, c0, n0, m0, h0) at xlstm-350m's d; r_w at
+    ``init_slstm``'s scale 0.1."""
+    dev, d = "cuda", SCAN_DM
+    pre_x = torch.randn((b, s, 4 * d), generator=g, device=dev)
+    r_w = 0.1 * torch.randn((d, 4 * d), generator=g, device=dev)
+    if fresh:
+        carries = [torch.zeros((b, d), device=dev) for _ in range(4)]
+        carries[2].fill_(-1e30)
+    else:
+        carries = [torch.randn((b, d), generator=g, device=dev)
+                   for _ in range(4)]
+        carries[1] = carries[1].abs() + 0.5
+    return (pre_x, r_w, *carries)
+
+
+def scan_bound_ms(nbytes_, flops) -> float:
+    return 1e3 * max(nbytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"])
+
+
+def xlstm_scan_kernels(torch, results):
+    """The four scan kernels against their plain versions (``ref``) at
+    xlstm-350m's widths in f32: the forward scans at 8 x 256 (one served
+    chunk wave), 1 x 1,024 and 8 x 1 (a decode step), from fresh and from
+    running carries; the recorded forward's checkpoints and the backward,
+    against autograd through the plain forward, at 2 x 256 and at (y)'s
+    ``XLSTM_TRAIN_SHAPE``.  Errors go into ``results``; returns the
+    timings of each kernel (its plain version beside it; no library call
+    computes a scan) with its bytes, flops and steps, by CUDA events
+    around the calls."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import xlstm_scan as X
+
+    g = torch.Generator(device="cuda").manual_seed(27)
+    timing, errs = {}, {k: 0.0 for k in SCAN_KERNELS}
+    cases = {}
+    for b, s in ((8, 256), (1, 1024), (8, 1)):
+        for fresh in (True, False):
+            m_args = mlstm_case(torch, g, b, s, fresh)
+            s_args = slstm_case(torch, g, b, s, fresh)
+            tag = f"({b}, {s}) {'fresh' if fresh else 'running'} carries"
+            errs["mlstm_scan"] = max(errs["mlstm_scan"], check_rel(
+                torch, f"mlstm_scan {tag}", X._MLSTM(*m_args, 0)[:4],
+                ref.mlstm_scan_ref(*m_args)[:4]))
+            errs["slstm_scan"] = max(errs["slstm_scan"], check_rel(
+                torch, f"slstm_scan {tag}", X._SLSTM(*s_args, False)[:5],
+                ref.slstm_scan_ref(*s_args)[:5]))
+            cases[b, s] = (m_args, s_args)
+    # the recorded forward's saved tensors and the backward at 2 x 256 (the
+    # timed case) and at (y)'s shape, 2 x 1,024: 32 checkpoint chunks, a
+    # whole 1,024-step tile of the stabilizer's reverse
+    chunk = X.MLSTM_CHUNK
+    for b, s in ((2, 256), XLSTM_TRAIN_SHAPE):
+        m_args, s_args = mlstm_case(torch, g, b, s), slstm_case(torch, g, b, s)
+        m_out = X._MLSTM(*m_args, chunk)
+        errs["mlstm_scan"] = max(errs["mlstm_scan"], check_rel(
+            torch, f"mlstm_scan ({b}, {s}) recorded", m_out,
+            ref.mlstm_scan_ref(*m_args, chunk)))
+        s_out = X._SLSTM(*s_args, True)
+        errs["slstm_scan"] = max(errs["slstm_scan"], check_rel(
+            torch, f"slstm_scan ({b}, {s}) recorded", s_out,
+            ref.slstm_scan_ref(*s_args, True)))
+        dy_m = torch.randn_like(m_out[0])
+        dy_s = torch.randn_like(s_out[0])
+        for name, fn, plain, args, n_seq, dy in (
+                ("mlstm_scan_backward", X.mlstm_scan, ref.mlstm_scan_ref,
+                 m_args, 5, dy_m),
+                ("slstm_scan_backward", X.slstm_scan, ref.slstm_scan_ref,
+                 s_args, 2, dy_s)):
+            seqs = [a.clone().requires_grad_() for a in args[:n_seq]]
+            got = torch.autograd.grad(fn(*seqs, *args[n_seq:])[0], seqs, dy)
+            seqs = [a.clone().requires_grad_() for a in args[:n_seq]]
+            want = torch.autograd.grad(plain(*seqs, *args[n_seq:])[0], seqs,
+                                       dy)
+            errs[name] = max(errs[name], check_rel(
+                torch, f"{name} ({b}, {s})", got, want))
+            del seqs, got, want
+        if (b, s) == (2, 256):
+            timed_bwd = m_args, m_out, dy_m, s_args, s_out, dy_s
+        del m_args, s_args, m_out, s_out, dy_m, dy_s
+        torch.cuda.empty_cache()
+    say(f"xLSTM scans vs plain [xlstm-350m: mLSTM {SCAN_H} heads of "
+        f"{SCAN_D}, sLSTM d {SCAN_DM}, f32; 8 x 256, 1 x 1024, 8 x 1 from "
+        f"fresh and running carries; recorded forward and backward at 2 x "
+        f"256 and {XLSTM_TRAIN_SHAPE[0]} x {XLSTM_TRAIN_SHAPE[1]} against "
+        f"autograd through the plain forward]: max |err| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tolerance {TOL_SCAN_REL} of the largest value)")
+    for k, v in errs.items():
+        results[(SCAN_KEYS[k], "xlstm-350m", "float32")] = dict(err=v)
+
+    def events_ms(fn, iters):
+        fn()
+        return time_events(torch, fn, iters)
+
+    def entry(key, s, kernel, plain, ins, outs, flops, iters):
+        # CUDA events around the calls: the sLSTM's call is one launch per
+        # step, so the call's time is the span, gaps between launches
+        # included, not a trace's sum of kernel times
+        t = dict(ms=events_ms(kernel, iters), plain_ms=events_ms(plain, 1),
+                 library_ms=None, bytes=nbytes(*ins) + nbytes(*outs),
+                 flops=flops, dtype="float32", steps=s)
+        timing[key] = t
+        say(f"{key}: {t['ms'] / s * 1e3:.2f} us per step x {s} steps = "
+            f"{t['ms']:.3f} ms (the recurrence's floor: steps x one "
+            f"step's latency), bound "
+            f"{scan_bound_ms(t['bytes'], flops):.4f} ms (bytes and "
+            f"flops), plain {t['plain_ms']:.1f} ms")
+
+    for (b, s), suffix in (((8, 256), ""), ((1, 1024), " (1, 1024)")):
+        m, sl = cases[b, s]
+        entry(f"mLSTM{suffix}", s, lambda: X._MLSTM(*m, 0),
+              lambda: ref.mlstm_scan_ref(*m), m, X._MLSTM(*m, 0)[:4],
+              X.mlstm_flops(b, s, SCAN_H, SCAN_D), 20)
+        entry(f"sLSTM{suffix}", s, lambda: X._SLSTM(*sl, False),
+              lambda: ref.slstm_scan_ref(*sl), sl, X._SLSTM(*sl, False)[:5],
+              X.slstm_flops(b, s, SCAN_DM), 10)
+    m_args, m_out, dy_m, s_args, s_out, dy_s = timed_bwd
+    q, k, v, li, lf, c0, n0, m0 = m_args
+    y, _, _, _, ck_c, ck_n, ms, ss = m_out
+    bwd = (dy_m, q, k, v, li, lf, m0, ck_c, ck_n, ms, ss, y, chunk)
+    entry("mLSTM-bwd", 256, lambda: X._MLSTM_BWD(*bwd),
+          lambda: ref.mlstm_scan_backward_ref(dy_m, q, k, v, li, lf, c0, n0,
+                                              m0),
+          bwd[:-1], (q, k, v, li, lf),
+          X.mlstm_flops(2, 256, SCAN_H, SCAN_D, backward=True), 10)
+    pre_x, r_w, c0, n0, m0, h0 = s_args
+    sy, _, _, _, _, pres, cs, ns, sm = s_out
+    sbwd = (dy_s, pre_x, r_w, c0, n0, m0, h0, pres, cs, ns, sm, sy)
+    entry("sLSTM-bwd", 256, lambda: X._SLSTM_BWD(*sbwd),
+          lambda: ref.slstm_scan_backward_ref(dy_s, pre_x, r_w, c0, n0, m0,
+                                              h0),
+          (dy_s, r_w, pres, cs, ns, sm, sy, c0, n0, m0, h0), (pre_x, r_w),
+          X.slstm_flops(2, 256, SCAN_DM, backward=True), 10)
     return timing
 
 
@@ -3867,11 +4086,14 @@ def hybrid_phase(torch, card):
 # The xLSTM stack and cross attention: the last two registry configs
 # ---------------------------------------------------------------------------
 
-# every kernel counter: the xLSTM runs must launch none of them
+# every attention kernel counter (B1-B5): the xLSTM runs must launch none
+# of them, and the forward scans
 ALL_KERNELS = ("paged_decode_partials", "paged_decode_partials_int8",
                "flash_prefill", "paged_prefix_partials",
                "paged_verify_partials", "paged_verify_partials_int8",
                "split_kv_decode_partials")
+XLSTM_KERNELS = ("mlstm_scan", "slstm_scan")
+XLSTM_BACKWARD = ("mlstm_scan_backward", "slstm_scan_backward")
 XLSTM_CHUNK = 256
 XLSTM_FAMILIES = ("GEMMs", "the xLSTM's elementwise and recurrence work",
                   "the rest")
@@ -3905,9 +4127,9 @@ def xlstm_requests(cfg):
 def xlstm_phase(torch, card):
     """(p) xlstm-350m at full width and depth in f32 (random weights from
     seed 0) through ``Server`` over one prefill and one decode member on
-    dense rows, 256-token chunks, replayed and eagerly: no kernel may
-    launch (JAX runs these blocks in XLA), the streams and launches of the
-    two runs must be equal, every token within TOKEN_GAP_TOL of the
+    dense rows, 256-token chunks, replayed and eagerly: the forward scans
+    must launch and no B-kernel or backward scan, the streams and launches
+    of the two runs must be equal, every token within TOKEN_GAP_TOL of the
     monolithic f32 forward's best; prints one profiled iteration's device
     ms by family.  (q) two 2-stage decode pipelines over [(0, 12), (12,
     24)] with one forced 4-layer span move (three mLSTM, one sLSTM); the
@@ -3938,7 +4160,8 @@ def xlstm_phase(torch, card):
             # over every prompt) is not run twice
             runs[label] = serve_run(
                 torch, card, cfg, params, label=label, speculation="off",
-                chunk_tokens=XLSTM_CHUNK, needed=(), forbidden=ALL_KERNELS,
+                chunk_tokens=XLSTM_CHUNK, needed=XLSTM_KERNELS,
+                forbidden=ALL_KERNELS + XLSTM_BACKWARD,
                 profile=True, graphs=graphs, decode_kernel=None,
                 requests=xlstm_requests,
                 same_as=None if graphs else runs["xlstm"]["streams"])
@@ -3956,7 +4179,8 @@ def xlstm_phase(torch, card):
         f"{a['prefill_tps']:.1f} vs {b['prefill_tps']:.1f} tok/s, peak "
         f"memory {a['peak_gib']:.2f} vs {b['peak_gib']:.2f} GiB; streams "
         f"{len(a['streams'])}/{len(b['streams'])} equal, launch counts "
-        f"equal (no kernel) [{card}]")
+        f"equal (forward scans {a['launches']['mlstm_scan']} mLSTM, "
+        f"{a['launches']['slstm_scan']} sLSTM; no B-kernel) [{card}]")
     say_families("xlstm", card, a["decode_profile"], b["decode_profile"],
                  XLSTM_FAMILIES, xlstm_family)
     for st in runs.values():
@@ -3965,8 +4189,9 @@ def xlstm_phase(torch, card):
         torch, card, cfg, params, a["streams"], label="xlstm-migrate-q",
         n_prefill=1, decode_split=2,
         force=force_one_span_move(torch, card, "xlstm-migrate-q", 4),
-        chunk_tokens=XLSTM_CHUNK, requests=xlstm_requests, needed=(),
-        forbidden=ALL_KERNELS, exact=True)
+        chunk_tokens=XLSTM_CHUNK, requests=xlstm_requests,
+        needed=XLSTM_KERNELS, forbidden=ALL_KERNELS + XLSTM_BACKWARD,
+        exact=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4238,16 +4463,18 @@ def tree_numel(tree) -> int:
 
 
 def train_steps(torch, card, cfg, params, *, label, batches, remat,
-                opt_cfg):
+                opt_cfg, kernels=()):
     """Runs ``len(batches)`` AdamW steps of ``make_train_step`` on
     ``params`` (updated in place) with every launch counter zeroed
-    before and read after: no B-kernel may launch (JAX trains outside
-    any Pallas kernel).  Checks that every loss, grad norm (and MoE
+    before and read after: every kernel of ``kernels`` must launch and no
+    other (no B-kernel: JAX trains outside any Pallas kernel; the xLSTM
+    stack's four scans).  Checks that every loss, grad norm (and MoE
     ``lb_loss``) is finite and that the mean loss of the last five steps
     is below that of the first five; prints ms per step (host clock
     around synchronised steps; the first step apart) and the AdamW
     update's share of it (CUDA events around ``apply_updates``),
-    tokens/s and peak memory.  Returns (optimizer state, launches)."""
+    tokens/s and peak memory (and what was allocated before the steps).
+    Returns (optimizer state, launches)."""
     from repro_torch.kernels import ops
     from repro_torch.training import optimizer as O
     from repro_torch.training.train_step import make_train_step
@@ -4266,6 +4493,7 @@ def train_steps(torch, card, cfg, params, *, label, batches, remat,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     ops.reset_launches()
     rows, secs = [], []
     O.apply_updates = timed_update
@@ -4284,8 +4512,10 @@ def train_steps(torch, card, cfg, params, *, label, batches, remat,
     for i, m in enumerate(rows, 1):
         if not all(map(math.isfinite, m.values())):
             fail(f"[{label}] step {i}: non-finite metrics {m}")
-    if any(launches.values()):
-        fail(f"[{label}] kernels launched during training: {launches}")
+    if any(n for k, n in launches.items() if k not in kernels) or not all(
+            launches[k] for k in kernels):
+        fail(f"[{label}] kernels launched during training: {launches}; "
+             f"expected {list(kernels) or 'none'}")
     losses = [m["loss"] for m in rows]
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     if not last < first:
@@ -4300,10 +4530,12 @@ def train_steps(torch, card, cfg, params, *, label, batches, remat,
         f"{steady * 1e3:.1f} ms per step after the first "
         f"({secs[0] * 1e3:.1f} ms), AdamW {adamw_ms:.1f} ms of it (device), "
         f"{tokens / steady:.1f} tokens/s, peak "
-        f"memory {peak / 2**30:.2f} GiB; loss {losses[0]:.4f} -> "
+        f"memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held "
+        f"before the steps); loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f} (mean of the first five {first:.4f}, of the last "
         f"five {last:.4f}); grad norm {rows[0]['grad_norm']:.3f} -> "
-        f"{rows[-1]['grad_norm']:.3f}{lb}; no kernel launched [{card}]")
+        f"{rows[-1]['grad_norm']:.3f}{lb}; launches "
+        f"{ {k: n for k, n in launches.items() if n} or 'none'} [{card}]")
     say(f"[{label}] losses: {', '.join(f'{x:.4f}' for x in losses)}")
     return state, launches
 
@@ -4467,8 +4699,37 @@ def training_phase(torch, card):
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    say(f"training phase (t)-(u): {time.perf_counter() - t0:.1f} s [{card}]")
+    out.update(xlstm_train_run(torch, card))
+    say(f"training phase (t)-(u), (y): {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
     return out
+
+
+def xlstm_train_run(torch, card):
+    """(y) xlstm-350m at full size in f32 from seed 0, AdamW (lr 1e-3,
+    warmup 2, total 10), 10 steps of 2 x 1,024 tokens without remat: the
+    four scan kernels must launch and no other.  Returns {run:
+    launches}."""
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+
+    t0 = time.perf_counter()
+    cfg = get("xlstm-350m")
+    params = T.init(cfg, seed=0, dtype=torch.float32)
+    say(f"[xlstm-train] {describe(cfg)}: {tree_numel(params):,} parameters "
+        f"in the tree, f32 from seed 0 [{card}]")
+    _, launches = train_steps(
+        torch, card, cfg, params, label="xlstm-train",
+        batches=train_batches(torch, cfg, *XLSTM_TRAIN_SHAPE, 10),
+        remat=False,
+        opt_cfg=O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10),
+        kernels=SCAN_KERNELS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[xlstm-train] (y): {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"xlstm-train": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4495,6 +4756,17 @@ KERNELS = [
     ("B5", "split_kv_decode_partials",
      "src/repro_torch/kernels/csrc/split_kv_decode.cu",
      "src/repro/kernels/split_kv_decode.py:67"),
+    # no TPU kernel: JAX's lax.scan loops, which XLA compiles
+    ("mLSTM", "mlstm_scan", "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+     "src/repro/models/layers.py:709"),
+    ("mLSTM-bwd", "mlstm_scan_backward",
+     "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+     "src/repro/models/layers.py:709"),
+    ("sLSTM", "slstm_scan", "src/repro_torch/kernels/csrc/slstm_scan.cu",
+     "src/repro/models/layers.py:763"),
+    ("sLSTM-bwd", "slstm_scan_backward",
+     "src/repro_torch/kernels/csrc/slstm_scan.cu",
+     "src/repro/models/layers.py:763"),
 ]
 
 
@@ -4527,25 +4799,7 @@ def main() -> None:
     # -- phase 2
     timing, errs = kernel_phase(torch)
     torch.cuda.empty_cache()
-    for key, t in timing.items():
-        t["bound_ms"] = 1e3 * max(t["bytes"] / HBM_BYTES_PER_S,
-                                  t["flops"] / PEAK_FLOPS[t["dtype"]])
-        t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
-                         >= t["flops"] / PEAK_FLOPS[t["dtype"]]
-                         else "operations")
-        for k in ("ms", "plain_ms", "library_ms"):
-            if t.get(k) is not None and t[k] < t["bound_ms"]:
-                fail(f"{key}: {k} {t[k]:.4f} is under the bound "
-                     f"{t['bound_ms']:.4f} ms: the timer or the byte count "
-                     f"is wrong")
-        split = (f" (pages_per_split {t['pages_per_split']})"
-                 if "pages_per_split" in t else "")
-        times = ", ".join(f"{name} {t[k]:.4f} ms" for k, name in (
-            ("ms", "kernel"), ("plain_ms", "plain"),
-            ("library_ms", "library"), ("bound_ms", "bound")) if k in t)
-        say(f"{key}{split}: {times} ({t['bound_by']}: "
-            f"{t['bytes'] / 1e6:.1f} MB, {t['flops'] / 1e9:.2f} GFLOP) "
-            f"[{card}]")
+    report_timing(timing, card)
 
     # -- phase 3
     per_run = serving_phase(torch, card)
@@ -4563,6 +4817,40 @@ def main() -> None:
                 for k in _lib.LAUNCHES}
 
     # -- phase 4
+    say(card)
+    say(json.dumps({"kernels": kernel_rows(timing, errs, launches)}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def report_timing(timing, card) -> None:
+    """Adds each timed kernel's bound (``bound_ms``, ``bound_by``) and
+    prints it with its times; fails a time under its bound."""
+    for key, t in timing.items():
+        t["bound_ms"] = 1e3 * max(t["bytes"] / HBM_BYTES_PER_S,
+                                  t["flops"] / PEAK_FLOPS[t["dtype"]])
+        t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
+                         >= t["flops"] / PEAK_FLOPS[t["dtype"]]
+                         else "operations")
+        for k in ("ms", "plain_ms", "library_ms"):
+            if t.get(k) is not None and t[k] < t["bound_ms"]:
+                fail(f"{key}: {k} {t[k]:.4f} is under the bound "
+                     f"{t['bound_ms']:.4f} ms: the timer or the byte count "
+                     f"is wrong")
+        split = (f" (pages_per_split {t['pages_per_split']})"
+                 if "pages_per_split" in t else "")
+        times = ", ".join(f"{name} {t[k]:.4f} ms" for k, name in (
+            ("ms", "kernel"), ("plain_ms", "plain"),
+            ("library_ms", "library"), ("bound_ms", "bound"))
+            if t.get(k) is not None)
+        say(f"{key}{split}: {times} ({t['bound_by']}: "
+            f"{t['bytes'] / 1e6:.1f} MB, {t['flops'] / 1e9:.2f} GFLOP) "
+            f"[{card}]")
+
+
+def kernel_rows(timing, errs, launches) -> list:
+    """The ``kernels`` line's rows, one per entry of KERNELS."""
     rows = []
     for key, counter, source, replaces in KERNELS:
         t = timing[key]
@@ -4572,11 +4860,7 @@ def main() -> None:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-    say(card)
-    say(json.dumps({"kernels": rows}))
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    return rows
 
 
 if __name__ == "__main__":

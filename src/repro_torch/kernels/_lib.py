@@ -9,8 +9,10 @@ flags, so an edited kernel is rebuilt.  Nothing here runs when a module
 is imported: the CPU tests import every module and have no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one only
-where it launches its kernel.  The int8-pool variants of the page kernels
-count apart from the bf16/f32 ones.  ``page_partials`` checks and launches
+where it launches its kernel (the xLSTM scans: one per call of their C
+entry point, which launches one kernel per step of the sLSTM and four
+kernels for the mLSTM's backward).  The int8-pool variants of the page
+kernels count apart from the bf16/f32 ones.  ``page_partials`` checks and launches
 the page kernels (paged decode, speculative verify), whose C entry points
 share one argument list, the int8 ones adding the scale pools.
 """
@@ -51,6 +53,12 @@ KERNELS = {
         "flash_prefill": [_P] * 6 + [_I] * 7 + [_F, _I, _F, _I, _I, _P]},
     "split_kv_decode": {
         "split_kv_decode_partials": [_P] * 7 + [_I] * 7 + [_F, _I, _P]},
+    "mlstm_scan": {
+        "mlstm_scan_forward": [_P] * 16 + [_I] * 5 + [_P],
+        "mlstm_scan_backward": [_P] * 25 + [_I] * 6 + [_P]},
+    "slstm_scan": {
+        "slstm_scan_forward": [_P] * 15 + [_I] * 4 + [_P],
+        "slstm_scan_backward": [_P] * 11 + [_I] * 3 + [_P]},
 }
 
 LAUNCHES: Dict[str, int] = {"paged_decode_partials": 0,
@@ -59,7 +67,9 @@ LAUNCHES: Dict[str, int] = {"paged_decode_partials": 0,
                             "paged_prefix_partials": 0,
                             "paged_verify_partials": 0,
                             "paged_verify_partials_int8": 0,
-                            "split_kv_decode_partials": 0}
+                            "split_kv_decode_partials": 0,
+                            "mlstm_scan": 0, "mlstm_scan_backward": 0,
+                            "slstm_scan": 0, "slstm_scan_backward": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

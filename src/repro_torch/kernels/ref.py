@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the attention kernels and the xLSTM scans.
 
 Two kinds of function live here:
 
@@ -15,6 +15,11 @@ Two kinds of function live here:
   gives ``l = 0``; dead table entries masked by ``table >= 0`` whatever the
   scratch page holds).  A kernel wrapper runs these on CPU tensors, and
   ``chip_smoke.py`` compares each kernel with its plain form on the card.
+
+The xLSTM scans (``mlstm_scan_ref``, ``slstm_scan_ref`` and their
+backward ``*_backward_ref``) step the recurrence one time step at a time,
+as JAX's ``lax.scan`` does, with the outputs the kernels save for the
+backward.
 
 All arithmetic is float32 whatever the input type, as in the kernels.
 int8 pools (``k_scale_pages``/``v_scale_pages`` given, one f32 scale per
@@ -407,3 +412,233 @@ def paged_prefill_attention_reference(q: torch.Tensor, k: torch.Tensor,
     p = _softmax_attend(sc, mask[:, None, None])
     o = torch.einsum("bkgsl,blkd->bskgd", p, vals.float())
     return o.reshape(b, s, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM scans
+# ---------------------------------------------------------------------------
+#
+# The gradient of ``max(x, y)`` goes to the larger side, half to each at a
+# tie (``torch.maximum``'s and JAX's ``max``'s rule); that of ``|s|`` is
+# sign(s), 0 at s = 0.  ``tie_weight(x, y)`` is x's share.
+
+def tie_weight(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.where(x > y, 1.0, torch.where(x == y, 0.5, 0.0))
+
+
+def _mlstm_gates(log_f, log_i, m):
+    """One step's stabilizer: a = log f + m, m' = max(a, log i), f' =
+    exp(a - m'), i' = exp(log i - m')."""
+    a = log_f + m
+    m_new = torch.maximum(a, log_i)
+    return a, m_new, torch.exp(a - m_new), torch.exp(log_i - m_new)
+
+
+def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   log_i: torch.Tensor, log_f: torch.Tensor,
+                   c0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor,
+                   chunk: int = 0) -> Tuple[torch.Tensor, ...]:
+    """The mLSTM recurrence, JAX's scan ``step`` (``mlstm_apply``) for t =
+    0..S-1 in f32: m_t = max(log f + m, log i), f' = exp(log f + m - m_t),
+    i' = exp(log i - m_t), C = f' C + i' v k^T, n = f' n + i' k, s = n . q,
+    y_t = C q / max(|s|, exp(-m_t)).  q, k, v: (B, S, H, D); log_i, log_f:
+    (B, S, H); carries C0 (B, H, D, D), n0 (B, H, D), m0 (B, H).
+
+    Returns (y, C, n, m, ckC, ckn, ms, ss).  With ``chunk`` > 0 also what
+    the kernel saves for the backward: the carries before every
+    ``chunk``-th step, ckC (B, ceil(S / chunk), H, D, D) and ckn (B, .., H,
+    D), and every step's m_t and s_t, ms / ss (B, S, H); with 0 these are
+    empty (their step axis 0)."""
+    b, s, h, d = q.shape
+    c_mem, n_mem, m = c0, n0, m0
+    ys, cks, ms, ss = [], [], [], []
+    for t in range(s):
+        if chunk and t % chunk == 0:
+            cks.append((c_mem, n_mem))
+        _, m_new, f_eff, i_eff = _mlstm_gates(log_f[:, t], log_i[:, t], m)
+        qt, kt, vt = q[:, t], k[:, t], v[:, t]
+        c_mem = (f_eff[..., None, None] * c_mem
+                 + i_eff[..., None, None] * (vt[..., :, None]
+                                             * kt[..., None, :]))
+        n_mem = f_eff[..., None] * n_mem + i_eff[..., None] * kt
+        dot = (n_mem * qt).sum(-1)
+        den = torch.maximum(dot.abs(), torch.exp(-m_new))
+        ys.append((c_mem @ qt[..., None])[..., 0] / den[..., None])
+        ms.append(m_new)
+        ss.append(dot)
+        m = m_new
+    y = torch.stack(ys, dim=1)
+    nc = -(-s // chunk) if chunk else 0
+    if chunk:
+        ck_c = torch.stack([c for c, _ in cks], dim=1)
+        ck_n = torch.stack([n for _, n in cks], dim=1)
+        ms, ss = torch.stack(ms, dim=1), torch.stack(ss, dim=1)
+    else:
+        ck_c = c0.new_empty((b, nc, h, d, d))
+        ck_n = n0.new_empty((b, nc, h, d))
+        ms, ss = m0.new_empty((b, 0, h)), m0.new_empty((b, 0, h))
+    return y, c_mem, n_mem, m, ck_c, ck_n, ms, ss
+
+
+def mlstm_scan_backward_ref(dy: torch.Tensor, q: torch.Tensor,
+                            k: torch.Tensor, v: torch.Tensor,
+                            log_i: torch.Tensor, log_f: torch.Tensor,
+                            c0: torch.Tensor, n0: torch.Tensor,
+                            m0: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The gradients (dq, dk, dv, dlog_i, dlog_f) of ``sum(dy * y)`` for y
+    = ``mlstm_scan_ref``'s output, the carries held fixed: the forward
+    recomputed from (C0, n0, m0), then one reverse pass carrying dC, dn
+    and dm, the same formulas as the backward kernel's.  Per step, with
+    den = max(|s|, g), g = exp(-m_t): dden = -(dy . y) / den splits into
+    ds (to s) and dg (to m_t, times -g); dC_t = dC + (dy / den) q^T; dq =
+    C_t^T dy / den + ds n_t; the scales' gradients dF = <dC_t, C_{t-1}> +
+    dn_t . n_{t-1} and dI = v^T dC_t k + dn_t . k go through exp and max
+    back to log_i, log_f and m_{t-1}."""
+    b, s, h, d = q.shape
+    cs, ns, gates = [c0], [n0], []
+    c_mem, n_mem, m = c0, n0, m0
+    for t in range(s):
+        a, m_new, f_eff, i_eff = _mlstm_gates(log_f[:, t], log_i[:, t], m)
+        kt, vt = k[:, t], v[:, t]
+        c_mem = (f_eff[..., None, None] * c_mem
+                 + i_eff[..., None, None] * (vt[..., :, None]
+                                             * kt[..., None, :]))
+        n_mem = f_eff[..., None] * n_mem + i_eff[..., None] * kt
+        cs.append(c_mem)
+        ns.append(n_mem)
+        gates.append((a, m_new, f_eff, i_eff))
+        m = m_new
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dli, dlf = torch.empty_like(log_i), torch.empty_like(log_f)
+    dc = torch.zeros_like(c0)
+    dn = torch.zeros_like(n0)
+    dm = torch.zeros_like(m0)
+    for t in range(s - 1, -1, -1):
+        a, m_t, f_eff, i_eff = gates[t]
+        qt, kt, vt, dyt = q[:, t], k[:, t], v[:, t], dy[:, t]
+        c_t, c_p, n_t, n_p = cs[t + 1], cs[t], ns[t + 1], ns[t]
+        dot = (n_t * qt).sum(-1)
+        g = torch.exp(-m_t)
+        den = torch.maximum(dot.abs(), g)
+        y_t = (c_t @ qt[..., None])[..., 0] / den[..., None]
+        dden = -(dyt * y_t).sum(-1) / den
+        w_s = tie_weight(dot.abs(), g)
+        ds = dden * w_s * torch.sign(dot)
+        dg = dden * (1.0 - w_s) * -g
+        dnum = dyt / den[..., None]
+        dct = dc + dnum[..., :, None] * qt[..., None, :]
+        dnt = dn + ds[..., None] * qt
+        dq[:, t] = (c_t.transpose(-1, -2) @ dnum[..., None])[..., 0] \
+            + ds[..., None] * n_t
+        rows = (dct @ kt[..., None])[..., 0]            # dC_t k
+        cols = (dct * vt[..., :, None]).sum(-2)         # dC_t^T v
+        dv[:, t] = i_eff[..., None] * rows
+        dk[:, t] = i_eff[..., None] * (cols + dnt)
+        d_f = (dct * c_p).sum((-1, -2)) + (dnt * n_p).sum(-1)
+        d_i = (kt * (cols + dnt)).sum(-1)
+        d_a, d_b = d_f * f_eff, d_i * i_eff
+        dmt = dm + dg - d_a - d_b
+        w_a = tie_weight(a, log_i[:, t])
+        da = d_a + w_a * dmt
+        dli[:, t] = d_b + (1.0 - w_a) * dmt
+        dlf[:, t] = da
+        dm = da
+        dc = f_eff[..., None, None] * dct
+        dn = f_eff[..., None] * dnt
+    return dq, dk, dv, dli, dlf
+
+
+def _slstm_step(pre, c, n, m):
+    """One sLSTM step from its pre-activations (z, i, f, o): returns (c, n,
+    m, h) and the intermediates (z, o, log i, a, f', i', max(n, 1))."""
+    d = c.shape[-1]
+    pz, li, pf, po = pre.split(d, dim=-1)
+    z, o = torch.tanh(pz), torch.sigmoid(po)
+    a = F.logsigmoid(pf) + m
+    m_new = torch.maximum(a, li)
+    f_eff, i_eff = torch.exp(a - m_new), torch.exp(li - m_new)
+    c = f_eff * c + i_eff * z
+    n = f_eff * n + i_eff
+    nn = torch.maximum(n, torch.ones_like(n))
+    h = o * c / nn
+    return (c, n, m_new, h), (z, o, li, a, f_eff, i_eff, nn)
+
+
+def slstm_scan_ref(pre_x: torch.Tensor, r_w: torch.Tensor,
+                   c0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor,
+                   h0: torch.Tensor, save: bool = False
+                   ) -> Tuple[torch.Tensor, ...]:
+    """The sLSTM recurrence, JAX's scan ``step`` (``slstm_apply``) for t =
+    0..S-1 in f32: pre = pre_x_t + h r_w split into (z, i, f, o); z =
+    tanh, o = sigmoid, log f = log_sigmoid; m_t = max(log f + m, i), f' =
+    exp(log f + m - m_t), i' = exp(i - m_t), c = f' c + i' z, n = f' n +
+    i', h = o c / max(n, 1).  pre_x: (B, S, 4d); r_w: (d, 4d); carries
+    (B, d).
+
+    Returns (y, c, n, m, h, pres, cs, ns, ms): y (B, S, d) the h sequence,
+    the last carries, and with ``save`` what the kernel saves for the
+    backward: every step's pre-activations pres (B, S, 4d) and c, n, m (B,
+    S, d); without, those four are empty (their step axis 0)."""
+    b, s, _ = pre_x.shape
+    c, n, m, h = c0, n0, m0, h0
+    ys, pres, cs, ns, ms = [], [], [], [], []
+    for t in range(s):
+        pre = pre_x[:, t] + h @ r_w
+        (c, n, m, h), _ = _slstm_step(pre, c, n, m)
+        ys.append(h)
+        pres.append(pre)
+        cs.append(c)
+        ns.append(n)
+        ms.append(m)
+    y = torch.stack(ys, dim=1)
+    if save:
+        saved = [torch.stack(x, dim=1) for x in (pres, cs, ns, ms)]
+    else:
+        saved = [pre_x.new_empty((b, 0, pre_x.shape[2]))] + [
+            c0.new_empty((b, 0, c0.shape[1])) for _ in range(3)]
+    return (y, c, n, m, h, *saved)
+
+
+def slstm_scan_backward_ref(dy: torch.Tensor, pre_x: torch.Tensor,
+                            r_w: torch.Tensor, c0: torch.Tensor,
+                            n0: torch.Tensor, m0: torch.Tensor,
+                            h0: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The gradients (dpre_x, dr_w) of ``sum(dy * y)`` for y =
+    ``slstm_scan_ref``'s output, the carries held fixed: the forward
+    recomputed, then one reverse pass carrying dc, dn, dm and the
+    recurrent dh = dpre_{t+1} r_w^T, the same formulas as the backward
+    kernel's; dr_w = sum_t h_{t-1}^T dpre_t, one product at the end."""
+    b, s, _ = pre_x.shape
+    c, n, m, h = c0, n0, m0, h0
+    steps, hs = [], [h0]
+    for t in range(s):
+        pre = pre_x[:, t] + h @ r_w
+        carry_in = (c, n)
+        (c, n, m, h), inter = _slstm_step(pre, c, n, m)
+        steps.append((pre, carry_in, (c, n), inter))
+        hs.append(h)
+    dpre = torch.empty_like(pre_x)
+    dc, dn, dm = (torch.zeros_like(c0) for _ in range(3))
+    for t in range(s - 1, -1, -1):
+        pre, (c_p, n_p), (c_t, n_t), (z, o, li, a, f_eff, i_eff, nn) = \
+            steps[t]
+        dh = dy[:, t] if t == s - 1 else dy[:, t] + dpre[:, t + 1] @ r_w.T
+        d_o = dh * c_t / nn
+        dct = dc + dh * o / nn
+        dnt = dn - dh * (o * c_t) / (nn * nn) * tie_weight(
+            n_t, torch.ones_like(n_t))
+        d_f = dct * c_p + dnt * n_p
+        d_i = dct * z + dnt
+        d_a, d_b = d_f * f_eff, d_i * i_eff
+        dmt = dm - d_a - d_b
+        w_a = tie_weight(a, li)
+        da = d_a + w_a * dmt
+        pf = pre.split(c0.shape[1], dim=-1)[2]
+        dpre[:, t] = torch.cat([dct * i_eff * (1.0 - z * z),
+                                d_b + (1.0 - w_a) * dmt,
+                                da * torch.sigmoid(-pf),
+                                d_o * o * (1.0 - o)], dim=-1)
+        dc, dn, dm = dct * f_eff, dnt * f_eff, da
+    h_prev = torch.stack(hs[:-1], dim=1)
+    d_rw = h_prev.reshape(b * s, -1).T @ dpre.reshape(b * s, -1)
+    return dpre, d_rw

@@ -1,0 +1,410 @@
+"""The xLSTM recurrences as differentiable custom operators: the port's
+counterpart of the two ``jax.lax.scan`` loops of JAX's
+``src/repro/models/layers.py`` (``mlstm_apply``'s and ``slstm_apply``'s).
+
+XLA compiles each scan into one loop on the device and differentiates
+through it; PyTorch has no scan, so each recurrence is one operator over
+the whole sequence, forward and backward, with four hand-written CUDA
+kernels behind them (no TPU kernel: JAX left these loops to XLA):
+
+* ``repro_torch::mlstm_scan(q, k, v, log_i, log_f, C0, n0, m0, chunk)``
+  -> (y, C, n, m, ckC, ckn, ms, ss), CUDA ``csrc/mlstm_scan.cu``
+  (``mlstm_scan_forward``).  With ``chunk`` > 0 (a forward that autograd
+  records) it also saves the carries before every ``chunk``-th step and
+  every step's stabilizer m_t and n_t . q_t, from which
+  ``repro_torch::mlstm_scan_backward`` (``mlstm_scan_backward``) recomputes
+  each chunk's states: a saved C per step would be B H D^2 floats a step
+  (2 GiB a layer at xlstm-350m's 2 x 1,024 tokens).
+* ``repro_torch::slstm_scan(pre_x, r_w, c0, n0, m0, h0, save)`` -> (y, c,
+  n, m, h, pres, cs, ns, ms), CUDA ``csrc/slstm_scan.cu``
+  (``slstm_scan_forward``).  With ``save`` it keeps every step's
+  pre-activations and c, n, m (B S (4d + 3d) floats) for
+  ``repro_torch::slstm_scan_backward`` (``slstm_scan_backward``), whose
+  dr_w = sum_t h_{t-1}^T dpre_t is one ``torch.matmul`` after the kernel.
+
+Each operator has ``custom_ops.define``'s four bodies (CUDA: the kernel;
+CPU: the plain version from ``ref``; fake: the shapes, the saved tensors
+included, so the dry run counts them; a flop formula) and a ``DTensor``
+rule: the mLSTM splits batch and heads, the sLSTM batch only (r_w mixes
+all of d and stays replicated; its gradient is then a partial sum over the
+batch shards).  The forward operators carry ``register_autograd``: the
+backward is one operator call per layer.  The carries are the recurrence's
+starting state (fresh zeros and m = -1e30 in training, the caller's state
+in serving): a carry that requires grad, or a gradient reaching a final
+carry, raises, never a silent zero.
+
+The flop formulas count 2 flops per multiply-add of the products, from
+shapes: the mLSTM's forward 2 B S H (2 D^2 + D) (C q, v k^T into C, n . q),
+its backward 2 B S H (6 D^2 + 3 D) (v k^T recomputed, (dy / den) q^T, C^T
+(dy / den), <dC, C_{t-1}>, dC k, dC^T v; dy . y, dn . n_{t-1}, dn . k);
+the sLSTM's forward 2 B S d 4d (h r_w), its backward twice that (dpre
+r_w^T per step, and dr_w).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _lib
+from .custom_ops import _splits, define, placement_rules
+from .ref import (mlstm_scan_backward_ref, mlstm_scan_ref,
+                  slstm_scan_backward_ref, slstm_scan_ref)
+
+MLSTM = "mlstm_scan"
+MLSTM_BWD = "mlstm_scan_backward"
+SLSTM = "slstm_scan"
+SLSTM_BWD = "slstm_scan_backward"
+# steps per mLSTM checkpoint of a recorded forward
+MLSTM_CHUNK = 32
+# value rows of C per block of the mLSTM backward: the scratch the wrapper
+# allocates follows it, and the kernel refuses any other count than its
+# kBwdRows
+MLSTM_BWD_ROWS = 16
+MAX_HEAD_DIM = 1024         # one thread per column of C
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               log_i: torch.Tensor, log_f: torch.Tensor, c0: torch.Tensor,
+               n0: torch.Tensor, m0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """The mLSTM recurrence over a sequence (``ref.mlstm_scan_ref``), f32:
+    q, k, v (B, S, H, D); log_i, log_f (B, S, H); carries C0 (B, H, D, D),
+    n0 (B, H, D), m0 (B, H).  Returns y (B, S, H, D) and the last C, n, m.
+    A forward that autograd records saves checkpoints every
+    ``MLSTM_CHUNK`` steps."""
+    chunk = MLSTM_CHUNK if _needs_grad(q, k, v, log_i, log_f) else 0
+    return _MLSTM(q, k, v, log_i, log_f, c0, n0, m0, chunk)[:4]
+
+
+def slstm_scan(pre_x: torch.Tensor, r_w: torch.Tensor, c0: torch.Tensor,
+               n0: torch.Tensor, m0: torch.Tensor, h0: torch.Tensor
+               ) -> Tuple[torch.Tensor, ...]:
+    """The sLSTM recurrence over a sequence (``ref.slstm_scan_ref``), f32:
+    pre_x (B, S, 4d), r_w (d, 4d), carries (B, d).  Returns y (B, S, d)
+    (the h sequence) and the last c, n, m, h.  A forward that autograd
+    records saves every step's pre-activations and c, n, m."""
+    save = _needs_grad(pre_x, r_w)
+    return _SLSTM(pre_x, r_w, c0, n0, m0, h0, save)[:5]
+
+
+def _f32(name: str, *ts) -> None:
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: the recurrence runs in float32, got "
+                             f"{t.dtype}")
+
+
+def _empty(ref: torch.Tensor, *shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=ref.device)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def _mlstm_shapes(q, k, v, log_i, log_f, c0, n0, m0):
+    b, s, h, d = q.shape
+    if (k.shape != q.shape or v.shape != q.shape
+            or log_i.shape != (b, s, h) or log_f.shape != (b, s, h)
+            or c0.shape != (b, h, d, d) or n0.shape != (b, h, d)
+            or m0.shape != (b, h)):
+        raise ValueError(f"{MLSTM}: inconsistent shapes q {tuple(q.shape)}, "
+                         f"gates {tuple(log_i.shape)}, carries "
+                         f"{tuple(c0.shape)} {tuple(n0.shape)} "
+                         f"{tuple(m0.shape)}")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"{MLSTM}: head_dim must be in [1, {MAX_HEAD_DIM}],"
+                         f" got {d}")
+    return b, s, h, d
+
+
+def _mlstm_out_shapes(b, s, h, d, chunk):
+    nc = -(-s // chunk) if chunk else 0
+    return ((b, s, h, d), (b, h, d, d), (b, h, d), (b, h),
+            (b, nc, h, d, d), (b, nc, h, d), (b, s if chunk else 0, h),
+            (b, s if chunk else 0, h))
+
+
+def _mlstm_cuda(q, k, v, log_i, log_f, c0, n0, m0, chunk):
+    ins = [t.contiguous() for t in (q, k, v, log_i, log_f, c0, n0, m0)]
+    dev = _lib.check_cuda(MLSTM, *ins)
+    _f32(MLSTM, *ins)
+    b, s, h, d = _mlstm_shapes(*ins)
+    if s == 0:
+        raise ValueError(f"{MLSTM}: empty sequence")
+    outs = [_empty(q, *sh) for sh in _mlstm_out_shapes(b, s, h, d, chunk)]
+    with torch.cuda.device(dev):
+        _lib.launch(MLSTM, "mlstm_scan_forward", MLSTM,
+                    *map(_lib.ptr, ins + outs), b, s, h, d, int(chunk))
+    return tuple(outs)
+
+
+def _mlstm_cpu(q, k, v, log_i, log_f, c0, n0, m0, chunk):
+    _f32(MLSTM, q, k, v, log_i, log_f, c0, n0, m0)
+    _mlstm_shapes(q, k, v, log_i, log_f, c0, n0, m0)
+    return mlstm_scan_ref(q, k, v, log_i, log_f, c0, n0, m0, chunk)
+
+
+def _mlstm_fake(q, k, v, log_i, log_f, c0, n0, m0, chunk):
+    b, s, h, d = q.shape
+    return tuple(q.new_empty(sh, dtype=torch.float32)
+                 for sh in _mlstm_out_shapes(b, s, h, d, chunk))
+
+
+def mlstm_flops(b, s, h, d, backward=False) -> int:
+    return 2 * b * s * h * ((6 * d * d + 3 * d) if backward
+                            else (2 * d * d + d))
+
+
+def _mlstm_flops(q, *_, **__):
+    return mlstm_flops(*q)
+
+
+def _mlstm_rules(q, k, v, log_i, log_f, c0, n0, m0, chunk):
+    """Batch: dim 0 everywhere; heads: dim 2 of the sequences and the
+    saved tensors, dim 1 of the carries."""
+    return placement_rules((q, k, v, log_i, log_f, c0, n0, m0, chunk), [
+        ((0,) * 8, (0,) * 8 + (None,)),
+        ((2, 1, 1, 1, 2, 2, 2, 2), (2,) * 5 + (1, 1, 1, None))])
+
+
+_MLSTM = define(
+    MLSTM,
+    "(Tensor q, Tensor k, Tensor v, Tensor log_i, Tensor log_f, Tensor C0, "
+    "Tensor n0, Tensor m0, int chunk) -> (Tensor, Tensor, Tensor, Tensor, "
+    "Tensor, Tensor, Tensor, Tensor)",
+    _mlstm_cuda, _mlstm_cpu, _mlstm_fake, _mlstm_flops, _mlstm_rules)
+
+
+def _mlstm_bwd_cuda(dy, q, k, v, log_i, log_f, m0, ck_c, ck_n, ms, ss, y,
+                    chunk):
+    ins = [t.contiguous() for t in (dy, q, k, v, log_i, log_f, m0, ck_c,
+                                    ck_n, ms, ss, y)]
+    dev = _lib.check_cuda(MLSTM_BWD, *ins)
+    _f32(MLSTM_BWD, *ins)
+    b, s, h, d = q.shape
+    if chunk < 1 or ck_c.shape != (b, -(-s // chunk), h, d, d):
+        raise ValueError(f"{MLSTM_BWD}: checkpoints {tuple(ck_c.shape)} do "
+                         f"not fit chunk {chunk}")
+    dq, dk, dv = (torch.empty_like(x) for x in ins[1:4])
+    dli, dlf = torch.empty_like(ins[4]), torch.empty_like(ins[5])
+    nb = -(-d // MLSTM_BWD_ROWS)
+    dp = -(-d // 32) * 32
+    scratch = [_empty(q, b * h * nb, chunk + 1, MLSTM_BWD_ROWS, dp),
+               _empty(q, b * h * nb, chunk + 1, dp),
+               _empty(q, b, s, h, nb, d), _empty(q, b, s, h, nb, d),
+               _empty(q, b, s, h, nb), _empty(q, b, s, h, nb),
+               _empty(q, b, s, h), _empty(q, b, s, h)]
+    with torch.cuda.device(dev):
+        _lib.launch(MLSTM, "mlstm_scan_backward", MLSTM_BWD,
+                    *map(_lib.ptr, ins + [dq, dk, dv, dli, dlf] + scratch),
+                    b, s, h, d, int(chunk), MLSTM_BWD_ROWS)
+    return dq, dk, dv, dli, dlf
+
+
+def _mlstm_bwd_cpu(dy, q, k, v, log_i, log_f, m0, ck_c, ck_n, ms, ss, y,
+                   chunk):
+    return mlstm_scan_backward_ref(dy, q, k, v, log_i, log_f, ck_c[:, 0],
+                                   ck_n[:, 0], m0)
+
+
+def _mlstm_bwd_fake(dy, q, k, v, log_i, log_f, *_):
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(log_i), torch.empty_like(log_f))
+
+
+def _mlstm_bwd_rules(dy, q, k, v, log_i, log_f, m0, ck_c, ck_n, ms, ss, y,
+                     chunk):
+    args = (dy, q, k, v, log_i, log_f, m0, ck_c, ck_n, ms, ss, y, chunk)
+    return placement_rules(args, [
+        ((0,) * 5, (0,) * 12 + (None,)),
+        ((2,) * 5, (2,) * 6 + (1,) + (2,) * 5 + (None,))])
+
+
+_MLSTM_BWD = define(
+    MLSTM_BWD,
+    "(Tensor dy, Tensor q, Tensor k, Tensor v, Tensor log_i, Tensor log_f, "
+    "Tensor m0, Tensor ckC, Tensor ckn, Tensor ms, Tensor ss, Tensor y, "
+    "int chunk) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _mlstm_bwd_cuda, _mlstm_bwd_cpu, _mlstm_bwd_fake,
+    lambda dy, q, *_, **__: mlstm_flops(*q, backward=True),
+    _mlstm_bwd_rules)
+
+
+def _refuse_carry_grads(name, carries, grads) -> None:
+    if any(t.requires_grad for t in carries):
+        raise ValueError(f"{name}: the carries are the recurrence's "
+                         f"starting state and take no gradient")
+    if any(g is not None for g in grads):
+        raise ValueError(f"{name}: a gradient reached a final carry; only "
+                         f"the output sequence is differentiated")
+
+
+def _mlstm_setup(ctx, inputs, output):
+    q, k, v, log_i, log_f, c0, n0, m0, chunk = inputs
+    _refuse_carry_grads(MLSTM, (c0, n0, m0), ())
+    y, _, _, _, ck_c, ck_n, ms, ss = output
+    ctx.chunk = chunk
+    ctx.set_materialize_grads(False)
+    ctx.mark_non_differentiable(ck_c, ck_n, ms, ss)
+    ctx.save_for_backward(q, k, v, log_i, log_f, m0, ck_c, ck_n, ms, ss, y)
+
+
+def _mlstm_backward(ctx, dy, dc, dn, dm, *_):
+    _refuse_carry_grads(MLSTM, (), (dc, dn, dm))
+    if ctx.chunk < 1:
+        raise RuntimeError(f"{MLSTM}: the forward saved no checkpoints")
+    q, k, v, log_i, log_f, m0, ck_c, ck_n, ms, ss, y = ctx.saved_tensors
+    if dy is None:
+        return (None,) * 9
+    grads = _MLSTM_BWD(dy, q, k, v, log_i, log_f, m0, ck_c, ck_n, ms, ss, y,
+                       ctx.chunk)
+    return (*grads, None, None, None, None)
+
+
+_MLSTM.register_autograd(_mlstm_backward, setup_context=_mlstm_setup)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def _slstm_shapes(pre_x, r_w, c0, n0, m0, h0):
+    b, s, g = pre_x.shape
+    d = r_w.shape[0]
+    if (g != 4 * d or r_w.shape != (d, 4 * d)
+            or any(t.shape != (b, d) for t in (c0, n0, m0, h0))):
+        raise ValueError(f"{SLSTM}: inconsistent shapes pre_x "
+                         f"{tuple(pre_x.shape)}, r_w {tuple(r_w.shape)}, "
+                         f"carries {tuple(c0.shape)}")
+    return b, s, d
+
+
+def _slstm_out_shapes(b, s, d, save):
+    s2 = s if save else 0
+    return ((b, s, d), (b, d), (b, d), (b, d), (b, d), (b, s2, 4 * d),
+            (b, s2, d), (b, s2, d), (b, s2, d))
+
+
+def _slstm_cuda(pre_x, r_w, c0, n0, m0, h0, save):
+    ins = [t.contiguous() for t in (pre_x, r_w, c0, n0, m0, h0)]
+    dev = _lib.check_cuda(SLSTM, *ins)
+    _f32(SLSTM, *ins)
+    b, s, d = _slstm_shapes(*ins)
+    if s == 0:
+        raise ValueError(f"{SLSTM}: empty sequence")
+    outs = [_empty(pre_x, *sh) for sh in _slstm_out_shapes(b, s, d, save)]
+    with torch.cuda.device(dev):
+        _lib.launch(SLSTM, "slstm_scan_forward", SLSTM,
+                    *map(_lib.ptr, ins + outs), b, s, d, int(save))
+    return tuple(outs)
+
+
+def _slstm_cpu(pre_x, r_w, c0, n0, m0, h0, save):
+    _f32(SLSTM, pre_x, r_w, c0, n0, m0, h0)
+    _slstm_shapes(pre_x, r_w, c0, n0, m0, h0)
+    return slstm_scan_ref(pre_x, r_w, c0, n0, m0, h0, save)
+
+
+def _slstm_fake(pre_x, r_w, c0, n0, m0, h0, save):
+    b, s, _ = pre_x.shape
+    return tuple(pre_x.new_empty(sh, dtype=torch.float32)
+                 for sh in _slstm_out_shapes(b, s, r_w.shape[0], save))
+
+
+def slstm_flops(b, s, d, backward=False) -> int:
+    return (4 if backward else 2) * b * s * d * 4 * d
+
+
+def _slstm_rules(pre_x, r_w, c0, n0, m0, h0, save):
+    """Batch only: r_w stays replicated."""
+    return placement_rules((pre_x, r_w, c0, n0, m0, h0, save), [
+        ((0,) * 9, (0, None, 0, 0, 0, 0, None))])
+
+
+_SLSTM = define(
+    SLSTM,
+    "(Tensor pre_x, Tensor r_w, Tensor c0, Tensor n0, Tensor m0, Tensor h0, "
+    "bool save) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, "
+    "Tensor, Tensor)",
+    _slstm_cuda, _slstm_cpu, _slstm_fake,
+    lambda pre_x, r_w, *_, **__: slstm_flops(pre_x[0], pre_x[1], r_w[0]),
+    _slstm_rules)
+
+
+def _slstm_bwd_cuda(dy, pre_x, r_w, c0, n0, m0, h0, pres, cs, ns, ms, y):
+    ins = [t.contiguous() for t in (dy, r_w, pres, cs, ns, ms, c0, n0, m0)]
+    dev = _lib.check_cuda(SLSTM_BWD, *ins, h0.contiguous(), y.contiguous())
+    _f32(SLSTM_BWD, *ins, h0, y)
+    b, s, d = dy.shape
+    if pres.shape != (b, s, 4 * d):
+        raise ValueError(f"{SLSTM_BWD}: the forward saved no steps")
+    dpre = torch.empty_like(pres)
+    carries = _empty(dy, 3, b, d)
+    with torch.cuda.device(dev):
+        _lib.launch(SLSTM, "slstm_scan_backward", SLSTM_BWD,
+                    *map(_lib.ptr, ins + [dpre, carries]), b, s, d)
+    h_prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
+    d_rw = h_prev.reshape(b * s, d).T @ dpre.reshape(b * s, 4 * d)
+    return dpre, d_rw
+
+
+def _slstm_bwd_cpu(dy, pre_x, r_w, c0, n0, m0, h0, pres, cs, ns, ms, y):
+    return slstm_scan_backward_ref(dy, pre_x, r_w, c0, n0, m0, h0)
+
+
+def _slstm_bwd_rules(dy, pre_x, r_w, c0, n0, m0, h0, pres, cs, ns, ms, y):
+    """Batch only: dpre_x follows the batch, dr_w is a partial sum over
+    the batch shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    args = (dy, pre_x, r_w, c0, n0, m0, h0, pres, cs, ns, ms, y)
+    rules = [([Replicate(), Replicate()], [Replicate()] * len(args))]
+    if _splits(dy, 0):
+        rules.append(([Shard(0), Partial()],
+                      [Shard(0), Shard(0), Replicate()]
+                      + [Shard(0)] * (len(args) - 3)))
+    return rules
+
+
+_SLSTM_BWD = define(
+    SLSTM_BWD,
+    "(Tensor dy, Tensor pre_x, Tensor r_w, Tensor c0, Tensor n0, Tensor m0, "
+    "Tensor h0, Tensor pres, Tensor cs, Tensor ns, Tensor ms, Tensor y) -> "
+    "(Tensor, Tensor)",
+    _slstm_bwd_cuda, _slstm_bwd_cpu,
+    lambda dy, pre_x, r_w, *_: (torch.empty_like(pre_x),
+                                torch.empty_like(r_w)),
+    lambda dy, pre_x, r_w, *_, **__: slstm_flops(dy[0], dy[1], dy[2],
+                                                 backward=True),
+    _slstm_bwd_rules)
+
+
+def _slstm_setup(ctx, inputs, output):
+    pre_x, r_w, c0, n0, m0, h0, save = inputs
+    _refuse_carry_grads(SLSTM, (c0, n0, m0, h0), ())
+    y, _, _, _, _, pres, cs, ns, ms = output
+    ctx.save = save
+    ctx.set_materialize_grads(False)
+    ctx.mark_non_differentiable(pres, cs, ns, ms)
+    ctx.save_for_backward(pre_x, r_w, c0, n0, m0, h0, pres, cs, ns, ms, y)
+
+
+def _slstm_backward(ctx, dy, dc, dn, dm, dh, *_):
+    _refuse_carry_grads(SLSTM, (), (dc, dn, dm, dh))
+    if not ctx.save:
+        raise RuntimeError(f"{SLSTM}: the forward saved no steps")
+    pre_x, r_w, c0, n0, m0, h0, pres, cs, ns, ms, y = ctx.saved_tensors
+    if dy is None:
+        return (None,) * 7
+    dpre, d_rw = _SLSTM_BWD(dy, pre_x, r_w, c0, n0, m0, h0, pres, cs, ns, ms,
+                            y)
+    return dpre, d_rw, None, None, None, None, None
+
+
+_SLSTM.register_autograd(_slstm_backward, setup_context=_slstm_setup)

@@ -23,7 +23,10 @@ sees what each rank runs on its local shards:
   ``parse_collectives`` sizes an instruction by its output shape
   (send/recv as ``collective-permute``).
 * Memory: the storages the step creates, live (freed when their last
-  view dies) and at their peak.
+  view dies) and at their peak.  A collective's autograd wrapper
+  (``_c10d_functional._wrap_tensor_autograd``) adds no bytes but keeps
+  the collective's output counted while it lives: on ``meta`` it is a new
+  empty tensor that the next op reads in place of the output.
 
 The mode runs as it is on ``meta`` shards over a ``"fake"`` process group
 (``launch/dryrun.py``: the 256- and 512-rank meshes on one host) and on
@@ -40,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Any, Dict, Iterable
+from typing import Any, Dict, Iterable, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -108,7 +111,7 @@ class CostMode(TorchDispatchMode):
         self.collective_counts: Dict[str, int] = {k: 0 for k in COLLECTIVES}
         self.live = 0
         self.peak = 0
-        self._seen: Dict[int, int] = {}
+        self._seen: Dict[int, list] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -130,6 +133,12 @@ class CostMode(TorchDispatchMode):
             self.collective_bytes[kind] += sum(_nbytes(t)
                                                for t in _tensors(moved))
             self.collective_counts[kind] += 1
+        if name == "_c10d_functional._wrap_tensor_autograd":
+            # a wrapper of the collective's output: no buffer of its own,
+            # but it keeps that output's alive (its meta kernel returns a
+            # new empty tensor standing in for it)
+            self._hold(args[0], out)
+            return out
         # new storages only: an in-place op returns its input, a view op a
         # view of it
         ins = {t.untyped_storage()._cdata for t in _tensors((args, kwargs))}
@@ -143,14 +152,25 @@ class CostMode(TorchDispatchMode):
         key = st._cdata
         if key in self._seen:
             return
-        n = st.nbytes()
-        self._seen[key] = n
-        self.live += n
+        group = self._seen[key] = [st.nbytes(), 1]    # bytes, holders
+        self.live += group[0]
         self.peak = max(self.peak, self.live)
-        weakref.finalize(st, self._free, key)
+        weakref.finalize(st, self._free, key, group)
 
-    def _free(self, key: int) -> None:
-        self.live -= self._seen.pop(key, 0)
+    def _hold(self, t: torch.Tensor, wrapper: torch.Tensor) -> None:
+        """``wrapper`` (another storage) keeps ``t``'s bytes counted."""
+        group = self._seen.get(t.untyped_storage()._cdata)
+        if group is not None:
+            group[1] += 1
+            weakref.finalize(wrapper.untyped_storage(), self._free, None,
+                             group)
+
+    def _free(self, key: Optional[int], group: list) -> None:
+        if key is not None:
+            self._seen.pop(key, None)
+        group[1] -= 1
+        if group[1] == 0:
+            self.live -= group[0]
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,7 @@ from torch.distributed.tensor import DTensor, Replicate
 
 from ..models import quant as Q
 from ..models import transformer as T
-from ..models.config import BlockKind, ModelConfig
+from ..models.config import ModelConfig
 from ..training import optimizer as O
 from ..training.train_step import make_train_step
 from ..training.tree import map_named
@@ -137,13 +137,6 @@ def build(cfg: ModelConfig, shape: S.ShapeSpec, mesh,
     small enough, ``cfg.replicate_small()``); a depth-cut step passes the
     full model's answer, so it is placed as the full model is."""
     cfg = S.arch_for_shape(cfg, shape)
-    if shape.kind != "decode" and any(
-            b in (BlockKind.MLSTM, BlockKind.SLSTM) for b in cfg.blocks()):
-        # mlstm_apply / slstm_apply step their recurrence from Python, one
-        # time step at a time: S steps of DTensor dispatch per layer
-        raise NotImplementedError(
-            "A9b: the xLSTM's train and prefill steps loop over time on "
-            "the host; the dry run measures its decode steps only")
     if kv_quant:
         cfg = cfg.with_kv_quant()
     if weight_quant and shape.kind == "train":

@@ -50,7 +50,7 @@ import torch
 import torch.distributed
 import torch.nn.functional as F
 
-from ..kernels import ops
+from ..kernels import ops, xlstm_scan
 from .config import Activation, ModelConfig
 
 Params = Dict[str, Any]
@@ -978,15 +978,14 @@ def mlstm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
 
     u = x w_up; q, k (divided by sqrt(D) in the model dtype) and v from u;
     the gates u w_if in the model dtype, cast to f32: log i = the first
-    H, log f = log_sigmoid of the last H; ogate = sigmoid(u w_o) in the
-    model dtype.  The recurrence runs in f32, one step at a time as JAX's
-    ``lax.scan`` does: m_t = max(log f + m, log i), f' = exp(log f + m -
-    m_t), i' = exp(log i - m_t), C = f' C + i' v k^T, n = f' n + i' k,
-    y_t = C q / max(|n . q|, exp(-m_t)).  m depends on the gates alone,
-    so its recurrence runs first and f', i' and exp(-m) of every step are
-    computed at once (elementwise: the same values), leaving ~14 small
-    kernels per step in the memory loop.  y is cast to x's dtype before
-    the output gate and the down projection.
+    H, log f = log_sigmoid of the last H (-softplus(-x), as JAX); ogate =
+    sigmoid(u w_o) in the model dtype.  The recurrence, JAX's
+    ``lax.scan``, is one
+    ``xlstm_scan.mlstm_scan`` over the sequence in f32 (a CUDA kernel on
+    the card, forward and backward): m_t = max(log f + m, log i), f' =
+    exp(log f + m - m_t), i' = exp(log i - m_t), C = f' C + i' v k^T, n =
+    f' n + i' k, y_t = C q / max(|n . q|, exp(-m_t)).  y is cast to x's
+    dtype before the output gate and the down projection.
 
     The last step's C, n and m are written into the caller's state tensors
     in place (``copy_``), so a CUDA graph that captures the step replays
@@ -1000,38 +999,17 @@ def mlstm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     u2 = u.reshape(b * s, -1)
     gates = (u2 @ p["w_if"]).reshape(b, s, 2 * h).float()
     log_i = gates[..., :h]
-    log_f = F.logsigmoid(gates[..., h:])
+    # jax.nn.log_sigmoid's own form, -softplus(-x): its backward has a
+    # DTensor rule (the dry run's train step), logsigmoid's has none
+    log_f = -_softplus(-gates[..., h:])
     ogate = torch.sigmoid(u2 @ p["w_o"]).reshape(b, s, -1)
     keys = ("C", "n", "m")
-    c_mem, n_mem, m = _xlstm_carry(state, keys, ((b, h, hd, hd), (b, h, hd),
-                                                 (b, h)), x.device)
-    # the stabilizer depends on the gates alone: its recurrence first,
-    # then every step's scales at once (elementwise over time, so the
-    # same values as computed step by step)
-    m_prev, m_cur = [], []
-    for t in range(s):
-        m_prev.append(m)
-        m = torch.maximum(log_f[:, t] + m, log_i[:, t])
-        m_cur.append(m)
-    m_prev, m_cur = (torch.stack(ms, dim=1) if s > 1 else ms[0][:, None]
-                     for ms in (m_prev, m_cur))                 # (B, S, H)
-    f_eff = torch.exp(log_f + m_prev - m_cur)
-    i_eff = torch.exp(log_i - m_cur)
-    floor = torch.exp(-m_cur)
-    ik = i_eff[..., None] * k
-    ys = []
-    for t in range(s):
-        qt, kt, vt = q[:, t], k[:, t], v[:, t]              # (B, H, D)
-        ft, it = f_eff[:, t], i_eff[:, t]                   # (B, H)
-        c_mem = (ft[..., None, None] * c_mem
-                 + it[..., None, None] * (vt[..., :, None]
-                                          * kt[..., None, :]))
-        n_mem = ft[..., None] * n_mem + ik[:, t]
-        denom = torch.maximum((n_mem * qt).sum(-1).abs(), floor[:, t])
-        ys.append((c_mem @ qt[..., None])[..., 0] / denom[..., None])
-    y = torch.stack(ys, dim=1).reshape(b, s, h * hd).to(x.dtype)
+    carry = _xlstm_carry(state, keys, ((b, h, hd, hd), (b, h, hd), (b, h)),
+                         x.device)
+    y, *last = xlstm_scan.mlstm_scan(q, k, v, log_i, log_f, *carry)
+    y = y.reshape(b, s, h * hd).to(x.dtype)
     y = ((y * ogate.to(x.dtype)).reshape(b * s, -1) @ p["w_down"])
-    return y.reshape(b, s, d), _write_state(state, keys, (c_mem, n_mem, m))
+    return y.reshape(b, s, d), _write_state(state, keys, last)
 
 
 def init_slstm(cfg: ModelConfig, gen: Optional[torch.Generator], dtype,
@@ -1056,9 +1034,11 @@ def slstm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     mixing, as JAX's ``slstm_apply``.  state: {"c", "n", "m", "h"}, each
     (B, d) f32, or None (zeros, ``m`` = -1e30).
 
-    The input pre-activations x w_gates are cast to f32; each step adds
-    h r_gates (``r_gates`` in f32) and splits into z, i, f, o: z = tanh,
-    o = sigmoid, log f = log_sigmoid; m_t = max(log f + m, i), f' =
+    The input pre-activations x w_gates are cast to f32; the recurrence,
+    JAX's ``lax.scan``, is one ``xlstm_scan.slstm_scan`` over the sequence
+    (a CUDA kernel per step on the card, forward and backward): each step
+    adds h r_gates (``r_gates`` in f32) and splits into z, i, f, o: z =
+    tanh, o = sigmoid, log f = log_sigmoid; m_t = max(log f + m, i), f' =
     exp(log f + m - m_t), i' = exp(i - m_t), c = f' c + i' z, n = f' n +
     i', h = o c / max(n, 1).  The h sequence, cast to x's dtype, goes
     through ``w_out``.  The last step's state is written in place."""
@@ -1066,20 +1046,7 @@ def slstm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     pre_x = (x.reshape(b * s, d) @ p["w_gates"]).reshape(b, s, 4 * d).float()
     r_w = p["r_gates"].float()
     keys = ("c", "n", "m", "h")
-    c, n, m, h = _xlstm_carry(state, keys, ((b, d),) * 4, x.device)
-    ys = []
-    for t in range(s):
-        z, li, lf_raw, o = (pre_x[:, t] + h @ r_w).split(d, dim=-1)
-        z = torch.tanh(z)
-        o = torch.sigmoid(o)
-        lf = F.logsigmoid(lf_raw)
-        m_new = torch.maximum(lf + m, li)
-        f_eff = torch.exp(lf + m - m_new)
-        i_eff = torch.exp(li - m_new)
-        c = f_eff * c + i_eff * z
-        n = f_eff * n + i_eff
-        h = o * c / torch.clamp(n, min=1.0)
-        m = m_new
-        ys.append(h)
-    y = torch.stack(ys, dim=1).to(x.dtype).reshape(b * s, d) @ p["w_out"]
-    return y.reshape(b, s, d), _write_state(state, keys, (c, n, m, h))
+    carry = _xlstm_carry(state, keys, ((b, d),) * 4, x.device)
+    y, *last = xlstm_scan.slstm_scan(pre_x, r_w, *carry)
+    y = y.to(x.dtype).reshape(b * s, d) @ p["w_out"]
+    return y.reshape(b, s, d), _write_state(state, keys, last)

@@ -42,6 +42,7 @@ or not): every block kind of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -337,6 +338,23 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
 # Forward
 # ---------------------------------------------------------------------------
 
+def _recompute_in_modes():
+    """``torch.utils.checkpoint``'s ``context_fn``: the backward's
+    recompute runs under the torch-function modes that the forward ran
+    under (the dry run's ``cost_analysis.EvenViews``), which the autograd
+    engine does not carry into it."""
+    modes = torch.overrides._get_current_function_mode_stack()
+
+    @contextlib.contextmanager
+    def recompute():
+        with contextlib.ExitStack() as stack:
+            for mode in modes:
+                stack.enter_context(mode)
+            yield
+
+    return contextlib.nullcontext(), recompute()
+
+
 def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
                  x: torch.Tensor, *, positions, state, mode,
                  prefix_aware: bool, block_tables, paged_kernel: bool,
@@ -513,8 +531,8 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             mode=mode, prefix_aware=prefix_aware, block_tables=block_tables,
             paged_kernel=paged_kernel, moe_impl=moe_impl, moe_cf=moe_cf,
             head_offload=head_offload, frames=frames)
-        x, rl = (torch.utils.checkpoint.checkpoint(run, p, x,
-                                                   use_reentrant=False)
+        x, rl = (torch.utils.checkpoint.checkpoint(
+            run, p, x, use_reentrant=False, context_fn=_recompute_in_modes)
                  if ckpt else run(p, x))
         if rl is not None:
             loads.append(rl)

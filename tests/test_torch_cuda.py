@@ -1191,8 +1191,9 @@ def test_cuda_last_two_stacks_replay_equal_eager(arch, monkeypatch):
     32-token chunks (seamless with each request's own frames) and decoded
     with CUDA graphs on and off: every replayed step equals the eager one
     bit for bit (the xLSTM's C/n/m/c/h restored after the capture's
-    warm-up), the streams and launches are equal; the xLSTM launches no
-    kernel, seamless B1, B2 and B5 (cross decode) and never B3 or B4."""
+    warm-up), the streams and launches are equal; the xLSTM launches its
+    forward scans (mLSTM and sLSTM) and never B1-B5 or a backward scan,
+    seamless B1, B2 and B5 (cross decode) and never B3 or B4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     import dataclasses
@@ -1234,7 +1235,8 @@ def test_cuda_last_two_stacks_replay_equal_eager(arch, monkeypatch):
     assert all(torch.equal(g, e) for g, e in zip(graph, eager))
     assert g_streams == e_streams and g_launch == e_launch
     used = ({"paged_decode_partials", "flash_prefill",
-             "split_kv_decode_partials"} if cfg.cross_attention else set())
+             "split_kv_decode_partials"} if cfg.cross_attention
+            else {"mlstm_scan", "slstm_scan"})
     for name, n in g_launch.items():
         assert (n > 0) == (name in used), (name, n)
 
@@ -1277,7 +1279,9 @@ def test_cuda_smoke_phases_of_the_last_two_stacks(monkeypatch):
     monkeypatch.setattr(CS, "served_requests", short)
     monkeypatch.setattr(CS, "XLSTM_CHUNK", 32)
     launches = CS.xlstm_phase(torch, "card test")
-    assert all(n == 0 for run in launches.values() for n in run.values())
+    for run in launches.values():
+        for name, n in run.items():
+            assert (n > 0) == (name in CS.XLSTM_KERNELS), (name, n)
     results = {}
     timing = CS.seamless_kernels(torch, results)
     assert sorted(k for k, _, _ in results) == ["B1", "B2", "B5"]
@@ -1285,6 +1289,133 @@ def test_cuda_smoke_phases_of_the_last_two_stacks(monkeypatch):
     assert all(t["ms"] > 0 and t["library_ms"] > 0 for t in timing.values())
     runs = CS.seamless_phase(torch, "card test")
     assert all(run["split_kv_decode_partials"] > 0 for run in runs.values())
+
+
+# ---------------------------------------------------------------------------
+# The xLSTM scans
+# ---------------------------------------------------------------------------
+
+def _scan_cases(b, s, h, d, dm, seed):
+    """(mLSTM args, sLSTM args) on the card from a seed: q, k over
+    sqrt(D), forget gates near 1, carries as after some steps; one row
+    blanked (zeros, m = 0)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    m = [rn(b, s, h, d) / d ** 0.5, rn(b, s, h, d) / d ** 0.5,
+         rn(b, s, h, d), rn(b, s, h),
+         torch.nn.functional.logsigmoid(rn(b, s, h) + 3),
+         rn(b, h, d, d) / d, rn(b, h, d), rn(b, h)]
+    sl = [rn(b, s, 4 * dm), 0.1 * rn(dm, 4 * dm), rn(b, dm),
+          rn(b, dm).abs() + 0.5, rn(b, dm), rn(b, dm)]
+    for t in m[5:] + sl[2:]:
+        t[-1] = 0
+    return m, sl
+
+
+def _rel_close(got, want, tol=1e-4):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,dm", [(2, 7, 2, 16, 32), (3, 70, 2, 48, 40),
+                                        (2, 64, 4, 256, 1024),
+                                        (8, 1030, 1, 16, 32),
+                                        (8, 7, 1, 16, 1640)])
+def test_cuda_xlstm_scans_vs_plain(b, s, h, d, dm):
+    """The four scan kernels against their plain versions (``ref``): the
+    forward scans' outputs, final carries and saved tensors (checkpoints
+    every 32 steps, every step's m and n . q; the sLSTM's pre-activations
+    and c, n, m) within 1e-4 of the largest |value|; the gradients of y
+    through the backward kernels against autograd through the plain
+    forward.  Head dims that are no multiple of 32 and an sLSTM width
+    that is no multiple of 8 leave lanes and units idle.  The last two
+    cases take branches no served or trained shape of xlstm-350m reaches:
+    over 1,024 steps the mLSTM backward's stabilizer reverse walks two
+    tiles; at 8 rows of d = 1,640 the sLSTM backward stages dpre in
+    column tiles (4 d floats a row no longer fit its shared memory).  The
+    wide case stays short: with r_w at 0.1, d = 1,640 makes the sLSTM
+    recurrence chaotic, so over hundreds of steps a last-bit change of
+    pre_x moves the plain version's own output by whole units.  Each
+    call counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import xlstm_scan as X
+    m, sl = _scan_cases(b, s, h, d, dm, 11)
+    _lib.reset_launches()
+    _rel_close(X._MLSTM(*m, 32), ref.mlstm_scan_ref(*m, 32))
+    _rel_close(X._SLSTM(*sl, True), ref.slstm_scan_ref(*sl, True))
+    assert _lib.LAUNCHES["mlstm_scan"] == _lib.LAUNCHES["slstm_scan"] == 1
+    for fn, plain, args, n in ((X.mlstm_scan, ref.mlstm_scan_ref, m, 5),
+                               (X.slstm_scan, ref.slstm_scan_ref, sl, 2)):
+        seqs = [a.clone().requires_grad_() for a in args[:n]]
+        y = fn(*seqs, *args[n:])[0]
+        dy = torch.randn_like(y)
+        got = torch.autograd.grad(y, seqs, dy)
+        seqs = [a.clone().requires_grad_() for a in args[:n]]
+        want = torch.autograd.grad(plain(*seqs, *args[n:])[0], seqs, dy)
+        _rel_close(got, want)
+    assert _lib.LAUNCHES["mlstm_scan_backward"] == 1
+    assert _lib.LAUNCHES["slstm_scan_backward"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_decode_scans_in_a_captured_graph():
+    """S = 1 (a decode step) inside a captured CUDA graph: the replay
+    equals an eager call bit for bit and the plain version within 1e-4;
+    the capture counts one launch of each forward scan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import xlstm_scan as X
+    m, sl = _scan_cases(8, 1, 4, 256, 1024, 12)
+    for fn, plain, args in ((X.mlstm_scan, ref.mlstm_scan_ref, m),
+                            (X.slstm_scan, ref.slstm_scan_ref, sl)):
+        st = torch.cuda.Stream()
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            fn(*args)
+        torch.cuda.current_stream().wait_stream(st)
+        graph = torch.cuda.CUDAGraph()
+        _lib.reset_launches()
+        with torch.cuda.graph(graph):
+            out = fn(*args)
+        assert sum(_lib.LAUNCHES.values()) == 1
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = fn(*args)
+        assert all(torch.equal(a, b) for a, b in zip(out, eager))
+        _rel_close(out, plain(*args)[:len(out)])
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_scans_raise_without_fallback():
+    """A CUDA input the kernels do not take (bf16, a head_dim over 1024)
+    raises; nothing falls back to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import xlstm_scan as X
+    m, sl = _scan_cases(1, 3, 1, 16, 32, 13)
+    _lib.reset_launches()
+    with pytest.raises(ValueError, match="float32"):
+        X.mlstm_scan(m[0].bfloat16(), *m[1:])
+    with pytest.raises(ValueError, match="float32"):
+        X.slstm_scan(sl[0], sl[1].bfloat16(), *sl[2:])
+    big = [torch.zeros((1, 1, 1, 1040), device="cuda")] * 3 + [
+        torch.zeros((1, 1, 1), device="cuda")] * 2 + [
+        torch.zeros((1, 1, 1040, 1040), device="cuda"),
+        torch.zeros((1, 1, 1040), device="cuda"),
+        torch.zeros((1, 1), device="cuda")]
+    with pytest.raises(ValueError, match="head_dim"):
+        X.mlstm_scan(*big)
+    assert sum(_lib.LAUNCHES.values()) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -1299,7 +1430,8 @@ def _clone_tree(tree, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,remat", [("llama-13b", False),
                                         ("llama-13b", True),
-                                        ("granite-moe-3b-a800m", True)])
+                                        ("granite-moe-3b-a800m", True),
+                                        ("xlstm-350m", False)])
 def test_cuda_train_step_matches_cpu(arch, remat):
     """One train step of the arch's smoke size in f32 on the card against
     the same step on the CPU, from the same weights and tokens: the loss
@@ -1307,7 +1439,9 @@ def test_cuda_train_step_matches_cpu(arch, remat):
     largest |CPU gradient| (f32 sums in another order, the bound the CPU
     tests hold the port to against JAX); the AdamW update of the same
     gradients within 1e-6 relative; the step's loss, grad norm and lr
-    within 1e-5 relative.  No leaf requires grad after the step."""
+    within 1e-5 relative.  No leaf requires grad after the step.  The
+    xLSTM's card step runs the four scan kernels, its CPU step their
+    plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from repro_torch.configs import get

@@ -10,14 +10,16 @@ custom operators (``kernels/custom_ops.py``).
 * ``steps.build`` applies JAX's rules: the arguments' placements are
   JAX's specs for the config JAX's ``build`` derives (``arch_for_shape``,
   ``with_kv_quant``, ``fsdp_weights`` for training unless small), the
-  donated arguments, and ``ValueError`` for int8 weights in training.
+  donated arguments, and ``ValueError`` for int8 weights in training;
+  xlstm-350m's train and prefill steps build (its scans are operators).
 * The fake-against-real check: on a 2 x 2 mesh, the dry run over a
   4-rank fake group (``meta`` shards) gives rank 0 the same flops,
   collective counts and bytes, resident and argument bytes as the same
   step run on values by 4 gloo ranks (``WORKER``), and its transient peak
   within 10 % (a real collective holds its buffers until waited; on a
   one-rank group the two peaks are equal), for a dense config (train,
-  prefill, decode) and a MoE smoke config (prefill, decode); the gloo
+  prefill, decode), a MoE smoke config (prefill, decode) and a narrow
+  mLSTM + sLSTM stack (train, prefill: the scan operators); the gloo
   run's logits equal the plain single-process forward's.
 * The depth extension (two and three repeats, extended linearly) equals
   a full-depth run at 4 repeats.
@@ -207,16 +209,22 @@ def test_build_follows_jax_rules(fake256, arch, shape_name, knobs):
         pol.tokens_spec(shape.global_batch), tok.ndim)
 
 
-def test_build_refuses_int8_training_and_xlstm_sequences(fake256):
+def test_build_refuses_int8_training_and_builds_xlstm_sequences(fake256):
     """int8 weights in training raise ``ValueError``, as JAX's; the
-    xLSTM's train and prefill steps, which loop over time on the host,
-    raise ``NotImplementedError`` naming A9b."""
+    xLSTM's train and prefill steps build, their recurrences one scan
+    operator per layer (``kernels/xlstm_scan.py``), as JAX's ``steps.build``
+    builds them."""
     with pytest.raises(ValueError, match="serving-only"):
         steps.build(configs.get("gemma-7b"), S.SHAPES["train_4k"], fake256,
                     weight_quant=True)
+    cfg = configs.get("xlstm-350m")
     for shape in ("train_4k", "prefill_32k"):
-        with pytest.raises(NotImplementedError, match="A9b"):
-            steps.build(configs.get("xlstm-350m"), S.SHAPES[shape], fake256)
+        st = steps.build(cfg, S.SHAPES[shape], fake256)
+        assert st.cfg.n_layers == cfg.n_layers
+        # one repeat of the (mLSTM x 3, sLSTM) pattern runs on meta shards
+        fig = DR.measure(steps.build(steps.with_repeats(cfg, 1),
+                                     S.SHAPES[shape], fake256))
+        assert fig.flops > 0 and fig.resident_bytes > 0
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +242,9 @@ CASES = {   # name: (config, shape (name, seq, batch, kind))
     "dense-decode": ("dense", ("decode_32k", 32, 4, "decode")),
     "moe-prefill": ("moe", ("prefill_32k", 32, 4, "prefill")),
     "moe-decode": ("moe", ("decode_32k", 32, 4, "decode")),
+    # a narrow mLSTM + sLSTM stack: the scan operators and their backward
+    "xlstm-train": ("xlstm", ("train_4k", 8, 4, "train")),
+    "xlstm-prefill": ("xlstm", ("prefill_32k", 32, 4, "prefill")),
 }
 
 WORKER = textwrap.dedent("""
@@ -277,7 +288,7 @@ CASES_PY = textwrap.dedent("""
     from repro_torch import configs
     from repro_torch.launch import specs as S
     from repro_torch.models import transformer as T
-    from repro_torch.models.config import Family, ModelConfig
+    from repro_torch.models.config import BlockKind, Family, ModelConfig
     from repro_torch.training.tree import named_leaves
 
     CASES = {cases!r}
@@ -288,6 +299,11 @@ CASES_PY = textwrap.dedent("""
         if c == "dense":
             kw = dict(DENSE, family=Family.DENSE)
             return ModelConfig(**kw)
+        if c == "xlstm":
+            return dataclasses.replace(
+                configs.get("xlstm-350m"), n_layers=2, d_model=64, n_heads=2,
+                n_kv_heads=2, head_dim=32, vocab_size=256,
+                block_pattern=(BlockKind.MLSTM, BlockKind.SLSTM))
         return dataclasses.replace(configs.get("granite-moe-3b-a800m").smoke(),
                                    vocab_size=256)
 
