@@ -8,9 +8,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero and prints no result line):
 
 1. Build the seven CUDA kernel sources from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, in parallel; eleven kernels: B1, B1-int8, B2, B3,
-   B4, B4-int8, B5 and the xLSTM's four scans, the mLSTM's and sLSTM's
-   forward and backward) and print the card's name and power limit (with
+   (one nvcc per source, in parallel; thirteen kernels: B1, B1-int8, B2,
+   B3, B4, B4-int8, B5 and the xLSTM's six scans, the mLSTM's and sLSTM's
+   forward in two designs each and backward) and print the card's name
+   and power limit (with
    ``--ptxas``, each kernel's registers, shared memory and spills).
 2. Hold each kernel against its plain PyTorch version on the card: at the
    serving path's llama-13b shapes, at a GQA shape (granite-8b heads) and
@@ -50,14 +51,20 @@ Phases (any failure exits non-zero and prints no result line):
    through decode, B2 on a fresh 1 x 512 chunk, B5 over 8 rows x 512
    cached frames, every one valid (the cross decode), timed over six
    cycled copies of the cross K/V so that it reads them from memory.
-   The xLSTM's four scan kernels at xlstm-350m's widths in f32 (mLSTM 4
+   The xLSTM's six scan kernels (checked and timed just before run (p),
+   after the phases that join an NCCL group, with their lines of the
+   timing report) at xlstm-350m's widths in f32 (mLSTM 4
    heads of 256, sLSTM d 1024) within TOL_SCAN_REL of the largest value
    of their plain versions: the forward scans at 8 x 256 (a served chunk
-   wave), 1 x 1,024 and 8 x 1, from fresh and running carries, and a
-   recorded forward (its checkpoints) and the backward against autograd
-   through the plain forward at 2 x 256 and at training run (y)'s
-   2 x 1,024 (XLSTM_TRAIN_SHAPE); each timed with its plain version
-   and its time per step (the recurrence's floor: steps x one step).
+   wave) and 1 x 1,024 (their routes: the chunkwise mLSTM and the
+   persistent sLSTM) and 8 x 1 (the routes: one-pass and step), from
+   fresh and running carries, each call's launch checked against its
+   route, and the other design of each on the same inputs through its C
+   entry point, and a recorded forward (its checkpoints) and the backward
+   against autograd through the plain forward at 2 x 256 and at training
+   run (y)'s 2 x 1,024 (XLSTM_TRAIN_SHAPE); each timed with its plain
+   version and its time per step, both designs of each forward at 8 x 256
+   and 1 x 1,024 in the same run.
 3. Serve llama-13b at full width and depth in bf16 (random weights from a
    seed), 8 requests of a shared-prefix workload, five times: through
    ``Server`` over the port's ``Orchestrator`` (chunked prefill) plain,
@@ -221,7 +228,10 @@ Phases (any failure exits non-zero and prints no result line):
    layers: 18 mLSTM, 6 sLSTM; no attention, so both engines serve dense
    rows) through ``Server``, the 8 requests of the llama-13b runs
    arriving at once, 256-token chunks, replayed and eagerly: the forward
-   scans launch (JAX's lax.scan loops) and no B-kernel, the two runs'
+   scans launch (JAX's lax.scan loops; both designs of each, the
+   prefill's chunks on the chunkwise mLSTM and persistent sLSTM, the
+   decode steps on the one-pass and step kernels) and no B-kernel, the
+   two runs'
    streams and launches are equal, every token within TOKEN_GAP_TOL of
    the monolithic f32 forward's best; it prints the decode clocks, the compiled step's device span, prefill
    tok/s, peak memory and one profiled iteration's device ms by family
@@ -258,8 +268,9 @@ Phases (any failure exits non-zero and prints no result line):
    within TOKEN_GAP_TOL); (u) granite-moe-3b-a800m at full size (router
    f32) with remat and no-drop sorted dispatch, 10 steps of 2 x 512
    tokens, its ``lb_loss`` finite every step; (y) xlstm-350m at full size
-   in f32, 10 steps of 2 x 1,024 tokens, the four scan kernels launched
-   (and no other).  Each prints ms per step (and AdamW's device ms of it),
+   in f32, 10 steps of 2 x 1,024 tokens, the chunkwise mLSTM and
+   persistent sLSTM forwards and the two backward scans launched (and no
+   other).  Each prints ms per step (and AdamW's device ms of it),
    tokens/s, peak memory, the losses and the launches.
 4. Print the ``kernels`` JSON line, then the result line.
 
@@ -485,6 +496,9 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+PROFILE_TRIES = 5
+
+
 def profile_ms(torch, fn, iters: int, warmup: int = 3,
                bound_ms: float = None):
     """Device time of one call, and of each kernel (and copy) in it, by
@@ -506,7 +520,22 @@ def profile_ms(torch, fn, iters: int, warmup: int = 3,
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     where = f"chip_smoke.py:{fn.__code__.co_firstlineno}"
-    for _ in range(3):   # a trace now and then comes back without device time
+    # a trace now and then comes back without device time, and on a loaded
+    # host three did in a row (run (w)): five tries, a pause between them
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            # what the empty trace held, and the card's free memory (the
+            # profiler's buffers need some); the allocator's cache freed
+            free, total = torch.cuda.mem_get_info()
+            dev = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")]
+            say(f"[profile] empty trace {attempt} of the call at {where}: "
+                f"{len(dev)} device entries of {len(prof.key_averages())}, "
+                f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free, "
+                f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+            gc.collect()
+            torch.cuda.empty_cache()
+            time.sleep(0.5)
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
@@ -517,8 +546,8 @@ def profile_ms(torch, fn, iters: int, warmup: int = 3,
         if ms > 0:
             break
     else:
-        fail(f"the profiler recorded no device time in three traces of the "
-             f"call at {where}")
+        fail(f"the profiler recorded no device time in {PROFILE_TRIES} "
+             f"traces of the call at {where}")
     if bound_ms is not None and ms < bound_ms:
         fail(f"the call at {where} reads {ms:.4f} ms, under its bound "
              f"{bound_ms:.4f} ms")
@@ -872,17 +901,16 @@ def kernel_phase(torch):
     del kd, vd, copies
     timing.update(hybrid_kernels(torch, results))
     timing.update(seamless_kernels(torch, results))
-    timing.update(xlstm_scan_kernels(torch, results))
-    errs = kernel_errs(results)
+    errs = kernel_errs(results, ("B1", "B1-int8", "B2", "B3", "B4",
+                                 "B4-int8", "B5"))
     errs["B5"] = max(errs["B5"], err_d)
     return timing, errs
 
 
-def kernel_errs(results) -> dict:
-    """The largest |kernel - plain| of each row of the kernels line, over
-    its cases in ``results`` ({(key, label, dtype): {"err": ...}})."""
-    names = ("B1", "B1-int8", "B2", "B3", "B4", "B4-int8", "B5")
-    names += tuple(SCAN_KEYS.values())
+def kernel_errs(results, names) -> dict:
+    """The largest |kernel - plain| of each row ``names`` of the kernels
+    line, over its cases in ``results`` ({(key, label, dtype): {"err":
+    ...}})."""
     return {kname: max(v["err"] for (kk, _, _), v in results.items()
                        if kk == kname) for kname in names}
 
@@ -1241,11 +1269,23 @@ SCAN_H, SCAN_D, SCAN_DM = 4, 256, 1024
 # (y)'s batch and sequence, at which the kernel phase also checks the
 # recorded forwards and the backward scans
 XLSTM_TRAIN_SHAPE = (2, 1024)
-SCAN_KERNELS = ("mlstm_scan", "mlstm_scan_backward", "slstm_scan",
-                "slstm_scan_backward")
-# launch counter -> the key of the kernel's timing and error
-SCAN_KEYS = dict(zip(SCAN_KERNELS, ("mLSTM", "mLSTM-bwd", "sLSTM",
-                                    "sLSTM-bwd")))
+# launch counter -> the key of the kernel's timing and error.  Two designs
+# of each forward, chosen by shape (``xlstm_scan.mlstm_route``,
+# ``slstm_route``): the chunkwise mLSTM and the persistent sLSTM take S > 1
+# (prefill chunks, training), the one-pass mLSTM and the step sLSTM (the
+# first designs) S = 1 (decode steps)
+SCAN_KEYS = {"mlstm_scan": "mLSTM", "mlstm_scan_chunkwise": "mLSTM-chunkwise",
+             "mlstm_scan_backward": "mLSTM-bwd", "slstm_scan": "sLSTM",
+             "slstm_scan_persistent": "sLSTM-persistent",
+             "slstm_scan_backward": "sLSTM-bwd"}
+SCAN_KERNELS = tuple(SCAN_KEYS)
+# a forward design (``xlstm_scan.mlstm_forward``/``slstm_forward``'s
+# route) -> its launch counter
+SCAN_DESIGNS = {"chunkwise": "mlstm_scan_chunkwise", "one_pass": "mlstm_scan",
+                "persistent": "slstm_scan_persistent", "step": "slstm_scan"}
+# what training run (y) launches: the S > 1 forwards and the backwards
+TRAIN_SCAN_KERNELS = ("mlstm_scan_chunkwise", "mlstm_scan_backward",
+                      "slstm_scan_persistent", "slstm_scan_backward")
 
 
 def check_rel(torch, what, got, want, tol=TOL_SCAN_REL) -> float:
@@ -1310,16 +1350,49 @@ def scan_bound_ms(nbytes_, flops) -> float:
     return 1e3 * max(nbytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"])
 
 
+def scan_counters(torch, b, s):
+    """The launch counters of the forward designs the routes name for a
+    (b, s) case at xlstm-350m's widths on this card."""
+    from repro_torch.kernels import xlstm_scan as X
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ({"chunkwise": X.MLSTM_CHUNKWISE, "one_pass": X.MLSTM}[
+                X.mlstm_route(b, s, SCAN_H, SCAN_D, 0)],
+            {"persistent": X.SLSTM_PERSISTENT, "step": X.SLSTM}[
+                X.slstm_route(b, s, SCAN_DM, sms)])
+
+
+def routed(torch, counter, what, fn):
+    """``fn()``, failing unless it launched ``counter``'s kernel once and
+    no other."""
+    from repro_torch.kernels import _lib
+    before = dict(_lib.LAUNCHES)
+    out = fn()
+    got = {k: n - before[k] for k, n in _lib.LAUNCHES.items()
+           if n != before[k]}
+    if got != {counter: 1}:
+        fail(f"{what}: launched {got}, the route names {counter}")
+    return out
+
+
 def xlstm_scan_kernels(torch, results):
-    """The four scan kernels against their plain versions (``ref``) at
-    xlstm-350m's widths in f32: the forward scans at 8 x 256 (one served
-    chunk wave), 1 x 1,024 and 8 x 1 (a decode step), from fresh and from
-    running carries; the recorded forward's checkpoints and the backward,
-    against autograd through the plain forward, at 2 x 256 and at (y)'s
-    ``XLSTM_TRAIN_SHAPE``.  Errors go into ``results``; returns the
-    timings of each kernel (its plain version beside it; no library call
-    computes a scan) with its bytes, flops and steps, by CUDA events
-    around the calls."""
+    """The six scan kernels against their plain versions (``ref``) at
+    xlstm-350m's widths in f32: the forward scans through their operators
+    at 8 x 256 (one served chunk wave) and 1 x 1,024, where the routes
+    take the chunkwise mLSTM and the persistent sLSTM, and at 8 x 1 (a
+    decode step), where they take the first designs, the one-pass mLSTM
+    and the step sLSTM,
+    from fresh and from running carries, each call's launch checked
+    against its route, and on the same inputs the design the route did
+    not take, through its C entry point; the recorded forward's saved
+    tensors
+    and the backward, against autograd through the plain forward, at 2 x
+    256 and at (y)'s ``XLSTM_TRAIN_SHAPE``.  Errors go into ``results``;
+    returns the timings of each kernel (its plain version beside it; no
+    library call computes a scan) with its bytes, flops and steps, by CUDA
+    events: around eager calls for the sLSTM's and the backwards, around
+    a captured graph's replays for the mLSTM's forwards and for every
+    decode-step row; both designs of each forward at 8 x 256 and 1 x
+    1,024 in this run, the first designs also at their route's 8 x 1."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import xlstm_scan as X
 
@@ -1327,30 +1400,51 @@ def xlstm_scan_kernels(torch, results):
     timing, errs = {}, {k: 0.0 for k in SCAN_KERNELS}
     cases = {}
     for b, s in ((8, 256), (1, 1024), (8, 1)):
+        m_c, s_c = scan_counters(torch, b, s)
         for fresh in (True, False):
             m_args = mlstm_case(torch, g, b, s, fresh)
             s_args = slstm_case(torch, g, b, s, fresh)
             tag = f"({b}, {s}) {'fresh' if fresh else 'running'} carries"
-            errs["mlstm_scan"] = max(errs["mlstm_scan"], check_rel(
-                torch, f"mlstm_scan {tag}", X._MLSTM(*m_args, 0)[:4],
-                ref.mlstm_scan_ref(*m_args)[:4]))
-            errs["slstm_scan"] = max(errs["slstm_scan"], check_rel(
-                torch, f"slstm_scan {tag}", X._SLSTM(*s_args, False)[:5],
-                ref.slstm_scan_ref(*s_args)[:5]))
+            m_want = ref.mlstm_scan_ref(*m_args)[:4]
+            s_want = ref.slstm_scan_ref(*s_args)[:5]
+            errs[m_c] = max(errs[m_c], check_rel(
+                torch, f"{m_c} {tag}", routed(
+                    torch, m_c, f"mlstm_scan {tag}",
+                    lambda: X._MLSTM(*m_args, 0))[:4], m_want))
+            errs[s_c] = max(errs[s_c], check_rel(
+                torch, f"{s_c} {tag}", routed(
+                    torch, s_c, f"slstm_scan {tag}",
+                    lambda: X._SLSTM(*s_args, False))[:5], s_want))
+            # the design the route did not take, on the same inputs: the
+            # first designs at S > 1, the redesigned ones at S = 1
+            other_m, other_s = (("one_pass", "step") if s > 1
+                                else ("chunkwise", "persistent"))
+            errs[SCAN_DESIGNS[other_m]] = max(
+                errs[SCAN_DESIGNS[other_m]], check_rel(
+                    torch, f"mlstm_scan ({other_m}) {tag}",
+                    X.mlstm_forward(other_m, *m_args, 0)[:4], m_want))
+            errs[SCAN_DESIGNS[other_s]] = max(
+                errs[SCAN_DESIGNS[other_s]], check_rel(
+                    torch, f"slstm_scan ({other_s}) {tag}",
+                    X.slstm_forward(other_s, *s_args, False)[:5], s_want))
             cases[b, s] = (m_args, s_args)
+            del m_want, s_want
     # the recorded forward's saved tensors and the backward at 2 x 256 (the
     # timed case) and at (y)'s shape, 2 x 1,024: 32 checkpoint chunks, a
     # whole 1,024-step tile of the stabilizer's reverse
     chunk = X.MLSTM_CHUNK
     for b, s in ((2, 256), XLSTM_TRAIN_SHAPE):
+        m_c, s_c = scan_counters(torch, b, s)
         m_args, s_args = mlstm_case(torch, g, b, s), slstm_case(torch, g, b, s)
-        m_out = X._MLSTM(*m_args, chunk)
-        errs["mlstm_scan"] = max(errs["mlstm_scan"], check_rel(
-            torch, f"mlstm_scan ({b}, {s}) recorded", m_out,
+        m_out = routed(torch, m_c, f"mlstm_scan ({b}, {s}) recorded",
+                       lambda: X._MLSTM(*m_args, chunk))
+        errs[m_c] = max(errs[m_c], check_rel(
+            torch, f"{m_c} ({b}, {s}) recorded", m_out,
             ref.mlstm_scan_ref(*m_args, chunk)))
-        s_out = X._SLSTM(*s_args, True)
-        errs["slstm_scan"] = max(errs["slstm_scan"], check_rel(
-            torch, f"slstm_scan ({b}, {s}) recorded", s_out,
+        s_out = routed(torch, s_c, f"slstm_scan ({b}, {s}) recorded",
+                       lambda: X._SLSTM(*s_args, True))
+        errs[s_c] = max(errs[s_c], check_rel(
+            torch, f"{s_c} ({b}, {s}) recorded", s_out,
             ref.slstm_scan_ref(*s_args, True)))
         dy_m = torch.randn_like(m_out[0])
         dy_s = torch.randn_like(s_out[0])
@@ -1372,10 +1466,13 @@ def xlstm_scan_kernels(torch, results):
         del m_args, s_args, m_out, s_out, dy_m, dy_s
         torch.cuda.empty_cache()
     say(f"xLSTM scans vs plain [xlstm-350m: mLSTM {SCAN_H} heads of "
-        f"{SCAN_D}, sLSTM d {SCAN_DM}, f32; 8 x 256, 1 x 1024, 8 x 1 from "
-        f"fresh and running carries; recorded forward and backward at 2 x "
-        f"256 and {XLSTM_TRAIN_SHAPE[0]} x {XLSTM_TRAIN_SHAPE[1]} against "
-        f"autograd through the plain forward]: max |err| "
+        f"{SCAN_D}, sLSTM d {SCAN_DM}, f32; 8 x 256, 1 x 1024 (routed "
+        f"chunkwise, persistent), 8 x 1 (routed one-pass, step), each "
+        f"with the other design on the same inputs, "
+        f"from fresh and running carries, each call's route checked; "
+        f"recorded forward and backward at 2 x 256 and "
+        f"{XLSTM_TRAIN_SHAPE[0]} x {XLSTM_TRAIN_SHAPE[1]} against autograd "
+        f"through the plain forward]: max |err| "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
         + f" (tolerance {TOL_SCAN_REL} of the largest value)")
     for k, v in errs.items():
@@ -1385,43 +1482,76 @@ def xlstm_scan_kernels(torch, results):
         fn()
         return time_events(torch, fn, iters)
 
-    def entry(key, s, kernel, plain, ins, outs, flops, iters):
-        # CUDA events around the calls: the sLSTM's call is one launch per
-        # step, so the call's time is the span, gaps between launches
+    def entry(key, s, kernel, plain_ms, ins, outs, flops, iters,
+              timer=events_ms):
+        # CUDA events around the calls: the step sLSTM's call is one launch
+        # per step, so the call's time is the span, gaps between launches
         # included, not a trace's sum of kernel times
-        t = dict(ms=events_ms(kernel, iters), plain_ms=events_ms(plain, 1),
+        t = dict(ms=timer(kernel, iters), plain_ms=plain_ms,
                  library_ms=None, bytes=nbytes(*ins) + nbytes(*outs),
                  flops=flops, dtype="float32", steps=s)
         timing[key] = t
         say(f"{key}: {t['ms'] / s * 1e3:.2f} us per step x {s} steps = "
-            f"{t['ms']:.3f} ms (the recurrence's floor: steps x one "
-            f"step's latency), bound "
+            f"{t['ms']:.4f} ms, bound "
             f"{scan_bound_ms(t['bytes'], flops):.4f} ms (bytes and "
             f"flops), plain {t['plain_ms']:.1f} ms")
+        return t["ms"]
 
-    for (b, s), suffix in (((8, 256), ""), ((1, 1024), " (1, 1024)")):
+    for b, s in ((8, 256), (1, 1024), (8, 1)):
         m, sl = cases[b, s]
-        entry(f"mLSTM{suffix}", s, lambda: X._MLSTM(*m, 0),
-              lambda: ref.mlstm_scan_ref(*m), m, X._MLSTM(*m, 0)[:4],
-              X.mlstm_flops(b, s, SCAN_H, SCAN_D), 20)
-        entry(f"sLSTM{suffix}", s, lambda: X._SLSTM(*sl, False),
-              lambda: ref.slstm_scan_ref(*sl), sl, X._SLSTM(*sl, False)[:5],
-              X.slstm_flops(b, s, SCAN_DM), 10)
+        m_flops = X.mlstm_flops(b, s, SCAN_H, SCAN_D)
+        s_flops = X.slstm_flops(b, s, SCAN_DM)
+        m_outs, s_outs = X._MLSTM(*m, 0)[:4], X._SLSTM(*sl, False)[:5]
+        if s == 1:
+            # the first designs' rows at the shape their route gives them, a
+            # decode step, timed as decode runs it: a captured graph's
+            # replays, by CUDA events (events around eager calls would time
+            # the host's launch of each)
+            entry("mLSTM", s, lambda: X._MLSTM(*m, 0),
+                  replay_ms(torch, lambda: ref.mlstm_scan_ref(*m), 20), m,
+                  m_outs, m_flops, 50, lambda fn, n: replay_ms(torch, fn, n))
+            entry("sLSTM", s, lambda: X._SLSTM(*sl, False),
+                  replay_ms(torch, lambda: ref.slstm_scan_ref(*sl), 20), sl,
+                  s_outs, s_flops, 50, lambda fn, n: replay_ms(torch, fn, n))
+            continue
+        m_plain = events_ms(lambda: ref.mlstm_scan_ref(*m), 1)
+        s_plain = events_ms(lambda: ref.slstm_scan_ref(*sl), 1)
+        sfx = "" if (b, s) == (8, 256) else f" ({b}, {s})"
+        # the mLSTM's calls as graph replays: events around eager calls of
+        # the chunkwise design read the host's enqueue of its three
+        # launches, which takes longer than they run
+        new_m = entry(f"mLSTM-chunkwise{sfx}", s, lambda: X._MLSTM(*m, 0),
+                      m_plain, m, m_outs, m_flops, 20,
+                      lambda fn, n: replay_ms(torch, fn, n))
+        old_m = entry(f"mLSTM one-pass ({b}, {s})", s,
+                      lambda: X.mlstm_forward("one_pass", *m, 0), m_plain, m,
+                      m_outs, m_flops, 20,
+                      lambda fn, n: replay_ms(torch, fn, n))
+        new_s = entry(f"sLSTM-persistent{sfx}", s,
+                      lambda: X._SLSTM(*sl, False), s_plain, sl, s_outs,
+                      s_flops, 10)
+        old_s = entry(f"sLSTM step ({b}, {s})", s,
+                      lambda: X.slstm_forward("step", *sl, False), s_plain,
+                      sl, s_outs, s_flops, 10)
+        say(f"xLSTM forwards at {b} x {s}, redesigned vs first design in this "
+            f"run: mLSTM chunkwise {new_m:.4f} vs one-pass {old_m:.4f} ms "
+            f"({old_m / new_m:.2f}x); sLSTM persistent {new_s:.4f} vs step "
+            f"{old_s:.4f} ms ({old_s / new_s:.2f}x)")
     m_args, m_out, dy_m, s_args, s_out, dy_s = timed_bwd
     q, k, v, li, lf, c0, n0, m0 = m_args
     y, _, _, _, ck_c, ck_n, ms, ss = m_out
     bwd = (dy_m, q, k, v, li, lf, m0, ck_c, ck_n, ms, ss, y, chunk)
     entry("mLSTM-bwd", 256, lambda: X._MLSTM_BWD(*bwd),
-          lambda: ref.mlstm_scan_backward_ref(dy_m, q, k, v, li, lf, c0, n0,
-                                              m0),
+          events_ms(lambda: ref.mlstm_scan_backward_ref(
+              dy_m, q, k, v, li, lf, c0, n0, m0), 1),
           bwd[:-1], (q, k, v, li, lf),
           X.mlstm_flops(2, 256, SCAN_H, SCAN_D, backward=True), 10)
     pre_x, r_w, c0, n0, m0, h0 = s_args
     sy, _, _, _, _, pres, cs, ns, sm = s_out
     sbwd = (dy_s, pre_x, r_w, c0, n0, m0, h0, pres, cs, ns, sm, sy)
     entry("sLSTM-bwd", 256, lambda: X._SLSTM_BWD(*sbwd),
-          lambda: ref.slstm_scan_backward_ref(dy_s, pre_x, r_w, c0, n0, m0,
-                                              h0),
+          events_ms(lambda: ref.slstm_scan_backward_ref(
+              dy_s, pre_x, r_w, c0, n0, m0, h0), 1),
           (dy_s, r_w, pres, cs, ns, sm, sy, c0, n0, m0, h0), (pre_x, r_w),
           X.slstm_flops(2, 256, SCAN_DM, backward=True), 10)
     return timing
@@ -3616,6 +3746,25 @@ def one_rank_check(torch, card):
     return launches
 
 
+def replay_ms(torch, fn, iters: int) -> float:
+    """Mean device ms of ``fn()`` captured once in a CUDA graph, over
+    ``iters`` replays by CUDA events (after a warm-up on a side stream, as
+    ``CompiledStep`` captures)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = time_events(torch, graph.replay, iters)
+    del graph
+    return ms
+
+
 def time_events(torch, fn, iters: int) -> float:
     """Mean device ms of ``fn()`` over ``iters`` calls, by CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -4092,7 +4241,8 @@ ALL_KERNELS = ("paged_decode_partials", "paged_decode_partials_int8",
                "flash_prefill", "paged_prefix_partials",
                "paged_verify_partials", "paged_verify_partials_int8",
                "split_kv_decode_partials")
-XLSTM_KERNELS = ("mlstm_scan", "slstm_scan")
+XLSTM_KERNELS = ("mlstm_scan", "slstm_scan", "mlstm_scan_chunkwise",
+                 "slstm_scan_persistent")
 XLSTM_BACKWARD = ("mlstm_scan_backward", "slstm_scan_backward")
 XLSTM_CHUNK = 256
 XLSTM_FAMILIES = ("GEMMs", "the xLSTM's elementwise and recurrence work",
@@ -4179,8 +4329,10 @@ def xlstm_phase(torch, card):
         f"{a['prefill_tps']:.1f} vs {b['prefill_tps']:.1f} tok/s, peak "
         f"memory {a['peak_gib']:.2f} vs {b['peak_gib']:.2f} GiB; streams "
         f"{len(a['streams'])}/{len(b['streams'])} equal, launch counts "
-        f"equal (forward scans {a['launches']['mlstm_scan']} mLSTM, "
-        f"{a['launches']['slstm_scan']} sLSTM; no B-kernel) [{card}]")
+        f"equal (forward scans: mLSTM {a['launches']['mlstm_scan_chunkwise']}"
+        f" chunkwise + {a['launches']['mlstm_scan']} one-pass, sLSTM "
+        f"{a['launches']['slstm_scan_persistent']} persistent + "
+        f"{a['launches']['slstm_scan']} step; no B-kernel) [{card}]")
     say_families("xlstm", card, a["decode_profile"], b["decode_profile"],
                  XLSTM_FAMILIES, xlstm_family)
     for st in runs.values():
@@ -4468,7 +4620,7 @@ def train_steps(torch, card, cfg, params, *, label, batches, remat,
     ``params`` (updated in place) with every launch counter zeroed
     before and read after: every kernel of ``kernels`` must launch and no
     other (no B-kernel: JAX trains outside any Pallas kernel; the xLSTM
-    stack's four scans).  Checks that every loss, grad norm (and MoE
+    stack's S > 1 forward scans and the backward scans).  Checks that every loss, grad norm (and MoE
     ``lb_loss``) is finite and that the mean loss of the last five steps
     is below that of the first five; prints ms per step (host clock
     around synchronised steps; the first step apart) and the AdamW
@@ -4708,7 +4860,8 @@ def training_phase(torch, card):
 def xlstm_train_run(torch, card):
     """(y) xlstm-350m at full size in f32 from seed 0, AdamW (lr 1e-3,
     warmup 2, total 10), 10 steps of 2 x 1,024 tokens without remat: the
-    four scan kernels must launch and no other.  Returns {run:
+    chunkwise mLSTM, the persistent sLSTM and the two backward scans must
+    launch and no other.  Returns {run:
     launches}."""
     from repro_torch.configs import get
     from repro_torch.models import transformer as T
@@ -4724,7 +4877,7 @@ def xlstm_train_run(torch, card):
         batches=train_batches(torch, cfg, *XLSTM_TRAIN_SHAPE, 10),
         remat=False,
         opt_cfg=O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10),
-        kernels=SCAN_KERNELS)
+        kernels=TRAIN_SCAN_KERNELS)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4756,12 +4909,19 @@ KERNELS = [
     ("B5", "split_kv_decode_partials",
      "src/repro_torch/kernels/csrc/split_kv_decode.cu",
      "src/repro/kernels/split_kv_decode.py:67"),
-    # no TPU kernel: JAX's lax.scan loops, which XLA compiles
+    # no TPU kernel: JAX's lax.scan loops, which XLA compiles; two designs
+    # of each forward (the S > 1 one first)
+    ("mLSTM-chunkwise", "mlstm_scan_chunkwise",
+     "src/repro_torch/kernels/csrc/mlstm_scan.cu",
+     "src/repro/models/layers.py:709"),
     ("mLSTM", "mlstm_scan", "src/repro_torch/kernels/csrc/mlstm_scan.cu",
      "src/repro/models/layers.py:709"),
     ("mLSTM-bwd", "mlstm_scan_backward",
      "src/repro_torch/kernels/csrc/mlstm_scan.cu",
      "src/repro/models/layers.py:709"),
+    ("sLSTM-persistent", "slstm_scan_persistent",
+     "src/repro_torch/kernels/csrc/slstm_scan.cu",
+     "src/repro/models/layers.py:763"),
     ("sLSTM", "slstm_scan", "src/repro_torch/kernels/csrc/slstm_scan.cu",
      "src/repro/models/layers.py:763"),
     ("sLSTM-bwd", "slstm_scan_backward",
@@ -4810,6 +4970,16 @@ def main() -> None:
     examples_phase(card)
     per_run.update(moe_phase(torch, card))
     per_run.update(hybrid_phase(torch, card))
+    # the scan kernels are checked and timed here, after every phase that
+    # joins an NCCL group: checked before the serving phase, they were
+    # followed in most runs by a profiler that recorded no device time
+    # once run (w) had set up its NCCL group (cause not found)
+    results = {}
+    scan_timing = xlstm_scan_kernels(torch, results)
+    torch.cuda.empty_cache()
+    report_timing(scan_timing, card)
+    timing.update(scan_timing)
+    errs.update(kernel_errs(results, tuple(SCAN_KEYS.values())))
     per_run.update(xlstm_phase(torch, card))
     per_run.update(seamless_phase(torch, card))
     per_run.update(training_phase(torch, card))

@@ -68,4 +68,18 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The current device's SM count, queried once a process (0 on an error:
+// the caller then returns cudaGetLastError()).
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess
+        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+               != cudaSuccess)
+      return 0;
+  }
+  return sms;
+}
+
 }  // namespace repro

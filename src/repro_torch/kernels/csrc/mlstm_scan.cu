@@ -9,14 +9,53 @@
 //   f' = exp(a - m');  i' = exp(log_i - m')
 //   C = f' C + i' v k^T;  n = f' n + i' k;  s = n . q
 //   y = C q / max(|s|, exp(-m'))
-// One block owns kFwdRows value rows of one (b, h)'s C (D x D) in
-// registers, one column per thread.  The stabilizer m and the normalizer n
-// are computed redundantly by every block of (b, h): the same operations
-// in the same order give the same bits, so blocks share nothing.  Per step
-// a block reduces s and its rows of C q over its threads (one barrier); the
-// next step's q, k, v and gates are loaded while this one computes.  A
-// recorded forward (chunk > 0) writes the carries before every chunk-th
-// step and every step's m' and s for the backward.
+// Two designs, chosen by shape before any launch (xlstm_scan.mlstm_route):
+//
+// * The chunkwise forward (mlstm_scan_forward_chunkwise), for S > 1: the
+//   xLSTM paper's chunkwise form (arXiv:2405.04517), parallel within a
+//   chunk of L = 32 steps, recurrent between chunks.  Three launches:
+//   - gates_kernel: m_t by the sequential recurrence above, exactly as JAX
+//     steps it (a scalar per (b, h) and step, one warp each, the next
+//     chunk's gates loaded while one is walked), and F_t, the running sum
+//     of log f within t's chunk.  Since prod_{r=s+1..t} f'_r = exp(F_t -
+//     F_s + m_s - m_t), the weight of v_s k_s^T in C_t within a chunk is
+//     W_ts = exp(log_i_s + F_t - F_s - m_t), and the carried state decays
+//     by exp(F_t + m_prev - m_t), m_prev the m before the chunk: every
+//     exponent is <= 0 in exact arithmetic (m_t >= log_i_s + F_t - F_s), so
+//     nothing overflows.  It also writes each chunk's state weights g_s =
+//     W_{last,s} and its decay a = exp(F_last + m_prev - m_last).
+//   - states_kernel: the chain of chunk states, the only sequential part,
+//     over S / L chunks instead of S steps: C_{j+1} = a_j C_j + sum_s g_s
+//     v_s k_s^T, n alike.  A block keeps a 32 x 64 tile of C (value rows x
+//     key columns) in registers and walks the chunks, its tiles of v and k
+//     and the chunk's g and a brought into shared memory by cp.async two
+//     chunks ahead (a ring of three); it stores the state before every
+//     chunk, which a recorded forward keeps as its checkpoints (ckC, ckn)
+//     and the outputs read.
+//   - out_kernel, every chunk at once: P = Q K^T and n_j . q over D in
+//     slabs of up to 256 columns (cp.async; one slab at xlstm-350m's D =
+//     256, so each phase waits for its copies once: smaller slabs left the
+//     kernel waiting a memory latency per slab), A = W o P (causal), s_t =
+//     decay_t n_j . q_t + sum_s A_ts, den_t = max(|s_t|, exp(-m_t)); then per
+//     tile of 64 value rows, Y = Q C_j^T and y_t = (decay_t Y_t + (A V)_t) /
+//     den_t.
+//   The products run on the FMA units in f32: at xlstm-350m's widths the
+//   whole call is ~2-5 GFLOP (~30-75 us at the f32 FMA peak), and the
+//   plain version's 1e-4 parity rules out plain TF32 on the tensor cores;
+//   split TF32 (three products each) is the next step if the products, not
+//   the state chain, come to set the time.
+// * The one-pass forward (mlstm_scan_forward), for S = 1 (a decode step:
+//   one plain launch, which a captured CUDA graph replays) and shapes the
+//   chunkwise kernels do not take (D not a multiple of 4, or a recorded
+//   chunk other than L).  One block owns kFwdRows value rows of one (b,
+//   h)'s C (D x D) in registers, one column per thread.  The stabilizer m
+//   and the normalizer n are computed redundantly by every block of (b, h):
+//   the same operations in the same order give the same bits, so blocks
+//   share nothing.  Per step a block reduces s and its rows of C q over its
+//   threads (one barrier); the next step's q, k, v and gates are loaded
+//   while this one computes.  Bound: S times the latency of one step.
+// A recorded forward (chunk > 0) writes the carries before every chunk-th
+// step and every step's m' and s for the backward, in either design.
 //
 // Backward, given dy (the gradient of y; the carries take none): the
 // chunks are walked from last to first.  Each block recomputes its rows of
@@ -35,13 +74,12 @@
 // block writes its partial (block 0 adds the n terms once), reduce_kernel
 // and mrev_kernel add them up.  mrev_kernel then runs the scalar reverse of
 // the m recurrence, dm carried from step to step through max and exp back
-// to log_i, log_f and m.
+// to log_i, log_f and m.  Bound: latency, S times one step (a block
+// reduction and its barrier).
 //
-// Bound on the H100: latency.  Each step depends on the last; per step a
-// block moves ~2 D floats and does ~4 kFwdRows D flops, far below the
-// memory and FMA rates, so the floor is S times the latency of one step
-// (a block reduction and its barrier).  Built without fast math: exp(-1e30)
-// is 0 and m is carried exactly, as in the plain version.
+// Built without fast math: exp(-1e30) is 0 and m is carried exactly, as in
+// the plain version.
+#include "attn_tile.cuh"
 #include "common.cuh"
 
 namespace repro {
@@ -390,6 +428,425 @@ __global__ void mrev_kernel(const float* __restrict__ li,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The chunkwise forward
+// ---------------------------------------------------------------------------
+namespace chunkwise {
+
+constexpr int L = 32;            // steps per chunk (xlstm_scan.MLSTM_CHUNK)
+constexpr int kThreads = 256;
+constexpr int TV = 32, TK = 64;  // states_kernel's tile of C
+constexpr int kStages = 3;       // states_kernel's ring of chunk tiles
+constexpr int KC = 256;          // columns of D per slab of out_kernel
+constexpr int VT = 64;           // value rows per tile of out_kernel
+static_assert(L == 32, "gates_kernel walks a chunk with one warp");
+
+using tile::cp_async16;
+using tile::cp_async_commit;
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4-byte asynchronous copy; with ok false nothing is read and the 4 bytes
+// are zero-filled.
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   tile::smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// The pitch of a slab row of kc floats: 16-byte aligned, and 4 banks on
+// from the row before (rows 8 apart in a phase never share a bank).
+__host__ __device__ __forceinline__ int slab_pitch(int kc) {
+  return (kc + 7) / 8 * 8 + 4;
+}
+
+// One warp per (b, h): m_t by JAX's recurrence, step after step, and F_t,
+// the sum of log f from t's chunk start to t, in order; at a chunk's end
+// its state weights g_s = exp(log_i_s + F_L - F_s - m_L) (L its last step)
+// and its decay a = exp(F_L + m_prev - m_L).  Lane l holds step l of each
+// of the next kAhead chunks' gates in registers (a ring, filled kAhead
+// chunks ahead, so the walk never waits for memory).  li, lf, mbuf, Fbuf,
+// Gbuf: (B, S, H); m0: (B, H); Abuf: (B, NC, H).
+constexpr int kAhead = 8;
+
+__global__ void gates_kernel(const float* __restrict__ li,
+                             const float* __restrict__ lf,
+                             const float* __restrict__ m0,
+                             float* __restrict__ mbuf,
+                             float* __restrict__ Fbuf,
+                             float* __restrict__ Gbuf,
+                             float* __restrict__ Abuf, int B, int S, int H) {
+  const int w = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= B * H) return;
+  const int b = w / H, h = w % H, NC = (S + L - 1) / L;
+  const long long base = static_cast<long long>(b) * S * H + h;
+  float m = m0[w];
+  float lfr[kAhead], lir[kAhead];
+#pragma unroll
+  for (int r = 0; r < kAhead; ++r) {
+    const int t = r * L + lane;
+    lfr[r] = t < S ? lf[base + static_cast<long long>(t) * H] : 0.f;
+    lir[r] = t < S ? li[base + static_cast<long long>(t) * H] : 0.f;
+  }
+  for (int j0 = 0; j0 < NC; j0 += kAhead) {
+#pragma unroll
+    for (int r = 0; r < kAhead; ++r) {
+      const int j = j0 + r;
+      if (j >= NC) break;
+      const int t0 = j * L, t = t0 + lane, n = min(L, S - t0);
+      const long long i = base + static_cast<long long>(t) * H;
+      const float lfv = lfr[r], liv = lir[r];
+      // refill the slot with chunk j + kAhead
+      const int tn = t + kAhead * L;
+      const long long in = i + static_cast<long long>(kAhead) * L * H;
+      lfr[r] = tn < S ? lf[in] : 0.f;
+      lir[r] = tn < S ? li[in] : 0.f;
+      const float mp = m;
+      // every step's gates first (no shuffle waits inside the m chain)
+      float av[L], lv[L];
+#pragma unroll
+      for (int u = 0; u < L; ++u) {
+        av[u] = __shfl_sync(0xffffffffu, lfv, u);
+        lv[u] = __shfl_sync(0xffffffffu, liv, u);
+      }
+      float mt = 0.f, Ft = 0.f, F = 0.f;
+#pragma unroll
+      for (int u = 0; u < L; ++u) {
+        if (u < n) {
+          m = fmaxf(av[u] + m, lv[u]);
+          F = u == 0 ? av[u] : F + av[u];
+          if (lane == u) {
+            mt = m;
+            Ft = F;
+          }
+        }
+      }
+      const float FL = __shfl_sync(0xffffffffu, Ft, n - 1);
+      if (lane < n) {
+        mbuf[i] = mt;
+        Fbuf[i] = Ft;
+        Gbuf[i] = expf(liv + FL - Ft - m);
+      }
+      if (lane == 0)
+        Abuf[(static_cast<long long>(b) * NC + j) * H + h] = expf(FL + mp - m);
+    }
+  }
+}
+
+// grid (B * H, ceil(D / TV), ceil(D / TK)), kThreads.  The chain of chunk
+// states for one TV x TK tile of C: thread (ry, cx) holds rows v0 + 2 ry,
+// + 1 and columns c0 + 4 cx .. + 3 in registers (D % 4 == 0: a column
+// group is all inside D or all outside).  A ring of kStages chunks of v, k
+// and g comes in by cp.async, two chunks ahead.  Writes the state before
+// chunk j to Cst (B, NC, H, D, D) and, from the first row tile, n to Nst
+// (B, NC, H, D); the last C, n, m to Cout (B, H, D, D), nout (B, H, D),
+// mout (B, H).
+__global__ void __launch_bounds__(kThreads) states_kernel(
+    const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ Gbuf, const float* __restrict__ Abuf,
+    const float* __restrict__ mbuf, const float* __restrict__ C0,
+    const float* __restrict__ n0, float* __restrict__ Cst,
+    float* __restrict__ Nst, float* __restrict__ Cout,
+    float* __restrict__ nout, float* __restrict__ mout, int S, int H,
+    int D) {
+  __shared__ __align__(16) float Vs[kStages][L][TV];
+  __shared__ __align__(16) float Ks[kStages][L][TK];
+  __shared__ float Gs[kStages][L];
+  __shared__ float As[kStages];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int v0 = blockIdx.y * TV, c0 = blockIdx.z * TK;
+  const int tid = threadIdx.x, ry = tid >> 4, cx = tid & 15;
+  const int r = v0 + 2 * ry, c = c0 + 4 * cx;
+  const bool cok = c < D;
+  const bool lead = blockIdx.y == 0 && ry == 0;  // keeps n, its 4 columns
+  const long long DD = static_cast<long long>(D) * D;
+  const int NC = (S + L - 1) / L;
+  const long long base = static_cast<long long>(b) * S * H + h;  // step t:
+                                                                 // + t H
+  float C[2][4], n[4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float4 x = (cok && r + i < D)
+                         ? ld4(C0 + bh * DD + static_cast<long long>(r + i) * D + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    C[i][0] = x.x; C[i][1] = x.y; C[i][2] = x.z; C[i][3] = x.w;
+  }
+  {
+    const float4 x = (lead && cok) ? ld4(n0 + static_cast<long long>(bh) * D + c)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    n[0] = x.x; n[1] = x.y; n[2] = x.z; n[3] = x.w;
+  }
+  // chunk j's v, k, g and decay into stage j % kStages (a group even when
+  // j is past the end, so that the waits count alike)
+  auto load = [&](int j) {
+    if (j < NC) {
+      const int t0 = j * L, st = j % kStages;
+      for (int x = tid; x < L * (TV / 4); x += kThreads) {
+        const int s = x / (TV / 4), col = v0 + 4 * (x % (TV / 4));
+        const bool ok = t0 + s < S && col < D;
+        cp_async16(&Vs[st][s][col - v0],
+                   ok ? v + (base + static_cast<long long>(t0 + s) * H) * D + col : v,
+                   ok);
+      }
+      for (int x = tid; x < L * (TK / 4); x += kThreads) {
+        const int s = x / (TK / 4), col = c0 + 4 * (x % (TK / 4));
+        const bool ok = t0 + s < S && col < D;
+        cp_async16(&Ks[st][s][col - c0],
+                   ok ? k + (base + static_cast<long long>(t0 + s) * H) * D + col : k,
+                   ok);
+      }
+      if (tid < L) {
+        const bool ok = t0 + tid < S;
+        cp_async4z(&Gs[st][tid],
+                   ok ? Gbuf + base + static_cast<long long>(t0 + tid) * H : Gbuf,
+                   ok);
+      }
+      if (tid == L)
+        cp_async4z(&As[st], Abuf + (static_cast<long long>(b) * NC + j) * H + h,
+                   true);
+    }
+    cp_async_commit();
+  };
+  for (int j = 0; j < kStages - 1; ++j) load(j);
+  for (int j = 0; j < NC; ++j) {
+    const int nt = min(L, S - j * L), st = j % kStages;
+    const long long ck = (static_cast<long long>(b) * NC + j) * H + h;
+    load(j + kStages - 1);
+    // the state before chunk j
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (cok && r + i < D)
+        *reinterpret_cast<float4*>(Cst + ck * DD + static_cast<long long>(r + i) * D + c) =
+            make_float4(C[i][0], C[i][1], C[i][2], C[i][3]);
+    if (lead && cok)
+      *reinterpret_cast<float4*>(Nst + ck * D + c) =
+          make_float4(n[0], n[1], n[2], n[3]);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const float a = As[st];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      C[0][q] *= a;
+      C[1][q] *= a;
+      n[q] *= a;
+    }
+#pragma unroll 8
+    for (int s = 0; s < nt; ++s) {
+      const float g = Gs[st][s];
+      const float2 vv = *reinterpret_cast<const float2*>(&Vs[st][s][2 * ry]);
+      const float4 kk = ld4(&Ks[st][s][4 * cx]);
+      const float g0 = g * vv.x, g1 = g * vv.y;
+      C[0][0] = fmaf(g0, kk.x, C[0][0]);
+      C[0][1] = fmaf(g0, kk.y, C[0][1]);
+      C[0][2] = fmaf(g0, kk.z, C[0][2]);
+      C[0][3] = fmaf(g0, kk.w, C[0][3]);
+      C[1][0] = fmaf(g1, kk.x, C[1][0]);
+      C[1][1] = fmaf(g1, kk.y, C[1][1]);
+      C[1][2] = fmaf(g1, kk.z, C[1][2]);
+      C[1][3] = fmaf(g1, kk.w, C[1][3]);
+      if (lead) {
+        n[0] = fmaf(g, kk.x, n[0]);
+        n[1] = fmaf(g, kk.y, n[1]);
+        n[2] = fmaf(g, kk.z, n[2]);
+        n[3] = fmaf(g, kk.w, n[3]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (cok && r + i < D)
+      *reinterpret_cast<float4*>(Cout + bh * DD + static_cast<long long>(r + i) * D + c) =
+          make_float4(C[i][0], C[i][1], C[i][2], C[i][3]);
+  if (lead && cok)
+    *reinterpret_cast<float4*>(nout + static_cast<long long>(bh) * D + c) =
+        make_float4(n[0], n[1], n[2], n[3]);
+  if (blockIdx.y == 0 && blockIdx.z == 0 && tid == 0)
+    mout[bh] = mbuf[base + static_cast<long long>(S - 1) * H];
+}
+
+// rows x 16-byte pieces of the slab [cb, cb + kc) of rows src + base +
+// rr stride (rr < rows) into dst, a row every kp floats; rows from live on
+// are zero-filled.
+__device__ __forceinline__ void copy_slab(float* dst, int kp,
+                                          const float* src, long long base,
+                                          long long stride, int live,
+                                          int rows, int cb, int kc) {
+  const int per = kc / 4;
+  for (int x = threadIdx.x; x < rows * per; x += kThreads) {
+    const int rr = x / per, cc = 4 * (x % per);
+    const bool ok = rr < live;
+    cp_async16(dst + rr * kp + cc,
+               ok ? src + base + rr * stride + cb + cc : src, ok);
+  }
+}
+
+// Dynamic shared memory of out_kernel, in floats: Q's slab (L rows), K's
+// or C_j's slab (VT rows), V's tile.
+__host__ __device__ __forceinline__ int out_floats(int D) {
+  return (L + VT) * slab_pitch(D < KC ? D : KC) + L * VT;
+}
+
+// grid (B * H, NC, VZ), kThreads, out_floats(D) floats of dynamic shared
+// memory.  Chunk j of (b, h), every chunk at once: P = Q K^T and n_j . q
+// over D in slabs of up to KC columns (one slab at D <= 256: each phase
+// waits for its copies once), then A, s and den; then, for value tiles z,
+// z + VZ, ..: Y = Q C_j^T over the same slabs (Q's slab kept from the first
+// phase when there is one) and y = (decay Y + A V) / den.  Warp w holds
+// steps 4 w .. 4 w + 3 (Q's rows read as broadcasts), lane l key l of P and
+// value rows l, l + 32 of Y (K's and C's rows, one a lane, 4 banks apart).
+// q, k, v, y: (B, S, H, D); li, mbuf, Fbuf, ss: (B, S, H);
+// Cst, Nst: the states before each chunk (states_kernel).  With save,
+// writes s to ss.
+__global__ void __launch_bounds__(kThreads, 2) out_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ li,
+    const float* __restrict__ mbuf, const float* __restrict__ Fbuf,
+    const float* __restrict__ m0, const float* __restrict__ Cst,
+    const float* __restrict__ Nst, float* __restrict__ y,
+    float* __restrict__ ss, int S, int H, int D, int save) {
+  extern __shared__ __align__(16) float osm[];
+  __shared__ __align__(16) float Ns[KC];
+  __shared__ float As[L][L + 1];
+  __shared__ float Fs[L], Is[L], Ms[L], dec[L], den[L], nq[L];
+  __shared__ float mprev;
+  const int KP = slab_pitch(D < KC ? D : KC);
+  float* Qs = osm;                   // [L][KP]
+  float* Bs = Qs + L * KP;           // [VT][KP]: K's rows, then C_j's
+  float* Vs = Bs + VT * KP;          // [L][VT]
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, j = blockIdx.y;
+  const int NC = gridDim.y, t0 = j * L, nt = min(L, S - t0);
+  const int tid = threadIdx.x, lane = tid & 31, tw = 4 * (tid >> 5);
+  const long long row0 = (static_cast<long long>(b) * S + t0) * H + h;
+  const long long ck = (static_cast<long long>(b) * NC + j) * H + h;
+  const long long DD = static_cast<long long>(D) * D;
+  const int nslab = (D + KC - 1) / KC;
+  static_assert(kThreads / 32 * 4 == L && VT == 64, "out_kernel's tiling");
+
+  // a chunk's steps of q or k: rows row0 + s H of D floats
+  const long long qrow = row0 * D, qstride = static_cast<long long>(H) * D;
+
+  // P = Q K^T and n . q
+  float p[4] = {0.f, 0.f, 0.f, 0.f}, nqa = 0.f;
+  for (int sl = 0; sl < nslab; ++sl) {
+    const int cb = sl * KC, kc = min(KC, D - cb);
+    copy_slab(Qs, KP, q, qrow, qstride, nt, L, cb, kc);
+    copy_slab(Bs, KP, k, qrow, qstride, nt, L, cb, kc);
+    for (int x = tid; x < kc / 4; x += kThreads)
+      cp_async16(&Ns[4 * x], Nst + ck * D + cb + 4 * x, true);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 8
+    for (int c4 = 0; c4 < kc; c4 += 4) {
+      const float4 kr = ld4(Bs + lane * KP + c4);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) p[a] = dot4(ld4(Qs + (tw + a) * KP + c4), kr, p[a]);
+      if (lane < 4)
+        nqa = dot4(ld4(Qs + (tw + lane) * KP + c4), ld4(&Ns[c4]), nqa);
+    }
+    __syncthreads();
+  }
+  if (tid < L) {
+    const bool ok = tid < nt;
+    const long long it = row0 + static_cast<long long>(tid) * H;
+    Fs[tid] = ok ? Fbuf[it] : 0.f;
+    Is[tid] = ok ? li[it] : 0.f;
+    Ms[tid] = ok ? mbuf[it] : 0.f;
+  }
+  if (tid == 0) mprev = j == 0 ? m0[bh] : mbuf[row0 - H];
+  if (lane < 4) nq[tw + lane] = nqa;
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int t = tw + a, s = lane;
+    As[t][s] = (s <= t && t < nt)
+                   ? expf(Is[s] + Fs[t] - Fs[s] - Ms[t]) * p[a]
+                   : 0.f;
+  }
+  if (tid < L) dec[tid] = expf(Fs[tid] + mprev - Ms[tid]);
+  __syncthreads();
+  if (tid < nt) {
+    float si = 0.f;
+    for (int s = 0; s <= tid; ++s) si += As[tid][s];
+    const float st = dec[tid] * nq[tid] + si;
+    den[tid] = fmaxf(fabsf(st), expf(-Ms[tid]));
+    if (save && blockIdx.z == 0) ss[row0 + static_cast<long long>(tid) * H] = st;
+  }
+  __syncthreads();
+
+  // y, one tile of value rows at a time
+  const int nvt = (D + VT - 1) / VT;
+  for (int vt = blockIdx.z; vt < nvt; vt += gridDim.z) {
+    const int r0 = vt * VT;
+    for (int x = tid; x < L * (VT / 4); x += kThreads) {
+      const int s = x / (VT / 4), col = r0 + 4 * (x % (VT / 4));
+      const bool ok = s < nt && col < D;
+      cp_async16(Vs + s * VT + col - r0,
+                 ok ? v + (row0 + static_cast<long long>(s) * H) * D + col : v,
+                 ok);
+    }
+    float acc[4][2];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) acc[a][0] = acc[a][1] = 0.f;
+    for (int sl = 0; sl < nslab; ++sl) {
+      const int cb = sl * KC, kc = min(KC, D - cb);
+      if (nslab > 1) copy_slab(Qs, KP, q, qrow, qstride, nt, L, cb, kc);
+      copy_slab(Bs, KP, Cst, ck * DD + static_cast<long long>(r0) * D, D,
+                D - r0, VT, cb, kc);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll 4
+      for (int c4 = 0; c4 < kc; c4 += 4) {
+        const float4 c0r = ld4(Bs + lane * KP + c4);
+        const float4 c1r = ld4(Bs + (lane + 32) * KP + c4);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float4 qa = ld4(Qs + (tw + a) * KP + c4);
+          acc[a][0] = dot4(qa, c0r, acc[a][0]);
+          acc[a][1] = dot4(qa, c1r, acc[a][1]);
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int t = tw + a;
+      if (t >= nt) continue;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int rr = lane + 32 * i;
+        if (r0 + rr >= D) continue;
+        float av = 0.f;
+        for (int s = 0; s <= t; ++s) av = fmaf(As[t][s], Vs[s * VT + rr], av);
+        y[(row0 + static_cast<long long>(t) * H) * D + r0 + rr] =
+            (dec[t] * acc[a][i] + av) / den[t];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace chunkwise
+
 inline int round_warp(int d) { return (d + 31) / 32 * 32; }
 
 }  // namespace mlstm
@@ -413,6 +870,63 @@ extern "C" int mlstm_scan_forward(
                static_cast<cudaStream_t>(stream)>>>(
       cf(q), cf(k), cf(v), cf(li), cf(lf), cf(C0), cf(n0), cf(m0), f(y), f(C),
       f(n), f(m), f(ckC), f(ckn), f(ms), f(ss), S, H, D, chunk);
+  return cudaGetLastError();
+}
+
+// The chunkwise forward: the one-pass forward's inputs and outputs, with
+// Cst (B, NC, H, D, D) and Nst (B, NC, H, D), NC = ceil(S / 32), the
+// states before every 32-step chunk (a recorded forward's ckC and ckn, or
+// scratch), mbuf (B, S, H), every step's m' (its ms, or scratch), ss (B,
+// S, H, written with save), scratch 2 B S H + B NC H floats.  D a multiple
+// of 4 up to 1024; q, k, v, C0, n0, Cst and Nst 16-byte aligned.  Three
+// launches on the stream.  Returns the first cudaError_t.
+extern "C" int mlstm_scan_forward_chunkwise(
+    const void* q, const void* k, const void* v, const void* li,
+    const void* lf, const void* C0, const void* n0, const void* m0, void* y,
+    void* C, void* n, void* m, void* Cst, void* Nst, void* mbuf, void* ss,
+    void* scratch, int B, int S, int H, int D, int save, void* stream) {
+  using namespace repro::mlstm::chunkwise;
+  if (B < 1 || S < 1 || H < 1 || D < 1 || D > 32 * repro::mlstm::kMaxWarps
+      || D % 4)
+    return cudaErrorInvalidValue;
+  if (!repro::aligned16(q, k, v, C0, n0, Cst, Nst))
+    return cudaErrorMisalignedAddress;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  const auto f = [](void* p) { return static_cast<float*>(p); };
+  const int BH = B * H, NC = (S + L - 1) / L;
+  // scratch: F and g (B, S, H) each, then the chunks' decays (B, NC, H)
+  float* Fbuf = f(scratch);
+  float* Gbuf = Fbuf + static_cast<long long>(B) * S * H;
+  float* Abuf = Gbuf + static_cast<long long>(B) * S * H;
+  gates_kernel<<<(BH * 32 + 127) / 128, 128, 0, st>>>(
+      cf(li), cf(lf), cf(m0), f(mbuf), Fbuf, Gbuf, Abuf, B, S, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  states_kernel<<<dim3(BH, (D + TV - 1) / TV, (D + TK - 1) / TK), kThreads,
+                  0, st>>>(cf(k), cf(v), Gbuf, Abuf, cf(mbuf), cf(C0),
+                           cf(n0), f(Cst), f(Nst), f(C), f(n), f(m), S, H,
+                           D);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // value tiles split over blocks until the grid covers the SMs twice
+  const int sms = repro::sm_count();
+  if (sms < 1) return cudaGetLastError();
+  const int nvt = (D + VT - 1) / VT;
+  int vz = 1;
+  while (2 * vz <= nvt && static_cast<long long>(BH) * NC * vz < 2LL * sms)
+    vz *= 2;
+  // out_kernel's shared-memory limit, raised when a larger D asks (the
+  // attribute calls on every launch cost host time)
+  static size_t smem_set = 0;
+  const size_t smem = sizeof(float) * out_floats(D);
+  if (smem > smem_set) {
+    if ((err = repro::allow_smem(out_kernel, smem)) != cudaSuccess)
+      return err;
+    smem_set = smem;
+  }
+  out_kernel<<<dim3(BH, NC, vz), kThreads, smem, st>>>(
+      cf(q), cf(k), cf(v), cf(li), cf(mbuf), Fbuf, cf(m0), cf(Cst),
+      cf(Nst), f(y), f(ss), S, H, D, save);
   return cudaGetLastError();
 }
 

@@ -9,14 +9,41 @@
 //   a = log f + m;  m' = max(a, i);  f' = exp(a - m');  i' = exp(i - m')
 //   c = f' c + i' z;  n = f' n + i';  h = o c / max(n, 1)
 // Every step mixes all of d through r_w (d x 4d), so a step needs the
-// whole of the previous step's h: one launch per step, all launched from
-// one host call on the stream (a captured decode step, S = 1, is one plain
-// launch).  A block owns kUnits hidden units (their 4 kUnits columns of
-// r_w, one per lane) and up to kRows batch rows; its warps split the
-// reduction over d, each keeping 16 loads of r_w in flight (the loop
-// unrolled), with h_{t-1} staged in shared memory; r_w (16 MiB at d =
-// 1024) is read from L2 on every step.  A recorded forward (save) keeps
-// every step's pre-activations and c, n, m for the backward.
+// whole of the previous step's h.  Two designs, chosen by shape before any
+// launch (xlstm_scan.slstm_route):
+//
+// * The persistent forward (slstm_scan_forward_persistent), for S > 1:
+//   one cooperative launch for the whole sequence, one block per SM.  A
+//   block owns kPUnits = 8 hidden units and their 32 columns of r_w (z, i,
+//   f, o of each), loaded into shared memory once a call (128 KiB at d =
+//   1,024) and kept there for all S steps; its units' c, n, m stay in the
+//   registers of the threads that update them.  Per step a block waits at
+//   a grid barrier for h_{t-1} (one counter in global memory: a block adds
+//   1 with red.release once its h is stored, one thread polls it with
+//   ld.acquire, as CUTLASS's grid barrier does; a flag per block, polled
+//   by a thread each, was slower on the H100; h is then read
+//   with ld.global.cg, past the SMs' L1, which is not coherent across
+//   SMs), stages h_{t-1}'s rows transposed in shared memory, runs
+//   the (rows x d) x (d x 32) product on the FMA units (16 warps split d;
+//   a lane holds 4 columns x the rows, r_w in 16-byte loads), reduces it
+//   over the warps, adds pre_x_t (loaded one step ahead) and updates its
+//   units.  The launch refuses (returns an error, never hangs) when the
+//   grid cannot be co-resident; the counter is zeroed on the stream before
+//   it.  Bound: latency per step, the barrier plus the product (8 B d^2
+//   FMAs a step over the SMs) plus the staging of h (B d floats from L2 to
+//   every block).
+// * The step forward (slstm_scan_forward): one launch per step, all
+//   launched from one host call on the stream, for S = 1 (a decode step:
+//   one plain launch, which a captured CUDA graph replays) and for shapes
+//   the persistent kernel does not take (more than 8 rows, more units than
+//   SMs x 8, or r_w's slice and h beyond a block's shared memory).  A
+//   block owns kUnits hidden units (their 4 kUnits columns of r_w, one per
+//   lane) and up to kRows batch rows; its warps split the reduction over
+//   d, each keeping 16 loads of r_w in flight (the loop unrolled), with
+//   h_{t-1} staged in shared memory; r_w (16 MiB at d = 1024) is read from
+//   L2 on every step: ~3 us at L2's rate, beside a launch, per step.
+// A recorded forward (save) keeps every step's pre-activations and c, n,
+// m for the backward, in either design.
 //
 // Backward, one launch per step from the last: the recurrent gradient
 // dh_t = dy_t + dpre_{t+1} r_w^T (a warp per unit reading its row of r_w
@@ -25,14 +52,11 @@
 // gradient of max to the larger side, half to each at a tie, as
 // torch.maximum's and JAX's max's).  dr_w = sum_t h_{t-1}^T dpre_t is one
 // matrix product after the kernel (xlstm_scan.py), as the other plain
-// products of the port.
+// products of the port.  Bound: latency per step, r_w read from L2 each
+// step, as the step forward.
 //
-// Bound on the H100: latency per step.  A step reads r_w once (4 d^2
-// floats) and does 8 B d^2 flops; at d = 1024 that is 16 MiB from L2,
-// ~3 us at its rate, beside a launch; S steps of that are the floor of
-// this design (r_w resident in shared memory across steps would remove
-// the L2 read: a later redesign).  Built without fast math: exp(-1e30) is
-// 0 and m is carried exactly, as in the plain version.
+// Built without fast math: exp(-1e30) is 0 and m is carried exactly, as in
+// the plain version.
 #include "common.cuh"
 
 namespace repro {
@@ -234,6 +258,274 @@ __global__ void __launch_bounds__(kWarps * 32) bwd_step(
   dm[sb] = da;
 }
 
+// ---------------------------------------------------------------------------
+// The persistent forward
+// ---------------------------------------------------------------------------
+
+constexpr int kPUnits = 8;               // hidden units per block: 32 columns
+constexpr int kPWarps = 16;
+constexpr int kPThreads = kPWarps * 32;
+constexpr int kPMaxRows = 8;             // batch rows a call takes
+constexpr int kXStep = kPWarps * 4;      // rows of r_w per pass of a block
+constexpr long long kSpinLimit = 20000000000LL;  // cycles at a grid barrier
+
+// Floats of dynamic shared memory for `rows` (1, 2, 4, 8) staged rows and
+// d padded to dpad (a multiple of kXStep): r_w's slice, h transposed and
+// the warps' partial products.  xlstm_scan.slstm_persistent_smem repeats
+// this count for the route.
+constexpr long long persistent_floats(int rows, int dpad) {
+  return static_cast<long long>(dpad) * 32 + static_cast<long long>(dpad) * rows
+         + kPWarps * rows * 32;
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// RB: rows staged (B rounded up to 1, 2, 4 or 8).  pre_x, pres: (B, S,
+// 4d); r_w: (d, 4d); c0, n0, m0, h0: (B, d); y: (B, S, d) (h_t, which the
+// next step reads); cout, nout, mout, hout: (B, d); cs, ns, msv: (B, S, d);
+// arrived: the grid barrier's counter, zero at the launch (after step t
+// each block adds 1; S gridDim.x stays below 2^31).  grid ceil(d / kPUnits)
+// blocks (co-resident), kPThreads threads, persistent_floats(RB, dpad)
+// floats of dynamic shared memory.
+template <int RB>
+__global__ void __launch_bounds__(kPThreads, 1) fwd_persistent(
+    const float* __restrict__ pre_x, const float* __restrict__ r_w,
+    const float* __restrict__ c0, const float* __restrict__ n0,
+    const float* __restrict__ m0, const float* __restrict__ h0, float* y,
+    float* __restrict__ cout, float* __restrict__ nout,
+    float* __restrict__ mout, float* __restrict__ hout,
+    float* __restrict__ pres, float* __restrict__ cs,
+    float* __restrict__ ns, float* __restrict__ msv, int* arrived, int B,
+    int S, int d, int dpad, int save) {
+  extern __shared__ __align__(16) float sm[];
+  float* rs = sm;                          // [dpad][32]: columns (gate, unit)
+  float* hT = rs + dpad * 32;              // [dpad][RB]: h_{t-1}[b][x]
+  float* red = hT + dpad * RB;             // [kPWarps][RB][32]
+  const int nblk = gridDim.x, j0 = blockIdx.x * kPUnits;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long d4 = 4LL * d;
+
+  // r_w's slice, once a call; padded rows and units beyond d are zeros
+  for (int i = tid; i < dpad * 32; i += kPThreads) {
+    const int x = i >> 5, l = i & 31, j = j0 + (l & 7);
+    rs[i] = (x < d && j < d) ? r_w[x * d4 + (l >> 3) * static_cast<long long>(d) + j]
+                             : 0.f;
+  }
+  for (int i = tid; i < dpad * RB; i += kPThreads) hT[i] = 0.f;
+
+  // Warp b < RB finishes row b: lane l sums column l (gate l / 8, unit l %
+  // 8) over the warps and adds pre_x, loaded one step ahead; lanes 0-7
+  // then gather their unit's four gates and update it, c, n, m kept in
+  // their registers for the whole sequence.
+  const int ub = warp, uj = j0 + (lane & 7);
+  const bool row_ok = warp < RB && ub < B && uj < d;
+  const bool upd = row_ok && lane < kPUnits;
+  const long long pcol = (lane >> 3) * static_cast<long long>(d) + uj;
+  float px = row_ok ? pre_x[static_cast<long long>(ub) * S * d4 + pcol] : 0.f;
+  float c = 0.f, n = 0.f, m = 0.f, h = 0.f;
+  if (upd) {
+    c = c0[ub * static_cast<long long>(d) + uj];
+    n = n0[ub * static_cast<long long>(d) + uj];
+    m = m0[ub * static_cast<long long>(d) + uj];
+  }
+
+  const int kq = lane >> 3, cg = lane & 7;
+  for (int t = 0; t < S; ++t) {
+    if (t > 0 && tid == 0) {
+      // every block's h_{t-1} is stored: t arrivals from each block
+      const long long start = clock64();
+      while (ld_acquire(arrived) < t * nblk) {
+        // a block that never arrives is a fault, not a wait: stop the
+        // kernel with an error after ~10 s rather than hang the card
+        if (clock64() - start > kSpinLimit) __trap();
+      }
+    }
+    __syncthreads();
+    {
+      // h_{t-1}, read past L1: a thread's x, every row's load in flight
+      const float* hp = t == 0 ? h0 : y + static_cast<long long>(t - 1) * d;
+      const long long hs = t == 0 ? d : static_cast<long long>(S) * d;
+      for (int x = tid; x < d; x += kPThreads) {
+        float hv[RB];
+#pragma unroll
+        for (int b = 0; b < RB; ++b) hv[b] = b < B ? __ldcg(hp + b * hs + x) : 0.f;
+        if constexpr (RB >= 4) {
+#pragma unroll
+          for (int q4 = 0; q4 < RB / 4; ++q4)
+            *reinterpret_cast<float4*>(hT + x * RB + 4 * q4) = make_float4(
+                hv[4 * q4], hv[4 * q4 + 1], hv[4 * q4 + 2], hv[4 * q4 + 3]);
+        } else if constexpr (RB == 2) {
+          *reinterpret_cast<float2*>(hT + x * 2) = make_float2(hv[0], hv[1]);
+        } else {
+          hT[x] = hv[0];
+        }
+      }
+    }
+    __syncthreads();
+    float acc[RB][4];
+#pragma unroll
+    for (int b = 0; b < RB; ++b)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[b][k] = 0.f;
+#pragma unroll 4
+    for (int x = warp * 4 + kq; x < dpad; x += kXStep) {
+      const float4 r = *reinterpret_cast<const float4*>(rs + x * 32 + cg * 4);
+      float hv[RB];
+      if constexpr (RB >= 4) {
+#pragma unroll
+        for (int q4 = 0; q4 < RB / 4; ++q4) {
+          const float4 v4 =
+              *reinterpret_cast<const float4*>(hT + x * RB + 4 * q4);
+          hv[4 * q4] = v4.x;
+          hv[4 * q4 + 1] = v4.y;
+          hv[4 * q4 + 2] = v4.z;
+          hv[4 * q4 + 3] = v4.w;
+        }
+      } else if constexpr (RB == 2) {
+        const float2 v2 = *reinterpret_cast<const float2*>(hT + x * 2);
+        hv[0] = v2.x;
+        hv[1] = v2.y;
+      } else {
+        hv[0] = hT[x];
+      }
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        acc[b][0] = fmaf(hv[b], r.x, acc[b][0]);
+        acc[b][1] = fmaf(hv[b], r.y, acc[b][1]);
+        acc[b][2] = fmaf(hv[b], r.z, acc[b][2]);
+        acc[b][3] = fmaf(hv[b], r.w, acc[b][3]);
+      }
+    }
+    // over the warp's four interleaved rows of r_w, then over the warps
+#pragma unroll
+    for (int b = 0; b < RB; ++b)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float v = acc[b][k];
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        acc[b][k] = v;
+      }
+    if (kq == 0) {
+#pragma unroll
+      for (int b = 0; b < RB; ++b)
+        *reinterpret_cast<float4*>(red + (warp * RB + b) * 32 + cg * 4) =
+            make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
+    }
+    __syncthreads();
+    if (warp < RB) {
+      float dot = 0.f;
+#pragma unroll
+      for (int w = 0; w < kPWarps; ++w) dot += red[(w * RB + warp) * 32 + lane];
+      const float pre = px + dot;
+      const long long row = static_cast<long long>(ub) * S + t;
+      if (row_ok) {
+        if (save) pres[row * d4 + pcol] = pre;
+        if (t + 1 < S) px = pre_x[(row + 1) * d4 + pcol];
+      }
+      const float pi = __shfl_down_sync(0xffffffffu, pre, kPUnits);
+      const float pf = __shfl_down_sync(0xffffffffu, pre, 2 * kPUnits);
+      const float po = __shfl_down_sync(0xffffffffu, pre, 3 * kPUnits);
+      if (upd) {
+        const float z = tanhf(pre);
+        const float a = log_sigmoid(pf) + m;
+        const float o = sigmoid(po);
+        const float mn = fmaxf(a, pi);
+        const float fe = expf(a - mn), ie = expf(pi - mn);
+        c = fe * c + ie * z;
+        n = fe * n + ie;
+        h = o * c / fmaxf(n, 1.f);
+        m = mn;
+        y[row * d + uj] = h;
+        if (save) {
+          cs[row * d + uj] = c;
+          ns[row * d + uj] = n;
+          msv[row * d + uj] = mn;
+        }
+      }
+      // arrive once its RB warps have stored their h_t (bar.sync 1 among
+      // them; the release add orders the stores the barrier saw before
+      // it, as CUTLASS's grid barrier does)
+      asm volatile("bar.sync 1, %0;" ::"r"(RB * 32) : "memory");
+      if (tid == 0 && t + 1 < S) red_release_add(arrived, 1);
+    }
+  }
+  if (upd) {
+    const long long sb = static_cast<long long>(ub) * d + uj;
+    cout[sb] = c;
+    nout[sb] = n;
+    mout[sb] = m;
+    hout[sb] = h;
+  }
+}
+
+template <int RB>
+cudaError_t launch_persistent(const float* pre_x, const float* r_w,
+                              const float* c0, const float* n0,
+                              const float* m0, const float* h0, float* y,
+                              float* c, float* n, float* m, float* h,
+                              float* pres, float* cs, float* ns, float* ms,
+                              int* arrived, int B, int S, int d, int save,
+                              cudaStream_t st) {
+  int dpad = (d + kXStep - 1) / kXStep * kXStep;
+  const size_t smem = sizeof(float) * persistent_floats(RB, dpad);
+  const int nblk = (d + kPUnits - 1) / kPUnits;
+  // the card's limits once a process, this kernel's shared-memory limit
+  // and occupancy when its size changes (queries on every call cost tens
+  // of microseconds of host time)
+  static int optin = 0, coop = 0, per_sm = 0;
+  static size_t smem_set = 0, smem_seen = 0;
+  const int sms = repro::sm_count();
+  const auto kernel = fwd_persistent<RB>;
+  cudaError_t err = cudaSuccess;
+  if (optin == 0) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  }
+  if (!coop || sms < 1 || smem > static_cast<size_t>(optin))
+    return cudaErrorInvalidConfiguration;
+  if (smem > smem_set) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  if (smem != smem_seen) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kPThreads, smem);
+    if (err != cudaSuccess) return err;
+    smem_seen = smem;
+  }
+  // every block must be resident at once, or the grid barrier would wait
+  // forever: refuse instead
+  if (static_cast<long long>(per_sm) * sms < nblk)
+    return cudaErrorCooperativeLaunchTooLarge;
+  if (static_cast<long long>(S) * nblk >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  err = cudaMemsetAsync(arrived, 0, sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&pre_x, &r_w, &c0, &n0, &m0, &h0, &y,  &c,     &n,
+                  &m,     &h,   &pres, &cs, &ns, &ms, &arrived, &B, &S,
+                  &d,     &dpad, &save};
+  return cudaLaunchCooperativeKernel((const void*)kernel,
+                                     dim3(nblk), dim3(kPThreads), args, smem,
+                                     st);
+}
+
 }  // namespace slstm
 }  // namespace repro
 
@@ -269,6 +561,33 @@ extern "C" int slstm_scan_forward(
                            cf(y) + static_cast<long long>(S - 1) * d,
                            sizeof(float) * S * d, sizeof(float) * d, B,
                            cudaMemcpyDeviceToDevice, st);
+}
+
+// The persistent forward: the step forward's arguments and arrived, a
+// scratch int for the grid barrier (zeroed here on the stream).  B <= 8, and
+// ceil(d / 8) blocks of 512 threads with their shared memory must be
+// co-resident: otherwise it returns an error and launches nothing.  One
+// cooperative launch.  Returns the first cudaError_t.
+extern "C" int slstm_scan_forward_persistent(
+    const void* pre_x, const void* r_w, const void* c0, const void* n0,
+    const void* m0, const void* h0, void* y, void* c, void* n, void* m,
+    void* h, void* pres, void* cs, void* ns, void* ms, void* arrived, int B,
+    int S, int d, int save, void* stream) {
+  using namespace repro::slstm;
+  if (B < 1 || B > kPMaxRows || S < 1 || d < 1) return cudaErrorInvalidValue;
+  const auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  const auto f = [](void* p) { return static_cast<float*>(p); };
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* fl = static_cast<int*>(arrived);
+#define REPRO_SLSTM_PERSISTENT(RB)                                          \
+  launch_persistent<RB>(cf(pre_x), cf(r_w), cf(c0), cf(n0), cf(m0), cf(h0), \
+                        f(y), f(c), f(n), f(m), f(h), f(pres), f(cs), f(ns), \
+                        f(ms), fl, B, S, d, save, st)
+  if (B == 1) return REPRO_SLSTM_PERSISTENT(1);
+  if (B == 2) return REPRO_SLSTM_PERSISTENT(2);
+  if (B <= 4) return REPRO_SLSTM_PERSISTENT(4);
+  return REPRO_SLSTM_PERSISTENT(8);
+#undef REPRO_SLSTM_PERSISTENT
 }
 
 // dy: (B, S, d) f32; r_w: (d, 4d); pres (B, S, 4d), cs, ns, ms (B, S, d):

@@ -4,23 +4,35 @@ counterpart of the two ``jax.lax.scan`` loops of JAX's
 
 XLA compiles each scan into one loop on the device and differentiates
 through it; PyTorch has no scan, so each recurrence is one operator over
-the whole sequence, forward and backward, with four hand-written CUDA
-kernels behind them (no TPU kernel: JAX left these loops to XLA):
+the whole sequence, forward and backward, with hand-written CUDA kernels
+behind them, two designs of each forward (no TPU kernel: JAX left these
+loops to XLA):
 
 * ``repro_torch::mlstm_scan(q, k, v, log_i, log_f, C0, n0, m0, chunk)``
-  -> (y, C, n, m, ckC, ckn, ms, ss), CUDA ``csrc/mlstm_scan.cu``
-  (``mlstm_scan_forward``).  With ``chunk`` > 0 (a forward that autograd
-  records) it also saves the carries before every ``chunk``-th step and
-  every step's stabilizer m_t and n_t . q_t, from which
-  ``repro_torch::mlstm_scan_backward`` (``mlstm_scan_backward``) recomputes
-  each chunk's states: a saved C per step would be B H D^2 floats a step
-  (2 GiB a layer at xlstm-350m's 2 x 1,024 tokens).
+  -> (y, C, n, m, ckC, ckn, ms, ss), CUDA ``csrc/mlstm_scan.cu``: the
+  chunkwise forward (``mlstm_scan_forward_chunkwise``, parallel within
+  32-step chunks, the chunk states in sequence) or the one-pass forward
+  (``mlstm_scan_forward``, step after step), by ``mlstm_route``.  With
+  ``chunk`` > 0 (a forward that autograd records) it also saves the
+  carries before every ``chunk``-th step and every step's stabilizer m_t
+  and n_t . q_t, from which ``repro_torch::mlstm_scan_backward``
+  (``mlstm_scan_backward``) recomputes each chunk's states: a saved C per
+  step would be B H D^2 floats a step (2 GiB a layer at xlstm-350m's 2 x
+  1,024 tokens).
 * ``repro_torch::slstm_scan(pre_x, r_w, c0, n0, m0, h0, save)`` -> (y, c,
-  n, m, h, pres, cs, ns, ms), CUDA ``csrc/slstm_scan.cu``
-  (``slstm_scan_forward``).  With ``save`` it keeps every step's
-  pre-activations and c, n, m (B S (4d + 3d) floats) for
+  n, m, h, pres, cs, ns, ms), CUDA ``csrc/slstm_scan.cu``: the persistent
+  forward (``slstm_scan_forward_persistent``, one cooperative launch, r_w
+  resident in shared memory) or the step forward (``slstm_scan_forward``,
+  a launch a step), by ``slstm_route``.  With ``save`` it keeps every
+  step's pre-activations and c, n, m (B S (4d + 3d) floats) for
   ``repro_torch::slstm_scan_backward`` (``slstm_scan_backward``), whose
   dr_w = sum_t h_{t-1}^T dpre_t is one ``torch.matmul`` after the kernel.
+
+Each design counts its launches under its own name in ``_lib.LAUNCHES``:
+``mlstm_scan_chunkwise`` / ``mlstm_scan`` (one-pass), ``slstm_scan_persistent``
+/ ``slstm_scan`` (step).  The route is fixed by shape before any launch;
+a refused launch raises, and nothing gives way to the other design or to
+the plain version.
 
 Each operator has ``custom_ops.define``'s four bodies (CUDA: the kernel;
 CPU: the plain version from ``ref``; fake: the shapes, the saved tensors
@@ -55,13 +67,65 @@ MLSTM = "mlstm_scan"
 MLSTM_BWD = "mlstm_scan_backward"
 SLSTM = "slstm_scan"
 SLSTM_BWD = "slstm_scan_backward"
-# steps per mLSTM checkpoint of a recorded forward
+# launch counters of the two redesigned forwards (the one-pass mLSTM and
+# the step sLSTM count under MLSTM and SLSTM)
+MLSTM_CHUNKWISE = "mlstm_scan_chunkwise"
+SLSTM_PERSISTENT = "slstm_scan_persistent"
+# steps per mLSTM checkpoint of a recorded forward, and per chunk of the
+# chunkwise forward (its kernels' L)
 MLSTM_CHUNK = 32
 # value rows of C per block of the mLSTM backward: the scratch the wrapper
 # allocates follows it, and the kernel refuses any other count than its
 # kBwdRows
 MLSTM_BWD_ROWS = 16
 MAX_HEAD_DIM = 1024         # one thread per column of C
+# the persistent sLSTM forward: hidden units a block owns (kPUnits), batch
+# rows a call takes (kPMaxRows), and the H100's shared memory a block may
+# opt into (227 KiB)
+SLSTM_UNITS = 8
+SLSTM_MAX_ROWS = 8
+SMEM_PER_BLOCK = 232448
+
+
+def mlstm_route(b: int, s: int, h: int, d: int, chunk: int) -> str:
+    """The mLSTM forward's design for a call on the card, from its shape
+    alone: ``"chunkwise"`` (``mlstm_scan_forward_chunkwise``) when S > 1,
+    D is a multiple of 4 (its 16-byte copies) and ``chunk`` is 0 or
+    ``MLSTM_CHUNK`` (its chunk states are then the checkpoints); else
+    ``"one_pass"`` (``mlstm_scan_forward``): a decode step (S = 1), which
+    a captured CUDA graph replays as one plain launch."""
+    if s > 1 and d % 4 == 0 and chunk in (0, MLSTM_CHUNK):
+        return "chunkwise"
+    return "one_pass"
+
+
+def slstm_persistent_smem(b: int, d: int) -> int:
+    """Bytes of shared memory a block of the persistent sLSTM forward
+    takes (``persistent_floats`` in ``csrc/slstm_scan.cu``): r_w's 32
+    columns, h's rows staged (B rounded up to 1, 2, 4 or 8) and the 16
+    warps' partial products, d padded to a multiple of 64."""
+    rows = 1 if b <= 1 else 2 if b <= 2 else 4 if b <= 4 else 8
+    dpad = -(-d // 64) * 64
+    return 4 * (dpad * 32 + dpad * rows + 16 * rows * 32)
+
+
+def slstm_route(b: int, s: int, d: int, sm_count: int) -> str:
+    """The sLSTM forward's design for a call on the card, from its shape
+    and the card's SM count alone: ``"persistent"``
+    (``slstm_scan_forward_persistent``) when S > 1, B <= 8, the
+    ceil(d / 8) blocks fit one per SM and a block's shared memory
+    (``slstm_persistent_smem``) fits ``SMEM_PER_BLOCK``; else ``"step"``
+    (``slstm_scan_forward``, a launch a step): a decode step (S = 1),
+    which a captured CUDA graph replays as one plain launch, and widths
+    whose r_w does not fit on chip (d = 1,640 on an H100)."""
+    if (s > 1 and b <= SLSTM_MAX_ROWS and -(-d // SLSTM_UNITS) <= sm_count
+            and slstm_persistent_smem(b, d) <= SMEM_PER_BLOCK):
+        return "persistent"
+    return "step"
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _needs_grad(*ts) -> bool:
@@ -131,17 +195,56 @@ def _mlstm_out_shapes(b, s, h, d, chunk):
             (b, s if chunk else 0, h))
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it at a 16-byte aligned address (a contiguous
+    view may start anywhere; the chunkwise kernels copy 16 bytes at a
+    time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _mlstm_cuda(q, k, v, log_i, log_f, c0, n0, m0, chunk):
     ins = [t.contiguous() for t in (q, k, v, log_i, log_f, c0, n0, m0)]
-    dev = _lib.check_cuda(MLSTM, *ins)
+    _lib.check_cuda(MLSTM, *ins)
     _f32(MLSTM, *ins)
     b, s, h, d = _mlstm_shapes(*ins)
     if s == 0:
         raise ValueError(f"{MLSTM}: empty sequence")
+    return mlstm_forward(mlstm_route(b, s, h, d, chunk), *ins, chunk)
+
+
+def mlstm_forward(route: str, q, k, v, log_i, log_f, c0, n0, m0,
+                  chunk: int) -> Tuple[torch.Tensor, ...]:
+    """Launch the mLSTM forward design ``route`` ("chunkwise" or
+    "one_pass") on checked, contiguous f32 CUDA inputs; the operator's
+    CUDA body calls it with ``mlstm_route``'s choice (``chip_smoke.py``
+    also times the one-pass design at prefill shapes)."""
+    ins = [q, k, v, log_i, log_f, c0, n0, m0]
+    b, s, h, d = q.shape
     outs = [_empty(q, *sh) for sh in _mlstm_out_shapes(b, s, h, d, chunk)]
-    with torch.cuda.device(dev):
-        _lib.launch(MLSTM, "mlstm_scan_forward", MLSTM,
-                    *map(_lib.ptr, ins + outs), b, s, h, d, int(chunk))
+    with torch.cuda.device(q.device):
+        if route == "one_pass":
+            _lib.launch(MLSTM, "mlstm_scan_forward", MLSTM,
+                        *map(_lib.ptr, ins + outs), b, s, h, d, int(chunk))
+            return tuple(outs)
+        if route != "chunkwise":
+            raise ValueError(f"{MLSTM}: no forward design {route!r}")
+        if d % 4 or chunk not in (0, MLSTM_CHUNK):
+            raise ValueError(f"{MLSTM}: the chunkwise forward takes D a "
+                             f"multiple of 4 and chunk 0 or {MLSTM_CHUNK}, "
+                             f"got D {d}, chunk {chunk}")
+        if chunk:
+            states = outs[4:8]          # ckC, ckn, ms, ss
+        else:
+            nc = -(-s // MLSTM_CHUNK)
+            states = [_empty(q, b, nc, h, d, d), _empty(q, b, nc, h, d),
+                      _empty(q, b, s, h)]
+            states.append(states[2])    # ss: not written
+        # the kernels' scratch: F and g a step, a decay a chunk
+        scratch = _empty(q, (2 * s + -(-s // MLSTM_CHUNK)) * b * h)
+        _lib.launch(MLSTM, "mlstm_scan_forward_chunkwise", MLSTM_CHUNKWISE,
+                    *map(_lib.ptr, [_aligned(t) for t in ins] + outs[:4]
+                         + states + [scratch]),
+                    b, s, h, d, int(bool(chunk)))
     return tuple(outs)
 
 
@@ -299,10 +402,31 @@ def _slstm_cuda(pre_x, r_w, c0, n0, m0, h0, save):
     b, s, d = _slstm_shapes(*ins)
     if s == 0:
         raise ValueError(f"{SLSTM}: empty sequence")
+    return slstm_forward(slstm_route(b, s, d, _sm_count(dev)), *ins, save)
+
+
+def slstm_forward(route: str, pre_x, r_w, c0, n0, m0, h0,
+                  save: bool) -> Tuple[torch.Tensor, ...]:
+    """Launch the sLSTM forward design ``route`` ("persistent" or "step")
+    on checked, contiguous f32 CUDA inputs; the operator's CUDA body calls
+    it with ``slstm_route``'s choice (``chip_smoke.py`` also times the
+    step design at prefill shapes).  The persistent kernel refuses a grid
+    that cannot be co-resident: that raises."""
+    b, s, _ = pre_x.shape
+    d = r_w.shape[0]
     outs = [_empty(pre_x, *sh) for sh in _slstm_out_shapes(b, s, d, save)]
-    with torch.cuda.device(dev):
-        _lib.launch(SLSTM, "slstm_scan_forward", SLSTM,
-                    *map(_lib.ptr, ins + outs), b, s, d, int(save))
+    args = [pre_x, r_w, c0, n0, m0, h0] + outs
+    with torch.cuda.device(pre_x.device):
+        if route == "step":
+            _lib.launch(SLSTM, "slstm_scan_forward", SLSTM,
+                        *map(_lib.ptr, args), b, s, d, int(save))
+        elif route == "persistent":
+            arrived = torch.empty(1, dtype=torch.int32, device=pre_x.device)
+            _lib.launch(SLSTM, "slstm_scan_forward_persistent",
+                        SLSTM_PERSISTENT, *map(_lib.ptr, args + [arrived]),
+                        b, s, d, int(save))
+        else:
+            raise ValueError(f"{SLSTM}: no forward design {route!r}")
     return tuple(outs)
 
 

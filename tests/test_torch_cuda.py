@@ -1192,8 +1192,10 @@ def test_cuda_last_two_stacks_replay_equal_eager(arch, monkeypatch):
     with CUDA graphs on and off: every replayed step equals the eager one
     bit for bit (the xLSTM's C/n/m/c/h restored after the capture's
     warm-up), the streams and launches are equal; the xLSTM launches its
-    forward scans (mLSTM and sLSTM) and never B1-B5 or a backward scan,
-    seamless B1, B2 and B5 (cross decode) and never B3 or B4."""
+    forward scans (mLSTM and sLSTM: the chunkwise and persistent designs
+    for the prefill chunks, the one-pass and step designs for the decode
+    steps) and never B1-B5 or a backward scan, seamless B1, B2 and B5
+    (cross decode) and never B3 or B4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     import dataclasses
@@ -1236,7 +1238,8 @@ def test_cuda_last_two_stacks_replay_equal_eager(arch, monkeypatch):
     assert g_streams == e_streams and g_launch == e_launch
     used = ({"paged_decode_partials", "flash_prefill",
              "split_kv_decode_partials"} if cfg.cross_attention
-            else {"mlstm_scan", "slstm_scan"})
+            else {"mlstm_scan", "slstm_scan", "mlstm_scan_chunkwise",
+                  "slstm_scan_persistent"})
     for name, n in g_launch.items():
         assert (n > 0) == (name in used), (name, n)
 
@@ -1322,36 +1325,59 @@ def _rel_close(got, want, tol=1e-4):
         assert float((a - b).abs().max()) <= tol * scale
 
 
+def _forward_counters(b, s, h, d, dm, chunk):
+    """The launch counters of the forward designs the routes name for
+    these shapes (``mlstm_route``, ``slstm_route`` on this card's SMs)."""
+    from repro_torch.kernels import xlstm_scan as X
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ({"chunkwise": X.MLSTM_CHUNKWISE, "one_pass": X.MLSTM}[
+                X.mlstm_route(b, s, h, d, chunk)],
+            {"persistent": X.SLSTM_PERSISTENT, "step": X.SLSTM}[
+                X.slstm_route(b, s, dm, sms)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,d,dm", [(2, 7, 2, 16, 32), (3, 70, 2, 48, 40),
-                                        (2, 64, 4, 256, 1024),
-                                        (8, 1030, 1, 16, 32),
-                                        (8, 7, 1, 16, 1640)])
-def test_cuda_xlstm_scans_vs_plain(b, s, h, d, dm):
+@pytest.mark.parametrize("b,s,h,d,dm,routes", [
+    (2, 7, 2, 16, 32, ("chunkwise", "persistent")),
+    (3, 70, 2, 48, 40, ("chunkwise", "persistent")),
+    (2, 64, 4, 256, 1024, ("chunkwise", "persistent")),
+    (8, 1030, 1, 16, 32, ("chunkwise", "persistent")),
+    (8, 7, 1, 16, 1640, ("chunkwise", "step")),
+    (4, 1, 2, 16, 1024, ("one_pass", "step"))])
+def test_cuda_xlstm_scans_vs_plain(b, s, h, d, dm, routes):
     """The four scan kernels against their plain versions (``ref``): the
     forward scans' outputs, final carries and saved tensors (checkpoints
     every 32 steps, every step's m and n . q; the sLSTM's pre-activations
     and c, n, m) within 1e-4 of the largest |value|; the gradients of y
     through the backward kernels against autograd through the plain
-    forward.  Head dims that are no multiple of 32 and an sLSTM width
-    that is no multiple of 8 leave lanes and units idle.  The last two
-    cases take branches no served or trained shape of xlstm-350m reaches:
-    over 1,024 steps the mLSTM backward's stabilizer reverse walks two
-    tiles; at 8 rows of d = 1,640 the sLSTM backward stages dpre in
-    column tiles (4 d floats a row no longer fit its shared memory).  The
-    wide case stays short: with r_w at 0.1, d = 1,640 makes the sLSTM
-    recurrence chaotic, so over hundreds of steps a last-bit change of
-    pre_x moves the plain version's own output by whole units.  Each
-    call counts one launch."""
+    forward.  Each case asserts which forward design its route took, by
+    the launch counter of that design's C entry point: the chunkwise
+    mLSTM at S = 7, 70, 64, 1,030 and the one-pass kernel at S = 1; the
+    persistent sLSTM at d = 32, 40, 1,024 and the step kernel at d =
+    1,640 (r_w does not fit on chip) and at S = 1.  Head dims that are no
+    multiple of 32 and an sLSTM width that is no multiple of 8 leave lanes
+    and units idle.  Two cases take branches no served or trained shape
+    of xlstm-350m reaches: over 1,024 steps the mLSTM backward's
+    stabilizer reverse walks two tiles; at 8 rows of d = 1,640 the sLSTM
+    backward stages dpre in column tiles (4 d floats a row no longer fit
+    its shared memory).  The wide case stays short: with r_w at 0.1, d =
+    1,640 makes the sLSTM recurrence chaotic, so over hundreds of steps a
+    last-bit change of pre_x moves the plain version's own output by whole
+    units.  Each call counts one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from repro_torch.kernels import _lib
     from repro_torch.kernels import xlstm_scan as X
     m, sl = _scan_cases(b, s, h, d, dm, 11)
+    m_counter, s_counter = _forward_counters(b, s, h, d, dm, 32)
+    assert (X.mlstm_route(b, s, h, d, 32), X.slstm_route(
+        b, s, dm, torch.cuda.get_device_properties(0).multi_processor_count)
+            ) == routes
     _lib.reset_launches()
     _rel_close(X._MLSTM(*m, 32), ref.mlstm_scan_ref(*m, 32))
     _rel_close(X._SLSTM(*sl, True), ref.slstm_scan_ref(*sl, True))
-    assert _lib.LAUNCHES["mlstm_scan"] == _lib.LAUNCHES["slstm_scan"] == 1
+    assert {k: n for k, n in _lib.LAUNCHES.items() if n} == {
+        m_counter: 1, s_counter: 1}
     for fn, plain, args, n in ((X.mlstm_scan, ref.mlstm_scan_ref, m, 5),
                                (X.slstm_scan, ref.slstm_scan_ref, sl, 2)):
         seqs = [a.clone().requires_grad_() for a in args[:n]]
@@ -1363,6 +1389,35 @@ def test_cuda_xlstm_scans_vs_plain(b, s, h, d, dm):
         _rel_close(got, want)
     assert _lib.LAUNCHES["mlstm_scan_backward"] == 1
     assert _lib.LAUNCHES["slstm_scan_backward"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_routes_launch_the_design_they_name():
+    """For a list of shapes, each forward launches exactly the design its
+    stated rule names (``mlstm_route`` over (B, S, H, D) and the recorded
+    chunk, ``slstm_route`` over (B, S, d) and this card's SM count), and
+    its outputs match the plain version within 1e-4 of the largest
+    value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import xlstm_scan as X
+    for b, s, h, d, dm in ((1, 2, 1, 16, 8), (8, 1, 4, 256, 1024),
+                           (8, 33, 4, 256, 1024), (1, 40, 2, 20, 1056),
+                           (5, 9, 3, 12, 100), (9, 5, 1, 16, 64),
+                           (2, 3, 1, 8, 1640)):
+        m, sl = _scan_cases(b, s, h, d, dm, 14)
+        for chunk in (0, 32):
+            m_counter, s_counter = _forward_counters(b, s, h, d, dm, chunk)
+            _lib.reset_launches()
+            got = X._MLSTM(*m, chunk), X._SLSTM(*sl, bool(chunk))
+            assert {k: n for k, n in _lib.LAUNCHES.items() if n} == {
+                m_counter: 1, s_counter: 1}, (b, s, h, d, dm, chunk)
+            # an unrecorded forward's saved tensors are empty
+            n_m, n_s = (8, 9) if chunk else (4, 5)
+            _rel_close(got[0][:n_m], ref.mlstm_scan_ref(*m, chunk)[:n_m])
+            _rel_close(got[1][:n_s],
+                       ref.slstm_scan_ref(*sl, bool(chunk))[:n_s])
 
 
 @pytest.mark.cuda

@@ -635,8 +635,10 @@ def test_cpu_tensors_run_the_plain_version_without_counting():
                                   "paged_verify_partials",
                                   "paged_verify_partials_int8",
                                   "split_kv_decode_partials",
-                                  "mlstm_scan", "mlstm_scan_backward",
-                                  "slstm_scan", "slstm_scan_backward"}
+                                  "mlstm_scan", "mlstm_scan_chunkwise",
+                                  "mlstm_scan_backward",
+                                  "slstm_scan", "slstm_scan_persistent",
+                                  "slstm_scan_backward"}
     c = _verify_case(11, 2, 3, 4, 2, 16, 8, 3)
     got = paged_verify_partials(*_args(c, _t))
     want = ref.paged_verify_partials_plain(*_args(c, _t))

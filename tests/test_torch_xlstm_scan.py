@@ -22,8 +22,20 @@ four operators, the flop formulas against a hand count, ``meta`` tensors
 
 Tolerance: STATE_TOL 1e-5 (absolute and relative; both sides step the
 same f32 recurrence in the same order, only the reductions of C q, n . q
-and h r_w sum in another order).  About 10 s on one worker.
+and h r_w sum in another order).
+
+The chunkwise form of the mLSTM forward (the card's
+``mlstm_scan_forward_chunkwise``) has a CPU oracle here,
+``chunkwise_mlstm``: the same arithmetic as the kernels in plain PyTorch
+(the exact sequential m, the chunk weights, the intra- and inter-chunk
+parts, the chunk states as checkpoints), used by no path of the port.  It
+is held to JAX's own scan step and to ``ref.mlstm_scan_ref``'s recorded
+tensors over S in {1, 7, 31, 32, 33, 70} and chunks of 4 and 32 steps.
+The route rules of both forwards are held to their stated conditions.
+About 30 s on one worker (~10 s before the oracle's 36 cases, most of
+the rest JAX's scan at six sequence lengths).
 """
+import functools
 import dataclasses
 
 import jax
@@ -296,3 +308,124 @@ def test_carry_gradients_raise():
     y, c, n, m, h = X.slstm_scan(pre_x, r_w, *_t(carries))
     with pytest.raises(ValueError, match="final carry"):
         h.sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# The chunkwise mLSTM forward, on the CPU
+# ---------------------------------------------------------------------------
+
+def chunkwise_mlstm(q, k, v, log_i, log_f, c0, n0, m0, L):
+    """The chunkwise form of the mLSTM forward that
+    ``csrc/mlstm_scan.cu``'s chunkwise kernels run, in plain PyTorch (f32),
+    with chunks of ``L`` steps.  m_t by JAX's sequential recurrence; F_t
+    the running sum of log f within t's chunk.  Per chunk, from the state
+    (C, n) and the m before it, m_prev: W_ts = exp(log_i_s + F_t - F_s -
+    m_t) for s <= t, decay_t = exp(F_t + m_prev - m_t), A = W o (Q K^T),
+    s_t = decay_t n . q_t + sum_s A_ts, den_t = max(|s_t|, exp(-m_t)), y_t =
+    (decay_t C q_t + (A V)_t) / den_t; then C = a C + sum_s g_s v_s k_s^T and
+    n = a n + sum_s g_s k_s with g_s = W_{last,s}, a = decay_last.  Returns
+    what ``ref.mlstm_scan_ref(..., chunk=L)`` returns: (y, C, n, m, ckC,
+    ckn, ms, ss), the checkpoints being the chunk states."""
+    b, s, h, d = q.shape
+    m, ms, fs = m0, [], []
+    for t in range(s):
+        m = torch.maximum(log_f[:, t] + m, log_i[:, t])
+        f = log_f[:, t] if t % L == 0 else f + log_f[:, t]
+        ms.append(m)
+        fs.append(f)
+    ms, fs = torch.stack(ms, 1), torch.stack(fs, 1)         # (B, S, H)
+    c, n, m_prev = c0, n0, m0
+    ys, ss, ck_c, ck_n = [], [], [], []
+    for t0 in range(0, s, L):
+        ck_c.append(c)
+        ck_n.append(n)
+        sl = slice(t0, min(s, t0 + L))
+        qc, kc, vc = q[:, sl], k[:, sl], v[:, sl]           # (B, l, H, D)
+        f, mc, ic = fs[:, sl], ms[:, sl], log_i[:, sl]       # (B, l, H)
+        ln = f.shape[1]
+        ft, mt = f.transpose(1, 2), mc.transpose(1, 2)       # (B, H, l)
+        it = ic.transpose(1, 2)
+        w = torch.exp(it[:, :, None, :] + ft[:, :, :, None]
+                      - ft[:, :, None, :] - mt[:, :, :, None])
+        w = torch.where(torch.ones(ln, ln, dtype=torch.bool).tril(), w,
+                        torch.zeros(()))
+        a = w * torch.einsum("bthd,bshd->bhts", qc, kc)      # (B, H, l, l)
+        dec = torch.exp(f + m_prev[:, None] - mc)            # (B, l, H)
+        nq = torch.einsum("bhd,bthd->bth", n, qc)
+        st = dec * nq + a.sum(-1).transpose(1, 2)
+        den = torch.maximum(st.abs(), torch.exp(-mc))
+        y_inter = torch.einsum("bhrd,bthd->bthr", c, qc)
+        y_intra = torch.einsum("bhts,bshr->bthr", a, vc)
+        ys.append((dec[..., None] * y_inter + y_intra) / den[..., None])
+        ss.append(st)
+        g = torch.exp(ic + f[:, -1:] - f - mc[:, -1:])       # (B, l, H)
+        decay = torch.exp(f[:, -1] + m_prev - mc[:, -1])     # (B, H)
+        c = (decay[..., None, None] * c
+             + torch.einsum("bsh,bshr,bshd->bhrd", g, vc, kc))
+        n = decay[..., None] * n + torch.einsum("bsh,bshd->bhd", g, kc)
+        m_prev = mc[:, -1]
+    return (torch.cat(ys, 1), c, n, ms[:, -1], torch.stack(ck_c, 1),
+            torch.stack(ck_n, 1), ms, torch.cat(ss, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _chunkwise_case(carry, s):
+    """Inputs at S steps with the carry kind, and JAX's scan over them
+    (computed once per (carry, S) for both chunk lengths)."""
+    seqs, carries = _mlstm_inputs(6, carry, s)
+    return seqs, carries, [np.asarray(w) for w in jax_mlstm(carries, *seqs)]
+
+
+@pytest.mark.parametrize("chunk", [4, 32])
+@pytest.mark.parametrize("s", [1, 7, 31, 32, 33, 70])
+@pytest.mark.parametrize("carry", CARRIES)
+def test_chunkwise_mlstm_vs_jax_and_the_recorded_forward(carry, s, chunk):
+    """The chunkwise oracle's y and final C, n, m against JAX's scan step,
+    and its chunk states, m and s against ``ref.mlstm_scan_ref(...,
+    chunk)``'s checkpoints and steps, within STATE_TOL: the chunk weights
+    are exponents of sums the sequential form takes as products, so only
+    rounding differs (the weights' exponents are <= 0, and m is the same
+    sequential recurrence, bit for bit)."""
+    seqs, carries, want = _chunkwise_case(carry, s)
+    ins = _t(seqs) + _t(carries)
+    got = chunkwise_mlstm(*ins, chunk)
+    _close(got[:4], want)
+    rec = ref.mlstm_scan_ref(*ins, chunk)
+    assert [g.shape for g in got] == [r.shape for r in rec]
+    assert torch.equal(got[6], rec[6])                       # m, exactly
+    _close(got[4:], [r.numpy() for r in rec[4:]])
+
+
+def test_forward_routes_follow_their_stated_rules():
+    """``mlstm_route`` and ``slstm_route`` from shape alone: the chunkwise
+    mLSTM for S > 1 with D a multiple of 4 and chunk 0 or MLSTM_CHUNK, the
+    one-pass kernel at S = 1 (decode) and otherwise; the persistent sLSTM
+    for S > 1, B <= 8 and ceil(d / 8) blocks within the SMs whose shared
+    memory fits a block, the step kernel at S = 1 and at d = 1,640 on an
+    H100's 132 SMs.  The shared-memory count is the kernel's (r_w's 32
+    columns, h's rows rounded up to 1, 2, 4, 8 and the warps' partials)."""
+    chunk = X.MLSTM_CHUNK
+    for shape, route in (((8, 256, 4, 256, 0), "chunkwise"),
+                         ((1, 1024, 4, 256, chunk), "chunkwise"),
+                         ((2, 7, 2, 16, chunk), "chunkwise"),
+                         ((8, 1, 4, 256, 0), "one_pass"),
+                         ((8, 1, 4, 256, chunk), "one_pass"),
+                         ((2, 7, 2, 18, 0), "one_pass"),
+                         ((2, 7, 2, 16, 3), "one_pass")):
+        assert X.mlstm_route(*shape) == route, shape
+    assert X.slstm_persistent_smem(8, 1024) == 4 * (1024 * 32 + 1024 * 8
+                                                    + 16 * 8 * 32)
+    assert X.slstm_persistent_smem(3, 40) == 4 * (64 * 32 + 64 * 4
+                                                  + 16 * 4 * 32)
+    for shape, route in (((8, 256, 1024, 132), "persistent"),
+                         ((1, 1024, 1024, 132), "persistent"),
+                         ((2, 7, 32, 132), "persistent"),
+                         ((3, 70, 40, 132), "persistent"),
+                         ((8, 1, 1024, 132), "step"),
+                         ((9, 256, 1024, 132), "step"),
+                         ((8, 7, 1640, 132), "step"),
+                         ((2, 64, 1024, 100), "step"),
+                         ((8, 64, 1056, 132), "persistent"),
+                         ((8, 64, 1064, 133), "persistent"),
+                         ((8, 64, 1600, 200), "step")):
+        assert X.slstm_route(*shape) == route, shape
