@@ -51,20 +51,21 @@ Phases (any failure exits non-zero and prints no result line):
    through decode, B2 on a fresh 1 x 512 chunk, B5 over 8 rows x 512
    cached frames, every one valid (the cross decode), timed over six
    cycled copies of the cross K/V so that it reads them from memory.
-   The xLSTM's six scan kernels (checked and timed just before run (p),
-   after the phases that join an NCCL group, with their lines of the
-   timing report) at xlstm-350m's widths in f32 (mLSTM 4
+   The xLSTM's six scan kernels at xlstm-350m's widths in f32 (mLSTM 4
    heads of 256, sLSTM d 1024) within TOL_SCAN_REL of the largest value
    of their plain versions: the forward scans at 8 x 256 (a served chunk
-   wave) and 1 x 1,024 (their routes: the chunkwise mLSTM and the
-   persistent sLSTM) and 8 x 1 (the routes: one-pass and step), from
+   wave), 1 x 1,024 and 1 x 4,096 (their routes: the chunkwise mLSTM,
+   its chunk states in two windows at 1 x 4,096, and the persistent
+   sLSTM) and 8 x 1 (the routes: one-pass and step), from
    fresh and running carries, each call's launch checked against its
    route, and the other design of each on the same inputs through its C
    entry point, and a recorded forward (its checkpoints) and the backward
    against autograd through the plain forward at 2 x 256 and at training
    run (y)'s 2 x 1,024 (XLSTM_TRAIN_SHAPE); each timed with its plain
-   version and its time per step, both designs of each forward at 8 x 256
-   and 1 x 1,024 in the same run.
+   version and its time per step, both designs of each forward at 8 x
+   256, 1 x 1,024 and 1 x 4,096 in the same run, and both as prefill
+   calls them (eager) at 1 to 8 rows of 2 to 256 steps, beside the
+   design the route names.
 3. Serve llama-13b at full width and depth in bf16 (random weights from a
    seed), 8 requests of a shared-prefix workload, five times: through
    ``Server`` over the port's ``Orchestrator`` (chunked prefill) plain,
@@ -229,8 +230,10 @@ Phases (any failure exits non-zero and prints no result line):
    rows) through ``Server``, the 8 requests of the llama-13b runs
    arriving at once, 256-token chunks, replayed and eagerly: the forward
    scans launch (JAX's lax.scan loops; both designs of each, the
-   prefill's chunks on the chunkwise mLSTM and persistent sLSTM, the
-   decode steps on the one-pass and step kernels) and no B-kernel, the
+   prefill's full chunks on the chunkwise mLSTM and persistent sLSTM, its
+   shorter last chunks under the chunkwise boundary on the one-pass
+   mLSTM, the decode steps on the one-pass and step kernels) and no
+   B-kernel, the
    two runs'
    streams and launches are equal, every token within TOKEN_GAP_TOL of
    the monolithic f32 forward's best; it prints the decode clocks, the compiled step's device span, prefill
@@ -496,7 +499,7 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-PROFILE_TRIES = 5
+PROFILE_TRIES = 3
 
 
 def profile_ms(torch, fn, iters: int, warmup: int = 3,
@@ -520,22 +523,11 @@ def profile_ms(torch, fn, iters: int, warmup: int = 3,
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     where = f"chip_smoke.py:{fn.__code__.co_firstlineno}"
-    # a trace now and then comes back without device time, and on a loaded
-    # host three did in a row (run (w)): five tries, a pause between them
+    # a trace now and then comes back without device time
     for attempt in range(PROFILE_TRIES):
         if attempt:
-            # what the empty trace held, and the card's free memory (the
-            # profiler's buffers need some); the allocator's cache freed
-            free, total = torch.cuda.mem_get_info()
-            dev = [e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")]
             say(f"[profile] empty trace {attempt} of the call at {where}: "
-                f"{len(dev)} device entries of {len(prof.key_averages())}, "
-                f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free, "
-                f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-            gc.collect()
-            torch.cuda.empty_cache()
-            time.sleep(0.5)
+                f"{len(prof.key_averages())} entries, none on the device")
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
@@ -901,8 +893,9 @@ def kernel_phase(torch):
     del kd, vd, copies
     timing.update(hybrid_kernels(torch, results))
     timing.update(seamless_kernels(torch, results))
+    timing.update(xlstm_scan_kernels(torch, results))
     errs = kernel_errs(results, ("B1", "B1-int8", "B2", "B3", "B4",
-                                 "B4-int8", "B5"))
+                                 "B4-int8", "B5") + tuple(SCAN_KEYS.values()))
     errs["B5"] = max(errs["B5"], err_d)
     return timing, errs
 
@@ -1271,9 +1264,10 @@ SCAN_H, SCAN_D, SCAN_DM = 4, 256, 1024
 XLSTM_TRAIN_SHAPE = (2, 1024)
 # launch counter -> the key of the kernel's timing and error.  Two designs
 # of each forward, chosen by shape (``xlstm_scan.mlstm_route``,
-# ``slstm_route``): the chunkwise mLSTM and the persistent sLSTM take S > 1
-# (prefill chunks, training), the one-pass mLSTM and the step sLSTM (the
-# first designs) S = 1 (decode steps)
+# ``slstm_route``): the chunkwise mLSTM and the persistent sLSTM take
+# prefill chunks and training sequences from their routes' boundaries on,
+# the one-pass mLSTM and the step sLSTM (the first designs) S = 1 (decode
+# steps) and the calls under those boundaries
 SCAN_KEYS = {"mlstm_scan": "mLSTM", "mlstm_scan_chunkwise": "mLSTM-chunkwise",
              "mlstm_scan_backward": "mLSTM-bwd", "slstm_scan": "sLSTM",
              "slstm_scan_persistent": "sLSTM-persistent",
@@ -1283,7 +1277,7 @@ SCAN_KERNELS = tuple(SCAN_KEYS)
 # route) -> its launch counter
 SCAN_DESIGNS = {"chunkwise": "mlstm_scan_chunkwise", "one_pass": "mlstm_scan",
                 "persistent": "slstm_scan_persistent", "step": "slstm_scan"}
-# what training run (y) launches: the S > 1 forwards and the backwards
+# what training run (y) launches: the redesigned forwards and the backwards
 TRAIN_SCAN_KERNELS = ("mlstm_scan_chunkwise", "mlstm_scan_backward",
                       "slstm_scan_persistent", "slstm_scan_backward")
 
@@ -1374,12 +1368,47 @@ def routed(torch, counter, what, fn):
     return out
 
 
+# a prefill long enough that the unrecorded chunkwise mLSTM walks its
+# chunk states in more than one window (``xlstm_scan.mlstm_window``: 64 at
+# one row of xlstm-350m's heads)
+SCAN_WINDOWED = (1, 4096)
+# the short prefill chunks (rows, steps) at which both designs of each
+# forward are timed side by side (``route_sweep``), around the routes'
+# boundaries (``xlstm_scan.MLSTM_CHUNKWISE_MIN_STEPS`` and
+# ``_MIN_ROW_STEPS``, ``SLSTM_PERSISTENT_MIN_STEPS``)
+ROUTE_SWEEP = tuple((1, s) for s in (2, 3, 4, 8, 16, 32, 64, 128, 256)) + (
+    (2, 64), (2, 128), (4, 32), (4, 64)) + tuple(
+    (8, s) for s in (2, 3, 4, 8, 16, 32, 64, 128))
+
+
+def route_sweep(torch, g, events_ms) -> None:
+    """Both designs of each forward at the (rows, steps) of
+    ``ROUTE_SWEEP``, timed as prefill runs them: back-to-back eager calls
+    through ``mlstm_forward``/``slstm_forward`` (host enqueue included),
+    by CUDA events; prints each pair beside the design the route names."""
+    from repro_torch.kernels import xlstm_scan as X
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, s in ROUTE_SWEEP:
+        m, sl = mlstm_case(torch, g, b, s), slstm_case(torch, g, b, s)
+        mt = {r: events_ms(lambda: X.mlstm_forward(r, *m, 0), 20)
+              for r in ("chunkwise", "one_pass")}
+        st = {r: events_ms(lambda: X.slstm_forward(r, *sl, False), 20)
+              for r in ("persistent", "step")}
+        say(f"route sweep {b} x {s}: mLSTM chunkwise {mt['chunkwise']:.4f}"
+            f" / one-pass {mt['one_pass']:.4f} ms (route "
+            f"{X.mlstm_route(b, s, SCAN_H, SCAN_D, 0)}); sLSTM persistent "
+            f"{st['persistent']:.4f} / step {st['step']:.4f} ms (route "
+            f"{X.slstm_route(b, s, SCAN_DM, sms)}), eager calls by CUDA "
+            f"events")
+
+
 def xlstm_scan_kernels(torch, results):
     """The six scan kernels against their plain versions (``ref``) at
     xlstm-350m's widths in f32: the forward scans through their operators
-    at 8 x 256 (one served chunk wave) and 1 x 1,024, where the routes
-    take the chunkwise mLSTM and the persistent sLSTM, and at 8 x 1 (a
-    decode step), where they take the first designs, the one-pass mLSTM
+    at 8 x 256 (one served chunk wave), 1 x 1,024 and ``SCAN_WINDOWED``'s
+    1 x 4,096 (the chunkwise mLSTM's states in two windows), where the
+    routes take the chunkwise mLSTM and the persistent sLSTM, and at 8 x 1
+    (a decode step), where they take the first designs, the one-pass mLSTM
     and the step sLSTM,
     from fresh and from running carries, each call's launch checked
     against its route, and on the same inputs the design the route did
@@ -1388,18 +1417,20 @@ def xlstm_scan_kernels(torch, results):
     and the backward, against autograd through the plain forward, at 2 x
     256 and at (y)'s ``XLSTM_TRAIN_SHAPE``.  Errors go into ``results``;
     returns the timings of each kernel (its plain version beside it; no
-    library call computes a scan) with its bytes, flops and steps, by CUDA
-    events: around eager calls for the sLSTM's and the backwards, around
-    a captured graph's replays for the mLSTM's forwards and for every
-    decode-step row; both designs of each forward at 8 x 256 and 1 x
-    1,024 in this run, the first designs also at their route's 8 x 1."""
+    library call computes a scan) with its bytes, flops and steps, all by
+    CUDA events (no profiler trace, no graph capture): around eager calls
+    for the sLSTM's and the backwards, around calls queued behind a spin
+    kernel (``queued_ms``) for the mLSTM's forwards and for every
+    decode-step row; both designs of each forward at 8 x 256, 1 x 1,024
+    and 1 x 4,096 in this run, the first designs also at their route's 8
+    x 1, and both at the short prefills of ``route_sweep``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import xlstm_scan as X
 
     g = torch.Generator(device="cuda").manual_seed(27)
     timing, errs = {}, {k: 0.0 for k in SCAN_KERNELS}
     cases = {}
-    for b, s in ((8, 256), (1, 1024), (8, 1)):
+    for b, s in ((8, 256), (1, 1024), SCAN_WINDOWED, (8, 1)):
         m_c, s_c = scan_counters(torch, b, s)
         for fresh in (True, False):
             m_args = mlstm_case(torch, g, b, s, fresh)
@@ -1416,7 +1447,8 @@ def xlstm_scan_kernels(torch, results):
                     torch, s_c, f"slstm_scan {tag}",
                     lambda: X._SLSTM(*s_args, False))[:5], s_want))
             # the design the route did not take, on the same inputs: the
-            # first designs at S > 1, the redesigned ones at S = 1
+            # first designs at the prefill shapes, the redesigned ones at
+            # S = 1
             other_m, other_s = (("one_pass", "step") if s > 1
                                 else ("chunkwise", "persistent"))
             errs[SCAN_DESIGNS[other_m]] = max(
@@ -1482,11 +1514,14 @@ def xlstm_scan_kernels(torch, results):
         fn()
         return time_events(torch, fn, iters)
 
+    def device_ms(fn, iters):
+        return queued_ms(torch, fn, iters)
+
     def entry(key, s, kernel, plain_ms, ins, outs, flops, iters,
               timer=events_ms):
-        # CUDA events around the calls: the step sLSTM's call is one launch
-        # per step, so the call's time is the span, gaps between launches
-        # included, not a trace's sum of kernel times
+        # CUDA events around the sLSTM's calls: the step sLSTM's call is one
+        # launch per step, so the call's time is the span, gaps between
+        # launches included, not a trace's sum of kernel times
         t = dict(ms=timer(kernel, iters), plain_ms=plain_ms,
                  library_ms=None, bytes=nbytes(*ins) + nbytes(*outs),
                  flops=flops, dtype="float32", steps=s)
@@ -1497,36 +1532,35 @@ def xlstm_scan_kernels(torch, results):
             f"flops), plain {t['plain_ms']:.1f} ms")
         return t["ms"]
 
-    for b, s in ((8, 256), (1, 1024), (8, 1)):
-        m, sl = cases[b, s]
+    for b, s in ((8, 256), (1, 1024), SCAN_WINDOWED, (8, 1)):
+        m, sl = cases.pop((b, s))
         m_flops = X.mlstm_flops(b, s, SCAN_H, SCAN_D)
         s_flops = X.slstm_flops(b, s, SCAN_DM)
         m_outs, s_outs = X._MLSTM(*m, 0)[:4], X._SLSTM(*sl, False)[:5]
         if s == 1:
             # the first designs' rows at the shape their route gives them, a
-            # decode step, timed as decode runs it: a captured graph's
-            # replays, by CUDA events (events around eager calls would time
-            # the host's launch of each)
+            # decode step, queued behind a spin (events around eager calls
+            # would time the host's launch of each).  No profiler trace and
+            # no CUDA graph here: either, added to the kernel phase, left
+            # later traces without kernels
             entry("mLSTM", s, lambda: X._MLSTM(*m, 0),
-                  replay_ms(torch, lambda: ref.mlstm_scan_ref(*m), 20), m,
-                  m_outs, m_flops, 50, lambda fn, n: replay_ms(torch, fn, n))
+                  device_ms(lambda: ref.mlstm_scan_ref(*m), 20), m, m_outs,
+                  m_flops, 50, device_ms)
             entry("sLSTM", s, lambda: X._SLSTM(*sl, False),
-                  replay_ms(torch, lambda: ref.slstm_scan_ref(*sl), 20), sl,
-                  s_outs, s_flops, 50, lambda fn, n: replay_ms(torch, fn, n))
+                  device_ms(lambda: ref.slstm_scan_ref(*sl), 20), sl, s_outs,
+                  s_flops, 50, device_ms)
             continue
         m_plain = events_ms(lambda: ref.mlstm_scan_ref(*m), 1)
         s_plain = events_ms(lambda: ref.slstm_scan_ref(*sl), 1)
         sfx = "" if (b, s) == (8, 256) else f" ({b}, {s})"
-        # the mLSTM's calls as graph replays: events around eager calls of
-        # the chunkwise design read the host's enqueue of its three
-        # launches, which takes longer than they run
+        # the mLSTM's calls queued behind a spin: events around eager calls
+        # of the chunkwise design read the host's enqueue of its launches,
+        # which takes longer than they run
         new_m = entry(f"mLSTM-chunkwise{sfx}", s, lambda: X._MLSTM(*m, 0),
-                      m_plain, m, m_outs, m_flops, 20,
-                      lambda fn, n: replay_ms(torch, fn, n))
+                      m_plain, m, m_outs, m_flops, 20, device_ms)
         old_m = entry(f"mLSTM one-pass ({b}, {s})", s,
                       lambda: X.mlstm_forward("one_pass", *m, 0), m_plain, m,
-                      m_outs, m_flops, 20,
-                      lambda fn, n: replay_ms(torch, fn, n))
+                      m_outs, m_flops, 20, device_ms)
         new_s = entry(f"sLSTM-persistent{sfx}", s,
                       lambda: X._SLSTM(*sl, False), s_plain, sl, s_outs,
                       s_flops, 10)
@@ -1537,6 +1571,7 @@ def xlstm_scan_kernels(torch, results):
             f"run: mLSTM chunkwise {new_m:.4f} vs one-pass {old_m:.4f} ms "
             f"({old_m / new_m:.2f}x); sLSTM persistent {new_s:.4f} vs step "
             f"{old_s:.4f} ms ({old_s / new_s:.2f}x)")
+    route_sweep(torch, g, events_ms)
     m_args, m_out, dy_m, s_args, s_out, dy_s = timed_bwd
     q, k, v, li, lf, c0, n0, m0 = m_args
     y, _, _, _, ck_c, ck_n, ms, ss = m_out
@@ -3746,23 +3781,22 @@ def one_rank_check(torch, card):
     return launches
 
 
-def replay_ms(torch, fn, iters: int) -> float:
-    """Mean device ms of ``fn()`` captured once in a CUDA graph, over
-    ``iters`` replays by CUDA events (after a warm-up on a side stream, as
-    ``CompiledStep`` captures)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
+# cycles the card spins before a queued timing (~25 ms at the H100's
+# clocks): longer than the host takes to enqueue every timed call
+QUEUE_SLEEP_CYCLES = 50_000_000
+
+
+def queued_ms(torch, fn, iters: int) -> float:
+    """Mean device ms of ``fn()`` over ``iters`` calls queued behind a
+    spin kernel: the host enqueues every call while the card spins, so
+    CUDA events around them read the calls back to back, without the
+    host's launch gaps, and without a profiler trace or a graph capture
+    (each trace and capture the kernel phase adds brings the profiler's
+    loss of kernel events closer; PERF.md section 6)."""
+    fn()
     torch.cuda.synchronize()
-    ms = time_events(torch, graph.replay, iters)
-    del graph
-    return ms
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    return time_events(torch, fn, iters)
 
 
 def time_events(torch, fn, iters: int) -> float:
@@ -4620,7 +4654,7 @@ def train_steps(torch, card, cfg, params, *, label, batches, remat,
     ``params`` (updated in place) with every launch counter zeroed
     before and read after: every kernel of ``kernels`` must launch and no
     other (no B-kernel: JAX trains outside any Pallas kernel; the xLSTM
-    stack's S > 1 forward scans and the backward scans).  Checks that every loss, grad norm (and MoE
+    stack's redesigned forward scans and the backward scans).  Checks that every loss, grad norm (and MoE
     ``lb_loss``) is finite and that the mean loss of the last five steps
     is below that of the first five; prints ms per step (host clock
     around synchronised steps; the first step apart) and the AdamW
@@ -4910,7 +4944,7 @@ KERNELS = [
      "src/repro_torch/kernels/csrc/split_kv_decode.cu",
      "src/repro/kernels/split_kv_decode.py:67"),
     # no TPU kernel: JAX's lax.scan loops, which XLA compiles; two designs
-    # of each forward (the S > 1 one first)
+    # of each forward (the redesigned one first)
     ("mLSTM-chunkwise", "mlstm_scan_chunkwise",
      "src/repro_torch/kernels/csrc/mlstm_scan.cu",
      "src/repro/models/layers.py:709"),
@@ -4970,16 +5004,6 @@ def main() -> None:
     examples_phase(card)
     per_run.update(moe_phase(torch, card))
     per_run.update(hybrid_phase(torch, card))
-    # the scan kernels are checked and timed here, after every phase that
-    # joins an NCCL group: checked before the serving phase, they were
-    # followed in most runs by a profiler that recorded no device time
-    # once run (w) had set up its NCCL group (cause not found)
-    results = {}
-    scan_timing = xlstm_scan_kernels(torch, results)
-    torch.cuda.empty_cache()
-    report_timing(scan_timing, card)
-    timing.update(scan_timing)
-    errs.update(kernel_errs(results, tuple(SCAN_KEYS.values())))
     per_run.update(xlstm_phase(torch, card))
     per_run.update(seamless_phase(torch, card))
     per_run.update(training_phase(torch, card))

@@ -12,8 +12,8 @@ is imported: the CPU tests import every module and have no ``nvcc``.
 where it launches its kernel (the xLSTM scans: one per call of their C
 entry point, each design of a forward under its own name, though an entry
 point may launch more than one kernel: one per step of the sLSTM's step
-forward, three for the mLSTM's chunkwise forward, four for its
-backward).  The int8-pool variants of the page
+forward, one and then two a window of chunks for the mLSTM's chunkwise
+forward, four for its backward).  The int8-pool variants of the page
 kernels count apart from the bf16/f32 ones.  ``page_partials`` checks and launches
 the page kernels (paged decode, speculative verify), whose C entry points
 share one argument list, the int8 ones adding the scale pools.
@@ -57,7 +57,7 @@ KERNELS = {
         "split_kv_decode_partials": [_P] * 7 + [_I] * 7 + [_F, _I, _P]},
     "mlstm_scan": {
         "mlstm_scan_forward": [_P] * 16 + [_I] * 5 + [_P],
-        "mlstm_scan_forward_chunkwise": [_P] * 17 + [_I] * 5 + [_P],
+        "mlstm_scan_forward_chunkwise": [_P] * 17 + [_I] * 6 + [_P],
         "mlstm_scan_backward": [_P] * 25 + [_I] * 6 + [_P]},
     "slstm_scan": {
         "slstm_scan_forward": [_P] * 15 + [_I] * 4 + [_P],

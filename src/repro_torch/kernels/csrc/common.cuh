@@ -68,18 +68,34 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// The current device's SM count, queried once a process (0 on an error:
-// the caller then returns cudaGetLastError()).
+// Per-device caches of what a launch queries once: attributes and
+// cudaFuncSetAttribute apply to one device, so a process that drives
+// several cards keeps one entry per card (ordinals past kMaxDevices are
+// refused).
+constexpr int kMaxDevices = 64;
+
+// The current device's ordinal, or -1 on an error or past kMaxDevices.
+inline int device_slot() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return -1;
+  return dev;
+}
+
+// The current device's SM count, queried once a process and device (0 on
+// an error: the caller then returns cudaGetLastError()).
 inline int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess
-        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-               != cudaSuccess)
+  static int sms[kMaxDevices] = {};
+  const int dev = device_slot();
+  if (dev < 0) return 0;
+  if (sms[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)
+        != cudaSuccess)
       return 0;
+    sms[dev] = n;
   }
-  return sms;
+  return sms[dev];
 }
 
 }  // namespace repro

@@ -551,21 +551,23 @@ __global__ void gates_kernel(const float* __restrict__ li,
 }
 
 // grid (B * H, ceil(D / TV), ceil(D / TK)), kThreads.  The chain of chunk
-// states for one TV x TK tile of C: thread (ry, cx) holds rows v0 + 2 ry,
-// + 1 and columns c0 + 4 cx .. + 3 in registers (D % 4 == 0: a column
-// group is all inside D or all outside).  A ring of kStages chunks of v, k
-// and g comes in by cp.async, two chunks ahead.  Writes the state before
-// chunk j to Cst (B, NC, H, D, D) and, from the first row tile, n to Nst
-// (B, NC, H, D); the last C, n, m to Cout (B, H, D, D), nout (B, H, D),
-// mout (B, H).
+// states over the window of chunks [jb, jb + W) (cut at NC) for one TV x
+// TK tile of C: thread (ry, cx) holds rows v0 + 2 ry, + 1 and columns c0 +
+// 4 cx .. + 3 in registers (D % 4 == 0: a column group is all inside D or
+// all outside), from the carries C0, n0 (the caller's, or the last
+// window's Cout, nout: each thread reads its own elements before it
+// writes them).  A ring of kStages chunks of v, k and g comes in by
+// cp.async, two chunks ahead.  Writes the state before chunk j to Cst (B,
+// W, H, D, D) at j - jb and, from the first row tile, n to Nst (B, W, H,
+// D); the window's last C, n and the sequence's last m to Cout (B, H, D,
+// D), nout (B, H, D), mout (B, H).
 __global__ void __launch_bounds__(kThreads) states_kernel(
     const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ Gbuf, const float* __restrict__ Abuf,
-    const float* __restrict__ mbuf, const float* __restrict__ C0,
-    const float* __restrict__ n0, float* __restrict__ Cst,
-    float* __restrict__ Nst, float* __restrict__ Cout,
-    float* __restrict__ nout, float* __restrict__ mout, int S, int H,
-    int D) {
+    const float* __restrict__ mbuf, const float* C0, const float* n0,
+    float* __restrict__ Cst, float* __restrict__ Nst, float* Cout,
+    float* nout, float* __restrict__ mout, int S, int H, int D, int jb,
+    int W) {
   __shared__ __align__(16) float Vs[kStages][L][TV];
   __shared__ __align__(16) float Ks[kStages][L][TK];
   __shared__ float Gs[kStages][L];
@@ -577,7 +579,7 @@ __global__ void __launch_bounds__(kThreads) states_kernel(
   const bool cok = c < D;
   const bool lead = blockIdx.y == 0 && ry == 0;  // keeps n, its 4 columns
   const long long DD = static_cast<long long>(D) * D;
-  const int NC = (S + L - 1) / L;
+  const int NC = (S + L - 1) / L, je = min(NC, jb + W);
   const long long base = static_cast<long long>(b) * S * H + h;  // step t:
                                                                  // + t H
   float C[2][4], n[4];
@@ -593,11 +595,11 @@ __global__ void __launch_bounds__(kThreads) states_kernel(
                                    : make_float4(0.f, 0.f, 0.f, 0.f);
     n[0] = x.x; n[1] = x.y; n[2] = x.z; n[3] = x.w;
   }
-  // chunk j's v, k, g and decay into stage j % kStages (a group even when
-  // j is past the end, so that the waits count alike)
+  // chunk j's v, k, g and decay into stage (j - jb) % kStages (a group
+  // even when j is past the window, so that the waits count alike)
   auto load = [&](int j) {
-    if (j < NC) {
-      const int t0 = j * L, st = j % kStages;
+    if (j < je) {
+      const int t0 = j * L, st = (j - jb) % kStages;
       for (int x = tid; x < L * (TV / 4); x += kThreads) {
         const int s = x / (TV / 4), col = v0 + 4 * (x % (TV / 4));
         const bool ok = t0 + s < S && col < D;
@@ -624,10 +626,10 @@ __global__ void __launch_bounds__(kThreads) states_kernel(
     }
     cp_async_commit();
   };
-  for (int j = 0; j < kStages - 1; ++j) load(j);
-  for (int j = 0; j < NC; ++j) {
-    const int nt = min(L, S - j * L), st = j % kStages;
-    const long long ck = (static_cast<long long>(b) * NC + j) * H + h;
+  for (int j = jb; j < jb + kStages - 1; ++j) load(j);
+  for (int j = jb; j < je; ++j) {
+    const int nt = min(L, S - j * L), st = (j - jb) % kStages;
+    const long long ck = (static_cast<long long>(b) * W + j - jb) * H + h;
     load(j + kStages - 1);
     // the state before chunk j
 #pragma unroll
@@ -704,8 +706,9 @@ __host__ __device__ __forceinline__ int out_floats(int D) {
   return (L + VT) * slab_pitch(D < KC ? D : KC) + L * VT;
 }
 
-// grid (B * H, NC, VZ), kThreads, out_floats(D) floats of dynamic shared
-// memory.  Chunk j of (b, h), every chunk at once: P = Q K^T and n_j . q
+// grid (B * H, chunks of the window [jb, jb + W), VZ), kThreads,
+// out_floats(D) floats of dynamic shared memory.  Chunk j = jb +
+// blockIdx.y of (b, h), every chunk of the window at once: P = Q K^T and n_j . q
 // over D in slabs of up to KC columns (one slab at D <= 256: each phase
 // waits for its copies once), then A, s and den; then, for value tiles z,
 // z + VZ, ..: Y = Q C_j^T over the same slabs (Q's slab kept from the first
@@ -713,15 +716,15 @@ __host__ __device__ __forceinline__ int out_floats(int D) {
 // steps 4 w .. 4 w + 3 (Q's rows read as broadcasts), lane l key l of P and
 // value rows l, l + 32 of Y (K's and C's rows, one a lane, 4 banks apart).
 // q, k, v, y: (B, S, H, D); li, mbuf, Fbuf, ss: (B, S, H);
-// Cst, Nst: the states before each chunk (states_kernel).  With save,
-// writes s to ss.
+// Cst, Nst: the states before each chunk of the window (states_kernel's,
+// (B, W, H, ..)).  With save, writes s to ss.
 __global__ void __launch_bounds__(kThreads, 2) out_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ li,
     const float* __restrict__ mbuf, const float* __restrict__ Fbuf,
     const float* __restrict__ m0, const float* __restrict__ Cst,
     const float* __restrict__ Nst, float* __restrict__ y,
-    float* __restrict__ ss, int S, int H, int D, int save) {
+    float* __restrict__ ss, int S, int H, int D, int save, int jb, int W) {
   extern __shared__ __align__(16) float osm[];
   __shared__ __align__(16) float Ns[KC];
   __shared__ float As[L][L + 1];
@@ -731,11 +734,11 @@ __global__ void __launch_bounds__(kThreads, 2) out_kernel(
   float* Qs = osm;                   // [L][KP]
   float* Bs = Qs + L * KP;           // [VT][KP]: K's rows, then C_j's
   float* Vs = Bs + VT * KP;          // [L][VT]
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, j = blockIdx.y;
-  const int NC = gridDim.y, t0 = j * L, nt = min(L, S - t0);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, j = jb + blockIdx.y;
+  const int t0 = j * L, nt = min(L, S - t0);
   const int tid = threadIdx.x, lane = tid & 31, tw = 4 * (tid >> 5);
   const long long row0 = (static_cast<long long>(b) * S + t0) * H + h;
-  const long long ck = (static_cast<long long>(b) * NC + j) * H + h;
+  const long long ck = (static_cast<long long>(b) * W + blockIdx.y) * H + h;
   const long long DD = static_cast<long long>(D) * D;
   const int nslab = (D + KC - 1) / KC;
   static_assert(kThreads / 32 * 4 == L && VT == 64, "out_kernel's tiling");
@@ -874,27 +877,31 @@ extern "C" int mlstm_scan_forward(
 }
 
 // The chunkwise forward: the one-pass forward's inputs and outputs, with
-// Cst (B, NC, H, D, D) and Nst (B, NC, H, D), NC = ceil(S / 32), the
-// states before every 32-step chunk (a recorded forward's ckC and ckn, or
-// scratch), mbuf (B, S, H), every step's m' (its ms, or scratch), ss (B,
-// S, H, written with save), scratch 2 B S H + B NC H floats.  D a multiple
-// of 4 up to 1024; q, k, v, C0, n0, Cst and Nst 16-byte aligned.  Three
-// launches on the stream.  Returns the first cudaError_t.
+// Cst (B, W, H, D, D) and Nst (B, W, H, D), the states before each 32-step
+// chunk of a window of W chunks (W = NC = ceil(S / 32) for a recorded
+// forward: its ckC and ckn; otherwise scratch, reused window after window),
+// mbuf (B, S, H), every step's m' (its ms, or scratch), ss (B, S, H,
+// written with save), scratch 2 B S H + B NC H floats.  D a multiple of 4
+// up to 1024; q, k, v, C0, n0, C, n, Cst and Nst 16-byte aligned.  One
+// launch for the stabilizer, then two a window (the chain of its states,
+// its outputs), on the stream.  Returns the first cudaError_t.
 extern "C" int mlstm_scan_forward_chunkwise(
     const void* q, const void* k, const void* v, const void* li,
     const void* lf, const void* C0, const void* n0, const void* m0, void* y,
     void* C, void* n, void* m, void* Cst, void* Nst, void* mbuf, void* ss,
-    void* scratch, int B, int S, int H, int D, int save, void* stream) {
+    void* scratch, int B, int S, int H, int D, int save, int W,
+    void* stream) {
   using namespace repro::mlstm::chunkwise;
   if (B < 1 || S < 1 || H < 1 || D < 1 || D > 32 * repro::mlstm::kMaxWarps
-      || D % 4)
+      || D % 4 || W < 1)
     return cudaErrorInvalidValue;
-  if (!repro::aligned16(q, k, v, C0, n0, Cst, Nst))
+  if (!repro::aligned16(q, k, v, C0, n0, C, n, Cst, Nst))
     return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto cf = [](const void* p) { return static_cast<const float*>(p); };
   const auto f = [](void* p) { return static_cast<float*>(p); };
   const int BH = B * H, NC = (S + L - 1) / L;
+  if (save && W < NC) return cudaErrorInvalidValue;
   // scratch: F and g (B, S, H) each, then the chunks' decays (B, NC, H)
   float* Fbuf = f(scratch);
   float* Gbuf = Fbuf + static_cast<long long>(B) * S * H;
@@ -903,31 +910,40 @@ extern "C" int mlstm_scan_forward_chunkwise(
       cf(li), cf(lf), cf(m0), f(mbuf), Fbuf, Gbuf, Abuf, B, S, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  states_kernel<<<dim3(BH, (D + TV - 1) / TV, (D + TK - 1) / TK), kThreads,
-                  0, st>>>(cf(k), cf(v), Gbuf, Abuf, cf(mbuf), cf(C0),
-                           cf(n0), f(Cst), f(Nst), f(C), f(n), f(m), S, H,
-                           D);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // value tiles split over blocks until the grid covers the SMs twice
+  // value tiles split over blocks until a window's grid covers the SMs
+  // twice
   const int sms = repro::sm_count();
   if (sms < 1) return cudaGetLastError();
-  const int nvt = (D + VT - 1) / VT;
+  const int nvt = (D + VT - 1) / VT, wc = W < NC ? W : NC;
   int vz = 1;
-  while (2 * vz <= nvt && static_cast<long long>(BH) * NC * vz < 2LL * sms)
+  while (2 * vz <= nvt && static_cast<long long>(BH) * wc * vz < 2LL * sms)
     vz *= 2;
-  // out_kernel's shared-memory limit, raised when a larger D asks (the
-  // attribute calls on every launch cost host time)
-  static size_t smem_set = 0;
+  // out_kernel's shared-memory limit, raised once a device when a larger D
+  // asks (the attribute calls on every launch cost host time)
+  static size_t smem_set[repro::kMaxDevices];
+  const int dev = repro::device_slot();
+  if (dev < 0) return cudaErrorInvalidDevice;
   const size_t smem = sizeof(float) * out_floats(D);
-  if (smem > smem_set) {
+  if (smem > smem_set[dev]) {
     if ((err = repro::allow_smem(out_kernel, smem)) != cudaSuccess)
       return err;
-    smem_set = smem;
+    smem_set[dev] = smem;
   }
-  out_kernel<<<dim3(BH, NC, vz), kThreads, smem, st>>>(
-      cf(q), cf(k), cf(v), cf(li), cf(mbuf), Fbuf, cf(m0), cf(Cst),
-      cf(Nst), f(y), f(ss), S, H, D, save);
-  return cudaGetLastError();
+  for (int jb = 0; jb < NC; jb += wc) {
+    // the carries: the caller's, then the last window's C and n
+    states_kernel<<<dim3(BH, (D + TV - 1) / TV, (D + TK - 1) / TK),
+                    kThreads, 0, st>>>(
+        cf(k), cf(v), Gbuf, Abuf, cf(mbuf), jb ? cf(C) : cf(C0),
+        jb ? cf(n) : cf(n0), f(Cst), f(Nst), f(C), f(n), f(m), S, H, D, jb,
+        wc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int cnt = NC - jb < wc ? NC - jb : wc;
+    out_kernel<<<dim3(BH, cnt, vz), kThreads, smem, st>>>(
+        cf(q), cf(k), cf(v), cf(li), cf(mbuf), Fbuf, cf(m0), cf(Cst),
+        cf(Nst), f(y), f(ss), S, H, D, save, jb, wc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // dy, q, k, v, y: (B, S, H, D) f32; li, lf, ms, ss: (B, S, H); m0: (B, H);

@@ -480,39 +480,47 @@ cudaError_t launch_persistent(const float* pre_x, const float* r_w,
   int dpad = (d + kXStep - 1) / kXStep * kXStep;
   const size_t smem = sizeof(float) * persistent_floats(RB, dpad);
   const int nblk = (d + kPUnits - 1) / kPUnits;
-  // the card's limits once a process, this kernel's shared-memory limit
-  // and occupancy when its size changes (queries on every call cost tens
-  // of microseconds of host time)
-  static int optin = 0, coop = 0, per_sm = 0;
-  static size_t smem_set = 0, smem_seen = 0;
+  // the card's limits once a process and device, this kernel's
+  // shared-memory limit and occupancy when its size changes (queries on
+  // every call cost tens of microseconds of host time); a cache per device,
+  // since the attribute and the occupancy are a device's
+  static int optin[repro::kMaxDevices], coop[repro::kMaxDevices],
+      per_sm[repro::kMaxDevices];
+  static size_t smem_set[repro::kMaxDevices], smem_seen[repro::kMaxDevices];
+  const int dev = repro::device_slot();
   const int sms = repro::sm_count();
+  if (dev < 0 || sms < 1) {
+    const cudaError_t e = cudaGetLastError();
+    return e != cudaSuccess ? e : cudaErrorInvalidDevice;
+  }
   const auto kernel = fwd_persistent<RB>;
   cudaError_t err = cudaSuccess;
-  if (optin == 0) {
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (optin[dev] == 0) {
+    if ((err = cudaDeviceGetAttribute(
+             &coop[dev], cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess
+        || (err = cudaDeviceGetAttribute(
+                &optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+               != cudaSuccess)
+      return err;
   }
-  if (!coop || sms < 1 || smem > static_cast<size_t>(optin))
+  if (!coop[dev] || smem > static_cast<size_t>(optin[dev]))
     return cudaErrorInvalidConfiguration;
-  if (smem > smem_set) {
+  if (smem > smem_set[dev]) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    smem_set = smem;
+    smem_set[dev] = smem;
   }
-  if (smem != smem_seen) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+  if (smem != smem_seen[dev]) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[dev], kernel,
                                                         kPThreads, smem);
     if (err != cudaSuccess) return err;
-    smem_seen = smem;
+    smem_seen[dev] = smem;
   }
   // every block must be resident at once, or the grid barrier would wait
   // forever: refuse instead
-  if (static_cast<long long>(per_sm) * sms < nblk)
+  if (static_cast<long long>(per_sm[dev]) * sms < nblk)
     return cudaErrorCooperativeLaunchTooLarge;
   if (static_cast<long long>(S) * nblk >= (1LL << 31))
     return cudaErrorInvalidValue;

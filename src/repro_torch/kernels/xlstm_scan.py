@@ -79,22 +79,52 @@ MLSTM_CHUNK = 32
 # kBwdRows
 MLSTM_BWD_ROWS = 16
 MAX_HEAD_DIM = 1024         # one thread per column of C
+# scratch bound of an unrecorded chunkwise mLSTM forward's chunk states
+# (``mlstm_window``): 64 MiB, one window for a served 8 x 256 chunk wave
+# or a 1 x 2,048 prefill at xlstm-350m's widths
+MLSTM_STATE_BYTES = 64 << 20
 # the persistent sLSTM forward: hidden units a block owns (kPUnits), batch
 # rows a call takes (kPMaxRows), and the H100's shared memory a block may
 # opt into (227 KiB)
 SLSTM_UNITS = 8
 SLSTM_MAX_ROWS = 8
 SMEM_PER_BLOCK = 232448
+# The routes' boundaries in S, from both designs timed as prefill calls
+# them (eager, host enqueue included) at xlstm-350m's widths on an H100
+# (``chip_smoke.route_sweep``; PERF.md section 6): the chunkwise mLSTM's
+# launches cost ~0.12-0.25 ms however short the call, the one-pass
+# kernel ~0.7 us a step at one row and ~3.2 at eight, so the one-pass
+# kernel stays faster below ~64 steps at 8 rows and ~256-512 at one (the
+# row-step bound is the first sweep's; later sweeps put it nearer 512
+# below 8 rows); the persistent sLSTM wins from 4 steps on (at 2-3 the
+# order flips between runs).
+MLSTM_CHUNKWISE_MIN_STEPS = 64
+MLSTM_CHUNKWISE_MIN_ROW_STEPS = 256
+SLSTM_PERSISTENT_MIN_STEPS = 4
+
+
+def mlstm_window(b: int, h: int, d: int) -> int:
+    """Chunks per window of an unrecorded chunkwise forward: as many chunk
+    states (B H D^2 floats each) as fit ``MLSTM_STATE_BYTES``, at least
+    one.  The sequence is walked window after window, so the scratch
+    stays within that budget however long the prefill (a recorded forward
+    keeps every chunk's state: they are its checkpoints)."""
+    return max(1, MLSTM_STATE_BYTES // (4 * b * h * d * d))
 
 
 def mlstm_route(b: int, s: int, h: int, d: int, chunk: int) -> str:
     """The mLSTM forward's design for a call on the card, from its shape
-    alone: ``"chunkwise"`` (``mlstm_scan_forward_chunkwise``) when S > 1,
-    D is a multiple of 4 (its 16-byte copies) and ``chunk`` is 0 or
-    ``MLSTM_CHUNK`` (its chunk states are then the checkpoints); else
-    ``"one_pass"`` (``mlstm_scan_forward``): a decode step (S = 1), which
-    a captured CUDA graph replays as one plain launch."""
-    if s > 1 and d % 4 == 0 and chunk in (0, MLSTM_CHUNK):
+    alone: ``"chunkwise"`` (``mlstm_scan_forward_chunkwise``) when S >=
+    ``MLSTM_CHUNKWISE_MIN_STEPS`` (64), B S >=
+    ``MLSTM_CHUNKWISE_MIN_ROW_STEPS`` (256), D is a multiple of 4 (its
+    16-byte copies) and ``chunk`` is 0 or ``MLSTM_CHUNK`` (its chunk states
+    are then the checkpoints); else ``"one_pass"``
+    (``mlstm_scan_forward``): a decode step (S = 1), which a captured CUDA
+    graph replays as one plain launch, and the short prefill chunks where
+    one launch beats three."""
+    if (s >= MLSTM_CHUNKWISE_MIN_STEPS
+            and b * s >= MLSTM_CHUNKWISE_MIN_ROW_STEPS and d % 4 == 0
+            and chunk in (0, MLSTM_CHUNK)):
         return "chunkwise"
     return "one_pass"
 
@@ -112,13 +142,15 @@ def slstm_persistent_smem(b: int, d: int) -> int:
 def slstm_route(b: int, s: int, d: int, sm_count: int) -> str:
     """The sLSTM forward's design for a call on the card, from its shape
     and the card's SM count alone: ``"persistent"``
-    (``slstm_scan_forward_persistent``) when S > 1, B <= 8, the
+    (``slstm_scan_forward_persistent``) when S >=
+    ``SLSTM_PERSISTENT_MIN_STEPS`` (4), B <= 8, the
     ceil(d / 8) blocks fit one per SM and a block's shared memory
     (``slstm_persistent_smem``) fits ``SMEM_PER_BLOCK``; else ``"step"``
     (``slstm_scan_forward``, a launch a step): a decode step (S = 1),
-    which a captured CUDA graph replays as one plain launch, and widths
-    whose r_w does not fit on chip (d = 1,640 on an H100)."""
-    if (s > 1 and b <= SLSTM_MAX_ROWS and -(-d // SLSTM_UNITS) <= sm_count
+    which a captured CUDA graph replays as one plain launch, calls of 2
+    or 3 steps, and widths whose r_w does not fit on chip (d = 1,640 on
+    an H100)."""
+    if (s >= SLSTM_PERSISTENT_MIN_STEPS and b <= SLSTM_MAX_ROWS and -(-d // SLSTM_UNITS) <= sm_count
             and slstm_persistent_smem(b, d) <= SMEM_PER_BLOCK):
         return "persistent"
     return "step"
@@ -232,19 +264,23 @@ def mlstm_forward(route: str, q, k, v, log_i, log_f, c0, n0, m0,
             raise ValueError(f"{MLSTM}: the chunkwise forward takes D a "
                              f"multiple of 4 and chunk 0 or {MLSTM_CHUNK}, "
                              f"got D {d}, chunk {chunk}")
+        nc = -(-s // MLSTM_CHUNK)
         if chunk:
+            window = nc
             states = outs[4:8]          # ckC, ckn, ms, ss
         else:
-            nc = -(-s // MLSTM_CHUNK)
-            states = [_empty(q, b, nc, h, d, d), _empty(q, b, nc, h, d),
+            # the chunk states of one window at a time: bounded scratch
+            window = mlstm_window(b, h, d)
+            w = min(nc, window)
+            states = [_empty(q, b, w, h, d, d), _empty(q, b, w, h, d),
                       _empty(q, b, s, h)]
             states.append(states[2])    # ss: not written
         # the kernels' scratch: F and g a step, a decay a chunk
-        scratch = _empty(q, (2 * s + -(-s // MLSTM_CHUNK)) * b * h)
+        scratch = _empty(q, (2 * s + nc) * b * h)
         _lib.launch(MLSTM, "mlstm_scan_forward_chunkwise", MLSTM_CHUNKWISE,
                     *map(_lib.ptr, [_aligned(t) for t in ins] + outs[:4]
                          + states + [scratch]),
-                    b, s, h, d, int(bool(chunk)))
+                    b, s, h, d, int(bool(chunk)), window)
     return tuple(outs)
 
 

@@ -1192,9 +1192,11 @@ def test_cuda_last_two_stacks_replay_equal_eager(arch, monkeypatch):
     with CUDA graphs on and off: every replayed step equals the eager one
     bit for bit (the xLSTM's C/n/m/c/h restored after the capture's
     warm-up), the streams and launches are equal; the xLSTM launches its
-    forward scans (mLSTM and sLSTM: the chunkwise and persistent designs
-    for the prefill chunks, the one-pass and step designs for the decode
-    steps) and never B1-B5 or a backward scan, seamless B1, B2 and B5
+    forward scans (the designs the routes name: for one request's
+    32-token prefill chunks the one-pass mLSTM, under the chunkwise
+    design's 64 steps, and the persistent sLSTM; for the decode steps the
+    one-pass and step designs) and never B1-B5 or a backward scan,
+    seamless B1, B2 and B5
     (cross decode) and never B3 or B4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
@@ -1238,8 +1240,7 @@ def test_cuda_last_two_stacks_replay_equal_eager(arch, monkeypatch):
     assert g_streams == e_streams and g_launch == e_launch
     used = ({"paged_decode_partials", "flash_prefill",
              "split_kv_decode_partials"} if cfg.cross_attention
-            else {"mlstm_scan", "slstm_scan", "mlstm_scan_chunkwise",
-                  "slstm_scan_persistent"})
+            else {"mlstm_scan", "slstm_scan", "slstm_scan_persistent"})
     for name, n in g_launch.items():
         assert (n > 0) == (name in used), (name, n)
 
@@ -1281,6 +1282,10 @@ def test_cuda_smoke_phases_of_the_last_two_stacks(monkeypatch):
 
     monkeypatch.setattr(CS, "served_requests", short)
     monkeypatch.setattr(CS, "XLSTM_CHUNK", 32)
+    # one request's 32-token chunks are under the chunkwise mLSTM's 64
+    # steps: its route is the one-pass kernel (``xlstm_scan.mlstm_route``)
+    monkeypatch.setattr(CS, "XLSTM_KERNELS", ("mlstm_scan", "slstm_scan",
+                                              "slstm_scan_persistent"))
     launches = CS.xlstm_phase(torch, "card test")
     for run in launches.values():
         for name, n in run.items():
@@ -1338,11 +1343,14 @@ def _forward_counters(b, s, h, d, dm, chunk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,d,dm,routes", [
-    (2, 7, 2, 16, 32, ("chunkwise", "persistent")),
-    (3, 70, 2, 48, 40, ("chunkwise", "persistent")),
-    (2, 64, 4, 256, 1024, ("chunkwise", "persistent")),
+    (2, 7, 2, 16, 32, ("one_pass", "persistent")),
+    (3, 70, 2, 48, 40, ("one_pass", "persistent")),
+    (4, 70, 2, 48, 40, ("chunkwise", "persistent")),
+    (2, 64, 4, 256, 1024, ("one_pass", "persistent")),
+    (4, 64, 4, 256, 1024, ("chunkwise", "persistent")),
     (8, 1030, 1, 16, 32, ("chunkwise", "persistent")),
-    (8, 7, 1, 16, 1640, ("chunkwise", "step")),
+    (8, 7, 1, 16, 1640, ("one_pass", "step")),
+    (2, 3, 2, 16, 32, ("one_pass", "step")),
     (4, 1, 2, 16, 1024, ("one_pass", "step"))])
 def test_cuda_xlstm_scans_vs_plain(b, s, h, d, dm, routes):
     """The four scan kernels against their plain versions (``ref``): the
@@ -1352,9 +1360,10 @@ def test_cuda_xlstm_scans_vs_plain(b, s, h, d, dm, routes):
     through the backward kernels against autograd through the plain
     forward.  Each case asserts which forward design its route took, by
     the launch counter of that design's C entry point: the chunkwise
-    mLSTM at S = 7, 70, 64, 1,030 and the one-pass kernel at S = 1; the
+    mLSTM at 4 x 70, 4 x 64 and 8 x 1,030 and the one-pass kernel under
+    the route's boundaries (S < 64 or B S < 256) and at S = 1; the
     persistent sLSTM at d = 32, 40, 1,024 and the step kernel at d =
-    1,640 (r_w does not fit on chip) and at S = 1.  Head dims that are no
+    1,640 (r_w does not fit on chip) and at S = 3 and 1.  Head dims that are no
     multiple of 32 and an sLSTM width that is no multiple of 8 leave lanes
     and units idle.  Two cases take branches no served or trained shape
     of xlstm-350m reaches: over 1,024 steps the mLSTM backward's
@@ -1397,7 +1406,9 @@ def test_cuda_xlstm_routes_launch_the_design_they_name():
     stated rule names (``mlstm_route`` over (B, S, H, D) and the recorded
     chunk, ``slstm_route`` over (B, S, d) and this card's SM count), and
     its outputs match the plain version within 1e-4 of the largest
-    value."""
+    value.  At 1 x 2,100 with 4 heads of 256 the unrecorded chunkwise
+    mLSTM walks its 66 chunk states in two windows (``mlstm_window``: 64
+    chunks a window at one row), the recorded one in one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from repro_torch.kernels import _lib
@@ -1405,7 +1416,7 @@ def test_cuda_xlstm_routes_launch_the_design_they_name():
     for b, s, h, d, dm in ((1, 2, 1, 16, 8), (8, 1, 4, 256, 1024),
                            (8, 33, 4, 256, 1024), (1, 40, 2, 20, 1056),
                            (5, 9, 3, 12, 100), (9, 5, 1, 16, 64),
-                           (2, 3, 1, 8, 1640)):
+                           (2, 3, 1, 8, 1640), (1, 2100, 4, 256, 32)):
         m, sl = _scan_cases(b, s, h, d, dm, 14)
         for chunk in (0, 32):
             m_counter, s_counter = _forward_counters(b, s, h, d, dm, chunk)
@@ -1418,6 +1429,33 @@ def test_cuda_xlstm_routes_launch_the_design_they_name():
             _rel_close(got[0][:n_m], ref.mlstm_scan_ref(*m, chunk)[:n_m])
             _rel_close(got[1][:n_s],
                        ref.slstm_scan_ref(*sl, bool(chunk))[:n_s])
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_forwards_on_a_second_card():
+    """Both redesigned forwards on each card of a process that drives
+    more than one, the current device switched between the calls: their
+    launch caches (the SM count, the shared-memory limits, the persistent
+    sLSTM's occupancy) are kept per device, so a card that comes second
+    sets its own limits and checks its own co-residency.  Each matches
+    the plain version within 1e-4 of the largest value."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import xlstm_scan as X
+    m, sl = _scan_cases(4, 70, 4, 256, 1024, 15)
+    want = ref.mlstm_scan_ref(*m)[:4], ref.slstm_scan_ref(*sl)[:5]
+    for i in (0, 1, 0):
+        dev = torch.device("cuda", i)
+        torch.cuda.set_device(dev)
+        mi, si = [t.to(dev) for t in m], [t.to(dev) for t in sl]
+        _lib.reset_launches()
+        got = X._MLSTM(*mi, 0)[:4], X._SLSTM(*si, False)[:5]
+        assert {k: n for k, n in _lib.LAUNCHES.items() if n} == {
+            X.MLSTM_CHUNKWISE: 1, X.SLSTM_PERSISTENT: 1}
+        _rel_close([t.to(m[0].device) for t in got[0]], want[0])
+        _rel_close([t.to(m[0].device) for t in got[1]], want[1])
+    torch.cuda.set_device(0)
 
 
 @pytest.mark.cuda

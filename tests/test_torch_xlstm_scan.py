@@ -398,20 +398,27 @@ def test_chunkwise_mlstm_vs_jax_and_the_recorded_forward(carry, s, chunk):
 
 def test_forward_routes_follow_their_stated_rules():
     """``mlstm_route`` and ``slstm_route`` from shape alone: the chunkwise
-    mLSTM for S > 1 with D a multiple of 4 and chunk 0 or MLSTM_CHUNK, the
-    one-pass kernel at S = 1 (decode) and otherwise; the persistent sLSTM
-    for S > 1, B <= 8 and ceil(d / 8) blocks within the SMs whose shared
-    memory fits a block, the step kernel at S = 1 and at d = 1,640 on an
-    H100's 132 SMs.  The shared-memory count is the kernel's (r_w's 32
+    mLSTM from 64 steps and 256 row-steps (B S) on, with D a multiple of
+    4 and chunk 0 or MLSTM_CHUNK, the one-pass kernel at S = 1 (decode),
+    below those boundaries and otherwise; the persistent sLSTM from 4
+    steps on, B <= 8 and ceil(d / 8) blocks within the SMs whose shared
+    memory fits a block, the step kernel at S = 1 to 3 and at d = 1,640
+    on an H100's 132 SMs.  The shared-memory count is the kernel's (r_w's 32
     columns, h's rows rounded up to 1, 2, 4, 8 and the warps' partials)."""
     chunk = X.MLSTM_CHUNK
     for shape, route in (((8, 256, 4, 256, 0), "chunkwise"),
                          ((1, 1024, 4, 256, chunk), "chunkwise"),
-                         ((2, 7, 2, 16, chunk), "chunkwise"),
+                         ((8, 64, 4, 256, 0), "chunkwise"),
+                         ((1, 256, 4, 256, 0), "chunkwise"),
+                         ((4, 64, 2, 16, chunk), "chunkwise"),
+                         ((2, 7, 2, 16, chunk), "one_pass"),
+                         ((8, 32, 4, 256, 0), "one_pass"),
+                         ((1, 128, 4, 256, 0), "one_pass"),
+                         ((2, 64, 4, 256, 0), "one_pass"),
                          ((8, 1, 4, 256, 0), "one_pass"),
                          ((8, 1, 4, 256, chunk), "one_pass"),
-                         ((2, 7, 2, 18, 0), "one_pass"),
-                         ((2, 7, 2, 16, 3), "one_pass")):
+                         ((4, 70, 2, 18, 0), "one_pass"),
+                         ((4, 70, 2, 16, 3), "one_pass")):
         assert X.mlstm_route(*shape) == route, shape
     assert X.slstm_persistent_smem(8, 1024) == 4 * (1024 * 32 + 1024 * 8
                                                     + 16 * 8 * 32)
@@ -421,7 +428,10 @@ def test_forward_routes_follow_their_stated_rules():
                          ((1, 1024, 1024, 132), "persistent"),
                          ((2, 7, 32, 132), "persistent"),
                          ((3, 70, 40, 132), "persistent"),
+                         ((8, 4, 1024, 132), "persistent"),
                          ((8, 1, 1024, 132), "step"),
+                         ((8, 3, 1024, 132), "step"),
+                         ((1, 2, 1024, 132), "step"),
                          ((9, 256, 1024, 132), "step"),
                          ((8, 7, 1640, 132), "step"),
                          ((2, 64, 1024, 100), "step"),
