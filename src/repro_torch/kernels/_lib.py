@@ -13,7 +13,8 @@ where it launches its kernel (the xLSTM scans: one per call of their C
 entry point, each design of a forward under its own name, though an entry
 point may launch more than one kernel: one per step of the sLSTM's step
 forward, one and then two a window of chunks for the mLSTM's chunkwise
-forward, four for its backward).  The int8-pool variants of the page
+forward, four for its step backward, one, three a window and one for its
+chunkwise backward).  The int8-pool variants of the page
 kernels count apart from the bf16/f32 ones.  ``page_partials`` checks and launches
 the page kernels (paged decode, speculative verify), whose C entry points
 share one argument list, the int8 ones adding the scale pools.
@@ -58,7 +59,8 @@ KERNELS = {
     "mlstm_scan": {
         "mlstm_scan_forward": [_P] * 16 + [_I] * 5 + [_P],
         "mlstm_scan_forward_chunkwise": [_P] * 17 + [_I] * 6 + [_P],
-        "mlstm_scan_backward": [_P] * 25 + [_I] * 6 + [_P]},
+        "mlstm_scan_backward": [_P] * 25 + [_I] * 6 + [_P],
+        "mlstm_scan_backward_chunkwise": [_P] * 18 + [_I] * 5 + [_P]},
     "slstm_scan": {
         "slstm_scan_forward": [_P] * 15 + [_I] * 4 + [_P],
         "slstm_scan_forward_persistent": [_P] * 16 + [_I] * 4 + [_P],
@@ -74,6 +76,7 @@ LAUNCHES: Dict[str, int] = {"paged_decode_partials": 0,
                             "split_kv_decode_partials": 0,
                             "mlstm_scan": 0, "mlstm_scan_chunkwise": 0,
                             "mlstm_scan_backward": 0,
+                            "mlstm_scan_backward_chunkwise": 0,
                             "slstm_scan": 0, "slstm_scan_persistent": 0,
                             "slstm_scan_backward": 0}
 

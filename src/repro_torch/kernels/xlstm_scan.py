@@ -15,10 +15,14 @@ loops to XLA):
   (``mlstm_scan_forward``, step after step), by ``mlstm_route``.  With
   ``chunk`` > 0 (a forward that autograd records) it also saves the
   carries before every ``chunk``-th step and every step's stabilizer m_t
-  and n_t . q_t, from which ``repro_torch::mlstm_scan_backward``
-  (``mlstm_scan_backward``) recomputes each chunk's states: a saved C per
-  step would be B H D^2 floats a step (2 GiB a layer at xlstm-350m's 2 x
-  1,024 tokens).
+  and n_t . q_t (a saved C per step would be B H D^2 floats a step, 2 GiB
+  a layer at xlstm-350m's 2 x 1,024 tokens), from which
+  ``repro_torch::mlstm_scan_backward`` differentiates: the chunkwise
+  backward (``mlstm_scan_backward_chunkwise``: the chain of chunk-end
+  gradients over the 32-step chunks in reverse, then every chunk's
+  products with its saved state at once) or the step backward
+  (``mlstm_scan_backward``, which recomputes each chunk's states and walks
+  them step by step), by ``mlstm_bwd_route``.
 * ``repro_torch::slstm_scan(pre_x, r_w, c0, n0, m0, h0, save)`` -> (y, c,
   n, m, h, pres, cs, ns, ms), CUDA ``csrc/slstm_scan.cu``: the persistent
   forward (``slstm_scan_forward_persistent``, one cooperative launch, r_w
@@ -29,10 +33,11 @@ loops to XLA):
   dr_w = sum_t h_{t-1}^T dpre_t is one ``torch.matmul`` after the kernel.
 
 Each design counts its launches under its own name in ``_lib.LAUNCHES``:
-``mlstm_scan_chunkwise`` / ``mlstm_scan`` (one-pass), ``slstm_scan_persistent``
-/ ``slstm_scan`` (step).  The route is fixed by shape before any launch;
-a refused launch raises, and nothing gives way to the other design or to
-the plain version.
+``mlstm_scan_chunkwise`` / ``mlstm_scan`` (one-pass),
+``mlstm_scan_backward_chunkwise`` / ``mlstm_scan_backward`` (step),
+``slstm_scan_persistent`` / ``slstm_scan`` (step).  The route is fixed by
+shape before any launch; a refused launch raises, and nothing gives way
+to the other design or to the plain version.
 
 Each operator has ``custom_ops.define``'s four bodies (CUDA: the kernel;
 CPU: the plain version from ``ref``; fake: the shapes, the saved tensors
@@ -71,6 +76,9 @@ SLSTM_BWD = "slstm_scan_backward"
 # the step sLSTM count under MLSTM and SLSTM)
 MLSTM_CHUNKWISE = "mlstm_scan_chunkwise"
 SLSTM_PERSISTENT = "slstm_scan_persistent"
+# and of the redesigned mLSTM backward (the step backward counts under
+# MLSTM_BWD)
+MLSTM_BWD_CHUNKWISE = "mlstm_scan_backward_chunkwise"
 # steps per mLSTM checkpoint of a recorded forward, and per chunk of the
 # chunkwise forward (its kernels' L)
 MLSTM_CHUNK = 32
@@ -78,7 +86,14 @@ MLSTM_CHUNK = 32
 # allocates follows it, and the kernel refuses any other count than its
 # kBwdRows
 MLSTM_BWD_ROWS = 16
+# columns of D a block of the chunkwise backward's products takes (its CT):
+# its scratch holds a partial sum per tile
+MLSTM_BWD_TILE = 128
 MAX_HEAD_DIM = 1024         # one thread per column of C
+# the widest D the step mLSTM backward launches: a thread per column of C,
+# and past 256 threads its registers exceed an SM's (refused on an H100 at
+# D = 260)
+MLSTM_BWD_STEP_MAX_D = 256
 # scratch bound of an unrecorded chunkwise mLSTM forward's chunk states
 # (``mlstm_window``): 64 MiB, one window for a served 8 x 256 chunk wave
 # or a 1 x 2,048 prefill at xlstm-350m's widths
@@ -104,11 +119,12 @@ SLSTM_PERSISTENT_MIN_STEPS = 4
 
 
 def mlstm_window(b: int, h: int, d: int) -> int:
-    """Chunks per window of an unrecorded chunkwise forward: as many chunk
-    states (B H D^2 floats each) as fit ``MLSTM_STATE_BYTES``, at least
-    one.  The sequence is walked window after window, so the scratch
-    stays within that budget however long the prefill (a recorded forward
-    keeps every chunk's state: they are its checkpoints)."""
+    """Chunks per window of an unrecorded chunkwise forward, and of the
+    chunkwise backward's chunk-end gradients: as many chunk states (B H D^2
+    floats each) as fit ``MLSTM_STATE_BYTES``, at least one.  The sequence
+    is walked window after window (the backward's from its last), so the
+    scratch stays within that budget however long the sequence (a recorded
+    forward keeps every chunk's state: they are its checkpoints)."""
     return max(1, MLSTM_STATE_BYTES // (4 * b * h * d * d))
 
 
@@ -127,6 +143,35 @@ def mlstm_route(b: int, s: int, h: int, d: int, chunk: int) -> str:
             and chunk in (0, MLSTM_CHUNK)):
         return "chunkwise"
     return "one_pass"
+
+
+def mlstm_bwd_route(b: int, s: int, h: int, d: int, chunk: int) -> str:
+    """The mLSTM backward's design for a call on the card, from its shape
+    alone: ``"chunkwise"`` (``mlstm_scan_backward_chunkwise``) for every
+    forward recorded with ``chunk`` = ``MLSTM_CHUNK`` (the checkpoints are
+    then the states before its 32-step chunks), every D up to
+    ``MAX_HEAD_DIM`` (one that is no multiple of 4 zero-padded to one);
+    else ``"step"`` (``mlstm_scan_backward``, the first design), which
+    takes D up to ``MLSTM_BWD_STEP_MAX_D``.  B, S and H do not choose: the
+    chunkwise form's chain is S / 32 steps long where the first design's
+    is S."""
+    del b, s, h, d
+    return "chunkwise" if chunk == MLSTM_CHUNK else "step"
+
+
+def mlstm_bwd_scratch(b: int, s: int, h: int, d: int, window: int) -> int:
+    """Floats of scratch the chunkwise backward takes with ``window``
+    chunks of chunk-end gradients (``mlstm_scan_backward_chunkwise`` lays
+    it out): the window's gradients of C and n and its in-chunk matrices E
+    and A', the carried C and n gradients, nine scalars a step and a
+    partial sum a step and a chunk per column tile of
+    ``MLSTM_BWD_TILE`` (plus one)."""
+    nc = -(-s // MLSTM_CHUNK)
+    z1 = -(-d // MLSTM_BWD_TILE) + 1
+    w = min(window, nc)
+    return (b * w * h * (d * d + d + 2 * MLSTM_CHUNK ** 2)
+            + b * h * (d * d + d) + b * s * h * (9 + 2 * z1)
+            + b * nc * h * (1 + z1))
 
 
 def slstm_persistent_smem(b: int, d: int) -> int:
@@ -325,26 +370,79 @@ def _mlstm_bwd_cuda(dy, q, k, v, log_i, log_f, m0, ck_c, ck_n, ms, ss, y,
                     chunk):
     ins = [t.contiguous() for t in (dy, q, k, v, log_i, log_f, m0, ck_c,
                                     ck_n, ms, ss, y)]
-    dev = _lib.check_cuda(MLSTM_BWD, *ins)
+    _lib.check_cuda(MLSTM_BWD, *ins)
     _f32(MLSTM_BWD, *ins)
     b, s, h, d = q.shape
     if chunk < 1 or ck_c.shape != (b, -(-s // chunk), h, d, d):
         raise ValueError(f"{MLSTM_BWD}: checkpoints {tuple(ck_c.shape)} do "
                          f"not fit chunk {chunk}")
-    dq, dk, dv = (torch.empty_like(x) for x in ins[1:4])
-    dli, dlf = torch.empty_like(ins[4]), torch.empty_like(ins[5])
-    nb = -(-d // MLSTM_BWD_ROWS)
-    dp = -(-d // 32) * 32
-    scratch = [_empty(q, b * h * nb, chunk + 1, MLSTM_BWD_ROWS, dp),
-               _empty(q, b * h * nb, chunk + 1, dp),
-               _empty(q, b, s, h, nb, d), _empty(q, b, s, h, nb, d),
-               _empty(q, b, s, h, nb), _empty(q, b, s, h, nb),
-               _empty(q, b, s, h), _empty(q, b, s, h)]
-    with torch.cuda.device(dev):
-        _lib.launch(MLSTM, "mlstm_scan_backward", MLSTM_BWD,
-                    *map(_lib.ptr, ins + [dq, dk, dv, dli, dlf] + scratch),
-                    b, s, h, d, int(chunk), MLSTM_BWD_ROWS)
-    return dq, dk, dv, dli, dlf
+    return mlstm_backward(mlstm_bwd_route(b, s, h, d, chunk), *ins, chunk)
+
+
+def mlstm_backward(route: str, dy, q, k, v, log_i, log_f, m0, ck_c, ck_n,
+                   ms, ss, y, chunk: int) -> Tuple[torch.Tensor, ...]:
+    """Launch the mLSTM backward design ``route`` ("chunkwise" or "step")
+    on checked, contiguous f32 CUDA inputs; the operator's CUDA body calls
+    it with ``mlstm_bwd_route``'s choice (``chip_smoke.py`` also times the
+    step design on the same inputs).  Returns (dq, dk, dv, dlog_i,
+    dlog_f)."""
+    ins = [dy, q, k, v, log_i, log_f, m0, ck_c, ck_n, ms, ss, y]
+    b, s, h, d = q.shape
+    if route == "step" and d > MLSTM_BWD_STEP_MAX_D:
+        raise ValueError(f"{MLSTM_BWD}: the step backward takes D up to "
+                         f"{MLSTM_BWD_STEP_MAX_D}, got {d}")
+    if route == "chunkwise":
+        if chunk != MLSTM_CHUNK:
+            raise ValueError(f"{MLSTM_BWD}: the chunkwise backward takes "
+                             f"chunk {MLSTM_CHUNK}, got {chunk}")
+        if d % 4:
+            return _mlstm_bwd_padded(*ins, chunk)
+    elif route != "step":
+        raise ValueError(f"{MLSTM_BWD}: no backward design {route!r}")
+    outs = [torch.empty_like(x) for x in (q, k, v, log_i, log_f)]
+    with torch.cuda.device(q.device):
+        if route == "step":
+            nb = -(-d // MLSTM_BWD_ROWS)
+            dp = -(-d // 32) * 32
+            scratch = [_empty(q, b * h * nb, chunk + 1, MLSTM_BWD_ROWS, dp),
+                       _empty(q, b * h * nb, chunk + 1, dp),
+                       _empty(q, b, s, h, nb, d), _empty(q, b, s, h, nb, d),
+                       _empty(q, b, s, h, nb), _empty(q, b, s, h, nb),
+                       _empty(q, b, s, h), _empty(q, b, s, h)]
+            _lib.launch(MLSTM, "mlstm_scan_backward", MLSTM_BWD,
+                        *map(_lib.ptr, ins + outs + scratch),
+                        b, s, h, d, int(chunk), MLSTM_BWD_ROWS)
+            return tuple(outs)
+        # the chunk-end gradients of one window at a time: bounded scratch
+        window = min(-(-s // MLSTM_CHUNK), mlstm_window(b, h, d))
+        scratch = _empty(q, mlstm_bwd_scratch(b, s, h, d, window))
+        _lib.launch(MLSTM, "mlstm_scan_backward_chunkwise",
+                    MLSTM_BWD_CHUNKWISE,
+                    *map(_lib.ptr, [_aligned(t) for t in ins] + outs
+                         + [scratch]),
+                    b, s, h, d, window)
+    return tuple(outs)
+
+
+def _mlstm_bwd_padded(dy, q, k, v, log_i, log_f, m0, ck_c, ck_n, ms, ss, y,
+                      chunk):
+    """The chunkwise backward at a D that is no multiple of 4 (its kernels
+    copy 16 bytes at a time): every D-wide input zero-padded to the next
+    multiple of 4.  The padded columns of k, v and q keep the padded rows
+    and columns of every C and n zero, so s, den and y are unchanged and
+    the gradients of the real columns are exact; the padded ones are
+    dropped."""
+    d = q.shape[-1]
+    p = -d % 4
+
+    def pad(t, dims=1):
+        return torch.nn.functional.pad(t, (0, p) * dims)
+
+    dq, dk, dv, dli, dlf = mlstm_backward(
+        "chunkwise", pad(dy), pad(q), pad(k), pad(v), log_i, log_f, m0,
+        pad(ck_c, 2), pad(ck_n), ms, ss, pad(y), chunk)
+    return (dq[..., :d].contiguous(), dk[..., :d].contiguous(),
+            dv[..., :d].contiguous(), dli, dlf)
 
 
 def _mlstm_bwd_cpu(dy, q, k, v, log_i, log_f, m0, ck_c, ck_n, ms, ss, y,

@@ -1372,7 +1372,9 @@ def test_cuda_xlstm_scans_vs_plain(b, s, h, d, dm, routes):
     its shared memory).  The wide case stays short: with r_w at 0.1, d =
     1,640 makes the sLSTM recurrence chaotic, so over hundreds of steps a
     last-bit change of pre_x moves the plain version's own output by whole
-    units.  Each call counts one launch."""
+    units.  Each call counts one launch; the mLSTM's backward under the
+    design ``mlstm_bwd_route`` names (the chunkwise one: every forward here
+    is recorded with chunk 32), the other design none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from repro_torch.kernels import _lib
@@ -1396,8 +1398,60 @@ def test_cuda_xlstm_scans_vs_plain(b, s, h, d, dm, routes):
         seqs = [a.clone().requires_grad_() for a in args[:n]]
         want = torch.autograd.grad(plain(*seqs, *args[n:])[0], seqs, dy)
         _rel_close(got, want)
-    assert _lib.LAUNCHES["mlstm_scan_backward"] == 1
+    m_bwd, other = {"chunkwise": (X.MLSTM_BWD_CHUNKWISE, X.MLSTM_BWD),
+                    "step": (X.MLSTM_BWD, X.MLSTM_BWD_CHUNKWISE)}[
+        X.mlstm_bwd_route(b, s, h, d, 32)]
+    assert _lib.LAUNCHES[m_bwd] == 1 and _lib.LAUNCHES[other] == 0
     assert _lib.LAUNCHES["slstm_scan_backward"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", [(2, 1030, 4, 256), (3, 70, 2, 18),
+                                     (1, 40, 1, 260)])
+def test_cuda_mlstm_backward_designs_vs_autograd(b, s, h, d):
+    """Each mLSTM backward design against autograd through the plain
+    forward (within 1e-4 of each gradient's largest value).  The chunkwise
+    backward through the operator's route, one launch under its own name
+    and none of the other design: over 1,030 steps (33 chunks), its chain
+    of chunk-end gradients in two windows (``mlstm_window``: 32 chunks at
+    2 rows of 4 heads of 256), the last chunk 6 steps long; at D = 18 and
+    260, no multiples of 4, which it zero-pads to one (its kernels copy 16
+    bytes at a time).  The first design through its C entry point on the
+    same saved tensors at D = 18; at D = 260 it refuses with a ValueError
+    (past ``MLSTM_BWD_STEP_MAX_D`` its launch needs more registers than an
+    SM has)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import xlstm_scan as X
+    assert X.mlstm_bwd_route(b, s, h, d, X.MLSTM_CHUNK) == "chunkwise"
+    long = s > 1024
+    if long:
+        assert X.mlstm_window(b, h, d) < -(-s // X.MLSTM_CHUNK)
+    m = _scan_cases(b, s, h, d, 16, 16)[0]
+    seqs = [a.clone().requires_grad_() for a in m[:5]]
+    y = X.mlstm_scan(*seqs, *m[5:])[0]
+    dy = torch.randn_like(y)
+    _lib.reset_launches()
+    got = torch.autograd.grad(y, seqs, dy)
+    assert {k: n for k, n in _lib.LAUNCHES.items() if n} == {
+        X.MLSTM_BWD_CHUNKWISE: 1}
+    del y
+    seqs = [a.clone().requires_grad_() for a in m[:5]]
+    want = torch.autograd.grad(ref.mlstm_scan_ref(*seqs, *m[5:])[0], seqs,
+                               dy)
+    _rel_close(got, want)
+    if long:
+        return
+    y, _, _, _, ck_c, ck_n, ms, ss = X._MLSTM(*m, X.MLSTM_CHUNK)
+    args = (dy, *m[:5], m[7], ck_c, ck_n, ms, ss, y, X.MLSTM_CHUNK)
+    if d > X.MLSTM_BWD_STEP_MAX_D:
+        with pytest.raises(ValueError, match="step backward takes D up to"):
+            X.mlstm_backward("step", *args)
+        return
+    _lib.reset_launches()
+    _rel_close(X.mlstm_backward("step", *args), want)
+    assert {k: n for k, n in _lib.LAUNCHES.items() if n} == {X.MLSTM_BWD: 1}
 
 
 @pytest.mark.cuda

@@ -637,6 +637,7 @@ def test_cpu_tensors_run_the_plain_version_without_counting():
                                   "split_kv_decode_partials",
                                   "mlstm_scan", "mlstm_scan_chunkwise",
                                   "mlstm_scan_backward",
+                                  "mlstm_scan_backward_chunkwise",
                                   "slstm_scan", "slstm_scan_persistent",
                                   "slstm_scan_backward"}
     c = _verify_case(11, 2, 3, 4, 2, 16, 8, 3)

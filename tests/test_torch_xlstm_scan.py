@@ -31,9 +31,17 @@ The chunkwise form of the mLSTM forward (the card's
 parts, the chunk states as checkpoints), used by no path of the port.  It
 is held to JAX's own scan step and to ``ref.mlstm_scan_ref``'s recorded
 tensors over S in {1, 7, 31, 32, 33, 70} and chunks of 4 and 32 steps.
-The route rules of both forwards are held to their stated conditions.
-About 30 s on one worker (~10 s before the oracle's 36 cases, most of
-the rest JAX's scan at six sequence lengths).
+The chunkwise form of the mLSTM backward (``mlstm_scan_backward_chunkwise``)
+has one too, ``chunkwise_mlstm_backward``: the reverse chain of
+chunk-end gradients, the in-chunk matrices and the m reverse, from what
+the recorded forward saves, held to ``jax.vjp`` of JAX's scan step and to
+``ref.mlstm_scan_backward_ref`` over the same grid (JAX's forward and vjp
+are computed once per carry and S for both oracles), and stands in for the
+kernel to check the wrapper's zero-padding of a D that is no multiple of
+4.  The route rules of both forwards and of the mLSTM backward are held to
+their stated conditions.  About 42 s on one worker (~10 s before the
+oracles' 72 cases, ~12 s of it the backward oracle's, most of the rest
+JAX's scan and its vjp at six sequence lengths).
 """
 import functools
 import dataclasses
@@ -57,15 +65,15 @@ JCFG = dataclasses.replace(jax_configs.get("xlstm-350m"), d_model=DM,
 CARRIES = ("fresh", "random", "blanked")
 
 
-def _mlstm_inputs(seed, carry, s=S):
+def _mlstm_inputs(seed, carry, s=S, d=D):
     rng = np.random.default_rng(seed)
-    q, k, v = (rng.standard_normal((B, s, H, D)).astype(np.float32) / 4
+    q, k, v = (rng.standard_normal((B, s, H, d)).astype(np.float32) / 4
                for _ in range(3))
     log_i = rng.standard_normal((B, s, H)).astype(np.float32)
     log_f = np.log(1 / (1 + np.exp(-rng.standard_normal((B, s, H))
                                    - 2))).astype(np.float32)
-    c0 = rng.standard_normal((B, H, D, D)).astype(np.float32)
-    n0 = rng.standard_normal((B, H, D)).astype(np.float32)
+    c0 = rng.standard_normal((B, H, d, d)).astype(np.float32)
+    n0 = rng.standard_normal((B, H, d)).astype(np.float32)
     m0 = rng.standard_normal((B, H)).astype(np.float32)
     if carry == "fresh":
         c0[:], n0[:], m0[:] = 0, 0, -1e30
@@ -370,10 +378,17 @@ def chunkwise_mlstm(q, k, v, log_i, log_f, c0, n0, m0, L):
 
 @functools.lru_cache(maxsize=None)
 def _chunkwise_case(carry, s):
-    """Inputs at S steps with the carry kind, and JAX's scan over them
-    (computed once per (carry, S) for both chunk lengths)."""
+    """Inputs and a dy at S steps with the carry kind, JAX's scan over
+    them and ``jax.vjp``'s gradients of its y for that dy (computed once
+    per (carry, S) for both chunk lengths and both directions)."""
     seqs, carries = _mlstm_inputs(6, carry, s)
-    return seqs, carries, [np.asarray(w) for w in jax_mlstm(carries, *seqs)]
+    dy = np.random.default_rng(8).standard_normal((B, s, H, D)).astype(
+        np.float32)
+    want, vjp = jax.vjp(lambda *a: jax_mlstm(carries, *a), *seqs)
+    grads = vjp((jnp.asarray(dy),) + tuple(jnp.zeros_like(w)
+                                          for w in want[1:]))
+    return (seqs, carries, [np.asarray(w) for w in want], dy,
+            [np.asarray(g) for g in grads])
 
 
 @pytest.mark.parametrize("chunk", [4, 32])
@@ -386,7 +401,7 @@ def test_chunkwise_mlstm_vs_jax_and_the_recorded_forward(carry, s, chunk):
     are exponents of sums the sequential form takes as products, so only
     rounding differs (the weights' exponents are <= 0, and m is the same
     sequential recurrence, bit for bit)."""
-    seqs, carries, want = _chunkwise_case(carry, s)
+    seqs, carries, want = _chunkwise_case(carry, s)[:3]
     ins = _t(seqs) + _t(carries)
     got = chunkwise_mlstm(*ins, chunk)
     _close(got[:4], want)
@@ -396,11 +411,188 @@ def test_chunkwise_mlstm_vs_jax_and_the_recorded_forward(carry, s, chunk):
     _close(got[4:], [r.numpy() for r in rec[4:]])
 
 
+# ---------------------------------------------------------------------------
+# The chunkwise mLSTM backward, on the CPU
+# ---------------------------------------------------------------------------
+
+def chunkwise_mlstm_backward(dy, q, k, v, log_i, log_f, m0, ck_c, ck_n, ms,
+                             ss, y, L):
+    """The chunkwise form of the mLSTM backward that
+    ``csrc/mlstm_scan.cu``'s ``mlstm_scan_backward_chunkwise`` runs, in
+    plain PyTorch (f32), over chunks of ``L`` steps.  It reads only what a
+    forward recorded with chunk ``L`` saved: the state before every chunk
+    (``ck_c``, ``ck_n``), every step's m and s (``ms``, ``ss``) and y.
+
+    Within chunk j, with x_t = log f'_t and z_s = log i'_s, C_t = dec_t C_j
+    + sum_{s<=t} W_ts v_s k_s^T (n alike), dec_t = exp(F_t + m_prev -
+    m_t), W_ts = exp(log_i_s + F_t - F_s - m_t), F the sum of log f from
+    the chunk's start; the state after the chunk is C_{j+1} = a_j C_j +
+    sum_s g_s v_s k_s^T with a_j = dec_last, g_s = W_last,s.  Steps:
+
+    1. Per step (all at once): den = max(|s|, exp(-m)), dden = -(dy .
+       y) / den split into ds (to s) and dmg (to m, through exp(-m)), half
+       each at a tie; dnum = dy / den.
+    2. The reverse chain of chunk-end gradients, the only sequential part
+       (one step a chunk): G_j = dC_{j+1} arrives at chunk j's end, dC_j =
+       a_j G_j + sum_t dec_t dnum_t q_t^T, dn_j = a_j dn_{j+1} + sum_t dec_t
+       ds_t q_t.
+    3. Every chunk at once: X_ts = dnum_t . v_s + ds_t, A = W o (Q K^T), E =
+       W o X, R = A o X; U_t = C_j^T dnum_t, VG_s = G_j^T v_s;
+       dq_t = dec_t (U_t + ds_t n_j) + sum_s E_ts k_s;
+       dk_s = g_s (VG_s + dn_{j+1}) + sum_t E_ts q_t;
+       dv_s = g_s G_j k_s + sum_t A_ts dnum_t;
+       the decays' terms Delta_t = dec_t (U_t . q_t + ds_t n_j . q_t),
+       Delta_out = a_j (<G_j, C_j> + dn_{j+1} . n_j) and the state weights'
+       Rout_s = g_s (VG_s . k_s + dn_{j+1} . k_s) give the gradients of the
+       log gates: d z_s = sum_{t>=s} R_ts + Rout_s and d x_r = sum_{t>=r}
+       Delta_t + Delta_out + sum_{t>=r, s<r} R_ts + sum_{s<r} Rout_s (x_r
+       is in F_t for t >= r: in dec_t, in W_ts for s < r <= t, in a_j and
+       in g_s for s < r).
+    4. The scalar reverse of the m recurrence: x_t = log f_t + m_{t-1} -
+       m_t and z_t = log i_t - m_t, m_t = max(log f_t + m_{t-1}, log i_t):
+       dm' = dm + dmg - d x - d z; d log f = da = d x + w dm' (w: max's
+       share of its first side); d log i = d z + (1 - w) dm'; dm = da.
+
+    Returns (dq, dk, dv, dlog_i, dlog_f)."""
+    b, s, h, d = q.shape
+    g_m = torch.exp(-ms)
+    den = torch.maximum(ss.abs(), g_m)
+    dden = -(dy * y).sum(-1) / den
+    w_s = ref.tie_weight(ss.abs(), g_m)
+    ds = dden * w_s * torch.sign(ss)
+    dmg = dden * (1.0 - w_s) * -g_m
+    dnum = dy / den[..., None]
+    m_before = torch.cat([m0[:, None], ms[:, :-1]], 1)       # (B, S, H)
+    chunks = [slice(t0, min(s, t0 + L)) for t0 in range(0, s, L)]
+    f_sum = torch.cat([torch.cumsum(log_f[:, c], 1) for c in chunks], 1)
+    dec = torch.cat([torch.exp(f_sum[:, c] + m_before[:, c.start, None]
+                               - ms[:, c]) for c in chunks], 1)
+    # 2. the reverse chain
+    ends, dc, dn = [None] * len(chunks), torch.zeros_like(ck_c[:, 0]), \
+        torch.zeros_like(ck_n[:, 0])
+    for j in range(len(chunks) - 1, -1, -1):
+        c = chunks[j]
+        ends[j] = dc, dn
+        a = dec[:, c.stop - 1]
+        dc = (a[..., None, None] * dc
+              + torch.einsum("bth,bthr,bthc->bhrc", dec[:, c], dnum[:, c],
+                             q[:, c]))
+        dn = a[..., None] * dn + torch.einsum("bth,bthc->bhc",
+                                              dec[:, c] * ds[:, c], q[:, c])
+    # 3. every chunk
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    d_x, d_z = torch.empty_like(log_f), torch.empty_like(log_i)
+    for j, c in enumerate(chunks):
+        gc, gn = ends[j]
+        cj, nj = ck_c[:, j], ck_n[:, j]
+        qc, kc, vc, dnc = q[:, c], k[:, c], v[:, c], dnum[:, c]
+        ln = c.stop - c.start
+        ft, mt = f_sum[:, c].transpose(1, 2), ms[:, c].transpose(1, 2)
+        it = log_i[:, c].transpose(1, 2)                     # (B, H, l)
+        causal = torch.ones(ln, ln, dtype=torch.bool).tril()
+        w = torch.where(causal, torch.exp(it[:, :, None, :] + ft[..., :, None]
+                                          - ft[..., None, :]
+                                          - mt[..., :, None]),
+                        torch.zeros(()))                     # (B, H, t, s)
+        x = (torch.einsum("bthr,bshr->bhts", dnc, vc)
+             + ds[:, c].transpose(1, 2)[..., :, None])
+        a_m = w * torch.einsum("bthd,bshd->bhts", qc, kc)
+        e_m = w * x
+        r_m = a_m * x
+        dec_c, ds_c = dec[:, c], ds[:, c]                    # (B, l, H)
+        g_s = w[..., -1, :].transpose(1, 2)                  # (B, l, H)
+        u = torch.einsum("bthr,bhrc->bthc", dnc, cj)
+        vg = torch.einsum("bshr,bhrc->bshc", vc, gc)
+        dq[:, c] = (dec_c[..., None] * (u + ds_c[..., None] * nj[:, None])
+                    + torch.einsum("bhts,bshc->bthc", e_m, kc))
+        dk[:, c] = (g_s[..., None] * (vg + gn[:, None])
+                    + torch.einsum("bhts,bthc->bshc", e_m, qc))
+        dv[:, c] = (g_s[..., None] * torch.einsum("bhrc,bshc->bshr", gc, kc)
+                    + torch.einsum("bhts,bthr->bshr", a_m, dnc))
+        delta = dec_c * ((u * qc).sum(-1)
+                         + ds_c * torch.einsum("bhd,bthd->bth", nj, qc))
+        r_out = g_s * ((vg * kc).sum(-1) + torch.einsum("bhd,bshd->bsh", gn,
+                                                        kc))
+        d_out = dec_c[:, -1] * ((gc * cj).sum((-1, -2)) + (gn * nj).sum(-1))
+        # rect[r] = sum over t >= r, s < r of R_ts
+        idx = torch.arange(ln)
+        rect_mask = ((idx[None, :, None] >= idx[:, None, None])
+                     & (idx[None, None, :] < idx[:, None, None])).float()
+        rect = torch.einsum("rts,bhts->brh", rect_mask, r_m)
+        suffix = torch.flip(torch.cumsum(torch.flip(delta, [1]), 1), [1])
+        d_x[:, c] = (suffix + d_out[:, None] + rect
+                     + torch.cumsum(r_out, 1) - r_out)
+        d_z[:, c] = r_m.sum(-2).transpose(1, 2) + r_out
+    # 4. the m reverse
+    dli, dlf = torch.empty_like(log_i), torch.empty_like(log_f)
+    dm = torch.zeros_like(m0)
+    for t in range(s - 1, -1, -1):
+        w = ref.tie_weight(log_f[:, t] + m_before[:, t], log_i[:, t])
+        dmt = dm + dmg[:, t] - d_x[:, t] - d_z[:, t]
+        da = d_x[:, t] + w * dmt
+        dli[:, t] = d_z[:, t] + (1.0 - w) * dmt
+        dlf[:, t] = da
+        dm = da
+    return dq, dk, dv, dli, dlf
+
+
+@pytest.mark.parametrize("chunk", [4, 32])
+@pytest.mark.parametrize("s", [1, 7, 31, 32, 33, 70])
+@pytest.mark.parametrize("carry", CARRIES)
+def test_chunkwise_mlstm_backward_vs_jax_and_the_plain_reverse(carry, s,
+                                                               chunk):
+    """The chunkwise backward oracle, from what ``ref.mlstm_scan_ref(...,
+    chunk)`` records (its checkpoints, m, s and y), against ``jax.vjp`` of
+    JAX's scan step and against ``ref.mlstm_scan_backward_ref``, within
+    STATE_TOL: the chunk weights and decays are exponents of sums that the
+    step-by-step reverse takes as products, so only rounding differs (every
+    exponent is <= 0, and m is the recorded sequential one, bit for bit)."""
+    seqs, carries, _, dy, want = _chunkwise_case(carry, s)
+    ins = _t(seqs) + _t(carries)
+    rec = ref.mlstm_scan_ref(*ins, chunk)
+    dy_t = torch.tensor(dy)
+    got = chunkwise_mlstm_backward(dy_t, *ins[:5], ins[7], rec[4], rec[5],
+                                   rec[6], rec[7], rec[0], chunk)
+    _close(got, want)
+    _close(got, [g.numpy() for g in ref.mlstm_scan_backward_ref(
+        dy_t, *ins)])
+
+
+@pytest.mark.parametrize("d", [6, 18])
+def test_chunkwise_backward_pads_d_to_a_multiple_of_4(monkeypatch, d):
+    """``xlstm_scan._mlstm_bwd_padded``, the chunkwise route's way for a D
+    that is no multiple of 4, with the chunkwise backward it calls
+    replaced by the CPU oracle (which checks that it is given a padded D):
+    its gradients at the real D against ``ref.mlstm_scan_backward_ref``
+    within STATE_TOL, over 70 steps from a random carry."""
+    def oracle(route, dy, q, k, v, log_i, log_f, m0, ck_c, ck_n, ms, ss, y,
+               chunk):
+        dp = q.shape[-1]
+        assert route == "chunkwise" and dp % 4 == 0 and dp - d < 4
+        assert ck_c.shape[-2:] == (dp, dp) and y.shape[-1] == dp
+        return chunkwise_mlstm_backward(dy, q, k, v, log_i, log_f, m0, ck_c,
+                                        ck_n, ms, ss, y, chunk)
+
+    monkeypatch.setattr(X, "mlstm_backward", oracle)
+    seqs, carries = _mlstm_inputs(12, "random", 70, d)
+    ins = _t(seqs) + _t(carries)
+    rec = ref.mlstm_scan_ref(*ins, X.MLSTM_CHUNK)
+    dy = torch.tensor(np.random.default_rng(13).standard_normal(
+        (B, 70, H, d)).astype(np.float32))
+    got = X._mlstm_bwd_padded(dy, *ins[:5], ins[7], rec[4], rec[5], rec[6],
+                              rec[7], rec[0], X.MLSTM_CHUNK)
+    assert [g.shape for g in got] == [t.shape for t in ins[:5]]
+    _close(got, [g.numpy() for g in ref.mlstm_scan_backward_ref(dy, *ins)])
+
+
 def test_forward_routes_follow_their_stated_rules():
     """``mlstm_route`` and ``slstm_route`` from shape alone: the chunkwise
     mLSTM from 64 steps and 256 row-steps (B S) on, with D a multiple of
     4 and chunk 0 or MLSTM_CHUNK, the one-pass kernel at S = 1 (decode),
-    below those boundaries and otherwise; the persistent sLSTM from 4
+    below those boundaries and otherwise; the chunkwise mLSTM backward for
+    every forward recorded with chunk MLSTM_CHUNK whose D is a multiple of
+    4, whatever B, S and H, the step backward for any other D or chunk;
+    the persistent sLSTM from 4
     steps on, B <= 8 and ceil(d / 8) blocks within the SMs whose shared
     memory fits a block, the step kernel at S = 1 to 3 and at d = 1,640
     on an H100's 132 SMs.  The shared-memory count is the kernel's (r_w's 32
@@ -420,6 +612,18 @@ def test_forward_routes_follow_their_stated_rules():
                          ((4, 70, 2, 18, 0), "one_pass"),
                          ((4, 70, 2, 16, 3), "one_pass")):
         assert X.mlstm_route(*shape) == route, shape
+    for shape, route in (((2, 1024, 4, 256, chunk), "chunkwise"),
+                         ((2, 256, 4, 256, chunk), "chunkwise"),
+                         ((1, 1, 4, 256, chunk), "chunkwise"),
+                         ((2, 7, 2, 16, chunk), "chunkwise"),
+                         ((8, 1030, 1, 12, chunk), "chunkwise"),
+                         ((3, 70, 2, 18, chunk), "chunkwise"),
+                         ((1, 40, 1, 260, chunk), "chunkwise"),
+                         ((1, 40, 1, 1021, chunk), "chunkwise"),
+                         ((2, 7, 2, 16, 3), "step"),
+                         ((2, 70, 2, 16, 64), "step"),
+                         ((4, 70, 2, 256, 16), "step")):
+        assert X.mlstm_bwd_route(*shape) == route, shape
     assert X.slstm_persistent_smem(8, 1024) == 4 * (1024 * 32 + 1024 * 8
                                                     + 16 * 8 * 32)
     assert X.slstm_persistent_smem(3, 40) == 4 * (64 * 32 + 64 * 4
