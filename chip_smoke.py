@@ -8,10 +8,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero and prints no result line):
 
 1. Build the seven CUDA kernel sources from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, in parallel; fourteen kernels: B1, B1-int8, B2,
-   B3, B4, B4-int8, B5 and the xLSTM's seven scans: the mLSTM's and
-   sLSTM's forward in two designs each, the mLSTM's backward in two and
-   the sLSTM's) and print the card's name
+   (one nvcc per source, in parallel; fifteen kernels: B1, B1-int8, B2,
+   B3, B4, B4-int8, B5 and the xLSTM's eight scans: the mLSTM's and
+   sLSTM's forward and backward in two designs each) and print the card's
+   name
    and power limit (with
    ``--ptxas``, each kernel's registers, shared memory and spills).
 2. Hold each kernel against its plain PyTorch version on the card: at the
@@ -52,7 +52,7 @@ Phases (any failure exits non-zero and prints no result line):
    through decode, B2 on a fresh 1 x 512 chunk, B5 over 8 rows x 512
    cached frames, every one valid (the cross decode), timed over six
    cycled copies of the cross K/V so that it reads them from memory.
-   The xLSTM's seven scan kernels at xlstm-350m's widths in f32 (mLSTM 4
+   The xLSTM's eight scan kernels at xlstm-350m's widths in f32 (mLSTM 4
    heads of 256, sLSTM d 1024) within TOL_SCAN_REL of the largest value
    of their plain versions: the forward scans at 8 x 256 (a served chunk
    wave), 1 x 1,024 and 1 x 4,096 (their routes: the chunkwise mLSTM,
@@ -62,11 +62,13 @@ Phases (any failure exits non-zero and prints no result line):
    route, and the other design of each on the same inputs through its C
    entry point, and a recorded forward (its checkpoints) and the backward
    against autograd through the plain forward at 2 x 256 and at training
-   run (y)'s 2 x 1,024 (XLSTM_TRAIN_SHAPE), the mLSTM's two backward
-   designs (chunkwise, routed; step, through its C entry point) on the
-   same saved tensors; each timed with its plain version and its time per
-   step, both designs of each forward at 8 x 256, 1 x 1,024 and 1 x 4,096
-   and of the mLSTM backward at 2 x 256 and 2 x 1,024 in the same run,
+   run (y)'s 2 x 1,024 (XLSTM_TRAIN_SHAPE), each scan's two backward
+   designs (chunkwise mLSTM and persistent sLSTM, routed; step, through
+   its C entry point) on the same saved tensors; each timed with its plain
+   version and its time per step, both designs of each forward at 8 x 256,
+   1 x 1,024 and 1 x 4,096 and of each backward at 2 x 256 and 2 x 1,024
+   in the same run, both sLSTM backwards at 1 to 8 rows of 2 to 16 steps
+   around its route's least S,
    and both forwards as prefill calls them (eager) at 1 to 8 rows of 2 to
    256 steps, beside the design the route names.
 3. Serve llama-13b at full width and depth in bf16 (random weights from a
@@ -275,9 +277,9 @@ Phases (any failure exits non-zero and prints no result line):
    f32) with remat and no-drop sorted dispatch, 10 steps of 2 x 512
    tokens, its ``lb_loss`` finite every step; (y) xlstm-350m at full size
    in f32, 10 steps of 2 x 1,024 tokens, the chunkwise mLSTM forward and
-   backward, the persistent sLSTM forward and the sLSTM backward launched
-   (and no other).  Each prints ms per step (and AdamW's device ms of it),
-   tokens/s, peak memory, the losses and the launches.
+   backward and the persistent sLSTM forward and backward launched once a
+   layer and step (and no other).  Each prints ms per step (and AdamW's
+   device ms of it), tokens/s, peak memory, the losses and the launches.
 4. Print the ``kernels`` JSON line, then the result line.
 
 The script imports nothing of the JAX package and needs no network.
@@ -1297,16 +1299,18 @@ def mlstm_bwd_flops(b, s, h, d, chunk=32):
 # ``slstm_route``): the chunkwise mLSTM and the persistent sLSTM take
 # prefill chunks and training sequences from their routes' boundaries on,
 # the one-pass mLSTM and the step sLSTM (the first designs) S = 1 (decode
-# steps) and the calls under those boundaries.  Two designs of the mLSTM
-# backward (``xlstm_scan.mlstm_bwd_route``): the chunkwise one takes every
-# forward recorded with 32-step chunks, the step one (the first design)
-# the rest
+# steps) and the calls under those boundaries.  Two designs of each
+# backward (``xlstm_scan.mlstm_bwd_route``, ``slstm_bwd_route``): the
+# chunkwise mLSTM one takes every forward recorded with 32-step chunks,
+# the persistent sLSTM one every recorded forward of 2 steps or more that
+# fits the card, the step ones (the first designs) the rest
 SCAN_KEYS = {"mlstm_scan": "mLSTM", "mlstm_scan_chunkwise": "mLSTM-chunkwise",
              "mlstm_scan_backward": "mLSTM-bwd",
              "mlstm_scan_backward_chunkwise": "mLSTM-bwd-chunkwise",
              "slstm_scan": "sLSTM",
              "slstm_scan_persistent": "sLSTM-persistent",
-             "slstm_scan_backward": "sLSTM-bwd"}
+             "slstm_scan_backward": "sLSTM-bwd",
+             "slstm_scan_backward_persistent": "sLSTM-bwd-persistent"}
 SCAN_KERNELS = tuple(SCAN_KEYS)
 # a forward design (``xlstm_scan.mlstm_forward``/``slstm_forward``'s
 # route) -> its launch counter
@@ -1316,10 +1320,15 @@ SCAN_DESIGNS = {"chunkwise": "mlstm_scan_chunkwise", "one_pass": "mlstm_scan",
 # launch counter
 SCAN_BWD_DESIGNS = {"chunkwise": "mlstm_scan_backward_chunkwise",
                     "step": "mlstm_scan_backward"}
-# what training run (y) launches: the redesigned forwards, the chunkwise
-# mLSTM backward (and not the first design) and the sLSTM backward
+# an sLSTM backward design (``xlstm_scan.slstm_backward``'s route) -> its
+# launch counter
+SLSTM_BWD_DESIGNS = {"persistent": "slstm_scan_backward_persistent",
+                     "step": "slstm_scan_backward"}
+# what training run (y) launches: the redesigned forwards and backwards
+# (and none of the first designs)
 TRAIN_SCAN_KERNELS = ("mlstm_scan_chunkwise", "mlstm_scan_backward_chunkwise",
-                      "slstm_scan_persistent", "slstm_scan_backward")
+                      "slstm_scan_persistent",
+                      "slstm_scan_backward_persistent")
 
 
 def check_rel(torch, what, got, want, tol=TOL_SCAN_REL) -> float:
@@ -1442,8 +1451,44 @@ def route_sweep(torch, g, events_ms) -> None:
             f"events")
 
 
+def slstm_saved(s_args, s_out, dy):
+    """``xlstm_scan.slstm_backward``'s arguments after the recorded
+    forward of ``s_args`` gave ``s_out``: (dy, r_w, pres, cs, ns, ms, c0,
+    n0, m0, h0, y)."""
+    _, r_w, c0, n0, m0, h0 = s_args
+    y, _, _, _, _, pres, cs, ns, ms = s_out
+    return dy, r_w, pres, cs, ns, ms, c0, n0, m0, h0, y
+
+
+# the short training sequences (rows, steps) at which both sLSTM backward
+# designs are timed side by side (``bwd_route_sweep``), around the route's
+# least S (``xlstm_scan.SLSTM_BWD_PERSISTENT_MIN_STEPS``)
+SLSTM_BWD_SWEEP = ((1, 2), (1, 3), (1, 4), (1, 8), (2, 2), (2, 3), (2, 4),
+                   (8, 2), (8, 3), (8, 4), (8, 16))
+
+
+def bwd_route_sweep(torch, g, events_ms) -> None:
+    """Both sLSTM backward designs at the (rows, steps) of
+    ``SLSTM_BWD_SWEEP``, on one recorded forward's saved tensors each,
+    timed as autograd runs them: back-to-back eager calls through
+    ``slstm_backward`` (host enqueue and the dr_w product included), by
+    CUDA events; prints each pair beside the design the route names."""
+    from repro_torch.kernels import xlstm_scan as X
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, s in SLSTM_BWD_SWEEP:
+        s_args = slstm_case(torch, g, b, s)
+        s_out = X._SLSTM(*s_args, True)
+        saved = slstm_saved(s_args, s_out, torch.randn_like(s_out[0]))
+        st = {r: events_ms(lambda: X.slstm_backward(r, *saved), 20)
+              for r in ("persistent", "step")}
+        say(f"sLSTM backward route sweep {b} x {s}: persistent "
+            f"{st['persistent']:.4f} / step {st['step']:.4f} ms (route "
+            f"{X.slstm_bwd_route(b, s, SCAN_DM, sms)}), eager calls by "
+            f"CUDA events")
+
+
 def xlstm_scan_kernels(torch, results):
-    """The seven scan kernels against their plain versions (``ref``) at
+    """The eight scan kernels against their plain versions (``ref``) at
     xlstm-350m's widths in f32: the forward scans through their operators
     at 8 x 256 (one served chunk wave), 1 x 1,024 and ``SCAN_WINDOWED``'s
     1 x 4,096 (the chunkwise mLSTM's states in two windows), where the
@@ -1456,7 +1501,7 @@ def xlstm_scan_kernels(torch, results):
     tensors
     and the backward, against autograd through the plain forward, at 2 x
     256 and at (y)'s ``XLSTM_TRAIN_SHAPE`` (each backward's launch checked
-    against its route, and the mLSTM's other backward design on the same
+    against its route, and each scan's other backward design on the same
     saved tensors).  Errors go into ``results``;
     returns the timings of each kernel (its plain version beside it; no
     library call computes a scan) with its bytes, flops and steps, all by
@@ -1465,8 +1510,9 @@ def xlstm_scan_kernels(torch, results):
     kernel (``queued_ms``) for the mLSTM's forwards and backwards and for
     every decode-step row; both designs of each forward at 8 x 256, 1 x
     1,024 and 1 x 4,096 in this run, the first designs also at their
-    route's 8 x 1, both at the short prefills of ``route_sweep``, and both
-    mLSTM backwards at 2 x 256 and 2 x 1,024."""
+    route's 8 x 1, both at the short prefills of ``route_sweep``, both
+    designs of each backward at 2 x 256 and 2 x 1,024 and both sLSTM
+    backwards at the short sequences of ``bwd_route_sweep``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import xlstm_scan as X
 
@@ -1508,7 +1554,8 @@ def xlstm_scan_kernels(torch, results):
     # timed case) and at (y)'s shape, 2 x 1,024: 32 checkpoint chunks, a
     # whole 1,024-step tile of the stabilizer's reverse
     chunk = X.MLSTM_CHUNK
-    timed_bwd = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    timed_bwd, timed_s_bwd = {}, {}
     for b, s in ((2, 256), XLSTM_TRAIN_SHAPE):
         m_c, s_c = scan_counters(torch, b, s)
         m_args, s_args = mlstm_case(torch, g, b, s), slstm_case(torch, g, b, s)
@@ -1526,10 +1573,10 @@ def xlstm_scan_kernels(torch, results):
         dy_s = torch.randn_like(s_out[0])
         m_bwd = SCAN_BWD_DESIGNS[X.mlstm_bwd_route(b, s, SCAN_H, SCAN_D,
                                                    chunk)]
+        s_bwd = SLSTM_BWD_DESIGNS[X.slstm_bwd_route(b, s, SCAN_DM, sms)]
         for name, fn, plain, args, n_seq, dy in (
                 (m_bwd, X.mlstm_scan, ref.mlstm_scan_ref, m_args, 5, dy_m),
-                ("slstm_scan_backward", X.slstm_scan, ref.slstm_scan_ref,
-                 s_args, 2, dy_s)):
+                (s_bwd, X.slstm_scan, ref.slstm_scan_ref, s_args, 2, dy_s)):
             seqs = [a.clone().requires_grad_() for a in args[:n_seq]]
             out = fn(*seqs, *args[n_seq:])[0]
             got = routed(torch, name, f"{name} ({b}, {s})",
@@ -1550,10 +1597,18 @@ def xlstm_scan_kernels(torch, results):
                         X.mlstm_backward(other, dy_m, q, k, v, li, lf, m0,
                                          ck_c, ck_n, ms, ss, y, chunk),
                         want))
+            else:
+                # the other sLSTM backward design on the same saved tensors
+                other = "step" if s_bwd == X.SLSTM_BWD_PERSISTENT else (
+                    "persistent")
+                errs[SLSTM_BWD_DESIGNS[other]] = max(
+                    errs[SLSTM_BWD_DESIGNS[other]], check_rel(
+                        torch, f"slstm_scan_backward ({other}) ({b}, {s})",
+                        X.slstm_backward(other, *slstm_saved(
+                            s_args, s_out, dy_s)), want))
             del seqs, out, got, want
         timed_bwd[b, s] = m_args, m_out, dy_m
-        if (b, s) == (2, 256):
-            timed_s_bwd = s_args, s_out, dy_s
+        timed_s_bwd[b, s] = s_args[0], slstm_saved(s_args, s_out, dy_s)
         del m_args, s_args, m_out, s_out, dy_m, dy_s
         torch.cuda.empty_cache()
     say(f"xLSTM scans vs plain [xlstm-350m: mLSTM {SCAN_H} heads of "
@@ -1563,7 +1618,8 @@ def xlstm_scan_kernels(torch, results):
         f"from fresh and running carries, each call's route checked; "
         f"recorded forward and backward at 2 x 256 and "
         f"{XLSTM_TRAIN_SHAPE[0]} x {XLSTM_TRAIN_SHAPE[1]} against autograd "
-        f"through the plain forward]: max |err| "
+        f"through the plain forward, each backward's other design on the "
+        f"same saved tensors]: max |err| "
         + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
         + f" (tolerance {TOL_SCAN_REL} of the largest value)")
     for k, v in errs.items():
@@ -1652,15 +1708,25 @@ def xlstm_scan_kernels(torch, results):
             f"this run: chunkwise {new_b:.4f} vs step {old_b:.4f} ms "
             f"({old_b / new_b:.2f}x)")
     del timed_bwd, bwd, m_args, m_out, dy_m
-    s_args, s_out, dy_s = timed_s_bwd
-    pre_x, r_w, c0, n0, m0, h0 = s_args
-    sy, _, _, _, _, pres, cs, ns, sm = s_out
-    sbwd = (dy_s, pre_x, r_w, c0, n0, m0, h0, pres, cs, ns, sm, sy)
-    entry("sLSTM-bwd", 256, lambda: X._SLSTM_BWD(*sbwd),
-          events_ms(lambda: ref.slstm_scan_backward_ref(
-              dy_s, pre_x, r_w, c0, n0, m0, h0), 1),
-          (dy_s, r_w, pres, cs, ns, sm, sy, c0, n0, m0, h0), (pre_x, r_w),
-          X.slstm_flops(2, 256, SCAN_DM, backward=True), 10)
+    # both sLSTM backward designs on the same saved tensors, by events
+    # around eager calls (the step design's is a launch a step), at 2 x 256
+    # and at (y)'s 2 x 1,024; each call's dr_w product included
+    for (b, s), (pre_x, saved) in timed_s_bwd.items():
+        dy_s, r_w, pres, cs, ns, sm, c0, n0, m0, h0, sy = saved
+        sfx = "" if (b, s) == (2, 256) else f" ({b}, {s})"
+        plain = events_ms(lambda: ref.slstm_scan_backward_ref(
+            dy_s, pre_x, r_w, c0, n0, m0, h0), 1)
+        flops = X.slstm_flops(b, s, SCAN_DM, backward=True)
+        new_b = entry(f"sLSTM-bwd-persistent{sfx}", s,
+                      lambda: X.slstm_backward("persistent", *saved), plain,
+                      saved, (pre_x, r_w), flops, 10)
+        old_b = entry(f"sLSTM-bwd{sfx}", s,
+                      lambda: X.slstm_backward("step", *saved), plain,
+                      saved, (pre_x, r_w), flops, 10)
+        say(f"sLSTM backward at {b} x {s}, redesigned vs first design in "
+            f"this run: persistent {new_b:.4f} vs step {old_b:.4f} ms "
+            f"({old_b / new_b:.2f}x)")
+    bwd_route_sweep(torch, g, events_ms)
     return timing
 
 
@@ -4356,7 +4422,7 @@ ALL_KERNELS = ("paged_decode_partials", "paged_decode_partials_int8",
 XLSTM_KERNELS = ("mlstm_scan", "slstm_scan", "mlstm_scan_chunkwise",
                  "slstm_scan_persistent")
 XLSTM_BACKWARD = ("mlstm_scan_backward", "mlstm_scan_backward_chunkwise",
-                  "slstm_scan_backward")
+                  "slstm_scan_backward", "slstm_scan_backward_persistent")
 XLSTM_CHUNK = 256
 XLSTM_FAMILIES = ("GEMMs", "the xLSTM's elementwise and recurrence work",
                   "the rest")
@@ -4973,12 +5039,12 @@ def training_phase(torch, card):
 def xlstm_train_run(torch, card):
     """(y) xlstm-350m at full size in f32 from seed 0, AdamW (lr 1e-3,
     warmup 2, total 10), 10 steps of 2 x 1,024 tokens without remat: the
-    chunkwise mLSTM forward and backward, the persistent sLSTM and the
-    sLSTM backward must launch and no other (not the first mLSTM
-    backward).  Returns {run:
-    launches}."""
+    chunkwise mLSTM forward and backward and the persistent sLSTM forward
+    and backward must launch, each once a layer and step, and no other
+    (none of the first designs).  Returns {run: launches}."""
     from repro_torch.configs import get
     from repro_torch.models import transformer as T
+    from repro_torch.models.config import BlockKind
     from repro_torch.training import optimizer as O
 
     t0 = time.perf_counter()
@@ -4992,6 +5058,13 @@ def xlstm_train_run(torch, card):
         remat=False,
         opt_cfg=O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10),
         kernels=TRAIN_SCAN_KERNELS)
+    kinds = cfg.blocks()
+    for name in TRAIN_SCAN_KERNELS:
+        want = 10 * kinds.count(BlockKind.MLSTM if name.startswith("mlstm")
+                                else BlockKind.SLSTM)
+        if launches[name] != want:
+            fail(f"[xlstm-train] {name} launched {launches[name]} times, "
+                 f"expected {want} (one a layer and step)")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5024,7 +5097,7 @@ KERNELS = [
      "src/repro_torch/kernels/csrc/split_kv_decode.cu",
      "src/repro/kernels/split_kv_decode.py:67"),
     # no TPU kernel: JAX's lax.scan loops, which XLA compiles; two designs
-    # of each forward (the redesigned one first)
+    # of each scan, forward and backward (the redesigned one first)
     ("mLSTM-chunkwise", "mlstm_scan_chunkwise",
      "src/repro_torch/kernels/csrc/mlstm_scan.cu",
      "src/repro/models/layers.py:709"),
@@ -5040,6 +5113,9 @@ KERNELS = [
      "src/repro_torch/kernels/csrc/slstm_scan.cu",
      "src/repro/models/layers.py:763"),
     ("sLSTM", "slstm_scan", "src/repro_torch/kernels/csrc/slstm_scan.cu",
+     "src/repro/models/layers.py:763"),
+    ("sLSTM-bwd-persistent", "slstm_scan_backward_persistent",
+     "src/repro_torch/kernels/csrc/slstm_scan.cu",
      "src/repro/models/layers.py:763"),
     ("sLSTM-bwd", "slstm_scan_backward",
      "src/repro_torch/kernels/csrc/slstm_scan.cu",

@@ -10,11 +10,11 @@ is imported: the CPU tests import every module and have no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one only
 where it launches its kernel (the xLSTM scans: one per call of their C
-entry point, each design of a forward under its own name, though an entry
+entry point, each design of a scan under its own name, though an entry
 point may launch more than one kernel: one per step of the sLSTM's step
-forward, one and then two a window of chunks for the mLSTM's chunkwise
-forward, four for its step backward, one, three a window and one for its
-chunkwise backward).  The int8-pool variants of the page
+forward and step backward, one and then two a window of chunks for the
+mLSTM's chunkwise forward, four for its step backward, one, three a window
+and one for its chunkwise backward).  The int8-pool variants of the page
 kernels count apart from the bf16/f32 ones.  ``page_partials`` checks and launches
 the page kernels (paged decode, speculative verify), whose C entry points
 share one argument list, the int8 ones adding the scale pools.
@@ -64,7 +64,8 @@ KERNELS = {
     "slstm_scan": {
         "slstm_scan_forward": [_P] * 15 + [_I] * 4 + [_P],
         "slstm_scan_forward_persistent": [_P] * 16 + [_I] * 4 + [_P],
-        "slstm_scan_backward": [_P] * 11 + [_I] * 3 + [_P]},
+        "slstm_scan_backward": [_P] * 11 + [_I] * 3 + [_P],
+        "slstm_scan_backward_persistent": [_P] * 11 + [_I] * 3 + [_P]},
 }
 
 LAUNCHES: Dict[str, int] = {"paged_decode_partials": 0,
@@ -78,7 +79,8 @@ LAUNCHES: Dict[str, int] = {"paged_decode_partials": 0,
                             "mlstm_scan_backward": 0,
                             "mlstm_scan_backward_chunkwise": 0,
                             "slstm_scan": 0, "slstm_scan_persistent": 0,
-                            "slstm_scan_backward": 0}
+                            "slstm_scan_backward": 0,
+                            "slstm_scan_backward_persistent": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -45,15 +45,45 @@
 // A recorded forward (save) keeps every step's pre-activations and c, n,
 // m for the backward, in either design.
 //
-// Backward, one launch per step from the last: the recurrent gradient
-// dh_t = dy_t + dpre_{t+1} r_w^T (a warp per unit reading its row of r_w
-// in 16-byte loads, dpre_{t+1} staged in shared memory), then the step's
-// elementwise backward with dc, dn, dm carried per unit and row (the
-// gradient of max to the larger side, half to each at a tie, as
-// torch.maximum's and JAX's max's).  dr_w = sum_t h_{t-1}^T dpre_t is one
-// matrix product after the kernel (xlstm_scan.py), as the other plain
-// products of the port.  Bound: latency per step, r_w read from L2 each
-// step, as the step forward.
+// Backward: dh_t = dy_t + dpre_{t+1} r_w^T, then the step's elementwise
+// backward with dc, dn, dm carried per unit and row (the gradient of max to
+// the larger side, half to each at a tie, as torch.maximum's and JAX's
+// max's).  dr_w = sum_t h_{t-1}^T dpre_t is one matrix product after the
+// kernel (xlstm_scan.py), as the other plain products of the port.  Two
+// designs, chosen by shape before any launch (xlstm_scan.slstm_bwd_route):
+//
+// * The persistent backward (slstm_scan_backward_persistent), from the
+//   route's least S on: one cooperative launch for the whole reversed
+//   sequence, one block per SM.  A block owns kPUnits = 8 hidden units and
+//   their 8 rows of r_w (4d floats each), loaded into shared memory once a
+//   call (128 KiB at d = 1,024) and kept there for all S steps; its units'
+//   dc, dn, dm stay in the registers of the threads that update them (the
+//   step's elementwise backward is bwd_unit, the step design's too, so the
+//   two designs differ only in the order of dh's sums).  Per step a block
+//   waits at the forward's grid barrier for dpre_{t+1} (the same counter: a
+//   block adds 1 with red.release once its dpre_t is stored, one thread polls
+//   it with ld.acquire), then streams dpre_{t+1}'s rows from L2 into
+//   registers (ld.global.cg, past the SMs' L1, which is not coherent across
+//   SMs; a thread takes 16-byte columns of every row, all their loads in
+//   flight, without staging them in shared memory: B 4d floats a row would
+//   not fit beside r_w's rows at 8 rows) and multiplies them with its units'
+//   rows out of shared memory on the FMA units.  The thread's 8 x rows
+//   partial sums are reduced over its warp by a reduce-scatter (each level
+//   halves the sums a lane keeps), then over the warps.  The threads of the
+//   units then run the step's elementwise backward, with step t - 1's inputs
+//   (dy, the four pre-activations, c, n, m and their previous values) loaded
+//   one step ahead, store dpre_t's 32 columns and arrive.  The launch refuses
+//   (returns an error, never hangs) when the grid cannot be co-resident; the
+//   counter is zeroed on the stream before it.  Bound: latency per step, the
+//   barrier plus the read of dpre_{t+1} (B 4d floats from L2 to every block)
+//   plus the product (8 B 4d FMAs a block).
+// * The step backward (slstm_scan_backward): one launch per step from the
+//   last, for the shapes the persistent kernel does not take (more than 8
+//   rows, more units than SMs x 8, a single step): a warp per unit reads
+//   its row of r_w from L2 in 16-byte loads, dpre_{t+1} staged in shared
+//   memory, and the carried dc, dn, dm go through global memory between
+//   launches.  Bound: latency per step, r_w read from L2 each step, as the
+//   step forward.
 //
 // Built without fast math: exp(-1e30) is 0 and m is carried exactly, as in
 // the plain version.
@@ -164,6 +194,64 @@ __global__ void __launch_bounds__(kFwdWarps * 32) fwd_step(
   }
 }
 
+// Step t's inputs to one (row, unit) of the elementwise backward: dy, the
+// four pre-activations, c, n, m after the step and before it.
+struct BwdIn {
+  float dy, pz, pi, pf, po, ct, nt, mt, cp, np, mp;
+};
+
+__device__ __forceinline__ BwdIn bwd_inputs(
+    const float* __restrict__ dy, const float* __restrict__ pres,
+    const float* __restrict__ cs, const float* __restrict__ ns,
+    const float* __restrict__ msv, const float* __restrict__ c0,
+    const float* __restrict__ n0, const float* __restrict__ m0, int b, int j,
+    int S, int d, int t) {
+  const long long row = static_cast<long long>(b) * S + t, d4 = 4LL * d;
+  const long long x = row * d + j, sb = static_cast<long long>(b) * d + j;
+  BwdIn in;
+  in.dy = dy[x];
+  in.pz = pres[row * d4 + j];
+  in.pi = pres[row * d4 + d + j];
+  in.pf = pres[row * d4 + 2 * d + j];
+  in.po = pres[row * d4 + 3 * d + j];
+  in.ct = cs[x];
+  in.nt = ns[x];
+  in.mt = msv[x];
+  in.cp = t ? cs[x - d] : c0[sb];
+  in.np = t ? ns[x - d] : n0[sb];
+  in.mp = t ? msv[x - d] : m0[sb];
+  return in;
+}
+
+// The step's elementwise backward for one (row, unit), dh = in.dy + dhr:
+// writes dpre_t's four gate columns of unit j into dp (the row's 4d
+// floats) and carries dc, dn, dm to step t - 1.
+__device__ __forceinline__ void bwd_unit(const BwdIn& in, float dhr,
+                                         float& dc, float& dn, float& dm,
+                                         float* dp, int d, int j) {
+  const float dh = in.dy + dhr;
+  const float z = tanhf(in.pz), o = sigmoid(in.po);
+  const float a = log_sigmoid(in.pf) + in.mp;
+  const float fe = expf(a - in.mt), ie = expf(in.pi - in.mt);
+  const float nn = fmaxf(in.nt, 1.f);
+  const float d_o = dh * in.ct / nn;
+  const float dct = dc + dh * o / nn;
+  const float dnt =
+      dn - dh * (o * in.ct) / (nn * nn) * tie_weight(in.nt, 1.f);
+  const float dA = (dct * in.cp + dnt * in.np) * fe;
+  const float dB = (dct * z + dnt) * ie;
+  const float dmt = dm - dA - dB;
+  const float wa = tie_weight(a, in.pi);
+  const float da = dA + wa * dmt;
+  dp[j] = dct * ie * (1.f - z * z);
+  dp[d + j] = dB + (1.f - wa) * dmt;
+  dp[2 * d + j] = da * sigmoid(-in.pf);
+  dp[3 * d + j] = d_o * o * (1.f - o);
+  dc = dct * fe;
+  dn = dnt * fe;
+  dm = da;
+}
+
 // Step t of the backward.  dy: (B, S, d); pres, dpre: (B, S, 4d); cs, ns,
 // msv: the forward's (B, S, d); c0, n0, m0: (B, d); dc, dn, dm: the
 // carried gradients (B, d), zero before the last step.  grid (ceil(d /
@@ -225,37 +313,14 @@ __global__ void __launch_bounds__(kWarps * 32) bwd_step(
     if (lane == b) dhr = s;
   }
   if (j >= d || lane >= nb) return;
-  const int b = lane;
-  const long long row = static_cast<long long>(b0 + b) * S + t;
-  const long long sb = static_cast<long long>(b0 + b) * d + j;
-  const float dh = dy[row * d + j] + dhr;
-  const float pz = pres[row * d4 + j], pi = pres[row * d4 + d + j];
-  const float pf = pres[row * d4 + 2 * d + j];
-  const float po = pres[row * d4 + 3 * d + j];
-  const float z = tanhf(pz), o = sigmoid(po);
-  const float ct = cs[row * d + j], nt = ns[row * d + j];
-  const float mt = msv[row * d + j];
-  const float cp = t ? cs[(row - 1) * d + j] : c0[sb];
-  const float np = t ? ns[(row - 1) * d + j] : n0[sb];
-  const float mp = t ? msv[(row - 1) * d + j] : m0[sb];
-  const float a = log_sigmoid(pf) + mp;
-  const float fe = expf(a - mt), ie = expf(pi - mt);
-  const float nn = fmaxf(nt, 1.f);
-  const float d_o = dh * ct / nn;
-  const float dct = dc[sb] + dh * o / nn;
-  const float dnt = dn[sb] - dh * (o * ct) / (nn * nn) * tie_weight(nt, 1.f);
-  const float dA = (dct * cp + dnt * np) * fe;
-  const float dB = (dct * z + dnt) * ie;
-  const float dmt = dm[sb] - dA - dB;
-  const float wa = tie_weight(a, pi);
-  const float da = dA + wa * dmt;
-  dpre[row * d4 + j] = dct * ie * (1.f - z * z);
-  dpre[row * d4 + d + j] = dB + (1.f - wa) * dmt;
-  dpre[row * d4 + 2 * d + j] = da * sigmoid(-pf);
-  dpre[row * d4 + 3 * d + j] = d_o * o * (1.f - o);
-  dc[sb] = dct * fe;
-  dn[sb] = dnt * fe;
-  dm[sb] = da;
+  const int b = b0 + lane;
+  const long long sb = static_cast<long long>(b) * d + j;
+  float c = dc[sb], n = dn[sb], m = dm[sb];
+  bwd_unit(bwd_inputs(dy, pres, cs, ns, msv, c0, n0, m0, b, j, S, d, t), dhr,
+           c, n, m, dpre + (static_cast<long long>(b) * S + t) * d4, d, j);
+  dc[sb] = c;
+  dn[sb] = n;
+  dm[sb] = m;
 }
 
 // ---------------------------------------------------------------------------
@@ -469,6 +534,62 @@ __global__ void __launch_bounds__(kPThreads, 1) fwd_persistent(
   }
 }
 
+// The host-side limits a cooperative launch of one kernel checks: the
+// card's once a process and device, the kernel's shared-memory limit and
+// occupancy when its size changes (queries on every call cost tens of
+// microseconds of host time); per device, since the attribute and the
+// occupancy are a device's.  One static instance per kernel.
+struct CoopCache {
+  int optin[repro::kMaxDevices], coop[repro::kMaxDevices],
+      per_sm[repro::kMaxDevices];
+  size_t smem_set[repro::kMaxDevices], smem_seen[repro::kMaxDevices];
+};
+
+// Ready a cooperative launch of nblk blocks of kPThreads threads and smem
+// bytes of `kernel` over S steps of a counter barrier: an error when the
+// card cannot take it (every block must be resident at once, or the grid
+// barrier would wait forever: refuse instead), else the counter zeroed on
+// the stream.
+template <typename K>
+cudaError_t cooperative_ready(CoopCache& c, K kernel, size_t smem, int nblk,
+                              int S, int* arrived, cudaStream_t st) {
+  const int dev = repro::device_slot();
+  const int sms = repro::sm_count();
+  if (dev < 0 || sms < 1) {
+    const cudaError_t e = cudaGetLastError();
+    return e != cudaSuccess ? e : cudaErrorInvalidDevice;
+  }
+  cudaError_t err = cudaSuccess;
+  if (c.optin[dev] == 0) {
+    if ((err = cudaDeviceGetAttribute(
+             &c.coop[dev], cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess
+        || (err = cudaDeviceGetAttribute(
+                &c.optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+               != cudaSuccess)
+      return err;
+  }
+  if (!c.coop[dev] || smem > static_cast<size_t>(c.optin[dev]))
+    return cudaErrorInvalidConfiguration;
+  if (smem > c.smem_set[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    c.smem_set[dev] = smem;
+  }
+  if (smem != c.smem_seen[dev]) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm[dev], kernel,
+                                                        kPThreads, smem);
+    if (err != cudaSuccess) return err;
+    c.smem_seen[dev] = smem;
+  }
+  if (static_cast<long long>(c.per_sm[dev]) * sms < nblk)
+    return cudaErrorCooperativeLaunchTooLarge;
+  if (static_cast<long long>(S) * nblk >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  return cudaMemsetAsync(arrived, 0, sizeof(int), st);
+}
+
 template <int RB>
 cudaError_t launch_persistent(const float* pre_x, const float* r_w,
                               const float* c0, const float* n0,
@@ -477,54 +598,13 @@ cudaError_t launch_persistent(const float* pre_x, const float* r_w,
                               float* pres, float* cs, float* ns, float* ms,
                               int* arrived, int B, int S, int d, int save,
                               cudaStream_t st) {
+  static CoopCache cache;
   int dpad = (d + kXStep - 1) / kXStep * kXStep;
   const size_t smem = sizeof(float) * persistent_floats(RB, dpad);
   const int nblk = (d + kPUnits - 1) / kPUnits;
-  // the card's limits once a process and device, this kernel's
-  // shared-memory limit and occupancy when its size changes (queries on
-  // every call cost tens of microseconds of host time); a cache per device,
-  // since the attribute and the occupancy are a device's
-  static int optin[repro::kMaxDevices], coop[repro::kMaxDevices],
-      per_sm[repro::kMaxDevices];
-  static size_t smem_set[repro::kMaxDevices], smem_seen[repro::kMaxDevices];
-  const int dev = repro::device_slot();
-  const int sms = repro::sm_count();
-  if (dev < 0 || sms < 1) {
-    const cudaError_t e = cudaGetLastError();
-    return e != cudaSuccess ? e : cudaErrorInvalidDevice;
-  }
   const auto kernel = fwd_persistent<RB>;
-  cudaError_t err = cudaSuccess;
-  if (optin[dev] == 0) {
-    if ((err = cudaDeviceGetAttribute(
-             &coop[dev], cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess
-        || (err = cudaDeviceGetAttribute(
-                &optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
-               != cudaSuccess)
-      return err;
-  }
-  if (!coop[dev] || smem > static_cast<size_t>(optin[dev]))
-    return cudaErrorInvalidConfiguration;
-  if (smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    smem_set[dev] = smem;
-  }
-  if (smem != smem_seen[dev]) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[dev], kernel,
-                                                        kPThreads, smem);
-    if (err != cudaSuccess) return err;
-    smem_seen[dev] = smem;
-  }
-  // every block must be resident at once, or the grid barrier would wait
-  // forever: refuse instead
-  if (static_cast<long long>(per_sm[dev]) * sms < nblk)
-    return cudaErrorCooperativeLaunchTooLarge;
-  if (static_cast<long long>(S) * nblk >= (1LL << 31))
-    return cudaErrorInvalidValue;
-  err = cudaMemsetAsync(arrived, 0, sizeof(int), st);
+  const cudaError_t err =
+      cooperative_ready(cache, kernel, smem, nblk, S, arrived, st);
   if (err != cudaSuccess) return err;
   void* args[] = {&pre_x, &r_w, &c0, &n0, &m0, &h0, &y,  &c,     &n,
                   &m,     &h,   &pres, &cs, &ns, &ms, &arrived, &B, &S,
@@ -532,6 +612,186 @@ cudaError_t launch_persistent(const float* pre_x, const float* r_w,
   return cudaLaunchCooperativeKernel((const void*)kernel,
                                      dim3(nblk), dim3(kPThreads), args, smem,
                                      st);
+}
+
+// ---------------------------------------------------------------------------
+// The persistent backward
+// ---------------------------------------------------------------------------
+
+// Floats of dynamic shared memory of the persistent backward for `rows`
+// (1, 2, 4, 8) rows at width d: the block's kPUnits rows of r_w (4d floats
+// each) and the warps' partial sums (kPWarps x rows x kPUnits).
+// xlstm_scan.slstm_bwd_persistent_smem repeats this count for the route.
+constexpr long long bwd_persistent_floats(int rows, int d) {
+  return 4LL * kPUnits * d + static_cast<long long>(kPWarps) * rows * kPUnits;
+}
+
+// A reduce-scatter over a warp's lanes, level after level from offset O:
+// v holds N partial sums a lane (N a power of 2); at a level a lane keeps
+// the half of its sums that its bit O selects and adds its partner's copy
+// of that half, so each lane ends with max(N / 32, 1) sums over the whole
+// warp, those of the indices base + k (the lanes that differ only in the
+// bits past N's levels hold the same sums).  N - 1 shuffles, plus one a
+// level past N's, in place of 5 N for N separate warp sums.
+template <int N, int O, int M>
+__device__ __forceinline__ void reduce_scatter(float (&v)[M], int lane,
+                                               int& base) {
+  if constexpr (O > 0) {
+    if constexpr (N == 1) {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      reduce_scatter<1, O / 2>(v, lane, base);
+    } else {
+      constexpr int H = N / 2;
+      const bool hi = lane & O;
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        const float send = hi ? v[k] : v[k + H];
+        const float keep = hi ? v[k + H] : v[k];
+        v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      if (hi) base += H;
+      reduce_scatter<H, O / 2>(v, lane, base);
+    }
+  }
+}
+
+// RB: rows (B rounded up to 1, 2, 4 or 8).  The step backward's arguments
+// (dpre 16-byte aligned), without the carries' scratch; arrived: the grid
+// barrier's counter, zero at the launch (after reversed step k each block
+// adds 1; S gridDim.x stays below 2^31).  grid ceil(d / kPUnits) blocks
+// (co-resident), kPThreads threads, bwd_persistent_floats(RB, d) floats of
+// dynamic shared memory.
+template <int RB>
+__global__ void __launch_bounds__(kPThreads, 1) bwd_persistent(
+    const float* __restrict__ dy, const float* __restrict__ r_w,
+    const float* __restrict__ pres, const float* __restrict__ cs,
+    const float* __restrict__ ns, const float* __restrict__ msv,
+    const float* __restrict__ c0, const float* __restrict__ n0,
+    const float* __restrict__ m0, float* dpre, int* arrived, int B, int S,
+    int d) {
+  constexpr int kN = RB * kPUnits;           // (row, unit) sums: b * 8 + u
+  constexpr int kKeep = kN >= 32 ? kN / 32 : 1;  // of them a lane keeps
+  constexpr int kG = RB >= 8 ? 1 : 2;        // 16-byte columns in flight
+  constexpr int kEWarps = (kN + 31) / 32;    // warps of the units' threads
+  extern __shared__ __align__(16) float sm[];
+  float* rs = sm;                            // [kPUnits][4d]: rows j0 + u
+  float* red = rs + 4LL * kPUnits * d;       // [kPWarps][kN]
+  const int nblk = gridDim.x, j0 = blockIdx.x * kPUnits;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long d4 = 4LL * d;
+
+  // r_w's rows, once a call; units beyond d are zeros
+  for (long long i = tid; i < kPUnits * d4; i += kPThreads)
+    rs[i] = j0 + i / d4 < d ? r_w[j0 * d4 + i] : 0.f;
+
+  // thread tid < kN updates row tid / 8 of unit j0 + tid % 8, its dc, dn,
+  // dm kept in registers for the whole sequence
+  const int eb = tid / kPUnits, ej = j0 + tid % kPUnits;
+  const bool upd = tid < kN && eb < B && ej < d;
+  float dc = 0.f, dn = 0.f, dm = 0.f;
+  BwdIn in{};
+  if (upd) in = bwd_inputs(dy, pres, cs, ns, msv, c0, n0, m0, eb, ej, S, d,
+                           S - 1);
+  const float4* rs4 = reinterpret_cast<const float4*>(rs);
+
+  for (int t = S - 1; t >= 0; --t) {
+    float dhr = 0.f;
+    if (t + 1 < S) {
+      if (tid == 0) {
+        // every block's dpre_{t+1} is stored: S - 1 - t arrivals from each
+        const long long start = clock64();
+        while (ld_acquire(arrived) < (S - 1 - t) * nblk) {
+          // a block that never arrives is a fault, not a wait: stop the
+          // kernel with an error after ~10 s rather than hang the card
+          if (clock64() - start > kSpinLimit) __trap();
+        }
+      }
+      __syncthreads();
+      // dh_r[b][u] = sum over 4d columns of dpre_{t+1}[b] r_w[j0 + u]: a
+      // thread's 16-byte columns c, every row's loads in flight, read past
+      // L1
+      float acc[kN];
+#pragma unroll
+      for (int k = 0; k < kN; ++k) acc[k] = 0.f;
+      for (int c = tid; c < d; c += kG * kPThreads) {
+        float4 x[kG][RB];
+#pragma unroll
+        for (int g = 0; g < kG; ++g)
+#pragma unroll
+          for (int b = 0; b < RB; ++b) {
+            const int cc = c + g * kPThreads;
+            x[g][b] = cc < d && b < B
+                          ? __ldcg(reinterpret_cast<const float4*>(
+                                       dpre + (static_cast<long long>(b) * S
+                                               + t + 1) * d4) + cc)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          const int cc = c + g * kPThreads;
+          if (cc < d) {
+#pragma unroll
+            for (int u = 0; u < kPUnits; ++u) {
+              const float4 r = rs4[static_cast<long long>(u) * d + cc];
+#pragma unroll
+              for (int b = 0; b < RB; ++b) {
+                float a = acc[b * kPUnits + u];
+                a = fmaf(x[g][b].x, r.x, a);
+                a = fmaf(x[g][b].y, r.y, a);
+                a = fmaf(x[g][b].z, r.z, a);
+                a = fmaf(x[g][b].w, r.w, a);
+                acc[b * kPUnits + u] = a;
+              }
+            }
+          }
+        }
+      }
+      int base = 0;
+      reduce_scatter<kN, 16>(acc, lane, base);
+#pragma unroll
+      for (int k = 0; k < kKeep; ++k) red[warp * kN + base + k] = acc[k];
+      __syncthreads();
+      if (tid < kN) {
+#pragma unroll
+        for (int w = 0; w < kPWarps; ++w) dhr += red[w * kN + tid];
+      }
+    }
+    if (warp < kEWarps) {
+      if (upd)
+        bwd_unit(in, dhr, dc, dn, dm,
+                 dpre + (static_cast<long long>(eb) * S + t) * d4, d, ej);
+      // arrive once the units' warps have stored their dpre_t (bar.sync 1
+      // among them; the release add orders the stores the barrier saw
+      // before it, as the forward's)
+      asm volatile("bar.sync 1, %0;" ::"r"(kEWarps * 32) : "memory");
+      if (tid == 0 && t > 0) red_release_add(arrived, 1);
+      // step t - 1's inputs, off the critical path: in flight while the
+      // block waits at the next barrier
+      if (upd && t > 0)
+        in = bwd_inputs(dy, pres, cs, ns, msv, c0, n0, m0, eb, ej, S, d,
+                        t - 1);
+    }
+  }
+}
+
+template <int RB>
+cudaError_t launch_bwd_persistent(const float* dy, const float* r_w,
+                                  const float* pres, const float* cs,
+                                  const float* ns, const float* ms,
+                                  const float* c0, const float* n0,
+                                  const float* m0, float* dpre, int* arrived,
+                                  int B, int S, int d, cudaStream_t st) {
+  static CoopCache cache;
+  const size_t smem = sizeof(float) * bwd_persistent_floats(RB, d);
+  const int nblk = (d + kPUnits - 1) / kPUnits;
+  const auto kernel = bwd_persistent<RB>;
+  const cudaError_t err =
+      cooperative_ready(cache, kernel, smem, nblk, S, arrived, st);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&dy, &r_w, &pres, &cs, &ns, &ms, &c0, &n0,
+                  &m0, &dpre, &arrived, &B, &S, &d};
+  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(nblk),
+                                     dim3(kPThreads), args, smem, st);
 }
 
 }  // namespace slstm
@@ -630,4 +890,33 @@ extern "C" int slstm_scan_backward(
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// The persistent backward: the step backward's arguments with arrived, a
+// scratch int for the grid barrier (zeroed here on the stream), in place
+// of the carries; dpre 16-byte aligned.  B <= 8, and ceil(d / 8) blocks of
+// 512 threads with their shared memory must be co-resident: otherwise it
+// returns an error and launches nothing.  One cooperative launch.  Returns
+// the first cudaError_t.
+extern "C" int slstm_scan_backward_persistent(
+    const void* dy, const void* r_w, const void* pres, const void* cs,
+    const void* ns, const void* ms, const void* c0, const void* n0,
+    const void* m0, void* dpre, void* arrived, int B, int S, int d,
+    void* stream) {
+  using namespace repro::slstm;
+  if (B < 1 || B > kPMaxRows || S < 1 || d < 1) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(dpre) % 16) return cudaErrorMisalignedAddress;
+  const auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* dp = static_cast<float*>(dpre);
+  int* fl = static_cast<int*>(arrived);
+#define REPRO_SLSTM_BWD_PERSISTENT(RB)                                       \
+  launch_bwd_persistent<RB>(cf(dy), cf(r_w), cf(pres), cf(cs), cf(ns),      \
+                            cf(ms), cf(c0), cf(n0), cf(m0), dp, fl, B, S, d, \
+                            st)
+  if (B == 1) return REPRO_SLSTM_BWD_PERSISTENT(1);
+  if (B == 2) return REPRO_SLSTM_BWD_PERSISTENT(2);
+  if (B <= 4) return REPRO_SLSTM_BWD_PERSISTENT(4);
+  return REPRO_SLSTM_BWD_PERSISTENT(8);
+#undef REPRO_SLSTM_BWD_PERSISTENT
 }

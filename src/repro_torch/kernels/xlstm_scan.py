@@ -29,15 +29,19 @@ loops to XLA):
   resident in shared memory) or the step forward (``slstm_scan_forward``,
   a launch a step), by ``slstm_route``.  With ``save`` it keeps every
   step's pre-activations and c, n, m (B S (4d + 3d) floats) for
-  ``repro_torch::slstm_scan_backward`` (``slstm_scan_backward``), whose
-  dr_w = sum_t h_{t-1}^T dpre_t is one ``torch.matmul`` after the kernel.
+  ``repro_torch::slstm_scan_backward``: the persistent backward
+  (``slstm_scan_backward_persistent``, one cooperative launch, r_w's rows
+  resident in shared memory) or the step backward
+  (``slstm_scan_backward``, a launch a step), by ``slstm_bwd_route``; dr_w
+  = sum_t h_{t-1}^T dpre_t is one ``torch.matmul`` after the kernel.
 
 Each design counts its launches under its own name in ``_lib.LAUNCHES``:
 ``mlstm_scan_chunkwise`` / ``mlstm_scan`` (one-pass),
 ``mlstm_scan_backward_chunkwise`` / ``mlstm_scan_backward`` (step),
-``slstm_scan_persistent`` / ``slstm_scan`` (step).  The route is fixed by
-shape before any launch; a refused launch raises, and nothing gives way
-to the other design or to the plain version.
+``slstm_scan_persistent`` / ``slstm_scan`` (step),
+``slstm_scan_backward_persistent`` / ``slstm_scan_backward`` (step).  The
+route is fixed by shape before any launch; a refused launch raises, and
+nothing gives way to the other design or to the plain version.
 
 Each operator has ``custom_ops.define``'s four bodies (CUDA: the kernel;
 CPU: the plain version from ``ref``; fake: the shapes, the saved tensors
@@ -76,9 +80,10 @@ SLSTM_BWD = "slstm_scan_backward"
 # the step sLSTM count under MLSTM and SLSTM)
 MLSTM_CHUNKWISE = "mlstm_scan_chunkwise"
 SLSTM_PERSISTENT = "slstm_scan_persistent"
-# and of the redesigned mLSTM backward (the step backward counts under
-# MLSTM_BWD)
+# and of the redesigned backwards (the step backwards count under
+# MLSTM_BWD and SLSTM_BWD)
 MLSTM_BWD_CHUNKWISE = "mlstm_scan_backward_chunkwise"
+SLSTM_BWD_PERSISTENT = "slstm_scan_backward_persistent"
 # steps per mLSTM checkpoint of a recorded forward, and per chunk of the
 # chunkwise forward (its kernels' L)
 MLSTM_CHUNK = 32
@@ -116,6 +121,14 @@ SMEM_PER_BLOCK = 232448
 MLSTM_CHUNKWISE_MIN_STEPS = 64
 MLSTM_CHUNKWISE_MIN_ROW_STEPS = 256
 SLSTM_PERSISTENT_MIN_STEPS = 4
+# the persistent sLSTM backward's least S, from both designs timed as
+# autograd calls them (eager, host enqueue and the dr_w product included;
+# ``chip_smoke.bwd_route_sweep``, PERF.md section 6): at 2 and 3 steps
+# they are within ~0.02 ms either way, from 4 on the persistent design wins
+# at every point measured (its device time is ~3.4 us a step against the
+# step design's ~12.5); at S = 1 there is no recurrent product and both
+# make one launch
+SLSTM_BWD_PERSISTENT_MIN_STEPS = 2
 
 
 def mlstm_window(b: int, h: int, d: int) -> int:
@@ -197,6 +210,32 @@ def slstm_route(b: int, s: int, d: int, sm_count: int) -> str:
     an H100)."""
     if (s >= SLSTM_PERSISTENT_MIN_STEPS and b <= SLSTM_MAX_ROWS and -(-d // SLSTM_UNITS) <= sm_count
             and slstm_persistent_smem(b, d) <= SMEM_PER_BLOCK):
+        return "persistent"
+    return "step"
+
+
+def slstm_bwd_persistent_smem(b: int, d: int) -> int:
+    """Bytes of shared memory a block of the persistent sLSTM backward
+    takes (``bwd_persistent_floats`` in ``csrc/slstm_scan.cu``): its 8
+    units' rows of r_w (4d floats each) and the 16 warps' partial sums of
+    8 units x the rows (B rounded up to 1, 2, 4 or 8)."""
+    rows = 1 if b <= 1 else 2 if b <= 2 else 4 if b <= 4 else 8
+    return 4 * (SLSTM_UNITS * 4 * d + 16 * rows * SLSTM_UNITS)
+
+
+def slstm_bwd_route(b: int, s: int, d: int, sm_count: int) -> str:
+    """The sLSTM backward's design for a call on the card, from its shape
+    and the card's SM count alone: ``"persistent"``
+    (``slstm_scan_backward_persistent``) when S >=
+    ``SLSTM_BWD_PERSISTENT_MIN_STEPS`` (2), B <= 8, the ceil(d / 8) blocks
+    fit one per SM and a block's shared memory
+    (``slstm_bwd_persistent_smem``) fits ``SMEM_PER_BLOCK``; else
+    ``"step"`` (``slstm_scan_backward``, a launch a step): a single step,
+    more than 8 rows, and widths beyond 8 units an SM (d = 1,640 on an
+    H100)."""
+    if (s >= SLSTM_BWD_PERSISTENT_MIN_STEPS and b <= SLSTM_MAX_ROWS
+            and -(-d // SLSTM_UNITS) <= sm_count
+            and slstm_bwd_persistent_smem(b, d) <= SMEM_PER_BLOCK):
         return "persistent"
     return "step"
 
@@ -603,11 +642,34 @@ def _slstm_bwd_cuda(dy, pre_x, r_w, c0, n0, m0, h0, pres, cs, ns, ms, y):
     b, s, d = dy.shape
     if pres.shape != (b, s, 4 * d):
         raise ValueError(f"{SLSTM_BWD}: the forward saved no steps")
+    return slstm_backward(slstm_bwd_route(b, s, d, _sm_count(dev)), *ins,
+                          h0.contiguous(), y.contiguous())
+
+
+def slstm_backward(route: str, dy, r_w, pres, cs, ns, ms, c0, n0, m0, h0,
+                   y) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the sLSTM backward design ``route`` ("persistent" or
+    "step") on checked, contiguous f32 CUDA inputs (the recorded forward's
+    saved tensors and output); the operator's CUDA body calls it with
+    ``slstm_bwd_route``'s choice (``chip_smoke.py`` also times the step
+    design on the same inputs).  The persistent kernel refuses more than 8
+    rows or a grid that cannot be co-resident: that raises.  Returns
+    (dpre_x, dr_w)."""
+    b, s, d = dy.shape
     dpre = torch.empty_like(pres)
-    carries = _empty(dy, 3, b, d)
-    with torch.cuda.device(dev):
-        _lib.launch(SLSTM, "slstm_scan_backward", SLSTM_BWD,
-                    *map(_lib.ptr, ins + [dpre, carries]), b, s, d)
+    args = [dy, r_w, pres, cs, ns, ms, c0, n0, m0, dpre]
+    with torch.cuda.device(dy.device):
+        if route == "step":
+            carries = _empty(dy, 3, b, d)
+            _lib.launch(SLSTM, "slstm_scan_backward", SLSTM_BWD,
+                        *map(_lib.ptr, args + [carries]), b, s, d)
+        elif route == "persistent":
+            arrived = torch.empty(1, dtype=torch.int32, device=dy.device)
+            _lib.launch(SLSTM, "slstm_scan_backward_persistent",
+                        SLSTM_BWD_PERSISTENT,
+                        *map(_lib.ptr, args + [arrived]), b, s, d)
+        else:
+            raise ValueError(f"{SLSTM_BWD}: no backward design {route!r}")
     h_prev = torch.cat([h0[:, None], y[:, :-1]], dim=1)
     d_rw = h_prev.reshape(b * s, d).T @ dpre.reshape(b * s, 4 * d)
     return dpre, d_rw

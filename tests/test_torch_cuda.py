@@ -1372,9 +1372,10 @@ def test_cuda_xlstm_scans_vs_plain(b, s, h, d, dm, routes):
     its shared memory).  The wide case stays short: with r_w at 0.1, d =
     1,640 makes the sLSTM recurrence chaotic, so over hundreds of steps a
     last-bit change of pre_x moves the plain version's own output by whole
-    units.  Each call counts one launch; the mLSTM's backward under the
-    design ``mlstm_bwd_route`` names (the chunkwise one: every forward here
-    is recorded with chunk 32), the other design none."""
+    units.  Each call counts one launch; each backward under the design
+    its route names (the chunkwise mLSTM: every forward here is recorded
+    with chunk 32; the persistent sLSTM but at d = 1,640, which keeps the
+    step design), the other design none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from repro_torch.kernels import _lib
@@ -1402,7 +1403,68 @@ def test_cuda_xlstm_scans_vs_plain(b, s, h, d, dm, routes):
                     "step": (X.MLSTM_BWD, X.MLSTM_BWD_CHUNKWISE)}[
         X.mlstm_bwd_route(b, s, h, d, 32)]
     assert _lib.LAUNCHES[m_bwd] == 1 and _lib.LAUNCHES[other] == 0
-    assert _lib.LAUNCHES["slstm_scan_backward"] == 1
+    s_bwd, other = _slstm_bwd_counters(b, s, dm)
+    assert _lib.LAUNCHES[s_bwd] == 1 and _lib.LAUNCHES[other] == 0
+
+
+def _slstm_bwd_counters(b, s, d):
+    """(the launch counter of the sLSTM backward design ``slstm_bwd_route``
+    names for these shapes on this card, the other design's)."""
+    from repro_torch.kernels import xlstm_scan as X
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pair = (X.SLSTM_BWD_PERSISTENT, X.SLSTM_BWD)
+    return pair if X.slstm_bwd_route(b, s, d, sms) == "persistent" else (
+        pair[::-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fresh", [True, False])
+@pytest.mark.parametrize("b,s,d", [(1, 7, 1024), (2, 256, 1024),
+                                   (3, 64, 1024), (8, 33, 1024),
+                                   (2, 40, 36)])
+def test_cuda_slstm_backward_designs_vs_autograd(b, s, d, fresh):
+    """The persistent sLSTM backward against autograd through the plain
+    forward and against the step design on the same saved tensors, each
+    within 1e-4 of each gradient's largest value (dpre_x and dr_w).  The
+    persistent design through the operator's route, one launch under its
+    own name and none of the step design's, at 1, 2, 3 and 8 rows of d =
+    1,024 (3 rows fill 3 of the kernel's 4) and at d = 36, whose last
+    block holds 4 units of 8; then both designs
+    through ``slstm_backward`` on one recorded forward's saved tensors,
+    each counting one launch under its name.  Carries fresh (zeros, m =
+    -1e30: a row's first step has n = 1 exactly, where max's gradient
+    splits) or running (as after some steps, one row blanked)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import xlstm_scan as X
+    assert _slstm_bwd_counters(b, s, d)[0] == X.SLSTM_BWD_PERSISTENT
+    sl = _scan_cases(b, s, 1, 8, d, 21)[1]
+    if fresh:
+        for t in sl[2:]:
+            t.zero_()
+        sl[4].fill_(-1e30)
+    seqs = [a.clone().requires_grad_() for a in sl[:2]]
+    y = X.slstm_scan(*seqs, *sl[2:])[0]
+    dy = torch.randn_like(y)
+    _lib.reset_launches()
+    got = torch.autograd.grad(y, seqs, dy)
+    assert {k: n for k, n in _lib.LAUNCHES.items() if n} == {
+        X.SLSTM_BWD_PERSISTENT: 1}
+    seqs = [a.clone().requires_grad_() for a in sl[:2]]
+    want = torch.autograd.grad(ref.slstm_scan_ref(*seqs, *sl[2:])[0], seqs,
+                               dy)
+    _rel_close(got, want)
+    y, _, _, _, _, pres, cs, ns, ms = X._SLSTM(*sl, True)
+    saved = (dy, sl[1], pres, cs, ns, ms, *sl[2:], y)
+    designs = {}
+    for route, counter in (("persistent", X.SLSTM_BWD_PERSISTENT),
+                           ("step", X.SLSTM_BWD)):
+        _lib.reset_launches()
+        designs[route] = X.slstm_backward(route, *saved)
+        assert {k: n for k, n in _lib.LAUNCHES.items() if n} == {counter: 1}
+        _rel_close(designs[route], want)
+    _rel_close(designs["persistent"], designs["step"])
 
 
 @pytest.mark.cuda
@@ -1543,14 +1605,20 @@ def test_cuda_xlstm_decode_scans_in_a_captured_graph():
 
 @pytest.mark.cuda
 def test_cuda_xlstm_scans_raise_without_fallback():
-    """A CUDA input the kernels do not take (bf16, a head_dim over 1024)
-    raises; nothing falls back to the plain version."""
+    """A CUDA input the kernels do not take (bf16, a head_dim over 1024,
+    the persistent sLSTM backward at 9 rows) raises; nothing falls back to
+    the plain version or to the other design, and nothing launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from repro_torch.kernels import _lib
     from repro_torch.kernels import xlstm_scan as X
     m, sl = _scan_cases(1, 3, 1, 16, 32, 13)
+    sl9 = _scan_cases(9, 3, 1, 16, 32, 13)[1]
+    y9, _, _, _, _, pres, cs, ns, ms = X._SLSTM(*sl9, True)
     _lib.reset_launches()
+    with pytest.raises(RuntimeError, match=X.SLSTM_BWD_PERSISTENT):
+        X.slstm_backward("persistent", torch.randn_like(y9), sl9[1], pres,
+                         cs, ns, ms, *sl9[2:], y9)
     with pytest.raises(ValueError, match="float32"):
         X.mlstm_scan(m[0].bfloat16(), *m[1:])
     with pytest.raises(ValueError, match="float32"):

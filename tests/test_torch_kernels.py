@@ -639,7 +639,8 @@ def test_cpu_tensors_run_the_plain_version_without_counting():
                                   "mlstm_scan_backward",
                                   "mlstm_scan_backward_chunkwise",
                                   "slstm_scan", "slstm_scan_persistent",
-                                  "slstm_scan_backward"}
+                                  "slstm_scan_backward",
+                                  "slstm_scan_backward_persistent"}
     c = _verify_case(11, 2, 3, 4, 2, 16, 8, 3)
     got = paged_verify_partials(*_args(c, _t))
     want = ref.paged_verify_partials_plain(*_args(c, _t))

@@ -38,8 +38,11 @@ the recorded forward saves, held to ``jax.vjp`` of JAX's scan step and to
 ``ref.mlstm_scan_backward_ref`` over the same grid (JAX's forward and vjp
 are computed once per carry and S for both oracles), and stands in for the
 kernel to check the wrapper's zero-padding of a D that is no multiple of
-4.  The route rules of both forwards and of the mLSTM backward are held to
-their stated conditions.  About 42 s on one worker (~10 s before the
+4.  The route rules of both forwards and of both backwards are held to
+their stated conditions, the persistent sLSTM backward's shared-memory
+count to a hand count, and the sLSTM backward operator's CUDA body to
+handing its saved tensors to the design its route names (with stand-ins
+for the card's checks and launch).  About 42 s on one worker (~10 s before the
 oracles' 72 cases, ~12 s of it the backward oracle's, most of the rest
 JAX's scan and its vjp at six sequence lengths).
 """
@@ -643,3 +646,68 @@ def test_forward_routes_follow_their_stated_rules():
                          ((8, 64, 1064, 133), "persistent"),
                          ((8, 64, 1600, 200), "step")):
         assert X.slstm_route(*shape) == route, shape
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((2, 1024, 1024, 132), "persistent"),      # run (y)
+    ((8, 256, 1024, 132), "persistent"),
+    ((1, X.SLSTM_BWD_PERSISTENT_MIN_STEPS, 1024, 132), "persistent"),
+    ((3, 70, 36, 132), "persistent"),
+    ((8, 64, 1056, 132), "persistent"),        # 132 blocks on 132 SMs
+    ((8, 64, 1780, 300), "persistent"),        # 231,936 bytes: fits
+    ((9, 64, 1024, 132), "step"),              # more than 8 rows
+    ((2, 7, 1640, 132), "step"),               # 205 blocks on 132 SMs
+    ((8, 64, 1064, 132), "step"),              # 133 blocks
+    ((8, 64, 1800, 300), "step"),              # 234,496 bytes: no fit
+    ((2, X.SLSTM_BWD_PERSISTENT_MIN_STEPS - 1, 1024, 132), "step"),
+    ((8, 1, 32, 132), "step")])
+def test_slstm_backward_route_follows_its_stated_rule(shape, route):
+    """``slstm_bwd_route`` from shape and SM count alone: the persistent
+    backward from ``SLSTM_BWD_PERSISTENT_MIN_STEPS`` steps on with B <= 8,
+    ceil(d / 8) blocks within the SMs and a block's shared memory within
+    ``SMEM_PER_BLOCK``; the step backward otherwise."""
+    assert X.SLSTM_BWD_PERSISTENT_MIN_STEPS >= 2
+    assert X.slstm_bwd_route(*shape) == route
+
+
+@pytest.mark.parametrize("d", [1024, 40])
+def test_slstm_backward_persistent_smem_counts_by_hand(d):
+    """``slstm_bwd_persistent_smem`` is the kernel's
+    ``bwd_persistent_floats`` in bytes: 8 units' rows of r_w (4d floats
+    each) and 16 warps' partial sums of 8 units x the rows, B rounded up
+    to 1, 2, 4 or 8 rows."""
+    for b, rows in ((1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (8, 8)):
+        assert X.slstm_bwd_persistent_smem(b, d) == 4 * (
+            8 * 4 * d + 16 * rows * 8), (b, d)
+    assert X.slstm_bwd_persistent_smem(8, 1024) == 135_168
+
+
+@pytest.mark.parametrize("b,s,d,sms,route", [
+    (2, 7, 32, 132, "persistent"), (8, 5, 40, 5, "persistent"),
+    (9, 3, 32, 132, "step"), (2, 1, 32, 132, "step"),
+    (2, 7, 32, 3, "step")])
+def test_slstm_backward_op_dispatches_to_the_routed_design(
+        monkeypatch, b, s, d, sms, route):
+    """The backward operator's CUDA body, ``_slstm_bwd_cuda``, hands the
+    saved tensors to ``slstm_backward`` under the design
+    ``slstm_bwd_route`` names for their shape and the card's SM count (the
+    card's checks and launch replaced by stand-ins that record the
+    call)."""
+    calls = []
+    monkeypatch.setattr(_lib, "check_cuda", lambda name, *ts: ts[0].device)
+    monkeypatch.setattr(X, "_sm_count", lambda dev: sms)
+    monkeypatch.setattr(X, "slstm_backward",
+                        lambda *a: calls.append(a) or "launched")
+    g = torch.Generator().manual_seed(b * 100 + s)
+    dy, y, cs, ns, ms = (torch.randn((b, s, d), generator=g)
+                         for _ in range(5))
+    pre_x, pres = (torch.randn((b, s, 4 * d), generator=g) for _ in range(2))
+    r_w = torch.randn((d, 4 * d), generator=g)
+    c0, n0, m0, h0 = (torch.randn((b, d), generator=g) for _ in range(4))
+    assert X._slstm_bwd_cuda(dy, pre_x, r_w, c0, n0, m0, h0, pres, cs, ns,
+                             ms, y) == "launched"
+    (got,) = calls
+    assert got[0] == route == X.slstm_bwd_route(b, s, d, sms)
+    want = (dy, r_w, pres, cs, ns, ms, c0, n0, m0, h0, y)
+    assert len(got) == 1 + len(want)
+    assert all(torch.equal(a, w) for a, w in zip(got[1:], want))
