@@ -172,8 +172,11 @@ Phases (any failure exits non-zero and prints no result line):
    4-layer span move, both streams through ``check_streams``, every
    stage's pool whole again, B1 and B2 launched.  With the weights freed,
    (x2) the dry run on this machine's torch: ``dryrun.run_one`` for
-   llama3-405b decode_32k and granite-moe-3b-a800m train_4k on 16 x 16
-   fake ranks (host only), each roofline printed; and (x3) its one-rank
+   llama3-405b decode_32k, granite-moe-3b-a800m train_4k and gemma-7b
+   prefill_32k on 16 x 16 fake ranks and gemma-7b decode_32k on 2 x 16 x
+   16 (host only), each roofline, flops, collective bytes and time
+   printed, the prefill's flops per chip at most 1.25 x (model_flops /
+   256 + the attention's count); and (x3) its one-rank
    figures against the card: llama-13b at full size in bf16, a decode
    step of 8 rows over a 4,096-slot dense cache (B5 on every layer) and
    a fresh 1 x 4,096 prefill (B2), the dry run on a one-rank fake group,
@@ -3673,8 +3676,14 @@ def multidevice_phase(torch, card, cfg, params):
 SHARED_BOUNDS = [(0, 20), (20, 40)]
 SHARED_STEPS = 8           # decode iterations before the live span move
 SHARED_MOVE = 4            # layers the move shifts from stage 0 to stage 1
-DRYRUN_HOST = (("llama3-405b", "decode_32k"),
-               ("granite-moe-3b-a800m", "train_4k"))
+DRYRUN_HOST = (("llama3-405b", "decode_32k", "single"),
+               ("granite-moe-3b-a800m", "train_4k", "single"),
+               ("gemma-7b", "prefill_32k", "single"),
+               ("gemma-7b", "decode_32k", "multi"))
+# a prefill's flops per chip may exceed model_flops / chips plus the
+# attention's count (B2's formula) by at most this factor: a larger one
+# means a column-parallel product ran at its weight's full width
+DRYRUN_PREFILL_FLOPS_TOL = 1.25
 # the one-rank check: llama-13b at full size in bf16 on a 1 x 1 mesh
 ONE_RANK_SHAPES = (("decode_4k", 4096, 8, "decode"),
                    ("prefill_4k", 4096, 1, "prefill"))
@@ -3764,23 +3773,54 @@ def shared_span_run(torch, card, cfg, params):
     return launches
 
 
+def _attention_flops_per_chip(arch: str, shape_name: str,
+                              n_chips: int) -> float:
+    """A fresh prefill's attention flops per chip as B2's formula counts
+    them (4 * head_dim per causal (query head, key) pair), every layer,
+    spread evenly over the chips."""
+    from repro_torch import configs
+    from repro_torch.kernels.custom_ops import causal_pairs
+    from repro_torch.launch import specs as S
+    shape = S.SHAPES[shape_name]
+    cfg = S.arch_for_shape(configs.get(arch), shape)
+    pairs = causal_pairs(shape.seq_len, shape.seq_len, 0, cfg.sliding_window)
+    return (4 * cfg.head_dim * cfg.n_heads * pairs * shape.global_batch
+            * cfg.n_layers / n_chips)
+
+
 def dryrun_host_run(torch, card) -> None:
     """(x2): ``dryrun.run_one`` on this machine's torch for DRYRUN_HOST on
-    the 16 x 16 mesh of 256 fake ranks (host only, no card), each
-    roofline printed.  Fails unless every combination is OK."""
+    the 16 x 16 mesh of 256 fake ranks or the 2 x 16 x 16 one of 512
+    (host only, no card), each roofline printed.  Fails unless every
+    combination is OK and a prefill's flops per chip are within
+    DRYRUN_PREFILL_FLOPS_TOL of model_flops / chips plus the attention's
+    count."""
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun as DR
 
     try:
-        for arch, shape in DRYRUN_HOST:
-            rec = DR.run_one(arch, shape, "single",
+        for arch, shape, mesh in DRYRUN_HOST:
+            rec = DR.run_one(arch, shape, mesh,
                              out_dir=str(ROOT / "build" / "dryrun"),
                              verbose=False)
             if not rec["ok"]:
-                fail(f"[x-dryrun] {arch} {shape}: {rec['error']}")
+                fail(f"[x-dryrun] {arch} {shape} {mesh}: {rec['error']}")
             ro = rec["roofline"]
-            say(f"[x-dryrun] {arch} {shape} on 16 x 16 fake ranks (torch "
+            grid = "2 x 16 x 16" if mesh == "multi" else "16 x 16"
+            if shape.startswith("prefill"):
+                n = rec["n_chips"]
+                bound = DRYRUN_PREFILL_FLOPS_TOL * (
+                    rec["model_flops"] / n
+                    + _attention_flops_per_chip(arch, shape, n))
+                say(f"[x-dryrun] {arch} {shape}: flops/chip "
+                    f"{rec['flops']:.4g} against the bound {bound:.4g} "
+                    f"({DRYRUN_PREFILL_FLOPS_TOL} x (model_flops / {n} + "
+                    f"the attention's count))")
+                if rec["flops"] > bound:
+                    fail(f"[x-dryrun] {arch} {shape}: flops/chip "
+                         f"{rec['flops']:.4g} above {bound:.4g}")
+            say(f"[x-dryrun] {arch} {shape} on {grid} fake ranks (torch "
                 f"{torch.__version__}, host only): flops/chip "
                 f"{rec['flops']:.4g}, collective bytes/chip "
                 f"{rec['collective_bytes']:.4g} "

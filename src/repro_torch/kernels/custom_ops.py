@@ -29,6 +29,8 @@ need.
 """
 from __future__ import annotations
 
+import itertools
+import math
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -108,11 +110,17 @@ def placement_rules(args: Sequence, strategies: Sequence[tuple]
 
 
 def _splits(spec, dim: int) -> bool:
-    """``spec``'s tensor dim ``dim`` splits evenly over every mesh dim
-    (a strategy that would split it unevenly is not offered: no view of
-    an uneven split exists)."""
-    return all(spec.shape[dim] % spec.mesh.size(i) == 0
-               for i in range(spec.mesh.ndim))
+    """``spec``'s tensor dim ``dim`` splits evenly over every set of mesh
+    dims that has no more ranks than the dim has entries (a strategy that
+    would split it unevenly is not offered: no view of an uneven split
+    exists; ``DTensor`` itself refuses a split into more shards than
+    entries, so a 16-head dim is offered on a (32, 16) mesh and splits
+    over the 16)."""
+    n = spec.shape[dim]
+    sizes = [spec.mesh.size(i) for i in range(spec.mesh.ndim)]
+    return all(n % k == 0 for r in range(1, len(sizes) + 1)
+               for k in map(math.prod, itertools.combinations(sizes, r))
+               if k <= n)
 
 
 def shards_on(spec, dim: int) -> int:

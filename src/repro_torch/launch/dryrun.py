@@ -5,13 +5,19 @@ measured on the production meshes, on one host (the JAX package's
 JAX lowers and compiles each step against 256 or 512 placeholder TPU
 devices.  The port runs it: a ``"fake"`` process group of 256 ranks
 (16 x 16) or 512 (2 x 16 x 16) in this one process, the mesh from
-``mesh.make_production_mesh``, the parameters, caches and inputs from
+``mesh.make_production_mesh`` (the 2 x 16 x 16 one over two mesh dims,
+("pod", "data") flattened pod-major, so ``DTensor`` plans over two dims
+as it does on 16 x 16), the parameters, caches and inputs from
 ``specs`` as ``DTensor``s whose local shards are ``meta`` tensors
 (``steps.build``), and the step run once under ``cost_analysis.CostMode``
 and ``implicit_replication()`` (the model's constants, such as ``rope``'s
 frequencies, are plain tensors, taken as replicated).  The fake group
 moves no data and no card is touched: the figures are rank 0's, modelled
-from shapes.  The kernels run as their custom operators' fake bodies
+from shapes.  In train and prefill the model places its residual stream
+as JAX's partitioner does (``transformer.apply``: each row-parallel
+partial sum reduced once, the training step's ``act_spec`` split along d
+at each repeat's ends), so each column-parallel product runs at its own
+column split.  The kernels run as their custom operators' fake bodies
 (``kernels/custom_ops.py``), with their flop formulas.
 
 Depth: the port's forward loops over layers in Python, so a deep step

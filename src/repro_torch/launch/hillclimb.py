@@ -106,7 +106,9 @@ def run_variant(arch: str, shape_name: str, variant: str,
     knobs = VARIANTS[variant]
     multi = mesh_kind == "multi"
     DR.fake_group(512 if multi else 256)
-    mesh = make_production_mesh(multi_pod=multi)
+    # the pipeline's stages take the "data" dim's group: three mesh dims
+    mesh = make_production_mesh(multi_pod=multi,
+                                flat=not knobs.get("pipeline"))
     n_chips = mesh.size()
     rec = {"arch": arch, "shape": shape_name, "variant": variant,
            "mesh": mesh_kind, "ok": False}

@@ -13,6 +13,16 @@ card, ``cuda`` raises (``device.resolve``), nothing moves to the CPU.
 The sharding policy reads only axis names and sizes (``axis_names``,
 ``axis_sizes``), so a stand-in with ``shape`` (name -> size) and
 ``axis_names``, as JAX's ``tests/test_launch.py`` uses, works too.
+
+The multi-pod mesh keeps JAX's three axes (pod=2, data=16, model=16) as
+names, but its ``DeviceMesh`` has two dims: ("pod", "data") flattened
+pod-major into one dim of 32, then "model".  Rank r sits at the same
+place in both (pod r // 256, data r // 16 % 16, model r % 16), so every
+rank keeps JAX's shard, and ``DTensor`` plans each redistribution over
+two dims, not three (the policy names "pod" only beside "data").  Such a
+mesh carries its axes as ``logical_axes`` (per mesh dim, its axes' names
+and sizes, major first); ``axis_names``, ``axis_sizes`` and ``mesh_dims``
+read them.
 """
 from __future__ import annotations
 
@@ -62,13 +72,23 @@ def _mesh_device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         flat: bool = True) -> DeviceMesh:
     """Single pod: (data=16, model=16), 256 ranks.  Multi pod: (pod=2,
-    data=16, model=16), 512 ranks.  Over the process group in place, whose
-    world size must match."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh(_mesh_device_type(), shape, mesh_dim_names=axes)
+    data=16, model=16), 512 ranks, over two mesh dims (("pod", "data")
+    flattened, then "model") unless ``flat`` is False (three dims: the
+    decode pipeline's stages take the "data" dim's group).  Over the
+    process group in place, whose world size must match."""
+    if not multi_pod:
+        return init_device_mesh(_mesh_device_type(), (16, 16),
+                                mesh_dim_names=("data", "model"))
+    if not flat:
+        return init_device_mesh(_mesh_device_type(), (2, 16, 16),
+                                mesh_dim_names=("pod", "data", "model"))
+    mesh = init_device_mesh(_mesh_device_type(), (32, 16),
+                            mesh_dim_names=("pod_data", "model"))
+    mesh.logical_axes = ((("pod", 2), ("data", 16)), (("model", 16),))
+    return mesh
 
 
 def make_host_mesh() -> DeviceMesh:
@@ -77,18 +97,42 @@ def make_host_mesh() -> DeviceMesh:
                             mesh_dim_names=("data", "model"))
 
 
+def _logical(mesh) -> Tuple[Tuple[Tuple[str, int], ...], ...]:
+    """Per mesh dim, the (name, size) of each axis it carries, major
+    first: a ``DeviceMesh``'s ``logical_axes``, else one axis a dim."""
+    flat = getattr(mesh, "logical_axes", None)
+    if flat is not None:
+        return flat
+    if isinstance(mesh, DeviceMesh):
+        return tuple(((n, int(k)),) for n, k in zip(mesh.mesh_dim_names,
+                                                    mesh.shape))
+    return tuple(((a, int(mesh.shape[a])),) for a in mesh.axis_names)
+
+
 def axis_names(mesh) -> Tuple[str, ...]:
-    """The mesh's axis names, in mesh order."""
-    names = getattr(mesh, "mesh_dim_names", None)
-    return tuple(names) if names is not None else tuple(mesh.axis_names)
+    """The mesh's axis names (JAX's), in mesh order."""
+    return tuple(a for dim in _logical(mesh) for a, _ in dim)
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
     """Axis name -> size, for a ``DeviceMesh`` or a stand-in whose
     ``shape`` maps names to sizes (as a JAX ``Mesh``'s does)."""
-    if isinstance(mesh, DeviceMesh):
-        return dict(zip(mesh.mesh_dim_names, mesh.shape))
-    return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+    return {a: k for dim in _logical(mesh) for a, k in dim}
+
+
+def mesh_dims(mesh) -> Dict[str, int]:
+    """Axis name -> the index of the mesh dim that carries it."""
+    return {a: i for i, dim in enumerate(_logical(mesh)) for a, _ in dim}
+
+
+def coordinates(mesh) -> Dict[str, int]:
+    """Axis name -> this process's index along it on the ``DeviceMesh``
+    (a flattened dim's index split major axis first)."""
+    out = {}
+    for dim, c in zip(_logical(mesh), mesh.get_coordinate()):
+        for a, k in reversed(dim):
+            out[a], c = c % k, c // k
+    return out
 
 
 def data_axes(mesh) -> tuple:

@@ -38,7 +38,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 from ..models.config import ModelConfig
 from ..training.tree import map_named
-from .mesh import axis_names, axis_sizes, data_axes
+from .mesh import axis_names, axis_sizes, coordinates, data_axes, mesh_dims
 
 REPLICATE_BYTES = int(1.5e9)
 
@@ -206,18 +206,24 @@ def opt_state_specs(policy: ShardingPolicy, param_specs) -> Dict[str, Any]:
 
 def placements(spec: Spec, mesh) -> list:
     """``DTensor`` placements of ``spec`` over ``mesh``: ``Shard(dim)`` on
-    each mesh axis that splits tensor dimension ``dim``, ``Replicate()``
-    on the others.  A dimension split over several axes takes them in
-    mesh order (the major axis first, as the policy writes them)."""
-    names = axis_names(mesh)
-    out = [Replicate() for _ in names]
+    each mesh dim whose axes split tensor dimension ``dim``,
+    ``Replicate()`` on the others.  A dimension split over several axes
+    takes them in mesh order (the major axis first, as the policy writes
+    them); a mesh dim that flattens several axes (the multi-pod mesh's
+    ("pod", "data")) splits a dimension only over all of them."""
+    names, dims = axis_names(mesh), mesh_dims(mesh)
+    out = [Replicate() for _ in range(len(set(dims.values())))]
     for d, entry in enumerate(spec):
         axes = _axes(entry)
         order = [names.index(a) for a in axes]
         if order != sorted(order):
             raise ValueError(f"spec entry {entry!r} does not follow the "
                              f"mesh's axis order {names}")
-        for i in order:
+        for i in sorted({dims[a] for a in axes}):
+            carried = tuple(a for a in names if dims[a] == i)
+            if carried != tuple(a for a in axes if dims[a] == i):
+                raise ValueError(f"spec entry {entry!r} splits part of "
+                                 f"the mesh dim of axes {carried}")
             out[i] = Shard(d)
     return out
 
@@ -231,7 +237,7 @@ def local_shard(x: torch.Tensor, spec: Spec, mesh,
     coords[a] * size(b) + coords[b]."""
     sizes = axis_sizes(mesh)
     if coords is None:
-        coords = dict(zip(axis_names(mesh), mesh.get_coordinate()))
+        coords = coordinates(mesh)
     if len(spec) > x.ndim:
         raise ValueError(f"spec {spec} has more entries than x has "
                          f"dimensions {tuple(x.shape)}")

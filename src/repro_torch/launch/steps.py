@@ -36,7 +36,7 @@ from ..training import optimizer as O
 from ..training.train_step import make_train_step
 from ..training.tree import map_named
 from . import specs as S
-from .mesh import axis_names, axis_sizes
+from .mesh import axis_sizes
 from .sharding import ShardingPolicy, placements
 
 # MoE capacity factor for production steps (token-dropping, bounded
@@ -168,7 +168,7 @@ def build(cfg: ModelConfig, shape: S.ShapeSpec, mesh,
         return policy.param_spec(name, tuple(leaf.shape))
 
     p_dt = distribute(params, p_spec, mesh, materialize)
-    rep = [Replicate()] * len(axis_names(mesh))
+    rep = [Replicate()] * mesh.ndim
 
     def fixed(spec):
         return lambda name, leaf: spec
@@ -182,10 +182,19 @@ def build(cfg: ModelConfig, shape: S.ShapeSpec, mesh,
                "step": distribute(torch.empty((), dtype=torch.int32,
                                               device="meta"),
                                   fixed(()), mesh, zeros)}
+        # JAX's act_spec: the residual stream split along d over "model"
+        # at each pattern repeat's ends, where d divides and the weights
+        # do not replicate
+        d_ok = (cfg.d_model % axis_sizes(mesh)["model"] == 0
+                and not small)
+        act = (policy.dp, None, "model") if d_ok else (policy.dp, None, None)
         step = make_train_step(cfg, O.AdamWConfig(), moe_impl=moe_impl,
                                moe_cf=moe_cf, remat=True,
                                num_microbatches=TRAIN_MICROBATCHES,
-                               param_hook=hook)
+                               param_hook=hook,
+                               act_spec=local_spec(
+                                   (shape.global_batch, shape.seq_len,
+                                    cfg.d_model), act, mesh)[1])
         batch = {"tokens": distribute(
             ins["batch"]["tokens"],
             fixed(policy.tokens_spec(shape.global_batch)), mesh,

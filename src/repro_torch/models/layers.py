@@ -148,17 +148,14 @@ def masked_attention(q, k, v, mask, scale, soft_cap=None, k_scale=None,
     kvh = k.shape[2]
     if _is_dtensor(q) and kvh != h:
         # the dry run: a head split (H -> KV x G) has no view when KV does
-        # not divide over the mesh, forward or in the backward, so each kv
-        # head is repeated to its G query heads (the same products)
-        g = h // kvh
-
-        def rep(t):
-            return t[:, :, :, None].expand(
-                *t.shape[:3], g, *t.shape[3:]).reshape(
-                    t.shape[0], t.shape[1], h, *t.shape[3:])
-        k, v = rep(k), rep(v)
-        k_scale = rep(k_scale) if k_scale is not None else None
-        v_scale = rep(v_scale) if v_scale is not None else None
+        # not divide over the mesh, forward or in the backward, so each
+        # query head gets its own kv head, split as q's heads are (the
+        # same products, each rank its own heads)
+        k, v = _kv_like_q(q, k, always=True), _kv_like_q(q, v, always=True)
+        k_scale = _kv_like_q(q, k_scale, always=True) \
+            if k_scale is not None else None
+        v_scale = _kv_like_q(q, v_scale, always=True) \
+            if v_scale is not None else None
         kvh = h
     qg = q.reshape(b, s, kvh, h // kvh, d)
     kc = k.to(q.dtype) if k.dtype == torch.int8 else k
@@ -217,6 +214,84 @@ def _is_dtensor(t) -> bool:
     return type(t).__name__ == "DTensor"
 
 
+def _own_kv_heads(q: torch.Tensor, n_kv: int, always: bool):
+    """For a ``DTensor`` q (B, S, H, D) over ``n_kv`` kv heads: (per mesh
+    dim, whether it splits q's heads; the kv head of each of this rank's
+    q heads), or None where the kv heads split as q's heads do (unless
+    ``always``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = q.device_mesh
+    heads_on = [p.is_shard() and p.dim == 2 for p in q.placements]
+    n = math.prod(mesh.size(i) for i, on in enumerate(heads_on) if on)
+    if not always and n_kv % n == 0:
+        return None
+    local, off = compute_local_shape_and_global_offset(
+        q.shape, mesh, [Shard(2) if on else Replicate() for on in heads_on])
+    return heads_on, torch.arange(off[2], off[2] + local[2],
+                                  device=q.device) // (q.shape[2] // n_kv)
+
+
+def _kv_like_q(q: torch.Tensor, kv: torch.Tensor,
+               always: bool = False) -> torch.Tensor:
+    """K or V (B, L, KV, ...), or a scale (B, L, KV), with its kv heads
+    split as q's (B, S, H, D) heads are.  For ``DTensor``s (the dry run)
+    whose q heads are split more ways than the kv heads divide
+    (granite-8b: 32 heads over 16 ranks, 8 kv heads replicated), or with
+    ``always`` whenever KV != H, each rank takes the kv head of each of
+    its own q heads: H heads split like q's, the rows like q's, every
+    other mesh dim replicated.  A kernel or product then runs each rank's
+    own heads (GQA groups of one), not all of them.  Anything else as it
+    is."""
+    if not _is_dtensor(q) or kv.shape[2] == q.shape[2]:
+        return kv
+    own = _own_kv_heads(q, kv.shape[2], always)
+    if own is None:
+        return kv
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    heads_on, heads = own
+    pl = [p if p.is_shard() and p.dim in (0, 2) else Replicate()
+          for p in q.placements]
+    whole = [Replicate() if on else p for p, on in zip(pl, heads_on)]
+    # this rank's heads' gradients are a partial sum over the head split
+    kv_l = kv.redistribute(q.device_mesh, whole).to_local(grad_placements=[
+        Partial() if on else p for p, on in zip(whole, heads_on)])
+    shape = (*kv.shape[:2], q.shape[2], *kv.shape[3:])
+    return DTensor.from_local(
+        kv_l.index_select(2, heads), q.device_mesh, pl, run_check=False,
+        shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+def _kv_weight_like_q(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A K or V projection (d, KV, hd) as (d, H, hd) columns split as q's
+    (B, S, H, hd) heads are, for ``DTensor``s (the dry run) whose kv heads
+    do not split as q's heads do (granite-8b: 8 kv heads, replicated, for
+    32 heads over 16 ranks).  Each rank keeps the columns of its own q
+    heads' kv heads, so its K/V product has its heads' width, not every
+    kv head's, and the K/V it gives are split like q (GQA groups of one).
+    Anything else as it is."""
+    if not _is_dtensor(q) or w.shape[1] == q.shape[2]:
+        return w
+    own = _own_kv_heads(q, w.shape[1], False)
+    if own is None:
+        return w
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    heads_on, heads = own
+    mesh = q.device_mesh
+    # this rank's columns' gradient is a partial sum over the head split
+    # (the product's backward has already summed it over q's rows)
+    w_l = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if on else Replicate()
+                         for on in heads_on])
+    shape = (w.shape[0], q.shape[2], *w.shape[2:])
+    return DTensor.from_local(
+        w_l.index_select(1, heads), mesh,
+        [Shard(1) if on else Replicate() for on in heads_on],
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def vocab_parallel(unembed: torch.Tensor) -> torch.Tensor:
     """The (d, V) unembedding as the logits' product takes it: as it is,
     or for a ``DTensor`` (the dry run) split along the vocabulary only,
@@ -254,7 +329,11 @@ def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
             for i, p in enumerate(table.placements)]
     tok = tokens.redistribute(mesh, t_pl)
     w = table.redistribute(mesh, w_pl)
-    w_l = w.to_local()
+    # the table's gradient from this rank's rows is a partial sum over
+    # the mesh dims that split the rows
+    w_l = w.to_local(grad_placements=[
+        Partial() if i not in vocab and t_pl[i].is_shard() else p
+        for i, p in enumerate(w_pl)])
     _, off = compute_local_shape_and_global_offset(w.shape, mesh, w_pl)
     rows = tok.to_local().long() - off[0]
     inside = (rows >= 0) & (rows < w_l.shape[0])
@@ -434,8 +513,13 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     cap = cfg.logit_soft_cap
     b, s, _ = x.shape
     q = rope(_proj_in(x, p["wq"]), positions, cfg.rope_theta)
-    k = rope(_proj_in(x, p["wk"]), positions, cfg.rope_theta)
-    v = _proj_in(x, p["wv"])
+    wk, wv = p["wk"], p["wv"]
+    if state is None:
+        # the stateless (train) forward writes no cache, so on DTensors
+        # each rank may project its own q heads' kv heads alone
+        wk, wv = _kv_weight_like_q(q, wk), _kv_weight_like_q(q, wv)
+    k = rope(_proj_in(x, wk), positions, cfg.rope_theta)
+    v = _proj_in(x, wv)
 
     new_state = None
     if state is None:
@@ -487,7 +571,8 @@ def attention_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                                      dim=1),
                            window=window, scale=scale, soft_cap=cap)
             else:
-                o = ops.flash_attention(q, k, v, window=window, scale=scale,
+                o = ops.flash_attention(q, _kv_like_q(q, k), _kv_like_q(q, v),
+                                        window=window, scale=scale,
                                         soft_cap=cap)
             # a ring shorter than the sequence keeps its last cache_len
             # keys (tail-sliced, so no two writes share a slot), as JAX
@@ -821,14 +906,18 @@ def _moe_sharded(cfg: ModelConfig, p: Params, x, impl: str,
         return w.redistribute(mesh, want)
     w_gate, w_up, w_down = (keep(p["w_gate"], 2), keep(p["w_up"], 2),
                             keep(p["w_down"], 1))
-    local = {"router": p["router"].redistribute(mesh, whole).to_local(),
+    # the router's and x's gradients from this rank's slice of f are
+    # partial sums over the mesh dims that split f
+    f_sum = [Partial() if pl.is_shard() else Replicate()
+             for pl in w_gate.placements]
+    local = {"router": p["router"].redistribute(mesh, whole).to_local(
+                 grad_placements=f_sum),
              "w_gate": w_gate.to_local(), "w_up": w_up.to_local(),
              "w_down": w_down.to_local()}
-    y, load = moe_apply(cfg, local, x.redistribute(mesh, whole).to_local(),
+    y, load = moe_apply(cfg, local, x.redistribute(mesh, whole).to_local(
+                            grad_placements=f_sum),
                         impl=impl, capacity_factor=capacity_factor)
-    y = DTensor.from_local(y, mesh, [Partial() if pl.is_shard() else
-                                     Replicate() for pl in w_gate.placements],
-                           run_check=False)
+    y = DTensor.from_local(y, mesh, f_sum, run_check=False)
     place = [pl if pl.is_shard() else Replicate() for pl in x.placements]
     return (y.redistribute(mesh, place),
             DTensor.from_local(load, mesh, whole, run_check=False))

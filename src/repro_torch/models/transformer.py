@@ -355,24 +355,71 @@ def _recompute_in_modes():
     return contextlib.nullcontext(), recompute()
 
 
+def _place(x: torch.Tensor, pl) -> torch.Tensor:
+    """A ``DTensor`` ``x`` re-placed on the placements ``pl`` (the dry
+    run's residual stream, ``_Placed``); a plain tensor, or ``pl`` None,
+    as it is."""
+    if pl is None or not L._is_dtensor(x) or list(x.placements) == pl:
+        return x
+    return _Placed.apply(x, pl)
+
+
+class _Placed(torch.autograd.Function):
+    """``x.redistribute(pl)`` whose gradient goes back on x's placements,
+    with each mesh dim where x was a partial sum reduced as the forward
+    reduced it.  Left to ``DTensor``, the stream's gradient stays a
+    partial sum (the column-parallel products' input gradients), and the
+    row-parallel product behind it then gathers its whole weight."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.back = [p if q.is_partial() else q
+                    for p, q in zip(pl, x.placements)]
+        return x.redistribute(x.device_mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.back), None
+
+
+def _residual_placements(tokens: torch.Tensor,
+                         mode: str) -> Optional[list]:
+    """The residual stream's placements for ``DTensor`` tokens (the dry
+    run) in train and prefill: the batch split as the tokens' rows are,
+    every other mesh dim replicated, so a row-parallel product's partial
+    sum is reduced before the next norm and each column-parallel product
+    meets a whole activation.  None for plain tokens, and in decode,
+    whose one token a row ``DTensor`` moves in place of any weight (its
+    figures were JAX's before the stream was placed)."""
+    if not L._is_dtensor(tokens) or mode == "decode":
+        return None
+    from torch.distributed.tensor import Replicate
+    return [p if p.is_shard() and p.dim == 0 else Replicate()
+            for p in tokens.placements]
+
+
 def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
                  x: torch.Tensor, *, positions, state, mode,
                  prefix_aware: bool, block_tables, paged_kernel: bool,
                  moe_impl: str = "sorted", moe_cf=None, head_offload: int = 0,
-                 frames: Optional[torch.Tensor] = None
+                 frames: Optional[torch.Tensor] = None,
+                 resid: Optional[list] = None, out: Optional[list] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (x, router_load); the load is None for a block without
     experts (JAX returns zeros there, which add nothing).  The layer's
     int8 leaves are dequantized to x's dtype first (a no-op for
     unquantized weights).  An xLSTM block returns x + its output, with no
-    FFN, as JAX's."""
+    FFN, as JAX's.  On ``DTensor``s (the dry run) ``x`` is placed on
+    ``resid`` before each norm and returned on ``out``
+    (``_residual_placements``; ``apply``'s ``act_spec``)."""
     p = Q.dequant_tree(p, x.dtype)
+    x = _place(x, resid)
     h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
     if kind in _XLSTM_KINDS:
         rec_apply = L.mlstm_apply if kind == BlockKind.MLSTM \
             else L.slstm_apply
         y, _ = rec_apply(cfg, p["rec"], h, state=state, mode=mode)
-        return x + y, None
+        return _place(x + y, out), None
     if kind == BlockKind.RGLRU:
         y, _ = L.rglru_apply(cfg, p["rec"], h, state=state, mode=mode)
     else:
@@ -391,6 +438,7 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
     x = x + y
     load = None
     if cfg.d_ff > 0:
+        x = _place(x, resid)
         h2 = L.rms_norm(x, p["norm2"], cfg.rms_eps)
         if cfg.n_experts > 0 and kind != BlockKind.RGLRU:
             y2, load = L.moe_apply(cfg, p["ffn"], h2, impl=moe_impl,
@@ -398,7 +446,7 @@ def _apply_block(cfg: ModelConfig, kind: BlockKind, p: Params,
         else:
             y2 = L.mlp_apply(cfg, p["ffn"], h2)
         x = x + y2
-    return x, load
+    return _place(x, out), load
 
 
 def _graph_in_train_only(fn):
@@ -430,6 +478,7 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
           head_offload: int = 0,
           remat: bool = False,
           param_hook: Optional[Callable[[Params], Params]] = None,
+          act_spec: Optional[list] = None,
           ) -> Tuple[torch.Tensor, Optional[Cache], Dict[str, Any]]:
     """Run the stack.
 
@@ -465,6 +514,19 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     layer's and each remainder layer's) before its block runs: the dry
     run's steps (``launch/steps.py``) gather FSDP-split weights there, or
     the int8 payloads alone, so such a gather moves int8 bytes.
+
+    On ``DTensor`` tokens (the dry run) in train and prefill the residual
+    stream is re-placed before each norm and after each block: its rows
+    split as the tokens' are, replicated over every other mesh dim
+    (``_residual_placements``), so each row-parallel product's partial
+    sum is reduced once and each column-parallel product multiplies a
+    whole activation by its own column split.  ``act_spec`` (JAX's;
+    ``DTensor`` placements) pins the stream at both ends of each pattern
+    repeat: the repeat's last block reduces its partial sum straight to
+    those placements (a reduce-scatter where they split d), and the next
+    block gathers it before its norm, inside its remat checkpoint, so
+    what the checkpoint saves is the pinned stream.  Plain tensors ignore
+    both.
 
     A cross-attention stack takes ``frames`` (B, n_frames, d_model), the
     encoder output every attention layer attends to, in every mode but
@@ -524,13 +586,17 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
 
     loads = []
+    resid = _residual_placements(tokens, mode)
+    act = list(act_spec) if act_spec is not None and resid is not None \
+        else None
+    x = _place(x, act or resid)
 
-    def block(kind, p, st, x, ckpt=False):
+    def block(kind, p, st, x, ckpt=False, out=resid):
         run = functools.partial(
             _apply_block, cfg, kind, positions=positions, state=st,
             mode=mode, prefix_aware=prefix_aware, block_tables=block_tables,
             paged_kernel=paged_kernel, moe_impl=moe_impl, moe_cf=moe_cf,
-            head_offload=head_offload, frames=frames)
+            head_offload=head_offload, frames=frames, resid=resid, out=out)
         x, rl = (torch.utils.checkpoint.checkpoint(
             run, p, x, use_reentrant=False, context_fn=_recompute_in_modes)
                  if ckpt else run(p, x))
@@ -544,7 +610,9 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     for r in range(n_rep):
         for g, kind in enumerate(pat):
             st = _layer(cache["groups"][g], r) if cache is not None else None
-            x = block(kind, hook(layers[g][r]), st, x, ckpt)
+            x = block(kind, hook(layers[g][r]), st, x, ckpt,
+                      act if act is not None and g == len(pat) - 1
+                      else resid)
     for i in range(rem):
         st = cache["rem"][i] if cache is not None else None
         x = block(pat[i], hook(params["rem"][i]), st, x)
@@ -552,7 +620,7 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     if hidden_out:
         logits = x                  # the residual stream for the next span
     else:
-        x = L.rms_norm(x, params["out_norm"], cfg.rms_eps)
+        x = L.rms_norm(_place(x, resid), params["out_norm"], cfg.rms_eps)
         if logits_slice == "last":
             x = x[:, -1] if logits_at is None else \
                 x[torch.arange(b, device=dev), logits_at.to(dev).long()]
@@ -575,12 +643,12 @@ def apply(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 def forward_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                   frames: Optional[torch.Tensor] = None,
                   moe_impl: str = "sorted", moe_cf=None,
-                  remat: bool = False, param_hook=None):
+                  remat: bool = False, param_hook=None, act_spec=None):
     """The stateless forward: (logits (B, S, V), aux); differentiable
     under the caller's grad mode (``training/train_step.py``)."""
     logits, _, aux = apply(cfg, params, tokens, frames=frames, mode="train",
                            moe_impl=moe_impl, moe_cf=moe_cf, remat=remat,
-                           param_hook=param_hook)
+                           param_hook=param_hook, act_spec=act_spec)
     return logits, aux
 
 

@@ -24,7 +24,7 @@ from .tree import map_named, named_leaves
 def lm_loss(cfg: ModelConfig, params, tokens: torch.Tensor,
             frames: Optional[torch.Tensor] = None, moe_impl: str = "sorted",
             moe_cf=None, lb_coef: float = 0.01, remat: bool = False,
-            param_hook=None,
+            param_hook=None, act_spec=None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy over tokens[:, :-1] -> tokens[:, 1:], in
     f32 through logsumexp.  A MoE stack adds ``lb_coef`` times the
@@ -33,7 +33,8 @@ def lm_loss(cfg: ModelConfig, params, tokens: torch.Tensor,
     (loss, aux) with ``aux["nll"]`` and, for MoE, ``aux["lb_loss"]``."""
     logits, aux = T.forward_train(cfg, params, tokens[:, :-1], frames=frames,
                                   moe_impl=moe_impl, moe_cf=moe_cf,
-                                  remat=remat, param_hook=param_hook)
+                                  remat=remat, param_hook=param_hook,
+                                  act_spec=act_spec)
     targets = tokens[:, 1:].long()
     logits = logits.float()
     logz, gold = _logz(logits), _gold_logit(logits, targets)
@@ -125,10 +126,12 @@ def _grad_one(cfg: ModelConfig, params, tokens, frames, **loss_kw
 def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, Any], *,
                    moe_impl: str = "sorted", moe_cf=None,
                    remat: bool = False, num_microbatches: int = 1,
-                   param_hook=None):
+                   param_hook=None, act_spec=None):
     """(loss, aux, grads) of one batch, as JAX's step computes them before
-    the update.  grads is a tree like ``params``.  ``param_hook`` is
-    ``T.apply``'s (the dry run gathers FSDP-split weights there).
+    the update.  grads is a tree like ``params``.  ``param_hook`` and
+    ``act_spec`` are ``T.apply``'s (the dry run gathers FSDP-split weights
+    in the one and pins the residual stream's placements with the
+    other).
 
     ``num_microbatches`` > 1 splits the batch (and its frames) into equal
     chunks, accumulates f32 gradients divided by the count, and returns
@@ -139,7 +142,7 @@ def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, Any], *,
         # int8 weights (models/quant.py), refused as JAX refuses them
         raise ValueError("int8 weights are a serving-only optimization")
     kw = dict(moe_impl=moe_impl, moe_cf=moe_cf, remat=remat,
-              param_hook=param_hook)
+              param_hook=param_hook, act_spec=act_spec)
     tokens, frames = batch["tokens"], batch.get("frames")
     mb = num_microbatches
     if mb <= 1:
@@ -185,21 +188,23 @@ def _microbatches(x: torch.Tensor, mb: int) -> List[torch.Tensor]:
 def make_train_step(cfg: ModelConfig, opt_cfg: opt.AdamWConfig,
                     moe_impl: str = "sorted", moe_cf=None,
                     remat: bool = False, num_microbatches: int = 1,
-                    param_hook=None):
+                    param_hook=None, act_spec=None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics).
 
     batch: {"tokens": (B, S+1) int, optional "frames": (B, F, d)}.
     ``remat`` recomputes each stacked layer's activations in the backward
     (``T.apply``); ``num_microbatches`` accumulates gradients over batch
-    chunks (``loss_and_grads``).  metrics: "loss", "nll", "grad_norm",
-    "lr" as JAX's, plus "lb_loss" for a MoE stack; 0-d tensors on the
-    parameters' device.  A tree with int8 leaves raises ``ValueError``."""
+    chunks (``loss_and_grads``); ``act_spec`` pins the residual stream of
+    ``DTensor`` activations at each pattern repeat's ends (``T.apply``).
+    metrics: "loss", "nll", "grad_norm", "lr" as JAX's, plus "lb_loss"
+    for a MoE stack; 0-d tensors on the parameters' device.  A tree with
+    int8 leaves raises ``ValueError``."""
     def step(params, opt_state, batch):
         loss, aux, grads = loss_and_grads(
             cfg, params, batch, moe_impl=moe_impl, moe_cf=moe_cf,
             remat=remat, num_microbatches=num_microbatches,
-            param_hook=param_hook)
+            param_hook=param_hook, act_spec=act_spec)
         params, opt_state, om = opt.apply_updates(opt_cfg, params, grads,
                                                   opt_state)
         metrics = {"loss": loss, "nll": aux["nll"], **om}

@@ -62,7 +62,8 @@ from repro_torch.launch import dryrun as DR
 from repro_torch.launch import hillclimb as HC
 from repro_torch.launch import specs as S
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import axis_names, make_production_mesh
+from repro_torch.launch.mesh import (axis_names, make_production_mesh,
+                                     mesh_dims)
 from repro_torch.models.config import Family, ModelConfig
 from repro_torch.training.tree import named_leaves
 
@@ -149,12 +150,14 @@ def fake256():
     dist.destroy_process_group()
 
 
-def _spec_of(dt, names):
-    """A ``DTensor``'s placements as a JAX spec, one entry per dim."""
-    out = []
+def _spec_of(dt, mesh):
+    """A ``DTensor``'s placements as a JAX spec, one entry per dim (a mesh
+    dim that flattens ("pod", "data") gives both)."""
+    dims, out = mesh_dims(mesh), []
     for d in range(dt.ndim):
-        axes = tuple(a for a, p in zip(names, dt.placements)
-                     if p.is_shard() and p.dim == d)
+        axes = tuple(a for a in axis_names(mesh)
+                     if dt.placements[dims[a]].is_shard()
+                     and dt.placements[dims[a]].dim == d)
         out.append(None if not axes else axes[0] if len(axes) == 1
                    else axes)
     return tuple(out)
@@ -169,19 +172,33 @@ def _pad(spec, ndim):
     ("llama3-405b", "decode_32k", {"kv_quant": True}),
     ("granite-moe-3b-a800m", "prefill_32k", {}),
     ("gemma-7b-smoke", "train_4k", {}), ("xlstm-350m", "decode_32k", {}),
-    ("gemma-7b", "long_500k", {})])
+    ("gemma-7b", "long_500k", {}),
+    # the 2 x 16 x 16 mesh (its DeviceMesh 32 x 16); "run" runs one
+    # repeat of the step on the 512 fake ranks
+    ("llama3-405b", "train_4k", {"mesh": "multi"}),
+    ("gemma-7b", "long_500k", {"mesh": "multi"}),
+    ("llama3-405b", "decode_32k", {"mesh": "multi", "kv_quant": True}),
+    ("gemma-7b-smoke", "train_4k", {"mesh": "multi", "run": True}),
+    ("gemma-7b", "decode_32k", {"mesh": "multi", "run": True})])
 def test_build_follows_jax_rules(fake256, arch, shape_name, knobs):
     """The config the step runs and every argument's placements are what
     JAX's ``steps.build`` derives: the shape's variant, int8 KV, FSDP
     weights for training unless the model replicates (a smoke-size
     model); the cache and tokens placed by the policy; params and state
-    donated in training, the cache in serving."""
+    donated in training, the cache in serving.  On the multi-pod mesh
+    too, whose ("pod", "data") is one mesh dim."""
     shape = S.SHAPES[shape_name]
     name, smoke = arch.removesuffix("-smoke"), arch.endswith("-smoke")
     cfg, jcfg = configs.get(name), jconfigs.get(name)
     if smoke:
         cfg, jcfg = cfg.smoke(), jcfg.smoke()
-    st = steps.build(cfg, shape, fake256, **knobs)
+    knobs = dict(knobs)
+    kind, run = knobs.pop("mesh", "single"), knobs.pop("run", False)
+    mesh = fake256
+    if kind == "multi":
+        DR.fake_group(512)
+        mesh = make_production_mesh(multi_pod=True)
+    st = steps.build(cfg, shape, mesh, **knobs)
     jcfg = JS.arch_for_shape(jcfg, JS.SHAPES[shape_name])
     if knobs.get("kv_quant"):
         jcfg = jcfg.with_kv_quant()
@@ -190,12 +207,11 @@ def test_build_follows_jax_rules(fake256, arch, shape_name, knobs):
     assert st.cfg.name == jcfg.name
     assert st.cfg.fsdp_weights == jcfg.fsdp_weights
     assert st.cfg.kv_quant == jcfg.kv_quant
-    pol = JSH.ShardingPolicy(FakeMesh(MESHES["single"]), jcfg,
+    pol = JSH.ShardingPolicy(FakeMesh(MESHES[kind]), jcfg,
                              seq_shard=shape_name == "long_500k")
-    names = axis_names(fake256)
     for name, leaf in named_leaves(st.args[0]):
         want = pol.param_spec(name, tuple(leaf.shape))
-        assert _spec_of(leaf, names) == _pad(want, leaf.ndim), name
+        assert _spec_of(leaf, mesh) == _pad(want, leaf.ndim), name
     if shape.kind == "train":
         assert st.donate == (0, 1)
         tok = st.args[2]["tokens"]
@@ -204,9 +220,14 @@ def test_build_follows_jax_rules(fake256, arch, shape_name, knobs):
         tok = st.args[1]
         for name, leaf in named_leaves(st.args[2]):
             want = pol.cache_spec(name, tuple(leaf.shape))
-            assert _spec_of(leaf, names) == _pad(want, leaf.ndim), name
-    assert _spec_of(tok, names) == _pad(
+            assert _spec_of(leaf, mesh) == _pad(want, leaf.ndim), name
+    assert _spec_of(tok, mesh) == _pad(
         pol.tokens_spec(shape.global_batch), tok.ndim)
+    if run:
+        fig = DR.measure(steps.build(steps.with_repeats(cfg, 1), shape,
+                                     mesh, replicate=st.cfg.replicate_small(),
+                                     **knobs))
+        assert fig.flops > 0 and fig.resident_bytes > 0
 
 
 def test_build_refuses_int8_training_and_builds_xlstm_sequences(fake256):

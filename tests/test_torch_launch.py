@@ -208,8 +208,8 @@ def test_specs_and_input_specs():
 def test_production_meshes_over_a_fake_group():
     """``make_production_mesh`` over a placeholder group of 256 and 512
     ranks: JAX's axis names and sizes, the policy reads it as it reads the
-    stand-in, and ``placements`` puts a ("pod", "data") split on both
-    axes, pod first."""
+    stand-in, and ``placements`` puts a ("pod", "data") split on the
+    multi-pod mesh's one dim that flattens the two, pod-major."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     cfg = configs.get("llama3-405b")
@@ -231,11 +231,17 @@ def test_production_meshes_over_a_fake_group():
             spec = real["groups"][0]["attn"]["wq"]
             assert spec == (None, ("pod", "data") if multi else "data",
                             "model", None)
-            assert SH.placements(spec, mesh) == (
-                [Shard(1), Shard(1), Shard(2)] if multi
-                else [Shard(1), Shard(2)])
-            assert SH.placements((None,) * 4, mesh) == [Replicate()] * len(
-                M.axis_names(mesh))
+            assert SH.placements(spec, mesh) == [Shard(1), Shard(2)]
+            assert SH.placements((None,) * 4, mesh) == [Replicate()] * 2
+            assert M.mesh_dims(mesh) == (
+                {"pod": 0, "data": 0, "model": 1} if multi
+                else {"data": 0, "model": 1})
+            if multi:
+                assert tuple(mesh.shape) == (32, 16)
+                assert SH.placements((("pod", "data", "model"),), mesh) \
+                    == [Shard(0), Shard(0)]
+                with pytest.raises(ValueError, match="part of the mesh"):
+                    SH.placements(("data",), mesh)
         finally:
             dist.destroy_process_group()
 
